@@ -17,7 +17,19 @@ Phases (any failure exits non-zero):
      attention on the same inputs;
   4. the serving engine at GPT-3 1.3B serving 8 seeded requests (one
      pair sharing a 256-token prefix) to completion, with the kernel's
-     launch count held to 24 per step.
+     launch count held to 24 per step;
+  5. the three flash-attention kernels (forward, dK/dV, dQ) vs their
+     plain versions: edge cases (causal and not, ragged S, head dims 32,
+     64, 128, fp32 and bf16), then the 1.3B training shapes with each
+     kernel's time, bound, plain-version time and the time of PyTorch's
+     SDPA;
+  6. one full-width GPT-3 1.3B training step (bf16, 24 layers, batch
+     1 x 2048): loss and every gradient with the kernels against the
+     same step on the plain attention;
+  7. training throughput: ``HybridEngine`` on GPT-3 1.3B, batch 8 x
+     2048, remat "dots", fp32 Adam slots with a master: ms/step,
+     tokens/s, MFU, peak memory; the loss falls over 10 steps and the
+     flash launch counts are held to 48 / 24 / 24 per step.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -40,6 +52,10 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
 # differs by summation order only; bf16 by one rounding of the output
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
+# flash kernels vs plain: fp32 differs by summation order over up to S
+# products of unit-variance terms; bf16 by one rounding of each output
+TOL_FLASH = {"float32": dict(atol=1e-4, rtol=1e-4),
+             "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
 
 
 def fail(msg):
@@ -382,6 +398,328 @@ def profile_serving(torch, eng, serving, vocab):
         f"{name} {us / steps / 1e3:.3f}" for us, name in sorted(top)[::-1][:6]))
 
 
+# ------------------------------------------------ flash attention (5-7)
+
+
+def flash_work(B, H, S, D, causal, nbytes_el=2):
+    """(bytes, FLOPs) each flash kernel must move and do for one call on
+    these inputs: every input read once, every output written once, and
+    the products of the live (q, k) pairs only (k <= q when causal)."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    mat = B * H * S * D * nbytes_el            # one [B, H, S, D] tensor
+    rows = B * H * S * 4                       # one fp32 [B, H, S] vector
+    return {"fwd": (4 * mat + rows, 4 * D * pairs),
+            "bwd_dkdv": (6 * mat + 2 * rows, 8 * D * pairs),
+            "bwd_dq": (5 * mat + 2 * rows, 6 * D * pairs)}
+
+
+def phase_flash_kernels(torch, fa):
+    """Edge cases, then the training shapes with timings."""
+    n = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(S, causal) for S in (1, 17, 64, 200, 256)
+             for causal in (True, False) if causal or S != 200]
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        tol = TOL_FLASH[dtype_name]
+        for D in (32, 64, 128):
+            for S, causal in cases:
+                g = torch.Generator(device="cuda").manual_seed(n)
+                q, k, v, do = (torch.randn((2, 3, S, D), generator=g,
+                                           device="cuda").to(dtype)
+                               for _ in range(4))
+                scale = 1.0 / np.sqrt(D)
+                out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+                ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+                delta = fa._delta(ref, do)
+                dk, dv = fa._bwd_dkdv_cuda(q, k, v, do, ref_lse, delta,
+                                           scale, causal)
+                dq = fa._bwd_dq_cuda(q, k, v, do, ref_lse, delta, scale,
+                                     causal)
+                rk, rv = fa._bwd_dkdv_ref(q, k, v, do, ref_lse, delta,
+                                          scale, causal)
+                rq = fa._bwd_dq_ref(q, k, v, do, ref_lse, delta, scale,
+                                    causal)
+                torch.cuda.synchronize()
+                pairs = (("out", out, ref), ("dq", dq, rq), ("dk", dk, rk),
+                         ("dv", dv, rv))
+                for name, a, b in pairs:
+                    check(a.dtype == dtype and a.shape == b.shape,
+                          f"flash {name} dtype/shape")
+                    check(bool(torch.isfinite(a).all()),
+                          f"flash {name} not finite")
+                    err = max_err(torch, a, b)
+                    worst[dtype_name] = max(worst[dtype_name], err)
+                    check(torch.allclose(a.float(), b.float(), **tol),
+                          f"flash {name} kernel != plain ({dtype_name}, "
+                          f"S={S}, D={D}, causal={causal}): max abs err "
+                          f"{err:.3g}")
+                check(torch.allclose(lse, ref_lse, **TOL_FLASH["float32"]),
+                      f"flash lse kernel != plain ({dtype_name}, S={S}, "
+                      f"D={D}, causal={causal})")
+                n += 1
+    print(f"[phase 5] {n} flash edge cases agree on out, lse, dq, dk, dv "
+          f"(fp32 atol=rtol=1e-4, worst {worst['float32']:.3g}; bf16 "
+          f"atol 1e-2 rtol 1.6e-2, worst {worst['bfloat16']:.3g})")
+
+    # ---- training shapes: GPT-3 1.3B, batch 8 x 2048, bf16, causal
+    B, H, S, D = 8, 16, 2048, 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, True)
+    delta = fa._delta(ref, do)
+    dk, dv = fa._bwd_dkdv_cuda(q, k, v, do, ref_lse, delta, scale, True)
+    dq = fa._bwd_dq_cuda(q, k, v, do, ref_lse, delta, scale, True)
+    rk, rv = fa._bwd_dkdv_ref(q, k, v, do, ref_lse, delta, scale, True)
+    rq = fa._bwd_dq_ref(q, k, v, do, ref_lse, delta, scale, True)
+    torch.cuda.synchronize()
+    errs = {"fwd": max(max_err(torch, out, ref),
+                       max_err(torch, lse, ref_lse)),
+            "bwd_dkdv": max(max_err(torch, dk, rk), max_err(torch, dv, rv)),
+            "bwd_dq": max_err(torch, dq, rq)}
+    for name, a, b in (("out", out, ref), ("dq", dq, rq), ("dk", dk, rk),
+                       ("dv", dv, rv)):
+        check(torch.allclose(a.float(), b.float(), **TOL_FLASH["bfloat16"]),
+              f"flash {name} kernel != plain at the training shapes: "
+              f"{max_err(torch, a, b):.3g}")
+    del ref, rk, rv, rq
+    torch.cuda.empty_cache()
+
+    ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_cuda(
+              q, k, v, scale, True), 10),
+          "bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_cuda(
+              q, k, v, do, lse, delta, scale, True), 5),
+          "bwd_dq": time_ms(torch, lambda: fa._bwd_dq_cuda(
+              q, k, v, do, lse, delta, scale, True), 5)}
+    plain_ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_ref(
+                    q, k, v, scale, True), 3, warmup=1),
+                "bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_ref(
+                    q, k, v, do, lse, delta, scale, True), 3, warmup=1),
+                "bwd_dq": time_ms(torch, lambda: fa._bwd_dq_ref(
+                    q, k, v, do, lse, delta, scale, True), 3, warmup=1)}
+    torch.cuda.empty_cache()
+    # library yardstick: PyTorch's SDPA (the port never calls it); its
+    # forward against the forward kernel, its backward (dq, dk, dv in
+    # one call) against dK/dV + dQ
+    import torch.nn.functional as F
+
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        lq.detach(), lk.detach(), lv.detach(), is_causal=True), 10)
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), do, retain_graph=True), 10)
+    del lout
+    library_ms = {"fwd": lib_fwd, "bwd_dkdv": lib_bwd, "bwd_dq": lib_bwd}
+
+    result = {}
+    for name, (nbytes, flops) in flash_work(B, H, S, D, True).items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        result[name] = {
+            "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms[name]}
+        print(f"[phase 5] flash {name} at q/k/v {[B, H, S, D]} bf16 "
+              f"causal: kernel {ms[name]:.4f} ms, plain "
+              f"{plain_ms[name]:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
+              f"ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), max abs err "
+              f"{errs[name]:.3g}; "
+              f"{flops / ms[name] / 1e9:.1f} TFLOP/s achieved")
+    print(f"[phase 5] library: SDPA forward {lib_fwd:.4f} ms (vs fwd), "
+          f"SDPA backward {lib_bwd:.4f} ms (dq, dk, dv in one call; vs "
+          f"bwd_dkdv + bwd_dq = {ms['bwd_dkdv'] + ms['bwd_dq']:.4f} ms)")
+    del dq, dk, dv, lq, lk, lv
+    # fp32 inputs take the scalar-FMA kernels (not the training path):
+    # their times at the same shapes
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    delta = fa._delta(out, do)
+    f32 = {"fwd": time_ms(torch, lambda: fa._flash_fwd_cuda(
+               q, k, v, scale, True), 3, warmup=1),
+           "bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_cuda(
+               q, k, v, do, lse, delta, scale, True), 2, warmup=1),
+           "bwd_dq": time_ms(torch, lambda: fa._bwd_dq_cuda(
+               q, k, v, do, lse, delta, scale, True), 2, warmup=1)}
+    print("[phase 5] fp32 inputs (scalar FMA kernels) at the same shapes: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in f32.items()))
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_step(torch, cfg, params, fa, gpt_loss):
+    """One full-width training step, kernels vs plain attention."""
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, 2048))).cuda()
+    leaves = [params["wte"], params["wpe"], params["lnf_g"],
+              params["lnf_b"]] + [params["blocks"][k]
+                                  for k in sorted(params["blocks"])]
+    names = ["wte", "wpe", "lnf_g", "lnf_b"] + [
+        f"blocks/{k}" for k in sorted(params["blocks"])]
+    for t in leaves:
+        t.requires_grad_(True)
+    runs = {}
+    for label, attention in (("kernel", None),
+                             ("plain", lambda q, k, v:
+                              fa.flash_attention_plain(q, k, v,
+                                                       causal=True))):
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        loss = gpt_loss(cfg, params, tokens, attention=attention)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[label] = (float(loss.detach()), grads,
+                       time.perf_counter() - t0)
+        if label == "kernel":
+            got = {n: fa.launches[n] - before[n] for n in before}
+            L = cfg.num_layers
+            check(got == {"fwd": 2 * L, "bwd_dkdv": L, "bwd_dq": L},
+                  f"training step launched {got}")
+    for t in leaves:
+        t.requires_grad_(False)
+    (lk, gk, tk), (lp, gp, _) = runs["kernel"], runs["plain"]
+    check(np.isfinite(lk) and np.isfinite(lp), "training loss not finite")
+    worst = (0.0, "")
+    for name, a, b in zip(names, gk, gp):
+        check(bool(torch.isfinite(a).all()), f"grad {name} not finite")
+        rel = float((a.float() - b.float()).norm()
+                    / b.float().norm().clamp(min=1e-30))
+        worst = max(worst, (rel, name))
+    print(f"[phase 6] gpt3-1.3b bf16 x{cfg.num_layers} layers, batch "
+          f"1 x 2048, one training step: loss kernel {lk:.6f} plain "
+          f"{lp:.6f} (|diff| {abs(lk - lp):.3g}); worst gradient "
+          f"relative L2 error {worst[0]:.4g} ({worst[1]}) over "
+          f"{len(names)} leaves; kernel step {tk * 1e3:.1f} ms")
+    # both sides compute attention in fp32 and round its output (and
+    # its input grads) to bf16; one-ulp differences there (2^-8
+    # relative) compound through 24 bf16 layers forward and back
+    check(abs(lk - lp) <= 2e-3 * abs(lp),
+          f"training step: loss differs by {abs(lk - lp):.4g}")
+    check(worst[0] <= 0.05, f"training step: gradient {worst[1]} differs "
+          f"by {worst[0]:.4g} relative")
+    del runs, gk, gp
+    torch.cuda.empty_cache()
+
+
+def profile_step(torch, step):
+    """Device time of one training step by kind (flash kernels, matrix
+    products, the rest), traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_kind = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    top, spans, ops = [], {}, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            # aten ops, by the device time of the kernels they launched
+            if e.key.startswith("aten::"):
+                ops.append((us / 1e3, e.key))
+            continue
+        if e.key.startswith("engine::"):
+            # the device-side span of a record_function range, not a
+            # kernel: kept apart from the sums
+            spans[e.key] = us / 1e3
+            continue
+        if us <= 0:
+            continue
+        key = e.key.lower()
+        kind = ("flash" if "flash_" in key and "_kernel" in key else
+                "matmul" if any(w in key for w in ("gemm", "nvjet", "xmma",
+                                                   "cutlass", "cublas"))
+                else "other")
+        by_kind[kind] += us / 1e3
+        top.append((us, e.key[:48]))
+    busy = sum(by_kind.values())
+    check(busy > 0, "profiler saw no device time")
+    return {"busy_ms": busy, "by_kind": by_kind, "spans": spans,
+            "top": sorted(top)[::-1][:6], "ops": sorted(ops)[::-1][:10]}
+
+
+def phase_train_throughput(torch, cfg, fa, distributed, gpt_flops_per_token):
+    """HybridEngine at the 1.3B training rung on one card."""
+    B, S = 8, 2048
+    eng = distributed.HybridEngine(cfg, engine_cfg=distributed.EngineConfig(
+        accum_steps=1), device="cuda")
+    check(cfg.remat == "dots" and eng._has_master(),
+          "expected remat 'dots' and an fp32 master")
+    params, opt = eng.init(seed=0)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+    losses = []
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss = eng.step(params, opt, tokens, labels)
+        losses.append(loss)
+
+    for _ in range(2):                      # warm-up
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in fa.launches:
+        fa.launches[n] = 0
+    timed = 5
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        step()
+    breakdown = profile_step(torch, step)
+    losses = [float(x) for x in losses]
+    ms_step = wall / timed * 1e3
+    tok_s = B * S * timed / wall
+    mfu = tok_s * gpt_flops_per_token(cfg, S) / BF16_FLOPS
+    print(f"[phase 7] HybridEngine gpt3-1.3b bf16, batch {B} x {S}, "
+          f"remat dots, fp32 Adam slots + master: {ms_step:.1f} ms/step, "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (989 TFLOP/s peak; "
+          f"{card_line()}), peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    print(f"[phase 7] losses over 10 steps: "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"[phase 7] flash launches over {timed} timed steps: {launches}")
+    print(f"[phase 7] one traced step (10th): device busy "
+          f"{breakdown['busy_ms']:.1f} ms of the untraced {ms_step:.1f} "
+          f"ms/step (busy share {breakdown['busy_ms'] / ms_step:.3f}); by "
+          f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                breakdown["by_kind"].items()))
+    print("[phase 7] top device kernels, ms/step: " + "; ".join(
+        f"{name} {us / 1e3:.2f}" for us, name in breakdown["top"]))
+    print("[phase 7] device span of the optimizer update "
+          "(engine::optimizer): " + ", ".join(
+              f"{v:.1f} ms" for v in breakdown["spans"].values()))
+    print("[phase 7] top aten ops by device ms: " + "; ".join(
+        f"{name} {ms:.1f}" for ms, name in breakdown["ops"]))
+    check(all(np.isfinite(losses)), "training loss not finite")
+    check(losses[-1] < losses[0], "training loss did not fall")
+    L = cfg.num_layers
+    # remat "dots" saves matmul outputs only, so each block's flash
+    # forward runs again in backward: 2 forward launches per layer
+    want = {"fwd": 2 * L * timed, "bwd_dkdv": L * timed,
+            "bwd_dq": L * timed}
+    check(launches == want, f"flash launches {launches} != {want}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -390,10 +728,12 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from paddle_tpu_torch import serving
+        from paddle_tpu_torch import distributed, serving
         from paddle_tpu_torch.kernels import _build
+        from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import paged_attention as pa
-        from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+        from paddle_tpu_torch.models import (GPT_CONFIGS, gpt_flops_per_token,
+                                             gpt_init, gpt_loss)
         from paddle_tpu_torch.models.gpt import gpt_ragged_step
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is missing beside "
@@ -428,11 +768,31 @@ def main():
     launches = phase_serving(torch, cfg, params, pa, serving)
     print(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    flash = phase_flash_kernels(torch, fa)
+    print(f"[phase 5] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_train_step(torch, cfg, params, fa, gpt_loss)
+    print(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flash_launches = phase_train_throughput(torch, cfg, fa, distributed,
+                                            gpt_flops_per_token)
+    print(f"[phase 7] {time.perf_counter() - t0:.1f} s")
+
+    src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
-        "launches": launches, **rpa}]
+        "launches": launches, **rpa}] + [
+        {"name": f"flash_attention_{name}", "route": "cuda", "source": src,
+         "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+         "launches": flash_launches[name], **flash[name]}
+        for name, line in (("fwd", 64), ("bwd_dkdv", 168), ("bwd_dq", 215))]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``models/gpt.py``, ``kernels/paged_attention.py``, ``serving/``,
-``observability/``) so each module has an obvious counterpart.  It
+(``models/gpt.py``, ``kernels/``, ``ops/``, ``distributed/`` for
+one-GPU training, ``serving/``, ``observability/``) so each module has
+an obvious counterpart.  It
 imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``paddle_tpu`` (importing any ``paddle_tpu`` submodule runs that
 package's ``__init__``, which imports jax).

@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = {
     "ragged_paged_attention": os.path.join("csrc",
                                            "ragged_paged_attention.cu"),
+    "flash_attention": os.path.join("csrc", "flash_attention.cu"),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

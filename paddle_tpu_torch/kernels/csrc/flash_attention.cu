@@ -1,0 +1,1051 @@
+// Flash attention for Hopper (sm_90a): forward, backward dK/dV and
+// backward dQ, each a hand-written kernel behind a plain C interface.
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
+//   forward  <- _fwd_kernel       (the pallas_call in _flash_fwd)
+//   dK/dV    <- _bwd_dkdv_kernel  (the first pallas_call in _flash_bwd)
+//   dQ       <- _bwd_dq_kernel    (the second pallas_call in _flash_bwd)
+// Same contract: q, k, v, o, dO [B*H, S, D]; lse and delta =
+// rowsum(dO*O) [B*H, S] fp32; softmax math in fp32.  Scores are
+// s = (q.k) * scale, masked to -1e30 above the causal diagonal and past
+// the ragged end of S (the TPU wrapper pads S to a multiple of 128; here
+// the tail is masked in-kernel).  The forward runs the online softmax
+// (m, l, acc) with the l == 0 -> 1 guard of the TPU kernel and writes
+// lse = m + log(l); the backward recomputes P = exp(s - lse) and
+// dS = P * (dP - delta) * scale.  Head dims 32, 64 and 128.
+//
+// What bounds them on the H100: operations.  At the GPT-3 1.3B training
+// shapes (B*H = 128, S = 2048, D = 128, bf16, causal) the forward does
+// 4*D FLOPs per live (q, k) pair, 137.5 GFLOP (0.139 ms at 989 TFLOP/s)
+// against 269.5 MB of traffic (0.080 ms at 3.35 TB/s); dK/dV does twice
+// that and dQ 1.5 times, against 405 and 338 MB.  So the design keeps the
+// [S, S] scores out of device memory (one 64 x 64 tile at a time, in
+// registers), walks only the kv tiles the causal mask leaves, and puts
+// the bf16 products on the tensor cores.
+//
+// Layout of the work.  The TPU grid runs in order on one core and
+// carries the softmax state (or the dK/dV, dQ sums) in VMEM scratch from
+// one grid step to the next; here blocks run in parallel, so the
+// sequential grid axis becomes a loop inside one block, with the carried
+// state in registers:
+//   forward: one block per (64-query tile, b*h); loop over 64-key tiles
+//            up to the causal bound (the TPU's should_run becomes the
+//            loop's end); m, l and the fp32 accumulator in registers.
+//   dK/dV:   one block per (64-key tile, b*h); loop over the q tiles at
+//            or below the diagonal; dK, dV accumulate in fp32 registers
+//            and are written once.
+//   dQ:      one block per (64-query tile, b*h); loop over kv tiles up
+//            to the diagonal; dQ written once.
+// No atomics: each output element is written by exactly one thread, so
+// results are deterministic.  Causal query tiles are scheduled heaviest
+// first.  Tiles above 48 KB of shared memory need cudaFuncSetAttribute;
+// every entry returns cudaGetLastError(), since a refused launch never
+// runs.
+//
+// Two routes share that layout:
+//   bf16 (the training path): tensor cores, mma.sync m16n8k16 with fp32
+//     accumulation, 4 warps of 16 rows each; the streamed tiles are
+//     double-buffered with cp.async (see the tensor-core section).
+//   fp32: scalar fp32 FMAs over fp32 shared-memory tiles, 256 threads
+//     (the first design, kept for fp32 inputs, whose products the
+//     bf16 tensor cores cannot take without rounding them).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;           // query rows and key rows per tile
+constexpr int kThreads = 256;
+constexpr int kPS = kTile + 1;      // padded row of a score tile
+constexpr float kNegInf = -1e30f;   // the TPU kernel's _NEG_INF
+constexpr unsigned kFull = 0xffffffffu;
+
+// Reductions over the 16 lanes that own one row (xor stays in the half).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Rows [row0, row0 + kTile) of a [S, D] matrix into a [kTile][D + 1]
+// fp32 tile; rows at or past S are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int S) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    const int gr = row0 + r;
+    dst[r * (D + 1) + c] = gr < S ? src[(size_t)gr * D + c] : 0.f;
+  }
+}
+
+// lse / delta of rows [row0, row0 + kTile); 0 past S (those rows are
+// masked out, so the value is never used).
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int S) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads)
+    dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
+}
+
+__device__ __forceinline__ bool live(int qr, int kc, int S, int causal) {
+  return qr < S && kc < S && (!causal || kc <= qr);
+}
+
+// s[i][j] += A[ty + 16i] . B[tx + 16j] over D, both tiles [kTile][D + 1].
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
+                                         const float* B, int ty, int tx) {
+  constexpr int LD = D + 1;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+}
+
+// ------------------------------------------------ fp32: scalar kernels
+//
+// Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16i and key
+// columns tx + 16j (i, j < 4) of a score tile, and output columns
+// tx + 16c of the rows it owns.  A row's 16 owners are 16 consecutive
+// lanes, so row max and row sum are 4 xor-shuffles.  Shared rows are
+// padded to D + 1 floats, so the 16 different rows a warp reads at one
+// column fall in 16 different banks.
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int S, float scale,
+                     int causal) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;                  // [kTile][kPS]
+
+  const int bh = blockIdx.x;
+  // heavy (late) query tiles of a causal pass are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_tile<D>(Qs, q + base, q0, S);
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  const int kv_end = causal ? min(S, q0 + kTile) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();               // last tile's Ps / Vs reads are done
+    load_tile<D>(Ks, k + base, k0, S);
+    load_tile<D>(Vs, v + base, k0, S);
+    __syncthreads();
+    float s[4][4] = {};
+    tile_dot<D>(s, Qs, Ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = live(qr, k0 + tx + 16 * j, S, causal) ? s[i][j] * scale
+                                                        : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] > kNegInf ? expf(s[i][j] - m_new) : 0.f;
+        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float p[4], w[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPS + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) w[c] = Vs[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], w[c], acc[i][c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    if (qr >= S) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      out[base + (size_t)qr * D + tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0) lse[(size_t)bh * S + qr] = m[i] + logf(l_safe);
+  }
+}
+
+// Shared by both backward kernels: P and dS of one (q tile, kv tile)
+// pair, from the staged Q, dO, K, V tiles and the rows' lse and delta.
+template <int D>
+__device__ __forceinline__ void bwd_scores(
+    float (&p)[4][4], float (&ds)[4][4], const float* Qs, const float* dOs,
+    const float* Ks, const float* Vs, const float* lse_s,
+    const float* delta_s, int q0, int k0, int S, float scale, int causal,
+    int ty, int tx) {
+  float s[4][4] = {}, dp[4][4] = {};
+  tile_dot<D>(s, Qs, Ks, ty, tx);
+  tile_dot<D>(dp, dOs, Vs, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = live(q0 + r, k0 + tx + 16 * j, S, causal);
+      p[i][j] = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+      ds[i][j] = p[i][j] * (dp[i][j] - delta_s[r]) * scale;
+    }
+  }
+}
+
+// --------------------------------------------------------- dK and dV
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int S,
+                          float scale, int causal) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ps = dOs + kTile * LD;                 // [kTile q][kPS]
+  float* dSs = Ps + kTile * kPS;                // [kTile q][kPS]
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;            // early tiles: most work
+  const size_t base = (size_t)bh * S * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_tile<D>(Ks, k + base, k0, S);
+  load_tile<D>(Vs, v + base, k0, S);
+  // rows: kv rows ty + 16i of this tile; columns tx + 16c
+  float dk_acc[4][NC], dv_acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // causal: only q tiles whose last row reaches k0
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kTile) {
+    __syncthreads();               // last tile's Ps / dSs / Qs reads done
+    load_tile<D>(Qs, q + base, q0, S);
+    load_tile<D>(dOs, dout + base, q0, S);
+    load_rows(lse_s, lse_bh, q0, S);
+    load_rows(delta_s, delta_bh, q0, S);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    bwd_scores<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
+                  causal, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p[i][j];
+        dSs[(ty + 16 * i) * kPS + tx + 16 * j] = ds[i][j];
+      }
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q over this q tile's rows
+#pragma unroll 4
+    for (int qq = 0; qq < kTile; ++qq) {
+      float pc[4], dc[4], o[NC], x[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pc[i] = Ps[qq * kPS + ty + 16 * i];
+        dc[i] = dSs[qq * kPS + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        o[c] = dOs[qq * LD + tx + 16 * c];
+        x[c] = Qs[qq * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          dv_acc[i][c] = fmaf(pc[i], o[c], dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(dc[i], x[c], dk_acc[i][c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty + 16 * i;
+    if (kr >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const size_t at = base + (size_t)kr * D + tx + 16 * c;
+      dk[at] = dk_acc[i][c];
+      dv[at] = dv_acc[i][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dQ
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq,
+                        int S, float scale, int causal) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* dSs = Vs + kTile * LD;                 // [kTile q][kPS]
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_tile<D>(Qs, q + base, q0, S);
+  load_tile<D>(dOs, dout + base, q0, S);
+  load_rows(lse_s, lse + (size_t)bh * S, q0, S);
+  load_rows(delta_s, delta + (size_t)bh * S, q0, S);
+  float dq_acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dq_acc[i][c] = 0.f;
+
+  const int kv_end = causal ? min(S, q0 + kTile) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();               // last tile's dSs / Ks reads are done
+    load_tile<D>(Ks, k + base, k0, S);
+    load_tile<D>(Vs, v + base, k0, S);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    bwd_scores<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
+                  causal, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dSs[(ty + 16 * i) * kPS + tx + 16 * j] = ds[i][j];
+    __syncthreads();
+    // dQ += dS K
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float dc[4], w[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dc[i] = dSs[(ty + 16 * i) * kPS + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) w[c] = Ks[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) dq_acc[i][c] = fmaf(dc[i], w[c], dq_acc[i][c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    if (qr >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      dq[base + (size_t)qr * D + tx + 16 * c] = dq_acc[i][c];
+  }
+}
+
+// ------------------------------------------- bf16: tensor-core kernels
+//
+// bf16 inputs take these.  The products run on the tensor cores as
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate); softmax, scaling and
+// masking stay fp32 in registers.  4 warps, each owning 16 rows of the
+// block's 64-row tile; Q, K, V (dO) tiles sit in shared memory as bf16
+// with rows padded by 8 elements, so the 8 rows of a fragment fall in 8
+// different 4-bank groups.  The fp32 accumulator of Q K^T has, per
+// thread, the layout of the A operand of the next product, so P (and
+// dS) go from registers to the tensor cores without touching shared
+// memory (the FlashAttention-2 arrangement); B operands that need the
+// transposed layout (V in P V, dO and Q in the dK/dV products, K in dS K)
+// come from ldmatrix .trans.  P and dS are rounded to bf16 for their
+// products, where the TPU kernel keeps them fp32: one more rounding
+// (2^-9 relative) per term, which the bf16 tolerances cover.
+constexpr int kThreadsTC = 128;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of rows [r0, r0 + 16), columns [16kk, 16kk + 16) of a
+// row-major shared tile with row stride LDS.
+template <int LDS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* X, int r0,
+                                       int kk, int g, int t) {
+  const __nv_bfloat16* p = X + (r0 + g) * LDS + kk * 16 + 2 * t;
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * LDS);
+  a[2] = lds32(p + 8);
+  a[3] = lds32(p + 8 * LDS + 8);
+}
+
+// B fragments of B[k][n] = X[k][n] (row-major tile, k = rows) for the
+// k-step [k0, k0 + 16) and the two n-tiles [n0, n0 + 8), [n0 + 8,
+// n0 + 16): b[0], b[1] for the first, b[2], b[3] for the second.
+template <int LDS>
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
+                                             const __nv_bfloat16* X, int k0,
+                                             int n0, int lane) {
+  const __nv_bfloat16* p =
+      X + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDS + n0 +
+      (lane >> 4) * 8;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// B fragments of B[k][n] = X[n][k] (row-major tile, n = rows) for the
+// k-step [k0, k0 + 16) and the two n-tiles [n0, n0 + 8), [n0 + 8,
+// n0 + 16): b[0], b[1] for the first, b[2], b[3] for the second.
+template <int LDS>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4],
+                                       const __nv_bfloat16* X, int n0, int k0,
+                                       int lane) {
+  const __nv_bfloat16* p = X + (n0 + (lane >> 4) * 8 + (lane & 7)) * LDS +
+                           k0 + ((lane >> 3) & 1) * 8;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// Asynchronous copies (cp.async): a tile's loads run while the block
+// computes on the tile before it.  Rows at or past S are zero-filled
+// (source size 0).
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + kTile) of a bf16 [S, D] matrix into a bf16 tile
+// with row stride D + 8, 16 bytes a thread.
+template <int D>
+__device__ __forceinline__ void async_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int row0, int S) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreadsTC) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = row0 + r < S;
+    cp_async(dst + r * (D + 8) + c * 8,
+             src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// lse and delta of rows [row0, row0 + kTile) (0 past S: those rows are
+// masked out).
+__device__ __forceinline__ void async_rows(float* lse_dst, float* delta_dst,
+                                           const float* lse,
+                                           const float* delta, int row0,
+                                           int S) {
+  const int r = threadIdx.x & (kTile - 1);
+  const bool ok = row0 + r < S;
+  const int at = ok ? row0 + r : 0;
+  if (threadIdx.x < kTile)
+    cp_async4(lse_dst + r, lse + at, ok);
+  else if (threadIdx.x < 2 * kTile)
+    cp_async4(delta_dst + r, delta + at, ok);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Accumulator element e of n-tile j (rows g / g + 8, columns 2t, 2t + 1)
+// into the A fragments of the next product, whose k-steps are pairs of
+// n-tiles: frag[j / 2][(j % 2) * 2 + e / 2] holds (e & ~1, e | 1).
+__device__ __forceinline__ void to_a_frag(uint32_t (&frag)[4][4], int j,
+                                          const float (&x)[4]) {
+  frag[j >> 1][(j & 1) * 2] = pack_bf16(x[0], x[1]);
+  frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
+// Pipelines of the three kernels: the streamed pair of tiles (K, V or
+// Q, dO) is double-buffered.  Iteration i issues the copies of tile
+// i + 1 into the other buffer, waits for tile i's own, computes on it,
+// and ends in a barrier, so tile i + 2's copies (issued at iteration
+// i + 1) never overwrite a buffer still being read.
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int S, float scale,
+                        int causal) {
+  constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + TILE;                // 2 buffers
+  __nv_bfloat16* Vs = Ks + 2 * TILE;            // 2 buffers
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const int n_tiles = ((causal ? min(S, q0 + kTile) : S) + kTile - 1) / kTile;
+
+  async_tile<D>(Qs, q + base, q0, S);
+  async_tile<D>(Ks, k + base, 0, S);
+  async_tile<D>(Vs, v + base, 0, S);
+  cp_async_commit();
+
+  uint32_t qa[KS][4];
+  float o[NT][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTile, buf = (it & 1) * TILE;
+    if (it + 1 < n_tiles) {
+      const int nxt = ((it + 1) & 1) * TILE;
+      async_tile<D>(Ks + nxt, k + base, k0 + kTile, S);
+      async_tile<D>(Vs + nxt, v + base, k0 + kTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a<LDS>(qa[kk], Qs, 16 * warp, kk, g, t);
+    }
+    float s[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        load_b<LDS>(b, Ks + buf, 8 * j, 16 * kk, lane);
+        mma_bf16(s[j], qa[kk], b[0], b[1]);
+        mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+      }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        s[j][e] = live(row[e >> 1], col, S, causal) ? s[j][e] * scale
+                                                    : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float m_new[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      corr[h] = __expf(m[h] - m_new[h]);
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = s[j][e] > kNegInf ? __expf(s[j][e] - m_new[e >> 1]) : 0.f;
+        rs[e >> 1] += p[e];
+      }
+      to_a_frag(pa, j, p);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + quad_sum(rs[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        load_b_trans<LDS>(b, Vs + buf, 16 * kk, 8 * n, lane);
+        mma_bf16(o[n], pa[kk], b[0], b[1]);
+        mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
+      }
+    __syncthreads();               // every warp is done with this buffer
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= S) continue;
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    const float inv = 1.f / l_safe;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + base +
+                                                (size_t)row[h] * D + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      dst[4 * n] = pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+    if (t == 0) lse[(size_t)bh * S + row[h]] = m[h] + logf(l_safe);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int S,
+                             float scale, int causal) {
+  constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + TILE;
+  __nv_bfloat16* Qs = Vs + TILE;                // 2 buffers
+  __nv_bfloat16* dOs = Qs + 2 * TILE;           // 2 buffers
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);   // 2 x kTile
+  float* delta_s = lse_s + 2 * kTile;                         // 2 x kTile
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's key rows (the rows of S^T = K Q^T it computes)
+  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  // causal: only q tiles whose last row reaches k0
+  const int qt0 = causal ? blockIdx.y : 0;
+  const int n_tiles = (S + kTile - 1) / kTile - qt0;
+
+  async_tile<D>(Ks, k + base, k0, S);
+  async_tile<D>(Vs, v + base, k0, S);
+  async_tile<D>(Qs, q + base, qt0 * kTile, S);
+  async_tile<D>(dOs, dout + base, qt0 * kTile, S);
+  async_rows(lse_s, delta_s, lse_bh, delta_bh, qt0 * kTile, S);
+  cp_async_commit();
+
+  float dka[NT][4] = {}, dva[NT][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (qt0 + it) * kTile;
+    const int buf = (it & 1) * TILE, rbuf = (it & 1) * kTile;
+    if (it + 1 < n_tiles) {
+      const int nxt = ((it + 1) & 1) * TILE, rnxt = ((it + 1) & 1) * kTile;
+      async_tile<D>(Qs + nxt, q + base, q0 + kTile, S);
+      async_tile<D>(dOs + nxt, dout + base, q0 + kTile, S);
+      async_rows(lse_s + rnxt, delta_s + rnxt, lse_bh, delta_bh,
+                 q0 + kTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Qb = Qs + buf;
+    const __nv_bfloat16* dOb = dOs + buf;
+    // S^T = K Q^T and dP^T = V dO^T over the warp's 16 keys x 64 queries
+    float st[8][4] = {}, dpt[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a<LDS>(ka, Ks, 16 * warp, kk, g, t);
+      load_a<LDS>(va, Vs, 16 * warp, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        load_b<LDS>(b, Qb, 8 * j, 16 * kk, lane);
+        mma_bf16(st[j], ka, b[0], b[1]);
+        mma_bf16(st[j + 1], ka, b[2], b[3]);
+        load_b<LDS>(b, dOb, 8 * j, 16 * kk, lane);
+        mma_bf16(dpt[j], va, b[0], b[1]);
+        mma_bf16(dpt[j + 1], va, b[2], b[3]);
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const bool ok = live(q0 + qc, key[e >> 1], S, causal);
+        p[e] = ok ? __expf(st[j][e] * scale - lse_s[rbuf + qc]) : 0.f;
+        ds[e] = p[e] * (dpt[j][e] - delta_s[rbuf + qc]) * scale;
+      }
+      to_a_frag(pa, j, p);
+      to_a_frag(dsa, j, ds);
+    }
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        load_b_trans<LDS>(b, dOb, 16 * kk, 8 * n, lane);
+        mma_bf16(dva[n], pa[kk], b[0], b[1]);
+        mma_bf16(dva[n + 1], pa[kk], b[2], b[3]);
+        load_b_trans<LDS>(b, Qb, 16 * kk, 8 * n, lane);
+        mma_bf16(dka[n], dsa[kk], b[0], b[1]);
+        mma_bf16(dka[n + 1], dsa[kk], b[2], b[3]);
+      }
+    __syncthreads();               // every warp is done with this buffer
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= S) continue;
+    const size_t at = base + (size_t)key[h] * D + 2 * t;
+    uint32_t* dkp = reinterpret_cast<uint32_t*>(dk + at);
+    uint32_t* dvp = reinterpret_cast<uint32_t*>(dv + at);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      dkp[4 * n] = pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
+      dvp[4 * n] = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int S,
+                           float scale, int causal) {
+  constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + TILE;
+  __nv_bfloat16* Ks = dOs + TILE;               // 2 buffers
+  __nv_bfloat16* Vs = Ks + 2 * TILE;            // 2 buffers
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = (size_t)bh * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const int n_tiles = ((causal ? min(S, q0 + kTile) : S) + kTile - 1) / kTile;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < S;
+    row_lse[h] = in ? lse[(size_t)bh * S + row[h]] : 0.f;
+    row_delta[h] = in ? delta[(size_t)bh * S + row[h]] : 0.f;
+  }
+
+  async_tile<D>(Qs, q + base, q0, S);
+  async_tile<D>(dOs, dout + base, q0, S);
+  async_tile<D>(Ks, k + base, 0, S);
+  async_tile<D>(Vs, v + base, 0, S);
+  cp_async_commit();
+
+  float dqa[NT][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTile, buf = (it & 1) * TILE;
+    if (it + 1 < n_tiles) {
+      const int nxt = ((it + 1) & 1) * TILE;
+      async_tile<D>(Ks + nxt, k + base, k0 + kTile, S);
+      async_tile<D>(Vs + nxt, v + base, k0 + kTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kb = Ks + buf;
+    const __nv_bfloat16* Vb = Vs + buf;
+    float s[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      load_a<LDS>(qa, Qs, 16 * warp, kk, g, t);
+      load_a<LDS>(oa, dOs, 16 * warp, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        load_b<LDS>(b, Kb, 8 * j, 16 * kk, lane);
+        mma_bf16(s[j], qa, b[0], b[1]);
+        mma_bf16(s[j + 1], qa, b[2], b[3]);
+        load_b<LDS>(b, Vb, 8 * j, 16 * kk, lane);
+        mma_bf16(dp[j], oa, b[0], b[1]);
+        mma_bf16(dp[j + 1], oa, b[2], b[3]);
+      }
+    }
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const float p = live(row[h], col, S, causal)
+                            ? __expf(s[j][e] * scale - row_lse[h])
+                            : 0.f;
+        ds[e] = p * (dp[j][e] - row_delta[h]) * scale;
+      }
+      to_a_frag(dsa, j, ds);
+    }
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        load_b_trans<LDS>(b, Kb, 16 * kk, 8 * n, lane);
+        mma_bf16(dqa[n], dsa[kk], b[0], b[1]);
+        mma_bf16(dqa[n + 1], dsa[kk], b[2], b[3]);
+      }
+    __syncthreads();               // every warp is done with this buffer
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= S) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(dq + base +
+                                                (size_t)row[h] * D + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      dst[4 * n] = pack_bf16(dqa[n][2 * h], dqa[n][2 * h + 1]);
+  }
+}
+
+// ----------------------------------------------------------- launchers
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPS);
+}
+template <int D>
+constexpr size_t dkdv_smem() {
+  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPS + 2 * kTile);
+}
+template <int D>
+constexpr size_t tc_tiles(int n) {
+  return sizeof(__nv_bfloat16) * n * kTile * (D + 8);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+        int BH, int S, float scale, int causal, int dtype, cudaStream_t st) {
+  dim3 grid(BH, (S + kTile - 1) / kTile);
+  if (dtype == 0) {
+    constexpr size_t smem = fwd_smem<D>();
+    int rc = prepare(flash_fwd_kernel<D>, smem);
+    if (rc) return rc;
+    flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out,
+        (float*)lse, S, scale, causal);
+  } else {
+    constexpr size_t smem = tc_tiles<D>(5);
+    int rc = prepare(flash_fwd_tc_kernel<D>, smem);
+    if (rc) return rc;
+    flash_fwd_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+        (float*)lse, S, scale, causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dkdv(const void* q, const void* k, const void* v, const void* dout,
+         const void* lse, const void* delta, void* dk, void* dv, int BH,
+         int S, float scale, int causal, int dtype, cudaStream_t st) {
+  dim3 grid(BH, (S + kTile - 1) / kTile);
+  if (dtype == 0) {
+    constexpr size_t smem = dkdv_smem<D>();
+    int rc = prepare(flash_bwd_dkdv_kernel<D>, smem);
+    if (rc) return rc;
+    flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dk, (float*)dv, S, scale, causal);
+  } else {
+    constexpr size_t smem = tc_tiles<D>(6) + 4 * kTile * sizeof(float);
+    int rc = prepare(flash_bwd_dkdv_tc_kernel<D>, smem);
+    if (rc) return rc;
+    flash_bwd_dkdv_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S,
+        scale, causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dq_, int BH, int S,
+       float scale, int causal, int dtype, cudaStream_t st) {
+  dim3 grid(BH, (S + kTile - 1) / kTile);
+  if (dtype == 0) {
+    constexpr size_t smem = dq_smem<D>();
+    int rc = prepare(flash_bwd_dq_kernel<D>, smem);
+    if (rc) return rc;
+    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq_, S, scale, causal);
+  } else {
+    constexpr size_t smem = tc_tiles<D>(6);
+    int rc = prepare(flash_bwd_dq_tc_kernel<D>, smem);
+    if (rc) return rc;
+    flash_bwd_dq_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dq_, S, scale,
+        causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Dispatch on the head dim (32, 64, 128); dtype 0 = fp32 (scalar
+// kernels), 1 = bf16 (tensor-core kernels).
+#define FLASH_DISPATCH(FN, ...)                                         \
+  do {                                                                  \
+    if (BH <= 0 || S <= 0 || (S + kTile - 1) / kTile > 65535 ||         \
+        (dtype != 0 && dtype != 1))                                     \
+      return (int)cudaErrorInvalidValue;                                \
+    if (D == 32) return FN<32>(__VA_ARGS__);                            \
+    if (D == 64) return FN<64>(__VA_ARGS__);                            \
+    if (D == 128) return FN<128>(__VA_ARGS__);                          \
+    return (int)cudaErrorInvalidValue;                                  \
+  } while (0)
+
+}  // namespace
+
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int BH, int S, int D,
+                                float scale, int causal, int dtype,
+                                void* stream) {
+  FLASH_DISPATCH(fwd, q, k, v, out, lse, BH, S, scale, causal, dtype,
+                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dk, void* dv, int BH, int S,
+                                     int D, float scale, int causal,
+                                     int dtype, void* stream) {
+  FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
+                 causal, dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dq_out, int BH, int S, int D,
+                                   float scale, int causal, int dtype,
+                                   void* stream) {
+  FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
+                 causal, dtype, static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,304 @@
+"""Flash attention — softmax(Q Kᵀ·scale) V with a per-row logsumexp, and
+its backward (the port of ``paddle_tpu/kernels/flash_attention.py``).
+
+Three kernels, each beside its plain PyTorch version:
+
+- forward (``_fwd_kernel``): O and the fp32 row logsumexp ``lse``;
+- backward dK/dV (``_bwd_dkdv_kernel``) and dQ (``_bwd_dq_kernel``):
+  recompute P = exp(s − lse) tile by tile with δ = rowsum(dO∘O).
+
+The plain versions (``_flash_fwd_ref``, ``_flash_bwd_ref``) compute the
+same formulas over the whole [S, S] score matrix in fp32.  The CUDA
+kernels (``csrc/flash_attention.cu``) are built with ``nvcc`` for
+``sm_90a`` at first use and called through ctypes.  ``_Flash`` binds the
+forward and backward as one ``torch.autograd.Function`` (the JAX
+package's ``_flash`` custom VJP): on CPU tensors it runs the plain
+versions, on CUDA tensors the kernels, and there is no fallback from one
+to the other.
+
+Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
+``[B, H, S]`` fp32.  Math is fp32 on both paths.  On the card the
+kernels take D ∈ {32, 64, 128} (every head dim of ``GPT_CONFIGS``); any
+other D raises ``ValueError`` there.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+__all__ = ["flash_attention", "flash_attention_available",
+           "flash_attention_plain", "launches"]
+
+_NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the CUDA kernels are instantiated for
+HEAD_DIMS = (32, 64, 128)
+
+#: kernel launches since the counts were last set to 0 (CUDA path only);
+#: one plain integer per kernel
+launches = {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+
+
+# --------------------------------------------------------------- reference
+
+
+def _scores(q, k, scale, causal):
+    """fp32 s = q kᵀ · scale with the causal mask applied (−1e30)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        S = q.shape[2]
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, _NEG_INF)
+    return s
+
+
+def _flash_fwd_ref(q, k, v, scale, causal):
+    """Plain forward: (out in q's dtype, lse [B, H, S] fp32).  The
+    ``l == 0 → 1`` guard is the kernel's, so a fully masked row gives a
+    zero output."""
+    s = _scores(q, k, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def _delta(out, do):
+    """δ = rowsum(dO∘O) in fp32, ``[B, H, S]`` — outside the kernels, as
+    in the JAX package."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def _bwd_p_ds(q, k, v, lse, delta, do, scale, causal):
+    """The recompute both backward kernels share: P = exp(s − lse) and
+    dS = P∘(dO vᵀ − δ)·scale, fp32."""
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def _bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal):
+    """Plain dK/dV: dV = Pᵀ dO, dK = dSᵀ Q."""
+    p, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale, causal)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal):
+    """Plain dQ: dQ = dS K."""
+    _, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale, causal)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def _flash_bwd_ref(q, k, v, out, lse, do, scale, causal):
+    """Plain backward: the two backward kernels' recompute formulas over
+    the whole score matrix, δ computed inside.  Returns (dq, dk, dv) in
+    q's dtype."""
+    delta = _delta(out, do)
+    dk, dv = _bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    return _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal), dk, dv
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _lib():
+    from . import _build
+
+    lib = _build.load("flash_attention")
+    if lib.flash_fwd_launch.argtypes is None:
+        ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd_launch.argtypes = [ptr] * 5 + [i] * 3 + [f, i, i, ptr]
+        lib.flash_bwd_dkdv_launch.argtypes = ([ptr] * 8 + [i] * 3
+                                              + [f, i, i, ptr])
+        lib.flash_bwd_dq_launch.argtypes = ([ptr] * 7 + [i] * 3
+                                            + [f, i, i, ptr])
+        for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkdv_launch,
+                   lib.flash_bwd_dq_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(q, k, v, *rest):
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention CUDA kernels take head_dim in "
+                         f"{HEAD_DIMS}, got {D}")
+    for t in (q, k, v) + rest:
+        if t.device != q.device:
+            raise ValueError("flash_attention: inputs on different devices")
+        if t.dtype not in (q.dtype, torch.float32) or \
+                not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention kernels take contiguous, "
+                             "16-byte aligned tensors of q's dtype (lse "
+                             "and delta fp32)")
+
+
+def _launch(name, fn, *args):
+    q = args[0]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches[name] += 1
+
+
+def _flash_fwd_cuda(q, k, v, scale, causal):
+    _check_cuda(q, k, v)
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.numel():
+        _launch("fwd", _lib().flash_fwd_launch, q, k, v, out, lse,
+                B * H, S, D, float(scale), int(causal), _DTYPES[q.dtype])
+    return out, lse
+
+
+def _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
+    _check_cuda(q, k, v, do, lse, delta)
+    B, H, S, D = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    if q.numel():
+        _launch("bwd_dkdv", _lib().flash_bwd_dkdv_launch, q, k, v, do, lse,
+                delta, dk, dv, B * H, S, D, float(scale), int(causal),
+                _DTYPES[q.dtype])
+    return dk, dv
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
+    _check_cuda(q, k, v, do, lse, delta)
+    B, H, S, D = q.shape
+    dq = torch.empty_like(q)
+    if q.numel():
+        _launch("bwd_dq", _lib().flash_bwd_dq_launch, q, k, v, do, lse,
+                delta, dq, B * H, S, D, float(scale), int(causal),
+                _DTYPES[q.dtype])
+    return dq
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal):
+    do = do.to(q.dtype).contiguous()
+    delta = _delta(out, do)
+    dk, dv = _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal), dk, dv
+
+
+def _flash_fwd(q, k, v, scale, causal, plain=False):
+    """(out, lse): the plain version on CPU tensors or when ``plain``,
+    else the CUDA kernel."""
+    if plain or q.device.type == "cpu":
+        return _flash_fwd_ref(q, k, v, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+    return _flash_fwd_cuda(q, k, v, scale, causal)
+
+
+def _flash_bwd(q, k, v, out, lse, do, scale, causal, plain=False):
+    if plain or q.device.type == "cpu":
+        return _flash_bwd_ref(q, k, v, out, lse, do, scale, causal)
+    return _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward saves (q, k, v, out, lse), as the JAX ``_flash_fwd_rule``
+    does; backward runs the dK/dV and dQ kernels (or the plain
+    backward).  Every tensor it hands a kernel is allocated in the call,
+    so a recompute under activation checkpointing launches the forward
+    kernel again into fresh buffers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, plain):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _flash_fwd(q, k, v, scale, causal, plain)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.plain = scale, causal, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do.contiguous(),
+                                ctx.scale, ctx.causal, ctx.plain)
+        return dq, dk, dv, None, None, None
+
+
+# -------------------------------------------------------------- public API
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be [B, H, S, D] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_attention_available(q, k, v, mask, causal=False):
+    """The JAX package's gate, kept as it is: no mask, equal [B, H, S, D]
+    shapes, D ≤ 256, and S a multiple of 128 unless causal.  On the card
+    the kernels take only D ∈ ``HEAD_DIMS`` and raise on any other D
+    this gate lets through."""
+    if mask is not None:
+        return False
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        return False
+    B, H, S, D = q.shape
+    if D > 256:
+        return False
+    if S % 128 != 0 and not causal:
+        return False
+    return True
+
+
+def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
+                    block_kv=1024):
+    """q/k/v ``[B, H, S, D]`` → ``[B, H, S, D]``, differentiable.
+
+    The JAX wrapper's behaviour is kept on purpose, so callers and tests
+    see one contract:
+
+    - causal inputs whose S is not a multiple of 128 give the JAX
+      package's padded-then-sliced result (zero-padded keys lie after
+      every real query, so they never enter a real row); the CUDA
+      kernels mask the ragged tail in-kernel instead of padding;
+    - the same non-causal inputs raise ``ValueError`` (padded keys would
+      enter the softmax), as in JAX;
+    - ``block_q``/``block_kv`` are the TPU kernel's VMEM tiles.  They are
+      accepted and ignored: on the card each kernel uses its own tiles
+      (64 queries × 64 keys).
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    and count them in ``launches``."""
+    del block_q, block_kv
+    _check(q, k, v)
+    S = q.shape[2]
+    if S % 128 != 0 and not causal:
+        raise ValueError(
+            f"flash_attention requires seq_len % 128 == 0 for non-causal "
+            f"attention, got S={S}; pad the sequence or gate on "
+            f"flash_attention_available()")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Flash.apply(q, k, v, float(scale), bool(causal), False)
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None):
+    """The same differentiable function through the plain versions on
+    any device — what ``chip_smoke.py`` holds the kernels against
+    (``gpt_block(..., attention=flash_attention_plain)``)."""
+    _check(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Flash.apply(q, k, v, float(scale), bool(causal), True)

@@ -12,7 +12,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_from_jax"]
 
 
 def _to_numpy(leaf):
@@ -38,6 +38,15 @@ def params_from_jax(tree, device=None, dtype=None):
         return t.to(dev)
 
     return conv(tree)
+
+
+def opt_from_jax(canon, device=None, dtype=None):
+    """The JAX engine's canonical optimizer state (``opt_canonical``:
+    ``{"m", "v", "master"}`` trees of param-shaped arrays) → the same
+    three trees of tensors, as ``params_from_jax`` carries each;
+    ``HybridEngine.opt_from_canonical`` turns them into a state."""
+    return {name: params_from_jax(canon[name], device=device, dtype=dtype)
+            for name in ("m", "v", "master")}
 
 
 def params_to_numpy(params):

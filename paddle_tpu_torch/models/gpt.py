@@ -6,9 +6,10 @@ leaf names and its stacked ``[L, ...]`` block layout, so a JAX
 layer loop is a Python loop over the leading axis where JAX runs a
 ``lax.scan``.
 
-This slice carries the config, ``gpt_init`` and ``gpt_ragged_step`` (the
-serving engine's one step); the training forward and loss, and the MoE
-blocks, are later slices of the port.
+The serving half is ``gpt_ragged_step`` (the serving engine's one step);
+the training half is ``gpt_block`` / ``gpt_forward`` / ``gpt_loss`` with
+per-block activation checkpointing (``cfg.remat``) and the ``GPT``
+module facade.  MoE blocks are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from .._device import resolve_device
 
-__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_init", "gpt_ragged_step"]
+__all__ = ["GPTConfig", "GPT_CONFIGS", "GPT", "gpt_init", "gpt_block",
+           "gpt_forward", "gpt_loss", "gpt_ragged_step", "gpt_num_params",
+           "gpt_flops_per_token"]
 
 
 @dataclasses.dataclass(unsafe_hash=True)
@@ -75,7 +79,7 @@ GPT_CONFIGS = {
 def _require_dense(cfg: GPTConfig):
     if cfg.moe_experts:
         raise NotImplementedError(
-            "MoE blocks are not ported yet; this slice serves dense GPTs")
+            "MoE blocks are not ported yet; the port runs dense GPTs")
 
 
 # ------------------------------------------------------------------ params
@@ -141,6 +145,150 @@ def _layer_norm(x, g, b, eps=1e-5):
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
+def _fold(seed, *ints):
+    """A 63-bit seed from ``seed`` folded with ``ints`` (splitmix64
+    rounds): the port's ``jax.random.fold_in`` for dropout seeds."""
+    h = int(seed) & 0xFFFFFFFFFFFFFFFF
+    for i in ints:
+        h = (h ^ (int(i) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
+        h &= 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h >> 1
+
+
+def _dropout(x, rate, seed):
+    """Inverted dropout; identity when ``rate == 0`` or ``seed`` is None
+    (eval).  The mask comes from a generator made here from the integer
+    ``seed``, so a recompute under activation checkpointing draws the
+    same mask; masks differ from ``jax.random``'s for equal seeds."""
+    if rate <= 0.0 or seed is None:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _default_attention(cfg, q, k, v):
+    """Flash attention where its gate allows, else the naive route — the
+    choice ``gpt_block`` makes in the JAX package."""
+    if cfg.use_flash:
+        from ..kernels.flash_attention import (flash_attention,
+                                               flash_attention_available)
+
+        if flash_attention_available(q, k, v, None, causal=True):
+            return flash_attention(q, k, v, causal=True)
+    from ..ops.attention import _naive_attention
+
+    return _naive_attention(q, k, v, causal=True, training=False)
+
+
+def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None):
+    """One pre-LN transformer block (attention + dense MLP) on
+    ``x [B, S, D]``; ``bp`` is this layer's slice of the stacked block
+    params.  Returns the new ``x`` (a dense block has no MoE aux loss).
+
+    ``dropout_seed`` (an int) enables residual dropout on the attention
+    projection and the FFN output.  ``attention(q, k, v)`` on
+    ``[B, H, S, hd]`` replaces the causal attention call (default: flash
+    attention where available, else the naive route) — the hook through
+    which a caller runs the block on the plain version for comparison."""
+    _require_dense(cfg)
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    s_attn = s_ffn = None
+    if dropout_seed is not None and cfg.dropout > 0.0:
+        s_attn, s_ffn = _fold(dropout_seed, 1), _fold(dropout_seed, 2)
+
+    h = _layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+    qkv = h @ bp["qkv_w"] + bp["qkv_b"]
+    # qkv columns are head-major [H, 3, hd]
+    qkv = qkv.view(B, S, H, 3, hd)
+    q = qkv[:, :, :, 0].transpose(1, 2)
+    k = qkv[:, :, :, 1].transpose(1, 2)
+    v = qkv[:, :, :, 2].transpose(1, 2)
+    if attention is None:
+        attn = _default_attention(cfg, q, k, v)
+    else:
+        attn = attention(q, k, v)
+    attn = attn.transpose(1, 2).reshape(B, S, D)
+    proj = attn @ bp["proj_w"] + bp["proj_b"]
+    x = x + _dropout(proj, cfg.dropout, s_attn)
+
+    h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
+    h = h @ bp["up_w"] + bp["up_b"]
+    h = F.gelu(h, approximate="tanh")
+    h = h @ bp["down_w"] + bp["down_b"]
+    return x + _dropout(h, cfg.dropout, s_ffn)
+
+
+def unbind_layers(blocks):
+    """Stacked ``[L, ...]`` block leaves → one dict per layer, taken
+    apart once with ``unbind(0)``: its backward stacks the per-layer
+    grads once, where indexing ``blocks[k][l]`` per layer would add a
+    full ``[L, ...]`` zero gradient for every layer."""
+    cols = {k: v.unbind(0) for k, v in blocks.items()}
+    L = len(next(iter(cols.values())))
+    return [{k: c[l] for k, c in cols.items()} for l in range(L)]
+
+
+def run_blocks(block_fn, blocks, x, remat="nothing", dropout_seed=None):
+    """Apply ``block_fn(bp, x, seed) -> x`` over the stacked blocks, each
+    under the ``remat`` checkpoint policy; the loop the JAX package runs
+    as a ``lax.scan``.  Layer ``l``'s dropout seed is ``dropout_seed``
+    folded with ``l``."""
+    from ..distributed.recompute import checkpoint_policy
+
+    fn = checkpoint_policy(remat)(block_fn)
+    for l, bp in enumerate(unbind_layers(blocks)):
+        x = fn(bp, x, None if dropout_seed is None
+               else _fold(dropout_seed, l))
+    return x
+
+
+def gpt_forward(cfg: GPTConfig, params, tokens, *, dropout_seed=None,
+                attention=None):
+    """tokens ``[B, S]`` → logits ``[B, S, V]`` in the working dtype.
+    Blocks run in a Python loop, each under ``cfg.remat``'s checkpoint
+    policy.  ``dropout_seed`` (training only) drives embedding and
+    residual dropout; ``attention`` is ``gpt_block``'s hook."""
+    _require_dense(cfg)
+    B, S = tokens.shape
+    tokens = tokens.long()
+    x = params["wte"][tokens] + params["wpe"][:S]
+    x = x.to(cfg.torch_dtype())
+    layers_seed = None
+    if dropout_seed is not None and cfg.dropout > 0.0:
+        x = _dropout(x, cfg.dropout, _fold(dropout_seed, 0, 0))
+        layers_seed = _fold(dropout_seed, 0, 1)
+
+    def block_fn(bp, x, seed):
+        return gpt_block(cfg, bp, x, dropout_seed=seed, attention=attention)
+
+    x = run_blocks(block_fn, params["blocks"], x, cfg.remat, layers_seed)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    if cfg.tie_embeddings:
+        return x @ params["wte"].t()
+    return x @ params["lm_head"]
+
+
+def gpt_loss(cfg: GPTConfig, params, tokens, labels=None,
+             dropout_seed=None, attention=None):
+    """Next-token cross entropy in fp32: log-softmax over fp32 logits,
+    labels of -100 ignored, mean over the counted tokens."""
+    tokens = tokens.long()
+    if labels is None:
+        labels = F.pad(tokens[:, 1:], (0, 1), value=-100)
+    labels = labels.long()
+    logits = gpt_forward(cfg, params, tokens, dropout_seed=dropout_seed,
+                         attention=attention)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels != -100).float()
+    return -(picked * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # ----------------------------------------------- KV-cache ragged step
@@ -246,3 +394,75 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     else:
         logits = x_last @ params["lm_head"]
     return logits, k_pages, v_pages
+
+
+def gpt_num_params(cfg: GPTConfig):
+    D, F_, L, V = cfg.hidden, cfg.ffn_hidden, cfg.num_layers, cfg.vocab_size
+    attn_part = 4 * D + D * 3 * D + 3 * D + D * D + D
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        ffn_part = D * E + E * (D * F_ + F_ + F_ * D + D)
+    else:
+        ffn_part = D * F_ + F_ + F_ * D + D
+    n = V * D + cfg.max_seq_len * D + L * (attn_part + ffn_part) + 2 * D
+    if not cfg.tie_embeddings:
+        n += D * V
+    return n
+
+
+def gpt_flops_per_token(cfg: GPTConfig, seq_len):
+    """Training FLOPs/token ≈ 6*N + attention term (per Chinchilla
+    appendix)."""
+    n = gpt_num_params(cfg)
+    attn = 6 * cfg.num_layers * cfg.hidden * seq_len  # fwd+bwd qk/av
+    return 6 * n + 2 * attn
+
+
+# ----------------------------------------------------------- module facade
+
+
+def _flat_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+class GPT(nn.Module):
+    """``nn.Module`` facade over the functional model.  Its parameters
+    are the leaves of a ``gpt_init`` tree, registered under the JAX
+    facade's flat names (``blocks_qkv_w``); ``params()`` hands the same
+    tensors back as the nested dict the functions take."""
+
+    def __init__(self, config: GPTConfig = None, generator=None,
+                 device=None, dtype=None, **kwargs):
+        super().__init__()
+        if config is None:
+            config = GPTConfig(**kwargs)
+        self.config = config
+        raw = gpt_init(config, generator=generator, device=device,
+                       dtype=dtype)
+        self._paths = []
+        for path, t in _flat_items(raw):
+            self._paths.append(path)
+            self.register_parameter(path.replace("/", "_"),
+                                    nn.Parameter(t))
+
+    def params(self):
+        tree = {}
+        for path in self._paths:
+            *parents, leaf = path.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = getattr(self, path.replace("/", "_"))
+        return tree
+
+    def forward(self, tokens, labels=None, dropout_seed=None):
+        """Logits, or the loss when ``labels`` are given."""
+        if labels is None:
+            return gpt_forward(self.config, self.params(), tokens,
+                               dropout_seed=dropout_seed)
+        return gpt_loss(self.config, self.params(), tokens, labels,
+                        dropout_seed=dropout_seed)

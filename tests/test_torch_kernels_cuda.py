@@ -10,8 +10,9 @@ is bypassed:
         tests/test_torch_kernels_cuda.py
 
 Tolerances: both sides compute in fp32, so fp32 differs by summation
-order only (1e-5) and bf16 by one rounding of the output (atol 1e-2,
-rtol 1.6e-2)."""
+order only (ragged paged attention 1e-5; flash attention, whose
+backward sums up to S products of unit-variance terms, 1e-4) and bf16 by
+one rounding of the output (atol 1e-2, rtol 1.6e-2)."""
 import dataclasses
 
 import numpy as np
@@ -109,3 +110,115 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     pa.ragged_paged_attention.launches = 0
     assert eng.generate(prompts, sp) == cpu
     assert pa.ragged_paged_attention.launches == cfg.num_layers * eng.steps
+
+
+# ---------------------------------------------------- flash attention
+
+
+FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+             torch.bfloat16: dict(atol=1e-2, rtol=1.6e-2)}
+
+
+def _flash_case(S, D, dtype, B=2, H=2, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.standard_normal((B, H, S, D))
+                             .astype(np.float32)).cuda().to(dtype)
+            for _ in range(4)]                     # q, k, v, dO
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S,causal", [(1, True), (17, True), (64, True),
+                                      (200, True), (256, True), (1, False),
+                                      (17, False), (64, False),
+                                      (256, False)])
+def test_flash_kernels_match_plain(cuda, S, causal, D, dtype):
+    """Forward (out, lse), dK/dV and dQ kernels against the plain
+    versions on the same inputs; the backward kernels get the plain
+    forward's out and lse, so each kernel is held on its own."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_case(S, D, dtype)
+    scale = 1.0 / np.sqrt(D)
+    before = dict(fa.launches)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, ref, ref_lse, do, scale,
+                                    causal)
+    rq, rk, rv = fa._flash_bwd_ref(q, k, v, ref, ref_lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == {n: before[n] + 1 for n in before}
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
+    for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_plain(cuda):
+    """``flash_attention`` (kernels) and ``flash_attention_plain`` give
+    the same output and grads through autograd."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_case(200, 64, torch.float32, seed=1)
+    outs = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do)
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_other_head_dims(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _flash_case(128, 96, torch.float32)
+    assert fa.flash_attention_available(q, k, v, None, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two ``HybridEngine`` steps on ``tiny`` fp32 on the card (flash
+    kernels) and on the CPU (plain versions): equal losses at 1e-4, and
+    the card counted 2 forward launches per layer per step under
+    ``dots`` (the forward and its recompute) and one of each backward
+    kernel."""
+    from paddle_tpu_torch.distributed import HybridEngine
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32")
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 100))
+    labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -100)], 1)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        eng = HybridEngine(cfg, device=dev)
+        params, opt = eng.init(seed=0)
+        if dev == "cuda":
+            params = {k: (v.to(dev) if torch.is_tensor(v) else
+                          {kk: vv.to(dev) for kk, vv in v.items()})
+                      for k, v in cpu_params.items()}
+            opt = eng.init_opt(params)
+            for n in fa.launches:
+                fa.launches[n] = 0
+        else:
+            cpu_params = {k: (v.clone() if torch.is_tensor(v) else
+                              {kk: vv.clone() for kk, vv in v.items()})
+                          for k, v in params.items()}
+        losses[dev] = [float(eng.step(params, opt, tokens, labels,
+                                      lr=1e-3)[2]) for _ in range(2)]
+    L = cfg.num_layers
+    assert fa.launches == {"fwd": 2 * 2 * L, "bwd_dkdv": 2 * L,
+                           "bwd_dq": 2 * L}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                               rtol=1e-4)

@@ -29,7 +29,22 @@ Phases (any failure exits non-zero):
   7. training throughput: ``HybridEngine`` on GPT-3 1.3B, batch 8 x
      2048, remat "dots", fp32 Adam slots with a master: ms/step,
      tokens/s, MFU, peak memory; the loss falls over 10 steps and the
-     flash launch counts are held to 48 / 24 / 24 per step.
+     flash launch counts are held to 48 / 24 / 24 per step;
+  8. ring attention's per-pair backward kernels (dK/dV, dQ; fp32 dO and
+     fp32 outputs, ring-global lse and delta) vs their plain versions:
+     edge cases (diagonal and full pairs, shard lengths 128/256/512,
+     head dims 32, 64, 128 and a zero-padded 80, fp32 and bf16), then
+     the per-rank shapes of the sep=4 training path with each kernel's
+     time, bound, plain-version time and the time of PyTorch's flash
+     attention backward on the same pair;
+  9. ``ring_attention`` with sep=4 vs ``flash_attention`` on the 1.3B
+     training shapes: output and grads, and both times;
+ 10. ring sequence-parallel training: ``HybridEngine(sep=4)`` with
+     ``seq_parallel="ring"`` on GPT-3 1.3B, every rank's shard on this
+     card, as in phase 7: ms/step, tokens/s, MFU, peak memory, busy
+     share; the loss falls, its first step equals phase 7's, and the
+     launches per step are held to the ring's schedule (10 live pairs a
+     layer: 480 forward, 240 dK/dV, 240 dQ).
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -37,6 +52,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -648,11 +664,16 @@ def profile_step(torch, step):
             "top": sorted(top)[::-1][:6], "ops": sorted(ops)[::-1][:10]}
 
 
-def phase_train_throughput(torch, cfg, fa, distributed, gpt_flops_per_token):
-    """HybridEngine at the 1.3B training rung on one card."""
+def phase_train_throughput(torch, cfg, counts, distributed,
+                           gpt_flops_per_token, want, sep=1, tag="phase 7"):
+    """HybridEngine at the 1.3B training rung on one card, with ``sep``
+    ring shards (``cfg.seq_parallel == "ring"`` when sep > 1).  ``counts``
+    are the kernels' launch-count dicts, ``want(L)`` the launches of one
+    step.  Returns (launches over the timed steps, the first loss)."""
     B, S = 8, 2048
-    eng = distributed.HybridEngine(cfg, engine_cfg=distributed.EngineConfig(
-        accum_steps=1), device="cuda")
+    eng = distributed.HybridEngine(cfg, sep=sep,
+                                   engine_cfg=distributed.EngineConfig(
+                                       accum_steps=1), device="cuda")
     check(cfg.remat == "dots" and eng._has_master(),
           "expected remat 'dots' and an fp32 master")
     params, opt = eng.init(seed=0)
@@ -670,15 +691,16 @@ def phase_train_throughput(torch, cfg, fa, distributed, gpt_flops_per_token):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for n in fa.launches:
-        fa.launches[n] = 0
+    for c in counts:
+        for n in c:
+            c[n] = 0
     timed = 5
     t0 = time.perf_counter()
     for _ in range(timed):
         step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.launches)
+    launches = {n: c[n] for c in counts for n in c}
     peak = torch.cuda.max_memory_allocated()
     for _ in range(2):
         step()
@@ -687,37 +709,249 @@ def phase_train_throughput(torch, cfg, fa, distributed, gpt_flops_per_token):
     ms_step = wall / timed * 1e3
     tok_s = B * S * timed / wall
     mfu = tok_s * gpt_flops_per_token(cfg, S) / BF16_FLOPS
-    print(f"[phase 7] HybridEngine gpt3-1.3b bf16, batch {B} x {S}, "
+    print(f"[{tag}] HybridEngine gpt3-1.3b bf16, sep {sep} "
+          f"(seq_parallel {cfg.seq_parallel!r}), batch {B} x {S}, "
           f"remat dots, fp32 Adam slots + master: {ms_step:.1f} ms/step, "
           f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (989 TFLOP/s peak; "
           f"{card_line()}), peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated)")
-    print(f"[phase 7] losses over 10 steps: "
+    print(f"[{tag}] losses over 10 steps: "
           + " ".join(f"{x:.4f}" for x in losses))
-    print(f"[phase 7] flash launches over {timed} timed steps: {launches}")
-    print(f"[phase 7] one traced step (10th): device busy "
+    print(f"[{tag}] launches over {timed} timed steps: {launches}")
+    print(f"[{tag}] one traced step (10th): device busy "
           f"{breakdown['busy_ms']:.1f} ms of the untraced {ms_step:.1f} "
           f"ms/step (busy share {breakdown['busy_ms'] / ms_step:.3f}); by "
           f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
                                 breakdown["by_kind"].items()))
-    print("[phase 7] top device kernels, ms/step: " + "; ".join(
+    print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
         f"{name} {us / 1e3:.2f}" for us, name in breakdown["top"]))
-    print("[phase 7] device span of the optimizer update "
+    print(f"[{tag}] device span of the optimizer update "
           "(engine::optimizer): " + ", ".join(
               f"{v:.1f} ms" for v in breakdown["spans"].values()))
-    print("[phase 7] top aten ops by device ms: " + "; ".join(
+    print(f"[{tag}] top aten ops by device ms: " + "; ".join(
         f"{name} {ms:.1f}" for ms, name in breakdown["ops"]))
     check(all(np.isfinite(losses)), "training loss not finite")
     check(losses[-1] < losses[0], "training loss did not fall")
-    L = cfg.num_layers
-    # remat "dots" saves matmul outputs only, so each block's flash
-    # forward runs again in backward: 2 forward launches per layer
-    want = {"fwd": 2 * L * timed, "bwd_dkdv": L * timed,
-            "bwd_dq": L * timed}
-    check(launches == want, f"flash launches {launches} != {want}")
+    want = {n: k * timed for n, k in want(cfg.num_layers).items()}
+    check(launches == want, f"launches {launches} != {want}")
     del params, opt
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses[0]
+
+
+# ------------------------------------------------ ring attention (8-10)
+
+
+def ring_pair_case(torch, fa, B, H, s, D, dtype, seed):
+    """Rank 1 of a 2-rank ring on the card, from a seed: its q shard, the
+    two blocks it meets (rank 0's: a full pair; its own: the diagonal
+    pair), an fp32 dO and the ring-global lse, output and delta over
+    both pairs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k0, v0, k1, v1 = (torch.randn((B, H, s, D), generator=g,
+                                     device="cuda").to(dtype)
+                         for _ in range(5))
+    do = torch.randn((B, H, s, D), generator=g, device="cuda")
+    scale = 1.0 / np.sqrt(D)
+    o_f, l_f = fa._flash_fwd_ref(q, k0, v0, scale, False)
+    o_d, l_d = fa._flash_fwd_ref(q, k1, v1, scale, True)
+    lse = torch.logaddexp(l_f, l_d)
+    out = (o_f.float() * torch.exp(l_f - lse)[..., None]
+           + o_d.float() * torch.exp(l_d - lse)[..., None]).to(dtype)
+    return {"q": q, "pairs": {False: (k0, v0), True: (k1, v1)}, "do": do,
+            "lse": lse, "out": out, "delta": fa._delta(out, do),
+            "scale": scale}
+
+
+def ring_pair_work(B, H, s, D, causal):
+    """(bytes, FLOPs) each ring-pair backward kernel must move and do on
+    bf16 q/k/v with an fp32 dO and fp32 outputs: inputs read once,
+    outputs written once, products of the live (q, k) pairs only."""
+    pairs = B * H * (s * (s + 1) // 2 if causal else s * s)
+    mat, mat32, rows = B * H * s * D * 2, B * H * s * D * 4, B * H * s * 4
+    return {"pair_bwd_dkdv": (3 * mat + mat32 + 2 * rows + 2 * mat32,
+                              8 * D * pairs),
+            "pair_bwd_dq": (3 * mat + mat32 + 2 * rows + mat32,
+                            6 * D * pairs)}
+
+
+def library_pair_bwd(torch, c, causal):
+    """PyTorch's flash-attention backward (dq, dk, dv in one call) on the
+    same pair: the pair's q/k/v, the ring's global out and lse, bf16 dO.
+    Returns (a call computing it, why there is none)."""
+    op = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention"
+                 "_backward", None)
+    if op is None:
+        return None, "this PyTorch has no aten flash-attention backward"
+    q, (k, v) = c["q"], c["pairs"][causal]
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, causal, False, scale=c["scale"])
+        do16 = c["do"].to(q.dtype)
+
+        def call():
+            return op(do16, q, k, v, c["out"], c["lse"], fwd[2], fwd[3],
+                      fwd[4], fwd[5], 0.0, causal, fwd[6], fwd[7],
+                      scale=c["scale"])
+
+        call()
+        torch.cuda.synchronize()
+    except Exception as e:  # the yardstick is optional; its absence is printed
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return call, None
+
+
+def phase_ring_pair_kernels(torch, fa, ra):
+    """Edge cases, then the per-rank shapes of the sep=4 training path
+    with timings."""
+    n = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for s in (128, 256, 512):
+            for D in (32, 64, 128, 80):
+                c = ring_pair_case(torch, fa, 2, 3, s, D, dtype, seed=n)
+                for causal in (True, False):
+                    k, v = c["pairs"][causal]
+                    args = (c["q"], k, v, c["do"], c["lse"], c["delta"],
+                            c["scale"], causal)
+                    before = dict(ra.launches)
+                    dk, dv = ra._pair_bwd_dkdv_cuda(*args)
+                    dq = ra._pair_bwd_dq_cuda(*args)
+                    want = ra._pair_bwd_ref(*args)
+                    torch.cuda.synchronize()
+                    check(ra.launches == {m: before[m] + 1 for m in before},
+                          "ring pair launches not counted")
+                    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                          want):
+                        check(a.dtype == torch.float32 and a.shape == b.shape,
+                              f"ring pair {name} dtype/shape")
+                        check(bool(torch.isfinite(a).all()),
+                              f"ring pair {name} not finite")
+                        err = max_err(torch, a, b)
+                        worst[dtype_name] = max(worst[dtype_name], err)
+                        check(torch.allclose(a, b, **TOL_FLASH[dtype_name]),
+                              f"ring pair {name} kernel != plain "
+                              f"({dtype_name}, s={s}, D={D}, causal="
+                              f"{causal}): max abs err {err:.3g}")
+                    n += 1
+    print(f"[phase 8] {n} ring-pair edge cases agree on dq, dk, dv (fp32 "
+          f"atol=rtol=1e-4, worst {worst['float32']:.3g}; bf16 q/k/v with "
+          f"an fp32 dO rounded to bf16 in the kernel: atol 1e-2 rtol "
+          f"1.6e-2, worst {worst['bfloat16']:.3g})")
+
+    # ---- per-rank shapes of the path: sep=4 over S=2048, bf16, dO fp32
+    B, H, s, D = 8, 16, 512, 128
+    c = ring_pair_case(torch, fa, B, H, s, D, torch.bfloat16, seed=5)
+    res, ms, plain_ms, errs = {}, {}, {}, {}
+    for causal in (False, True):
+        k, v = c["pairs"][causal]
+        args = (c["q"], k, v, c["do"], c["lse"], c["delta"], c["scale"],
+                causal)
+        dk, dv = ra._pair_bwd_dkdv_cuda(*args)
+        dq = ra._pair_bwd_dq_cuda(*args)
+        rq, rk, rv = ra._pair_bwd_ref(*args)
+        torch.cuda.synchronize()
+        for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            check(torch.allclose(a, b, **TOL_FLASH["bfloat16"]),
+                  f"ring pair {name} kernel != plain at the path shapes "
+                  f"(causal={causal}): {max_err(torch, a, b):.3g}")
+        errs[causal] = {"pair_bwd_dkdv": max(max_err(torch, dk, rk),
+                                             max_err(torch, dv, rv)),
+                        "pair_bwd_dq": max_err(torch, dq, rq)}
+        del rq, rk, rv
+        lib_call, why = library_pair_bwd(torch, c, causal)
+        if lib_call is not None:
+            lq, lk, lv = lib_call()[:3]
+            torch.cuda.synchronize()
+            for name, a, b in (("dq", lq, dq), ("dk", lk, dk),
+                               ("dv", lv, dv)):
+                if not torch.allclose(a.float(), b, **TOL_FLASH["bfloat16"]):
+                    lib_call = None
+                    why = (f"its {name} disagrees with the kernels' by "
+                           f"{max_err(torch, a, b):.3g}")
+                    break
+        del dq, dk, dv
+        f32 = torch.float32
+        ms[causal] = {
+            "pair_bwd_dkdv": time_ms(torch, lambda: ra._pair_bwd_dkdv_cuda(
+                *args), 20),
+            "pair_bwd_dq": time_ms(torch, lambda: ra._pair_bwd_dq_cuda(
+                *args), 20)}
+        plain_ms[causal] = {
+            "pair_bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_ref(
+                *args, f32), 3, warmup=1),
+            "pair_bwd_dq": time_ms(torch, lambda: fa._bwd_dq_ref(
+                *args, f32), 3, warmup=1)}
+        lib_ms = (time_ms(torch, lib_call, 20) if lib_call is not None
+                  else None)
+        torch.cuda.empty_cache()
+        kind = "diagonal (causal)" if causal else "full"
+        for name, (nbytes, flops) in ring_pair_work(B, H, s, D,
+                                                    causal).items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS * 1e3
+            entry = {"max_abs_err": errs[causal][name],
+                     "ms": ms[causal][name],
+                     "plain_ms": plain_ms[causal][name],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "library_ms": lib_ms}
+            print(f"[phase 8] ring {name}, {kind} pair at q/k/v "
+                  f"{[B, H, s, D]} bf16, dO fp32, fp32 out: kernel "
+                  f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+                  f"ms, bound {entry['bound_ms']:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; "
+                  f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s), max abs err "
+                  f"{entry['max_abs_err']:.3g}")
+            if not causal:
+                res[name] = entry
+        print(f"[phase 8] library, {kind} pair: aten flash-attention "
+              f"backward (dq, dk, dv in one call; vs pair_bwd_dkdv + "
+              f"pair_bwd_dq = "
+              f"{sum(ms[causal].values()):.4f} ms): "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None
+                 else f"none ({why})"))
+    del c
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ring_vs_flash(torch, fa, ra):
+    """ring_attention (sep=4) against flash_attention on the 1.3B
+    training shapes: output, grads and both times."""
+    B, H, S, D = 8, 16, 2048, 128
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    fns = {"ring": lambda *a: ra.ring_attention(*a, sep=4),
+           "flash": lambda *a: fa.flash_attention(*a, causal=True)}
+    res, times = {}, {}
+    for name, fn in fns.items():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def run():
+            out = fn(*leaves)
+            return (out,) + torch.autograd.grad(out, leaves, do)
+
+        res[name] = [t.detach() for t in run()]
+        times[name] = time_ms(torch, run, 5, warmup=2)
+    torch.cuda.synchronize()
+    errs = {}
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        a, b = res["ring"][i], res["flash"][i]
+        errs[name] = max_err(torch, a, b)
+        check(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
+              f"ring {name} dtype or not finite")
+        check(torch.allclose(a.float(), b.float(), **TOL_FLASH["bfloat16"]),
+              f"ring {name} != flash: max abs err {errs[name]:.3g}")
+    print(f"[phase 9] ring_attention sep=4 vs flash_attention at q/k/v "
+          f"{[B, H, S, D]} bf16 causal: max abs err "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" (atol 1e-2 rtol 1.6e-2); forward + backward: ring "
+          f"{times['ring']:.4f} ms, flash {times['flash']:.4f} ms")
+    del res, q, k, v, do
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -728,10 +962,13 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import importlib
+
         from paddle_tpu_torch import distributed, serving
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import paged_attention as pa
+        ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
         from paddle_tpu_torch.models import (GPT_CONFIGS, gpt_flops_per_token,
                                              gpt_init, gpt_loss)
         from paddle_tpu_torch.models.gpt import gpt_ragged_step
@@ -779,9 +1016,41 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    flash_launches = phase_train_throughput(torch, cfg, fa, distributed,
-                                            gpt_flops_per_token)
+    # remat "dots" saves matmul outputs only, so each block's flash
+    # forward runs again in backward: 2 forward launches per layer
+    flash_launches, loss1 = phase_train_throughput(
+        torch, cfg, [fa.launches, ra.launches], distributed,
+        gpt_flops_per_token, lambda L: {"fwd": 2 * L, "bwd_dkdv": L,
+                                        "bwd_dq": L, "pair_bwd_dkdv": 0,
+                                        "pair_bwd_dq": 0})
     print(f"[phase 7] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ring = phase_ring_pair_kernels(torch, fa, ra)
+    print(f"[phase 8] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_ring_vs_flash(torch, fa, ra)
+    print(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sep = 4
+    live = sep * (sep + 1) // 2        # pairs with j <= i: 4 diagonal, 6 full
+    # the ring's forward pairs run the flash forward kernel, again under
+    # "dots"; each live pair runs both backward kernels once
+    ring_launches, ring_loss1 = phase_train_throughput(
+        torch, dataclasses.replace(cfg, seq_parallel="ring"),
+        [fa.launches, ra.launches], distributed, gpt_flops_per_token,
+        lambda L: {"fwd": 2 * live * L, "bwd_dkdv": 0, "bwd_dq": 0,
+                   "pair_bwd_dkdv": live * L, "pair_bwd_dq": live * L},
+        sep=sep, tag="phase 10")
+    rel = abs(ring_loss1 - loss1) / abs(loss1)
+    print(f"[phase 10] step-1 loss: ring sep=4 {ring_loss1:.6f}, flash "
+          f"(phase 7) {loss1:.6f}, relative difference {rel:.3g} "
+          f"(checked at 2e-3)")
+    check(rel <= 2e-3, f"ring step-1 loss differs from phase 7's by "
+                       f"{rel:.4g} relative")
+    print(f"[phase 10] {time.perf_counter() - t0:.1f} s")
 
     src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
     kernels = [{
@@ -792,7 +1061,14 @@ def main():
         {"name": f"flash_attention_{name}", "route": "cuda", "source": src,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
          "launches": flash_launches[name], **flash[name]}
-        for name, line in (("fwd", 64), ("bwd_dkdv", 168), ("bwd_dq", 215))]
+        for name, line in (("fwd", 64), ("bwd_dkdv", 168), ("bwd_dq", 215))
+    ] + [
+        {"name": f"ring_{name}", "route": "cuda", "source": src,
+         "replaces": f"paddle_tpu/kernels/ring_attention.py:{line}",
+         "launches": ring_launches[name], **ring[name]}
+        for name, line in (("pair_bwd_dkdv", 105), ("pair_bwd_dq", 133))]
+    # the forward kernel also runs every ring pair's forward (phase 10)
+    kernels[1]["ring_launches"] = ring_launches["fwd"]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 ``paddle_tpu/distributed/engine.py``).
 
 ``HybridEngine(cfg).step`` is the JAX package's ``_step_local`` at
-dp = pp = sharding = sep = mp = ep = 1, written eagerly:
+dp = pp = sharding = mp = ep = 1, written eagerly:
 
   tokens [B, S] → embedding → blocks in a Python loop, each under the
   ``cfg.remat`` checkpoint policy → final LN + tied-vocab CE in
@@ -11,13 +11,22 @@ dp = pp = sharding = sep = mp = ep = 1, written eagerly:
   bias correction and decoupled weight decay, in windows of at most
   ``opt_update_window`` elements, in place.
 
+Sequence parallelism with ``cfg.seq_parallel == "ring"`` and ``sep > 1``
+runs every sep rank's shard on the one device: the whole sequence stays
+on it, each block's attention is ``ring_attention`` over ``sep``
+contiguous shards (``_attention``), and dropout draws its mask per
+shard with the shard index folded into the seed (``_dropout``), as the
+JAX step folds the sep index into its key.  Everything else in a step
+is per token, so it equals the JAX engine's sharded step.
+
 What has no counterpart on one GPU is left out: the mesh and its
 collectives, ZeRO chunking, the ``_SLOT_LANE`` padding of optimizer
 slots (a TPU tiling concern), the pipeline schedules and the compile
-watchdog (the step is eager, not jitted).  Any parallel axis > 1 raises
-``NotImplementedError``: those paths are the multi-GPU slice of the
-port.  Optimizer slots are stored param-shaped, which is the JAX
-package's canonical, topology-neutral form (``opt_canonical``).
+watchdog (the step is eager, not jitted).  Every other parallel axis
+> 1, and Ulysses with ``sep > 1``, raises ``NotImplementedError``: those
+paths are the multi-GPU slice of the port.  Optimizer slots are stored
+param-shaped, which is the JAX package's canonical, topology-neutral
+form (``opt_canonical``).
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
-from ..models.gpt import _dropout, _fold, _flat_items, run_blocks
+from ..models.gpt import (_default_attention, _dropout, _fold, _flat_items,
+                          run_blocks)
 from .model_adapter import GPTAdapter, ModelAdapter
 
 __all__ = ["HybridEngine", "EngineConfig"]
@@ -93,23 +103,28 @@ class HybridEngine:
                  engine_cfg: EngineConfig = None, device=None):
         """``cfg``: a model config (GPTConfig trains through GPTAdapter)
         or a ``ModelAdapter``.  Entry point: runs on CUDA unless
-        ``device`` says otherwise."""
-        axes = {"dp": dp, "pp": pp, "sharding": sharding, "sep": sep,
-                "mp": mp, "ep": ep}
-        multi = {k: n for k, n in axes.items() if n != 1}
-        if multi:
-            raise NotImplementedError(
-                f"parallel axes {multi} are not ported yet: this engine "
-                f"trains on one GPU, and dp/pp/sharding/sep/mp/ep > 1 are "
-                f"the multi-GPU slice of the port")
+        ``device`` says otherwise.  ``sep > 1`` trains with ring
+        sequence parallelism on this one device when
+        ``cfg.seq_parallel == "ring"``."""
         self.model = cfg if isinstance(cfg, ModelAdapter) else GPTAdapter(cfg)
         self.cfg = self.model.cfg
         if self.cfg.seq_parallel not in ("ulysses", "ring"):
             raise ValueError(
                 f"unknown seq_parallel {self.cfg.seq_parallel!r}")
+        self.sep, self.mp = sep, mp
+        self.model.validate(self)
+        axes = {"dp": dp, "pp": pp, "sharding": sharding, "sep": sep,
+                "mp": mp, "ep": ep}
+        multi = {k: n for k, n in axes.items() if n != 1
+                 and not (k == "sep" and self.cfg.seq_parallel == "ring")}
+        if multi:
+            raise NotImplementedError(
+                f"parallel axes {multi} are not ported yet: this engine "
+                f"trains on one GPU (sep > 1 with seq_parallel='ring' "
+                f"included), and dp/pp/sharding/mp/ep > 1 and Ulysses "
+                f"sep > 1 are the multi-GPU slice of the port")
         self.ec = engine_cfg or EngineConfig()
         self.device = resolve_device(device)
-        self.model.validate(self)
 
     # ---------------------------------------------------------------- init
     def _opt_dtype(self):
@@ -182,6 +197,27 @@ class HybridEngine:
                 "slots": build(canon["m"], canon["v"], canon["master"])}
 
     # ------------------------------------------------------- forward pieces
+    def _attention(self, q, k, v, causal=True):
+        """Attention of one block, q/k/v ``[B, H, S, hd]`` over the whole
+        sequence: ring attention over ``sep`` shards when sep > 1 (only
+        ring reaches here), else flash where its gate allows and the
+        naive route otherwise."""
+        if self.sep > 1:
+            from ..kernels.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, self.sep, causal=causal)
+        return _default_attention(self.cfg, q, k, v, causal=causal)
+
+    def _dropout(self, x, rate, seed):
+        """Dropout on ``x [B, S, ...]``; at sep > 1 each of the ``sep``
+        sequence shards draws its own mask, with its index folded into
+        ``seed``."""
+        if self.sep == 1 or seed is None or rate <= 0.0:
+            return _dropout(x, rate, seed)
+        return torch.cat([_dropout(c, rate, _fold(seed, i))
+                          for i, c in enumerate(x.chunk(self.sep, dim=1))],
+                         dim=1)
+
     def _embed_core(self, wte, wpe, tokens):
         """Embedding + position embedding, cast to the working dtype."""
         s = tokens.shape[1]
@@ -231,7 +267,7 @@ class HybridEngine:
         aux = {k: v for k, v in params.items() if k != "blocks"}
         x = self.model.embed(self, aux, tokens)
         if seed is not None:
-            x = _dropout(x, cfg.dropout, _fold(seed, 999983))
+            x = self._dropout(x, cfg.dropout, _fold(seed, 999983))
 
         def block_fn(bp, x, s):
             return self.model.block(self, bp, x, s)
@@ -264,6 +300,12 @@ class HybridEngine:
         ``engine::optimizer``."""
         ec, cfg = self.ec, self.cfg
         tokens, labels = self._as_ids(tokens), self._as_ids(labels)
+        S = tokens.shape[1]
+        if self.sep > 1 and S % (self.sep * 128):
+            raise ValueError(
+                f"ring sequence parallelism splits S={S} into sep="
+                f"{self.sep} shards of a multiple of 128 tokens each; "
+                f"S % (sep * 128) must be 0")
         items = list(_flat_items(params))
         paths = [p for p, _ in items]
         leaves = [t for _, t in items]

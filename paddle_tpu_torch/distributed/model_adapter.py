@@ -30,10 +30,16 @@ class ModelAdapter:
     cfg = None
 
     def validate(self, engine):
-        if self.cfg.moe_experts:
+        cfg = self.cfg
+        if cfg.moe_experts:
             raise NotImplementedError(
                 "MoE blocks are not ported yet; the port trains dense "
                 "models")
+        if engine.sep > 1 and cfg.seq_parallel == "ulysses" and \
+                (cfg.num_heads // engine.mp) % engine.sep:
+            raise ValueError(
+                "Ulysses needs local heads divisible by sep (use "
+                "seq_parallel='ring' to lift the head cap)")
 
     def init(self, generator, device):
         raise NotImplementedError
@@ -77,7 +83,9 @@ class GPTAdapter(ModelAdapter):
     def block(self, engine, bp, x, seed):
         from ..models.gpt import gpt_block
 
-        return gpt_block(self.cfg, bp, x, dropout_seed=seed)
+        return gpt_block(self.cfg, bp, x, dropout_seed=seed,
+                         attention=engine._attention,
+                         dropout=engine._dropout)
 
     def head_loss(self, engine, aux, x, labels):
         from ..models.gpt import _layer_norm

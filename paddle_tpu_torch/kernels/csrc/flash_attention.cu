@@ -49,6 +49,23 @@
 //   fp32: scalar fp32 FMAs over fp32 shared-memory tiles, 256 threads
 //     (the first design, kept for fp32 inputs, whose products the
 //     bf16 tensor cores cannot take without rounding them).
+//
+// Ring attention's per-pair backward (paddle_tpu/kernels/ring_attention.py
+// _pair_bwd, its two pallas_calls of the dK/dV and dQ kernels) is the same
+// pair of backward kernels with two differences, so it is the same
+// templates instantiated once more (ring_pair_bwd_*_launch): dO comes in
+// fp32 while q/k/v are bf16, and dK, dV, dQ are written in fp32 (the
+// ring sums them over the pairs of a rank in fp32).  lse and delta are
+// the ring-global ones, computed outside.  On the tensor-core route dO is
+// rounded to bf16 as it is staged into shared memory, like P and dS:
+// exact where dO is the fp32 copy of a bf16 gradient (the training path),
+// one more 2^-9 rounding per term otherwise.  fp32 q/k/v take the scalar
+// fp32 kernels, whose dO and outputs are fp32 already.  At the sep = 4
+// training shapes (B*H = 128, s = 512, D = 128, a full pair) bytes bound
+// them, not operations: dK/dV moves 151.5 MB (0.045 ms at 3.35 TB/s) for
+// 34.4 GFLOP (0.035 ms), dQ 118.0 MB for 25.8 GFLOP, the fp32 dO and
+// outputs being half of it; each input tile is read once per block and
+// each output written once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -521,6 +538,44 @@ __device__ __forceinline__ void async_tile(__nv_bfloat16* dst,
   }
 }
 
+// dO tiles into bf16 shared memory: a bf16 dO by cp.async, an fp32 dO
+// (ring pairs) loaded 32 bytes a thread, rounded to bf16 and stored, which
+// finishes before the call returns; the barrier after the next wait makes
+// it visible like the asynchronous copies.
+template <int D>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int row0, int S) {
+  async_tile<D>(dst, src, row0, S);
+}
+template <int D>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const float* src, int row0,
+                                           int S) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreadsTC) {
+    const int r = idx / CH, c = idx % CH;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S) {
+      const float4* p =
+          reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c * 8);
+      const float4 a = p[0], b = p[1];
+      packed = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                          pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = packed;
+  }
+}
+
+// Two neighbouring output columns in the output type: bf16 (flash) or
+// fp32 (ring pairs).
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // lse and delta of rows [row0, row0 + kTile) (0 past S: those rows are
 // masked out).
 __device__ __forceinline__ void async_rows(float* lse_dst, float* delta_dst,
@@ -681,16 +736,17 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
-template <int D>
+// TdO: dO's type in device memory; TG: dK/dV's.  bf16/bf16 for flash,
+// fp32/fp32 for a ring pair.
+template <int D, typename TdO, typename TG>
 __global__ void __launch_bounds__(kThreadsTC)
     flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
+                             const TdO* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int S,
+                             TG* __restrict__ dk, TG* __restrict__ dv, int S,
                              float scale, int causal) {
   constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -717,7 +773,7 @@ __global__ void __launch_bounds__(kThreadsTC)
   async_tile<D>(Ks, k + base, k0, S);
   async_tile<D>(Vs, v + base, k0, S);
   async_tile<D>(Qs, q + base, qt0 * kTile, S);
-  async_tile<D>(dOs, dout + base, qt0 * kTile, S);
+  stage_tile<D>(dOs, dout + base, qt0 * kTile, S);
   async_rows(lse_s, delta_s, lse_bh, delta_bh, qt0 * kTile, S);
   cp_async_commit();
 
@@ -728,7 +784,7 @@ __global__ void __launch_bounds__(kThreadsTC)
     if (it + 1 < n_tiles) {
       const int nxt = ((it + 1) & 1) * TILE, rnxt = ((it + 1) & 1) * kTile;
       async_tile<D>(Qs + nxt, q + base, q0 + kTile, S);
-      async_tile<D>(dOs + nxt, dout + base, q0 + kTile, S);
+      stage_tile<D>(dOs + nxt, dout + base, q0 + kTile, S);
       async_rows(lse_s + rnxt, delta_s + rnxt, lse_bh, delta_bh,
                  q0 + kTile, S);
       cp_async_commit();
@@ -790,26 +846,24 @@ __global__ void __launch_bounds__(kThreadsTC)
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= S) continue;
     const size_t at = base + (size_t)key[h] * D + 2 * t;
-    uint32_t* dkp = reinterpret_cast<uint32_t*>(dk + at);
-    uint32_t* dvp = reinterpret_cast<uint32_t*>(dv + at);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      dkp[4 * n] = pack_bf16(dka[n][2 * h], dka[n][2 * h + 1]);
-      dvp[4 * n] = pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+      store2(dk + at + 8 * n, dka[n][2 * h], dka[n][2 * h + 1]);
+      store2(dv + at + 8 * n, dva[n][2 * h], dva[n][2 * h + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, typename TdO, typename TG>
 __global__ void __launch_bounds__(kThreadsTC)
     flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
+                           const TdO* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dq, int S,
-                           float scale, int causal) {
+                           TG* __restrict__ dq, int S, float scale,
+                           int causal) {
   constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -833,7 +887,7 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 
   async_tile<D>(Qs, q + base, q0, S);
-  async_tile<D>(dOs, dout + base, q0, S);
+  stage_tile<D>(dOs, dout + base, q0, S);
   async_tile<D>(Ks, k + base, 0, S);
   async_tile<D>(Vs, v + base, 0, S);
   cp_async_commit();
@@ -900,11 +954,10 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= S) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(dq + base +
-                                                (size_t)row[h] * D + 2 * t);
+    TG* dst = dq + base + (size_t)row[h] * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
-      dst[4 * n] = pack_bf16(dqa[n][2 * h], dqa[n][2 * h + 1]);
+      store2(dst + 8 * n, dqa[n][2 * h], dqa[n][2 * h + 1]);
   }
 }
 
@@ -957,7 +1010,9 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// TdO, TG: dO's and the gradients' types on the tensor-core route (the
+// scalar fp32 route takes fp32 for both).
+template <int D, typename TdO = bf16, typename TG = bf16>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int BH,
          int S, float scale, int causal, int dtype, cudaStream_t st) {
@@ -972,17 +1027,17 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
         (float*)dk, (float*)dv, S, scale, causal);
   } else {
     constexpr size_t smem = tc_tiles<D>(6) + 4 * kTile * sizeof(float);
-    int rc = prepare(flash_bwd_dkdv_tc_kernel<D>, smem);
+    int rc = prepare(flash_bwd_dkdv_tc_kernel<D, TdO, TG>, smem);
     if (rc) return rc;
-    flash_bwd_dkdv_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S,
-        scale, causal);
+    flash_bwd_dkdv_tc_kernel<D, TdO, TG><<<grid, kThreadsTC, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
+        (const float*)lse, (const float*)delta, (TG*)dk, (TG*)dv, S, scale,
+        causal);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename TdO = bf16, typename TG = bf16>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_, int BH, int S,
        float scale, int causal, int dtype, cudaStream_t st) {
@@ -997,14 +1052,23 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         (float*)dq_, S, scale, causal);
   } else {
     constexpr size_t smem = tc_tiles<D>(6);
-    int rc = prepare(flash_bwd_dq_tc_kernel<D>, smem);
+    int rc = prepare(flash_bwd_dq_tc_kernel<D, TdO, TG>, smem);
     if (rc) return rc;
-    flash_bwd_dq_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq_, S, scale,
-        causal);
+    flash_bwd_dq_tc_kernel<D, TdO, TG><<<grid, kThreadsTC, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
+        (const float*)lse, (const float*)delta, (TG*)dq_, S, scale, causal);
   }
   return (int)cudaGetLastError();
+}
+
+// A ring pair's backward: fp32 dO in, fp32 gradients out.
+template <int D, typename... A>
+int ring_dkdv(A... a) {
+  return dkdv<D, float, float>(a...);
+}
+template <int D, typename... A>
+int ring_dq(A... a) {
+  return dq<D, float, float>(a...);
 }
 
 // Dispatch on the head dim (32, 64, 128); dtype 0 = fp32 (scalar
@@ -1047,5 +1111,27 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    float scale, int causal, int dtype,
                                    void* stream) {
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
+                 causal, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// One ring pair's backward with the ring-global lse and delta: q, k, v
+// [BH, S, D] of dtype (0 fp32, 1 bf16), dout fp32, dk/dv (dq) fp32.
+extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dk, void* dv, int BH, int S,
+                                         int D, float scale, int causal,
+                                         int dtype, void* stream) {
+  FLASH_DISPATCH(ring_dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
+                 causal, dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ring_pair_bwd_dq_launch(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dq_out, int BH, int S, int D,
+                                       float scale, int causal, int dtype,
+                                       void* stream) {
+  FLASH_DISPATCH(ring_dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }

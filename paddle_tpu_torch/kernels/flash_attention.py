@@ -17,9 +17,14 @@ versions, on CUDA tensors the kernels, and there is no fallback from one
 to the other.
 
 Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
-``[B, H, S]`` fp32.  Math is fp32 on both paths.  On the card the
-kernels take D ∈ {32, 64, 128} (every head dim of ``GPT_CONFIGS``); any
-other D raises ``ValueError`` there.
+``[B, H, S]`` fp32.  Math is fp32 on both paths.  The kernels are
+instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128}; a smaller D is
+zero-padded up to the next of them and the result sliced back, which is
+exact (zero columns add nothing to q·k and give zero output and gradient
+columns; the scale stays that of the real D).  D > 128 raises
+``ValueError`` on the card: a D = 256 instantiation would hold 256 fp32
+dK/dV accumulators a thread (the limit is 255 registers) and the fp32
+dK/dV tiles would need 296 KB of shared memory (227 KB a block).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["flash_attention", "flash_attention_available",
            "flash_attention_plain", "launches"]
@@ -82,18 +88,19 @@ def _bwd_p_ds(q, k, v, lse, delta, do, scale, causal):
     return p, p * (dp - delta[..., None]) * scale
 
 
-def _bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal):
-    """Plain dK/dV: dV = Pᵀ dO, dK = dSᵀ Q."""
+def _bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal, dtype=None):
+    """Plain dK/dV: dV = Pᵀ dO, dK = dSᵀ Q, in ``dtype`` (q's when
+    None)."""
     p, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale, causal)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    return dk.to(q.dtype), dv.to(q.dtype)
+    return dk.to(dtype or q.dtype), dv.to(dtype or q.dtype)
 
 
-def _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal):
-    """Plain dQ: dQ = dS K."""
+def _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal, dtype=None):
+    """Plain dQ: dQ = dS K, in ``dtype`` (q's when None)."""
     _, ds = _bwd_p_ds(q, k, v, lse, delta, do, scale, causal)
-    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(dtype or q.dtype)
 
 
 def _flash_bwd_ref(q, k, v, out, lse, do, scale, causal):
@@ -119,17 +126,37 @@ def _lib():
                                               + [f, i, i, ptr])
         lib.flash_bwd_dq_launch.argtypes = ([ptr] * 7 + [i] * 3
                                             + [f, i, i, ptr])
+        # ring attention's per-pair backward: the same arguments
+        lib.ring_pair_bwd_dkdv_launch.argtypes = \
+            lib.flash_bwd_dkdv_launch.argtypes
+        lib.ring_pair_bwd_dq_launch.argtypes = lib.flash_bwd_dq_launch.argtypes
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkdv_launch,
-                   lib.flash_bwd_dq_launch):
+                   lib.flash_bwd_dq_launch, lib.ring_pair_bwd_dkdv_launch,
+                   lib.ring_pair_bwd_dq_launch):
             fn.restype = ctypes.c_int
     return lib
 
 
+def _pad_head_dim(*ts):
+    """``ts`` ``[..., D]`` zero-padded on the head dim to the smallest
+    size in ``HEAD_DIMS`` that holds D (unchanged when D is one of
+    them); ``ValueError`` past the largest."""
+    D = ts[0].shape[-1]
+    n = next((n for n in HEAD_DIMS if n >= D), None)
+    if n is None:
+        raise ValueError(f"flash_attention CUDA kernels take head_dim <= "
+                         f"{HEAD_DIMS[-1]} (zero-padded up to one of "
+                         f"{HEAD_DIMS}), got {D}")
+    return ts if n == D else tuple(F.pad(t, (0, n - D)) for t in ts)
+
+
+def _unpad_head_dim(D, *ts):
+    """The first ``D`` columns of each padded result, contiguous."""
+    return tuple(t if t.shape[-1] == D else t[..., :D].contiguous()
+                 for t in ts)
+
+
 def _check_cuda(q, k, v, *rest):
-    D = q.shape[-1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention CUDA kernels take head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
     for t in (q, k, v) + rest:
         if t.device != q.device:
             raise ValueError("flash_attention: inputs on different devices")
@@ -140,49 +167,57 @@ def _check_cuda(q, k, v, *rest):
                              "and delta fp32)")
 
 
-def _launch(name, fn, *args):
+def _launch(counts, name, fn, *args):
+    """Call the C entry ``fn`` on the current stream with tensors passed
+    as device pointers; raise on a non-zero CUDA error, else count the
+    launch in ``counts[name]``."""
     q = args[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
-                           f"CUDA error {rc}")
-    launches[name] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    counts[name] += 1
 
 
 def _flash_fwd_cuda(q, k, v, scale, causal):
+    D = q.shape[-1]
+    q, k, v = _pad_head_dim(q, k, v)
     _check_cuda(q, k, v)
-    B, H, S, D = q.shape
+    B, H, S, Dk = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch("fwd", _lib().flash_fwd_launch, q, k, v, out, lse,
-                B * H, S, D, float(scale), int(causal), _DTYPES[q.dtype])
-    return out, lse
+        _launch(launches, "fwd", _lib().flash_fwd_launch, q, k, v, out, lse,
+                B * H, S, Dk, float(scale), int(causal), _DTYPES[q.dtype])
+    return _unpad_head_dim(D, out)[0], lse
 
 
 def _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
+    D = q.shape[-1]
+    q, k, v, do = _pad_head_dim(q, k, v, do)
     _check_cuda(q, k, v, do, lse, delta)
-    B, H, S, D = q.shape
+    B, H, S, Dk = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _launch("bwd_dkdv", _lib().flash_bwd_dkdv_launch, q, k, v, do, lse,
-                delta, dk, dv, B * H, S, D, float(scale), int(causal),
-                _DTYPES[q.dtype])
-    return dk, dv
+        _launch(launches, "bwd_dkdv", _lib().flash_bwd_dkdv_launch, q, k, v,
+                do, lse, delta, dk, dv, B * H, S, Dk, float(scale),
+                int(causal), _DTYPES[q.dtype])
+    return _unpad_head_dim(D, dk, dv)
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
+    D = q.shape[-1]
+    q, k, v, do = _pad_head_dim(q, k, v, do)
     _check_cuda(q, k, v, do, lse, delta)
-    B, H, S, D = q.shape
+    B, H, S, Dk = q.shape
     dq = torch.empty_like(q)
     if q.numel():
-        _launch("bwd_dq", _lib().flash_bwd_dq_launch, q, k, v, do, lse,
-                delta, dq, B * H, S, D, float(scale), int(causal),
+        _launch(launches, "bwd_dq", _lib().flash_bwd_dq_launch, q, k, v, do,
+                lse, delta, dq, B * H, S, Dk, float(scale), int(causal),
                 _DTYPES[q.dtype])
-    return dq
+    return _unpad_head_dim(D, dq)[0]
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal):
@@ -248,8 +283,8 @@ def _check(q, k, v):
 def flash_attention_available(q, k, v, mask, causal=False):
     """The JAX package's gate, kept as it is: no mask, equal [B, H, S, D]
     shapes, D ≤ 256, and S a multiple of 128 unless causal.  On the card
-    the kernels take only D ∈ ``HEAD_DIMS`` and raise on any other D
-    this gate lets through."""
+    the kernels take D ≤ 128 (padded up to ``HEAD_DIMS``) and raise on
+    the 128 < D ≤ 256 this gate lets through."""
     if mask is not None:
         return False
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:

@@ -172,30 +172,33 @@ def _dropout(x, rate, seed):
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def _default_attention(cfg, q, k, v):
+def _default_attention(cfg, q, k, v, causal=True):
     """Flash attention where its gate allows, else the naive route — the
     choice ``gpt_block`` makes in the JAX package."""
     if cfg.use_flash:
         from ..kernels.flash_attention import (flash_attention,
                                                flash_attention_available)
 
-        if flash_attention_available(q, k, v, None, causal=True):
-            return flash_attention(q, k, v, causal=True)
+        if flash_attention_available(q, k, v, None, causal=causal):
+            return flash_attention(q, k, v, causal=causal)
     from ..ops.attention import _naive_attention
 
-    return _naive_attention(q, k, v, causal=True, training=False)
+    return _naive_attention(q, k, v, causal=causal, training=False)
 
 
-def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None):
+def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
+              dropout=_dropout):
     """One pre-LN transformer block (attention + dense MLP) on
     ``x [B, S, D]``; ``bp`` is this layer's slice of the stacked block
     params.  Returns the new ``x`` (a dense block has no MoE aux loss).
 
     ``dropout_seed`` (an int) enables residual dropout on the attention
-    projection and the FFN output.  ``attention(q, k, v)`` on
-    ``[B, H, S, hd]`` replaces the causal attention call (default: flash
-    attention where available, else the naive route) — the hook through
-    which a caller runs the block on the plain version for comparison."""
+    projection and the FFN output, drawn by ``dropout(x, rate, seed)``
+    (the engine's draws a mask per sequence shard).  ``attention(q, k,
+    v)`` on ``[B, H, S, hd]`` replaces the causal attention call
+    (default: flash attention where available, else the naive route) —
+    the hook through which a caller runs the block on the plain version
+    for comparison, and the engine its sequence-parallel attention."""
     _require_dense(cfg)
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
@@ -216,13 +219,13 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None):
         attn = attention(q, k, v)
     attn = attn.transpose(1, 2).reshape(B, S, D)
     proj = attn @ bp["proj_w"] + bp["proj_b"]
-    x = x + _dropout(proj, cfg.dropout, s_attn)
+    x = x + dropout(proj, cfg.dropout, s_attn)
 
     h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
     h = h @ bp["up_w"] + bp["up_b"]
     h = F.gelu(h, approximate="tanh")
     h = h @ bp["down_w"] + bp["down_b"]
-    return x + _dropout(h, cfg.dropout, s_ffn)
+    return x + dropout(h, cfg.dropout, s_ffn)
 
 
 def unbind_layers(blocks):

@@ -177,9 +177,22 @@ def test_flash_autograd_on_card_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_other_head_dims(cuda):
+    """D ≤ 128 outside ``HEAD_DIMS`` runs zero-padded (equal to the
+    plain version); 128 < D ≤ 256 passes the JAX gate and raises."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    q, k, v, _ = _flash_case(128, 96, torch.float32)
+    q, k, v, do = _flash_case(128, 96, torch.float32)
+    assert fa.flash_attention_available(q, k, v, None, causal=True)
+    outs = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do)
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        assert a.shape == b.shape == q.shape
+        torch.testing.assert_close(a, b, **FLASH_TOL[torch.float32])
+    q, k, v, _ = _flash_case(128, 192, torch.float32)
     assert fa.flash_attention_available(q, k, v, None, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v, causal=True)
@@ -222,3 +235,70 @@ def test_train_step_on_card_matches_cpu(cuda):
                            "bwd_dq": 2 * L}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+# ----------------------------------------------------- ring attention
+
+
+def _ring_module():
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_pair_kernels_match_plain(cuda, causal, D, dtype):
+    """One ring pair's dK/dV and dQ kernels (fp32 dO, fp32 outputs)
+    against ``_pair_bwd_ref`` with a ring-global lse and δ (the pair's
+    merged with one more block).  bf16 q/k/v round P, dS and the fp32 dO
+    to bf16 for the tensor cores: the bf16 tolerance."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    ra = _ring_module()
+    q, k, v, k2 = _flash_case(256, D, dtype, seed=D)
+    v2, do = _flash_case(256, D, torch.float32, seed=D + 1)[:2]
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    _, lse2 = fa._flash_fwd_ref(q, k2, v2.to(dtype), scale, False)
+    lse = torch.logaddexp(lse, lse2)
+    delta = (do * out.float()).sum(-1)
+    before = dict(ra.launches)
+    dk, dv = ra._pair_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = ra._pair_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    want = ra._pair_bwd_ref(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert ra.launches == {n: before[n] + 1 for n in before}
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert a.dtype == torch.float32 and a.shape == q.shape, name
+        torch.testing.assert_close(a, b, **FLASH_TOL[dtype], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_attention_on_card_matches_flash(cuda, dtype):
+    """``ring_attention`` over 4 shards against ``flash_attention`` on
+    the whole sequence: output and grads at the flash tolerances, and 10
+    live pairs launched (4 diagonal, 6 full) of each kernel."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    ra = _ring_module()
+    q, k, v, do = _flash_case(512, 64, dtype, seed=3)
+    outs = []
+    for fn in (lambda *a: ra.ring_attention(*a, sep=4),
+               lambda *a: fa.flash_attention(*a, causal=True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    fwd0, bwd0 = fa.launches["fwd"], dict(ra.launches)
+    ra.ring_attention(*(t.clone().requires_grad_(True) for t in (q, k, v)),
+                      sep=4).backward(do)
+    assert fa.launches["fwd"] - fwd0 == 10
+    assert ra.launches == {n: bwd0[n] + 10 for n in bwd0}
+    for a, b in zip(*outs):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype])
+

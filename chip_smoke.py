@@ -20,9 +20,10 @@ Phases (any failure exits non-zero):
      launch count held to 24 per step;
   5. the three flash-attention kernels (forward, dK/dV, dQ) vs their
      plain versions: edge cases (causal and not, ragged S, head dims 32,
-     64, 128, fp32 and bf16), then the 1.3B training shapes with each
-     kernel's time, bound, plain-version time and the time of PyTorch's
-     SDPA;
+     64, 128, 192 (zero-padded to 256) and 256, fp32 and bf16), then the
+     1.3B training shapes with each kernel's time, bound, plain-version
+     time and the time of PyTorch's SDPA, and the forward's time at head
+     dim 256 beside SDPA's;
   6. one full-width GPT-3 1.3B training step (bf16, 24 layers, batch
      1 x 2048): loss and every gradient with the kernels against the
      same step on the plain attention;
@@ -33,7 +34,7 @@ Phases (any failure exits non-zero):
   8. ring attention's per-pair backward kernels (dK/dV, dQ; fp32 dO and
      fp32 outputs, ring-global lse and delta) vs their plain versions:
      edge cases (diagonal and full pairs, shard lengths 128/256/512,
-     head dims 32, 64, 128 and a zero-padded 80, fp32 and bf16), then
+     head dims 32, 64, 128, 256 and a zero-padded 80, fp32 and bf16), then
      the per-rank shapes of the sep=4 training path with each kernel's
      time, bound, plain-version time and the time of PyTorch's flash
      attention backward on the same pair;
@@ -438,7 +439,7 @@ def phase_flash_kernels(torch, fa):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         tol = TOL_FLASH[dtype_name]
-        for D in (32, 64, 128):
+        for D in (32, 64, 128, 192, 256):
             for S, causal in cases:
                 g = torch.Generator(device="cuda").manual_seed(n)
                 q, k, v, do = (torch.randn((2, 3, S, D), generator=g,
@@ -565,6 +566,32 @@ def phase_flash_kernels(torch, fa):
     print("[phase 5] fp32 inputs (scalar FMA kernels) at the same shapes: "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in f32.items()))
     del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    # the widest head dim the kernels take: the forward beside SDPA's
+    D = 256
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, out, ref), max_err(torch, lse, ref_lse))
+    check(torch.allclose(out.float(), ref.float(), **TOL_FLASH["bfloat16"])
+          and torch.allclose(lse, ref_lse, **TOL_FLASH["float32"]),
+          f"flash fwd kernel != plain at head dim 256: {err:.3g}")
+    del ref, ref_lse
+    t_fwd = time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
+                    10)
+    t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    nbytes, flops = flash_work(B, H, S, D, True)["fwd"]
+    print(f"[phase 5] flash fwd at q/k/v {[B, H, S, D]} bf16 causal: kernel "
+          f"{t_fwd:.4f} ms ({flops / t_fwd / 1e9:.1f} TFLOP/s), SDPA "
+          f"{t_lib:.4f} ms, bound {flops / BF16_FLOPS * 1e3:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s), max abs err "
+          f"{err:.3g}")
+    del q, k, v, out, lse
     torch.cuda.empty_cache()
     return result
 
@@ -809,7 +836,7 @@ def phase_ring_pair_kernels(torch, fa, ra):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for s in (128, 256, 512):
-            for D in (32, 64, 128, 80):
+            for D in (32, 64, 128, 80, 256):
                 c = ring_pair_case(torch, fa, 2, 3, s, D, dtype, seed=n)
                 for causal in (True, False):
                     k, v = c["pairs"][causal]
@@ -987,7 +1014,10 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs().items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            # registers and spills of every kernel, and ptxas's notes on
+            # wgmma serialisation or an ignored setmaxnreg
+            if any(w in line for w in ("Used", "spill", "wgmma",
+                                       "setmaxnreg")):
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -1053,12 +1083,14 @@ def main():
     print(f"[phase 10] {time.perf_counter() - t0:.1f} s")
 
     src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+    fwd_src = "paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
         "launches": launches, **rpa}] + [
-        {"name": f"flash_attention_{name}", "route": "cuda", "source": src,
+        {"name": f"flash_attention_{name}", "route": "cuda",
+         "source": fwd_src if name == "fwd" else src,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
          "launches": flash_launches[name], **flash[name]}
         for name, line in (("fwd", 64), ("bwd_dkdv", 168), ("bwd_dq", 215))

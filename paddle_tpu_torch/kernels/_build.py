@@ -30,6 +30,7 @@ SOURCES = {
     "ragged_paged_attention": os.path.join("csrc",
                                            "ragged_paged_attention.cu"),
     "flash_attention": os.path.join("csrc", "flash_attention.cu"),
+    "flash_fwd_sm90": os.path.join("csrc", "flash_fwd_sm90.cu"),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

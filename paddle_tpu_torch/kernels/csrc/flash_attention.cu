@@ -1,8 +1,9 @@
-// Flash attention for Hopper (sm_90a): forward, backward dK/dV and
-// backward dQ, each a hand-written kernel behind a plain C interface.
+// Flash attention for Hopper (sm_90a): the fp32 forward, backward dK/dV
+// and backward dQ, each a hand-written kernel behind a plain C interface.
+// The bf16 forward is flash_fwd_sm90.cu (wgmma + TMA).
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
-//   forward  <- _fwd_kernel       (the pallas_call in _flash_fwd)
+//   forward  <- _fwd_kernel       (the pallas_call in _flash_fwd; fp32)
 //   dK/dV    <- _bwd_dkdv_kernel  (the first pallas_call in _flash_bwd)
 //   dQ       <- _bwd_dq_kernel    (the second pallas_call in _flash_bwd)
 // Same contract: q, k, v, o, dO [B*H, S, D]; lse and delta =
@@ -12,7 +13,8 @@
 // the tail is masked in-kernel).  The forward runs the online softmax
 // (m, l, acc) with the l == 0 -> 1 guard of the TPU kernel and writes
 // lse = m + log(l); the backward recomputes P = exp(s - lse) and
-// dS = P * (dP - delta) * scale.  Head dims 32, 64 and 128.
+// dS = P * (dP - delta) * scale.  Head dims 32, 64, 128 and 256 (the
+// wrapper zero-pads any other D <= 256 up to the next of them).
 //
 // What bounds them on the H100: operations.  At the GPT-3 1.3B training
 // shapes (B*H = 128, S = 2048, D = 128, bf16, causal) the forward does
@@ -43,9 +45,10 @@
 // runs.
 //
 // Two routes share that layout:
-//   bf16 (the training path): tensor cores, mma.sync m16n8k16 with fp32
-//     accumulation, 4 warps of 16 rows each; the streamed tiles are
-//     double-buffered with cp.async (see the tensor-core section).
+//   bf16 backward (the training path): tensor cores, mma.sync m16n8k16
+//     with fp32 accumulation, 4 warps of 16 rows each; the streamed
+//     tiles are double-buffered with cp.async (see the tensor-core
+//     section).
 //   fp32: scalar fp32 FMAs over fp32 shared-memory tiles, 256 threads
 //     (the first design, kept for fp32 inputs, whose products the
 //     bf16 tensor cores cannot take without rounding them).
@@ -75,7 +78,6 @@ namespace {
 
 constexpr int kTile = 64;           // query rows and key rows per tile
 constexpr int kThreads = 256;
-constexpr int kPS = kTile + 1;      // padded row of a score tile
 constexpr float kNegInf = -1e30f;   // the TPU kernel's _NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -91,23 +93,24 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Rows [row0, row0 + kTile) of a [S, D] matrix into a [kTile][D + 1]
-// fp32 tile; rows at or past S are zeros.
-template <int D>
+// Rows [row0, row0 + T) of a [S, D] matrix into a [T][D + 1] fp32
+// tile; rows at or past S are zeros.
+template <int D, int T>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int row0, int S) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < T * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
     dst[r * (D + 1) + c] = gr < S ? src[(size_t)gr * D + c] : 0.f;
   }
 }
 
-// lse / delta of rows [row0, row0 + kTile); 0 past S (those rows are
+// lse / delta of rows [row0, row0 + T); 0 past S (those rows are
 // masked out, so the value is never used).
+template <int T>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
+  for (int r = threadIdx.x; r < T; r += kThreads)
     dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
 }
 
@@ -115,76 +118,80 @@ __device__ __forceinline__ bool live(int qr, int kc, int S, int causal) {
   return qr < S && kc < S && (!causal || kc <= qr);
 }
 
-// s[i][j] += A[ty + 16i] . B[tx + 16j] over D, both tiles [kTile][D + 1].
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
+// s[i][j] += A[ty + 16i] . B[tx + 16j] over D, both tiles [T][D + 1]
+// with R = T / 16 rows and columns a thread.
+template <int D, int R>
+__device__ __forceinline__ void tile_dot(float (&s)[R][R], const float* A,
                                          const float* B, int ty, int tx) {
   constexpr int LD = D + 1;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
 }
 
 // ------------------------------------------------ fp32: scalar kernels
 //
-// Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16i and key
-// columns tx + 16j (i, j < 4) of a score tile, and output columns
-// tx + 16c of the rows it owns.  A row's 16 owners are 16 consecutive
-// lanes, so row max and row sum are 4 xor-shuffles.  Shared rows are
-// padded to D + 1 floats, so the 16 different rows a warp reads at one
-// column fall in 16 different banks.
+// T is the tile (query rows and key rows): 64, or 32 where the tiles of
+// 64 rows do not fit in shared memory (the backward kernels at D = 256:
+// 297 and 280 KB of fp32 tiles against 227 KB a block).  Thread
+// (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16i and key
+// columns tx + 16j (i, j < R = T / 16) of a score tile, and output
+// columns tx + 16c of the rows it owns.  A row's 16 owners are 16
+// consecutive lanes, so row max and row sum are 4 xor-shuffles.  Shared
+// rows are padded to D + 1 floats, so the 16 different rows a warp reads
+// at one column fall in 16 different banks.
 
-template <int D>
+template <int D, int T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int S, float scale,
                      int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
+  constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;                  // [kTile][kPS]
+  float* Ks = Qs + T * LD;
+  float* Vs = Ks + T * LD;
+  float* Ps = Vs + T * LD;                      // [T][PS]
 
   const int bh = blockIdx.x;
   // heavy (late) query tiles of a causal pass are scheduled first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
   const size_t base = (size_t)bh * S * D;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D>(Qs, q + base, q0, S);
-  float m[4], l[4], acc[4][NC];
+  load_tile<D, T>(Qs, q + base, q0, S);
+  float m[R], l[R], acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  const int kv_end = causal ? min(S, q0 + T) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += T) {
     __syncthreads();               // last tile's Ps / Vs reads are done
-    load_tile<D>(Ks, k + base, k0, S);
-    load_tile<D>(Vs, v + base, k0, S);
+    load_tile<D, T>(Ks, k + base, k0, S);
+    load_tile<D, T>(Vs, v + base, k0, S);
     __syncthreads();
-    float s[4][4] = {};
-    tile_dot<D>(s, Qs, Ks, ty, tx);
+    float s[R][R] = {};
+    tile_dot<D, R>(s, Qs, Ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int qr = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = live(qr, k0 + tx + 16 * j, S, causal) ? s[i][j] * scale
                                                         : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -193,9 +200,9 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = s[i][j] > kNegInf ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
+        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
         rs += p;
       }
       l[i] = l[i] * corr + row_sum(rs);
@@ -205,20 +212,20 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float p[4], w[NC];
+    for (int kk = 0; kk < T; ++kk) {
+      float p[R], w[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPS + kk];
+      for (int i = 0; i < R; ++i) p[i] = Ps[(ty + 16 * i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < NC; ++c) w[c] = Vs[kk * LD + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], w[c], acc[i][c]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qr = q0 + ty + 16 * i;
     if (qr >= S) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
@@ -232,20 +239,20 @@ __global__ void __launch_bounds__(kThreads)
 
 // Shared by both backward kernels: P and dS of one (q tile, kv tile)
 // pair, from the staged Q, dO, K, V tiles and the rows' lse and delta.
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void bwd_scores(
-    float (&p)[4][4], float (&ds)[4][4], const float* Qs, const float* dOs,
+    float (&p)[R][R], float (&ds)[R][R], const float* Qs, const float* dOs,
     const float* Ks, const float* Vs, const float* lse_s,
     const float* delta_s, int q0, int k0, int S, float scale, int causal,
     int ty, int tx) {
-  float s[4][4] = {}, dp[4][4] = {};
-  tile_dot<D>(s, Qs, Ks, ty, tx);
-  tile_dot<D>(dp, dOs, Vs, ty, tx);
+  float s[R][R] = {}, dp[R][R] = {};
+  tile_dot<D, R>(s, Qs, Ks, ty, tx);
+  tile_dot<D, R>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const bool ok = live(q0 + r, k0 + tx + 16 * j, S, causal);
       p[i][j] = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
       ds[i][j] = p[i][j] * (dp[i][j] - delta_s[r]) * scale;
@@ -255,7 +262,7 @@ __device__ __forceinline__ void bwd_scores(
 
 // --------------------------------------------------------- dK and dV
 
-template <int D>
+template <int D, int T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
@@ -263,60 +270,60 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int S,
                           float scale, int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
+  constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;                 // [kTile q][kPS]
-  float* dSs = Ps + kTile * kPS;                // [kTile q][kPS]
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
+  float* Vs = Ks + T * LD;
+  float* Qs = Vs + T * LD;
+  float* dOs = Qs + T * LD;
+  float* Ps = dOs + T * LD;                     // [T q][PS]
+  float* dSs = Ps + T * PS;                     // [T q][PS]
+  float* lse_s = dSs + T * PS;
+  float* delta_s = lse_s + T;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;            // early tiles: most work
+  const int k0 = blockIdx.y * T;                // early tiles: most work
   const size_t base = (size_t)bh * S * D;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* delta_bh = delta + (size_t)bh * S;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D>(Ks, k + base, k0, S);
-  load_tile<D>(Vs, v + base, k0, S);
+  load_tile<D, T>(Ks, k + base, k0, S);
+  load_tile<D, T>(Vs, v + base, k0, S);
   // rows: kv rows ty + 16i of this tile; columns tx + 16c
-  float dk_acc[4][NC], dv_acc[4][NC];
+  float dk_acc[R][NC], dv_acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   // causal: only q tiles whose last row reaches k0
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kTile) {
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += T) {
     __syncthreads();               // last tile's Ps / dSs / Qs reads done
-    load_tile<D>(Qs, q + base, q0, S);
-    load_tile<D>(dOs, dout + base, q0, S);
-    load_rows(lse_s, lse_bh, q0, S);
-    load_rows(delta_s, delta_bh, q0, S);
+    load_tile<D, T>(Qs, q + base, q0, S);
+    load_tile<D, T>(dOs, dout + base, q0, S);
+    load_rows<T>(lse_s, lse_bh, q0, S);
+    load_rows<T>(delta_s, delta_bh, q0, S);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    bwd_scores<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
-                  causal, ty, tx);
+    float p[R][R], ds[R][R];
+    bwd_scores<D, R>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
+                     scale, causal, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p[i][j];
-        dSs[(ty + 16 * i) * kPS + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < R; ++j) {
+        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p[i][j];
+        dSs[(ty + 16 * i) * PS + tx + 16 * j] = ds[i][j];
       }
     __syncthreads();
     // dV += P^T dO, dK += dS^T Q over this q tile's rows
 #pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pc[4], dc[4], o[NC], x[NC];
+    for (int qq = 0; qq < T; ++qq) {
+      float pc[R], dc[R], o[NC], x[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pc[i] = Ps[qq * kPS + ty + 16 * i];
-        dc[i] = dSs[qq * kPS + ty + 16 * i];
+      for (int i = 0; i < R; ++i) {
+        pc[i] = Ps[qq * PS + ty + 16 * i];
+        dc[i] = dSs[qq * PS + ty + 16 * i];
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -324,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
         x[c] = Qs[qq * LD + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           dv_acc[i][c] = fmaf(pc[i], o[c], dv_acc[i][c]);
@@ -333,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int kr = k0 + ty + 16 * i;
     if (kr >= S) continue;
 #pragma unroll
@@ -347,69 +354,69 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ dQ
 
-template <int D>
+template <int D, int T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dq,
                         int S, float scale, int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
+  constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;                 // [kTile q][kPS]
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
+  float* dOs = Qs + T * LD;
+  float* Ks = dOs + T * LD;
+  float* Vs = Ks + T * LD;
+  float* dSs = Vs + T * LD;                     // [T q][PS]
+  float* lse_s = dSs + T * PS;
+  float* delta_s = lse_s + T;
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
   const size_t base = (size_t)bh * S * D;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D>(Qs, q + base, q0, S);
-  load_tile<D>(dOs, dout + base, q0, S);
-  load_rows(lse_s, lse + (size_t)bh * S, q0, S);
-  load_rows(delta_s, delta + (size_t)bh * S, q0, S);
-  float dq_acc[4][NC];
+  load_tile<D, T>(Qs, q + base, q0, S);
+  load_tile<D, T>(dOs, dout + base, q0, S);
+  load_rows<T>(lse_s, lse + (size_t)bh * S, q0, S);
+  load_rows<T>(delta_s, delta + (size_t)bh * S, q0, S);
+  float dq_acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dq_acc[i][c] = 0.f;
 
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  const int kv_end = causal ? min(S, q0 + T) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += T) {
     __syncthreads();               // last tile's dSs / Ks reads are done
-    load_tile<D>(Ks, k + base, k0, S);
-    load_tile<D>(Vs, v + base, k0, S);
+    load_tile<D, T>(Ks, k + base, k0, S);
+    load_tile<D, T>(Vs, v + base, k0, S);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    bwd_scores<D>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
-                  causal, ty, tx);
+    float p[R][R], ds[R][R];
+    bwd_scores<D, R>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
+                     scale, causal, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty + 16 * i) * kPS + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < R; ++j)
+        dSs[(ty + 16 * i) * PS + tx + 16 * j] = ds[i][j];
     __syncthreads();
     // dQ += dS K
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dc[4], w[NC];
+    for (int kk = 0; kk < T; ++kk) {
+      float dc[R], w[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dc[i] = dSs[(ty + 16 * i) * kPS + kk];
+      for (int i = 0; i < R; ++i) dc[i] = dSs[(ty + 16 * i) * PS + kk];
 #pragma unroll
       for (int c = 0; c < NC; ++c) w[c] = Ks[kk * LD + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) dq_acc[i][c] = fmaf(dc[i], w[c], dq_acc[i][c]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qr = q0 + ty + 16 * i;
     if (qr >= S) continue;
 #pragma unroll
@@ -420,8 +427,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------- bf16: tensor-core kernels
 //
-// bf16 inputs take these.  The products run on the tensor cores as
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate); softmax, scaling and
+// bf16 inputs take these in backward.  The products run on the tensor
+// cores as mma.sync m16n8k16 (bf16 in, fp32 accumulate); softmax, scaling and
 // masking stay fp32 in registers.  4 warps, each owning 16 rows of the
 // block's 64-row tile; Q, K, V (dO) tiles sit in shared memory as bf16
 // with rows padded by 8 elements, so the 8 rows of a fragment fall in 8
@@ -429,8 +436,8 @@ __global__ void __launch_bounds__(kThreads)
 // thread, the layout of the A operand of the next product, so P (and
 // dS) go from registers to the tensor cores without touching shared
 // memory (the FlashAttention-2 arrangement); B operands that need the
-// transposed layout (V in P V, dO and Q in the dK/dV products, K in dS K)
-// come from ldmatrix .trans.  P and dS are rounded to bf16 for their
+// transposed layout (dO and Q in the dK/dV products, K in dS K) come
+// from ldmatrix .trans.  P and dS are rounded to bf16 for their
 // products, where the TPU kernel keeps them fp32: one more rounding
 // (2^-9 relative) per term, which the bf16 tolerances cover.
 constexpr int kThreadsTC = 128;
@@ -591,15 +598,6 @@ __device__ __forceinline__ void async_rows(float* lse_dst, float* delta_dst,
     cp_async4(delta_dst + r, delta + at, ok);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
 // Accumulator element e of n-tile j (rows g / g + 8, columns 2t, 2t + 1)
 // into the A fragments of the next product, whose k-steps are pairs of
 // n-tiles: frag[j / 2][(j % 2) * 2 + e / 2] holds (e & ~1, e | 1).
@@ -609,136 +607,24 @@ __device__ __forceinline__ void to_a_frag(uint32_t (&frag)[4][4], int j,
   frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
 }
 
-// Pipelines of the three kernels: the streamed pair of tiles (K, V or
+// Pipelines of the two kernels: the streamed pair of tiles (K, V or
 // Q, dO) is double-buffered.  Iteration i issues the copies of tile
 // i + 1 into the other buffer, waits for tile i's own, computes on it,
 // and ends in a barrier, so tile i + 2's copies (issued at iteration
 // i + 1) never overwrite a buffer still being read.
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsTC)
-    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ lse, int S, float scale,
-                        int causal) {
-  constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + TILE;                // 2 buffers
-  __nv_bfloat16* Vs = Ks + 2 * TILE;            // 2 buffers
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const size_t base = (size_t)bh * S * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-  const int n_tiles = ((causal ? min(S, q0 + kTile) : S) + kTile - 1) / kTile;
-
-  async_tile<D>(Qs, q + base, q0, S);
-  async_tile<D>(Ks, k + base, 0, S);
-  async_tile<D>(Vs, v + base, 0, S);
-  cp_async_commit();
-
-  uint32_t qa[KS][4];
-  float o[NT][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTile, buf = (it & 1) * TILE;
-    if (it + 1 < n_tiles) {
-      const int nxt = ((it + 1) & 1) * TILE;
-      async_tile<D>(Ks + nxt, k + base, k0 + kTile, S);
-      async_tile<D>(Vs + nxt, v + base, k0 + kTile, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        load_a<LDS>(qa[kk], Qs, 16 * warp, kk, g, t);
-    }
-    float s[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];
-        load_b<LDS>(b, Ks + buf, 8 * j, 16 * kk, lane);
-        mma_bf16(s[j], qa[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
-      }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        s[j][e] = live(row[e >> 1], col, S, causal) ? s[j][e] * scale
-                                                    : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float m_new[2], corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
-      corr[h] = __expf(m[h] - m_new[h]);
-    }
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = s[j][e] > kNegInf ? __expf(s[j][e] - m_new[e >> 1]) : 0.f;
-        rs[e >> 1] += p[e];
-      }
-      to_a_frag(pa, j, p);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = l[h] * corr[h] + quad_sum(rs[h]);
-      m[h] = m_new[h];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t b[4];
-        load_b_trans<LDS>(b, Vs + buf, 16 * kk, 8 * n, lane);
-        mma_bf16(o[n], pa[kk], b[0], b[1]);
-        mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
-      }
-    __syncthreads();               // every warp is done with this buffer
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= S) continue;
-    const float l_safe = l[h] == 0.f ? 1.f : l[h];
-    const float inv = 1.f / l_safe;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + base +
-                                                (size_t)row[h] * D + 2 * t);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      dst[4 * n] = pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
-    if (t == 0) lse[(size_t)bh * S + row[h]] = m[h] + logf(l_safe);
-  }
-}
-
 // TdO: dO's type in device memory; TG: dK/dV's.  bf16/bf16 for flash,
-// fp32/fp32 for a ring pair.
-template <int D, typename TdO, typename TG>
+// fp32/fp32 for a ring pair.  DC: the dK/dV columns one block
+// accumulates, from column blockIdx.z * DC.  DC = D up to D = 128; at
+// D = 256 the columns are split over two blocks per key tile (DC = 128),
+// since one thread would otherwise hold 256 fp32 dK/dV accumulators (the
+// limit is 255 registers).  Each of the two recomputes P and dS over the
+// full D (S^T and dP^T need every column), which doubles those two
+// products and keeps the layout, the six staged tiles (203 KB at
+// D = 256) and the register budget of D = 128.  The split was chosen
+// over 32-key tiles, which would halve the work of each mma and read
+// every Q and dO tile twice as often.
+template <int D, int DC, typename TdO, typename TG>
 __global__ void __launch_bounds__(kThreadsTC)
     flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -748,7 +634,7 @@ __global__ void __launch_bounds__(kThreadsTC)
                              const float* __restrict__ delta,
                              TG* __restrict__ dk, TG* __restrict__ dv, int S,
                              float scale, int causal) {
-  constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
+  constexpr int LDS = D + 8, KS = D / 16, TILE = kTile * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + TILE;
@@ -757,8 +643,9 @@ __global__ void __launch_bounds__(kThreadsTC)
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);   // 2 x kTile
   float* delta_s = lse_s + 2 * kTile;                         // 2 x kTile
 
+  constexpr int NC = DC / 8;
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
+  const int k0 = blockIdx.y * kTile, c0 = blockIdx.z * DC;
   const size_t base = (size_t)bh * S * D;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* delta_bh = delta + (size_t)bh * S;
@@ -777,7 +664,7 @@ __global__ void __launch_bounds__(kThreadsTC)
   async_rows(lse_s, delta_s, lse_bh, delta_bh, qt0 * kTile, S);
   cp_async_commit();
 
-  float dka[NT][4] = {}, dva[NT][4] = {};
+  float dka[NC][4] = {}, dva[NC][4] = {};
   for (int it = 0; it < n_tiles; ++it) {
     const int q0 = (qt0 + it) * kTile;
     const int buf = (it & 1) * TILE, rbuf = (it & 1) * kTile;
@@ -827,16 +714,16 @@ __global__ void __launch_bounds__(kThreadsTC)
       to_a_frag(pa, j, p);
       to_a_frag(dsa, j, ds);
     }
-    // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q over this block's columns
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) {
+      for (int n = 0; n < NC; n += 2) {
         uint32_t b[4];
-        load_b_trans<LDS>(b, dOb, 16 * kk, 8 * n, lane);
+        load_b_trans<LDS>(b, dOb, 16 * kk, c0 + 8 * n, lane);
         mma_bf16(dva[n], pa[kk], b[0], b[1]);
         mma_bf16(dva[n + 1], pa[kk], b[2], b[3]);
-        load_b_trans<LDS>(b, Qb, 16 * kk, 8 * n, lane);
+        load_b_trans<LDS>(b, Qb, 16 * kk, c0 + 8 * n, lane);
         mma_bf16(dka[n], dsa[kk], b[0], b[1]);
         mma_bf16(dka[n + 1], dsa[kk], b[2], b[3]);
       }
@@ -845,9 +732,9 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= S) continue;
-    const size_t at = base + (size_t)key[h] * D + 2 * t;
+    const size_t at = base + (size_t)key[h] * D + c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < NC; ++n) {
       store2(dk + at + 8 * n, dka[n][2 * h], dka[n][2 * h + 1]);
       store2(dv + at + 8 * n, dva[n][2 * h], dva[n][2 * h + 1]);
     }
@@ -963,22 +850,37 @@ __global__ void __launch_bounds__(kThreadsTC)
 
 // ----------------------------------------------------------- launchers
 
-template <int D>
+// fp32 tiles of the scalar kernels: T rows each, rows padded to D + 1;
+// score tiles [T][T + 1].
+template <int D, int T>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPS);
+  return sizeof(float) * (3 * T * (D + 1) + T * (T + 1));
 }
-template <int D>
+template <int D, int T>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile);
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T);
 }
-template <int D>
+template <int D, int T>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPS + 2 * kTile);
+  return sizeof(float) * (4 * T * (D + 1) + T * (T + 1) + 2 * T);
 }
 template <int D>
 constexpr size_t tc_tiles(int n) {
   return sizeof(__nv_bfloat16) * n * kTile * (D + 8);
 }
+// the backward kernels' fp32 tile: 32 rows at D = 256, where 64 do not
+// fit (dkdv_smem<256, 64> is 297 KB, dq_smem<256, 64> 280 KB)
+template <int D>
+constexpr int bwd_tile() {
+  return D > 128 ? 32 : kTile;
+}
+
+constexpr size_t kMaxSmem = 232448;   // 227 KB: a block's limit on sm_90
+static_assert(fwd_smem<256, kTile>() <= kMaxSmem, "fp32 forward tiles");
+static_assert(dkdv_smem<256, bwd_tile<256>()>() <= kMaxSmem, "fp32 dK/dV");
+static_assert(dq_smem<256, bwd_tile<256>()>() <= kMaxSmem, "fp32 dQ");
+static_assert(tc_tiles<256>(6) + 4 * kTile * sizeof(float) <= kMaxSmem,
+              "bf16 dK/dV");
 
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
@@ -993,19 +895,14 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int BH, int S, float scale, int causal, int dtype, cudaStream_t st) {
   dim3 grid(BH, (S + kTile - 1) / kTile);
   if (dtype == 0) {
-    constexpr size_t smem = fwd_smem<D>();
-    int rc = prepare(flash_fwd_kernel<D>, smem);
+    constexpr size_t smem = fwd_smem<D, kTile>();
+    int rc = prepare(flash_fwd_kernel<D, kTile>, smem);
     if (rc) return rc;
-    flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
+    flash_fwd_kernel<D, kTile><<<grid, kThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out,
         (float*)lse, S, scale, causal);
   } else {
-    constexpr size_t smem = tc_tiles<D>(5);
-    int rc = prepare(flash_fwd_tc_kernel<D>, smem);
-    if (rc) return rc;
-    flash_fwd_tc_kernel<D><<<grid, kThreadsTC, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-        (float*)lse, S, scale, causal);
+    return (int)cudaErrorInvalidValue;  // bf16: flash_fwd_sm90.cu
   }
   return (int)cudaGetLastError();
 }
@@ -1016,23 +913,26 @@ template <int D, typename TdO = bf16, typename TG = bf16>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int BH,
          int S, float scale, int causal, int dtype, cudaStream_t st) {
-  dim3 grid(BH, (S + kTile - 1) / kTile);
   if (dtype == 0) {
-    constexpr size_t smem = dkdv_smem<D>();
-    int rc = prepare(flash_bwd_dkdv_kernel<D>, smem);
+    constexpr int T = bwd_tile<D>();
+    constexpr size_t smem = dkdv_smem<D, T>();
+    int rc = prepare(flash_bwd_dkdv_kernel<D, T>, smem);
     if (rc) return rc;
-    flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, st>>>(
+    flash_bwd_dkdv_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
+                                  st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dk, (float*)dv, S, scale, causal);
   } else {
+    constexpr int DC = D > 128 ? 128 : D;
     constexpr size_t smem = tc_tiles<D>(6) + 4 * kTile * sizeof(float);
-    int rc = prepare(flash_bwd_dkdv_tc_kernel<D, TdO, TG>, smem);
+    int rc = prepare(flash_bwd_dkdv_tc_kernel<D, DC, TdO, TG>, smem);
     if (rc) return rc;
-    flash_bwd_dkdv_tc_kernel<D, TdO, TG><<<grid, kThreadsTC, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
-        (const float*)lse, (const float*)delta, (TG*)dk, (TG*)dv, S, scale,
-        causal);
+    flash_bwd_dkdv_tc_kernel<D, DC, TdO, TG>
+        <<<dim3(BH, (S + kTile - 1) / kTile, D / DC), kThreadsTC, smem, st>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
+            (const float*)lse, (const float*)delta, (TG*)dk, (TG*)dv, S,
+            scale, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -1041,12 +941,13 @@ template <int D, typename TdO = bf16, typename TG = bf16>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_, int BH, int S,
        float scale, int causal, int dtype, cudaStream_t st) {
-  dim3 grid(BH, (S + kTile - 1) / kTile);
   if (dtype == 0) {
-    constexpr size_t smem = dq_smem<D>();
-    int rc = prepare(flash_bwd_dq_kernel<D>, smem);
+    constexpr int T = bwd_tile<D>();
+    constexpr size_t smem = dq_smem<D, T>();
+    int rc = prepare(flash_bwd_dq_kernel<D, T>, smem);
     if (rc) return rc;
-    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
+    flash_bwd_dq_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
+                                st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq_, S, scale, causal);
@@ -1054,9 +955,11 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
     constexpr size_t smem = tc_tiles<D>(6);
     int rc = prepare(flash_bwd_dq_tc_kernel<D, TdO, TG>, smem);
     if (rc) return rc;
-    flash_bwd_dq_tc_kernel<D, TdO, TG><<<grid, kThreadsTC, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
-        (const float*)lse, (const float*)delta, (TG*)dq_, S, scale, causal);
+    flash_bwd_dq_tc_kernel<D, TdO, TG>
+        <<<dim3(BH, (S + kTile - 1) / kTile), kThreadsTC, smem, st>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
+            (const float*)lse, (const float*)delta, (TG*)dq_, S, scale,
+            causal);
   }
   return (int)cudaGetLastError();
 }
@@ -1071,16 +974,18 @@ int ring_dq(A... a) {
   return dq<D, float, float>(a...);
 }
 
-// Dispatch on the head dim (32, 64, 128); dtype 0 = fp32 (scalar
-// kernels), 1 = bf16 (tensor-core kernels).
+// Dispatch on the head dim (32, 64, 128, 256); dtype 0 = fp32 (scalar
+// kernels), 1 = bf16 (tensor-core kernels).  The grid's y extent is at
+// most 65535 tiles of the smallest tile (32 rows).
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
-    if (BH <= 0 || S <= 0 || (S + kTile - 1) / kTile > 65535 ||         \
+    if (BH <= 0 || S <= 0 || (S + 31) / 32 > 65535 ||                   \
         (dtype != 0 && dtype != 1))                                     \
       return (int)cudaErrorInvalidValue;                                \
     if (D == 32) return FN<32>(__VA_ARGS__);                            \
     if (D == 64) return FN<64>(__VA_ARGS__);                            \
     if (D == 128) return FN<128>(__VA_ARGS__);                          \
+    if (D == 256) return FN<256>(__VA_ARGS__);                          \
     return (int)cudaErrorInvalidValue;                                  \
   } while (0)
 

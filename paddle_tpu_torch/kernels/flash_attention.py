@@ -9,8 +9,10 @@ Three kernels, each beside its plain PyTorch version:
 
 The plain versions (``_flash_fwd_ref``, ``_flash_bwd_ref``) compute the
 same formulas over the whole [S, S] score matrix in fp32.  The CUDA
-kernels (``csrc/flash_attention.cu``) are built with ``nvcc`` for
-``sm_90a`` at first use and called through ctypes.  ``_Flash`` binds the
+kernels are built with ``nvcc`` for ``sm_90a`` at first use and called
+through ctypes: the bf16 forward is ``csrc/flash_fwd_sm90.cu`` (wgmma
+and TMA, warp specialised), the fp32 forward and both backward kernels
+are ``csrc/flash_attention.cu``.  ``_Flash`` binds the
 forward and backward as one ``torch.autograd.Function`` (the JAX
 package's ``_flash`` custom VJP): on CPU tensors it runs the plain
 versions, on CUDA tensors the kernels, and there is no fallback from one
@@ -18,13 +20,11 @@ to the other.
 
 Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
 ``[B, H, S]`` fp32.  Math is fp32 on both paths.  The kernels are
-instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128}; a smaller D is
-zero-padded up to the next of them and the result sliced back, which is
-exact (zero columns add nothing to q·k and give zero output and gradient
-columns; the scale stays that of the real D).  D > 128 raises
-``ValueError`` on the card: a D = 256 instantiation would hold 256 fp32
-dK/dV accumulators a thread (the limit is 255 registers) and the fp32
-dK/dV tiles would need 296 KB of shared memory (227 KB a block).
+instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128, 256}; any other
+D ≤ 256 is zero-padded up to the next of them and the result sliced
+back, which is exact (zero columns add nothing to q·k and give zero
+output and gradient columns; the scale stays that of the real D).
+D > 256 raises ``ValueError`` on the card, as the JAX gate refuses it.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ __all__ = ["flash_attention", "flash_attention_available",
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 #: kernel launches since the counts were last set to 0 (CUDA path only);
 #: one plain integer per kernel
@@ -137,12 +137,24 @@ def _lib():
     return lib
 
 
-def _pad_head_dim(*ts):
+def _lib_sm90():
+    from . import _build
+
+    lib = _build.load("flash_fwd_sm90")
+    if lib.flash_fwd_sm90_launch.argtypes is None:
+        ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd_sm90_launch.argtypes = [ptr] * 5 + [i] * 3 + [f, i,
+                                                                    ptr]
+        lib.flash_fwd_sm90_launch.restype = ctypes.c_int
+    return lib
+
+
+def _pad_head_dim(*ts, least=0):
     """``ts`` ``[..., D]`` zero-padded on the head dim to the smallest
-    size in ``HEAD_DIMS`` that holds D (unchanged when D is one of
-    them); ``ValueError`` past the largest."""
+    size in ``HEAD_DIMS`` that holds D and ``least`` (unchanged when D is
+    that size); ``ValueError`` past the largest."""
     D = ts[0].shape[-1]
-    n = next((n for n in HEAD_DIMS if n >= D), None)
+    n = next((n for n in HEAD_DIMS if n >= max(D, least)), None)
     if n is None:
         raise ValueError(f"flash_attention CUDA kernels take head_dim <= "
                          f"{HEAD_DIMS[-1]} (zero-padded up to one of "
@@ -182,15 +194,26 @@ def _launch(counts, name, fn, *args):
 
 
 def _flash_fwd_cuda(q, k, v, scale, causal):
+    """bf16: the wgmma/TMA kernel, which takes D ∈ {64, 128, 256} (D = 32
+    pads to 64) and a scale ≥ 0 (it takes the row max before scaling; a
+    negative scale runs as −K with |scale|, which is exact); fp32: the
+    scalar kernel."""
     D = q.shape[-1]
-    q, k, v = _pad_head_dim(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and scale < 0:
+        k, scale = -k, -scale
+    q, k, v = _pad_head_dim(q, k, v, least=64 if bf16 else 0)
     _check_cuda(q, k, v)
     B, H, S, Dk = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch(launches, "fwd", _lib().flash_fwd_launch, q, k, v, out, lse,
-                B * H, S, Dk, float(scale), int(causal), _DTYPES[q.dtype])
+        if bf16:
+            _launch(launches, "fwd", _lib_sm90().flash_fwd_sm90_launch, q, k,
+                    v, out, lse, B * H, S, Dk, float(scale), int(causal))
+        else:
+            _launch(launches, "fwd", _lib().flash_fwd_launch, q, k, v, out,
+                    lse, B * H, S, Dk, float(scale), int(causal), 0)
     return _unpad_head_dim(D, out)[0], lse
 
 
@@ -283,8 +306,7 @@ def _check(q, k, v):
 def flash_attention_available(q, k, v, mask, causal=False):
     """The JAX package's gate, kept as it is: no mask, equal [B, H, S, D]
     shapes, D ≤ 256, and S a multiple of 128 unless causal.  On the card
-    the kernels take D ≤ 128 (padded up to ``HEAD_DIMS``) and raise on
-    the 128 < D ≤ 256 this gate lets through."""
+    the kernels take every D it admits (padded up to ``HEAD_DIMS``)."""
     if mask is not None:
         return False
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -312,7 +334,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
       enter the softmax), as in JAX;
     - ``block_q``/``block_kv`` are the TPU kernel's VMEM tiles.  They are
       accepted and ignored: on the card each kernel uses its own tiles
-      (64 queries × 64 keys).
+      (128 queries × 128 keys, or × 64 at D = 256, in the bf16 forward;
+      64 × 64 elsewhere, 32 × 32 in the fp32 backward at D = 256).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     and count them in ``launches``."""

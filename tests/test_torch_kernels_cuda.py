@@ -177,25 +177,131 @@ def test_flash_autograd_on_card_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_other_head_dims(cuda):
-    """D ≤ 128 outside ``HEAD_DIMS`` runs zero-padded (equal to the
-    plain version); 128 < D ≤ 256 passes the JAX gate and raises."""
+    """Every D ≤ 256 outside ``HEAD_DIMS`` runs zero-padded (D = 96 up to
+    128, D = 192 up to 256; equal to the plain version); D > 256 fails
+    the JAX gate and raises."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    q, k, v, do = _flash_case(128, 96, torch.float32)
-    assert fa.flash_attention_available(q, k, v, None, causal=True)
-    outs = []
-    for fn in (fa.flash_attention, fa.flash_attention_plain):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = fn(*leaves, causal=True)
-        out.backward(do)
-        outs.append([out.detach()] + [t.grad for t in leaves])
-    for a, b in zip(*outs):
-        assert a.shape == b.shape == q.shape
-        torch.testing.assert_close(a, b, **FLASH_TOL[torch.float32])
-    q, k, v, _ = _flash_case(128, 192, torch.float32)
-    assert fa.flash_attention_available(q, k, v, None, causal=True)
+    for D in (96, 192):
+        q, k, v, do = _flash_case(128, D, torch.float32)
+        assert fa.flash_attention_available(q, k, v, None, causal=True)
+        outs = []
+        for fn in (fa.flash_attention, fa.flash_attention_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves, causal=True)
+            out.backward(do)
+            outs.append([out.detach()] + [t.grad for t in leaves])
+        for a, b in zip(*outs):
+            assert a.shape == b.shape == q.shape
+            torch.testing.assert_close(a, b, **FLASH_TOL[torch.float32])
+    q, k, v, _ = _flash_case(128, 320, torch.float32)
+    assert not fa.flash_attention_available(q, k, v, None, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 17, 200, 256])
+def test_flash_kernels_wide_head_dims(cuda, S, causal, D, dtype):
+    """128 < D ≤ 256 on every flash-family kernel: the forward, dK/dV and
+    dQ, and a ring pair's dK/dV and dQ (fp32 dO and outputs, a
+    ring-global lse), each against its plain version on the same
+    inputs.  D = 192 runs zero-padded to 256."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    ra = _ring_module()
+    q, k, v, do = _flash_case(S, D, dtype, seed=S + D)
+    scale = 1.0 / np.sqrt(D)
+    before = dict(fa.launches)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, ref, ref_lse, do, scale,
+                                    causal)
+    rq, rk, rv = fa._flash_bwd_ref(q, k, v, ref, ref_lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == {n: before[n] + 1 for n in before}
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
+    for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype],
+                                   msg=name)
+    do32 = do.float()
+    lse_g = ref_lse + np.log(2.0)          # as if merged with one more block
+    delta = (do32 * ref.float()).sum(-1)
+    before = dict(ra.launches)
+    pk, pv = ra._pair_bwd_dkdv_cuda(q, k, v, do32, lse_g, delta, scale,
+                                    causal)
+    pq = ra._pair_bwd_dq_cuda(q, k, v, do32, lse_g, delta, scale, causal)
+    want = ra._pair_bwd_ref(q, k, v, do32, lse_g, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert ra.launches == {n: before[n] + 1 for n in before}
+    for name, a, b in zip(("dq", "dk", "dv"), (pq, pk, pv), want):
+        assert a.dtype == torch.float32 and a.shape == q.shape, name
+        torch.testing.assert_close(a, b, **FLASH_TOL[dtype], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 17, 64, 200, 384, 2048])
+def test_flash_forward_bf16_matches_plain(cuda, S, D, causal):
+    """The bf16 forward (the training path's, the ``dots`` recompute's
+    and every ring pair's) against ``_flash_fwd_ref``: out at the bf16
+    tolerance, lse at the fp32 one, over ragged S, both masks and every
+    instantiated head dim."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _flash_case(S, D, torch.bfloat16, seed=7 * S + D)
+    scale = 1.0 / np.sqrt(D)
+    before = fa.launches["fwd"]
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches["fwd"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_forward_bf16_any_scale(cuda, scale, causal):
+    """The bf16 forward takes the row max before scaling, so a negative
+    scale runs as −K with |scale| and a zero scale gives every live key
+    the same weight: both equal the plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _flash_case(200, 64, torch.bfloat16, seed=13)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ring_full_pair_forward_matches_plain(cuda):
+    """A ring's full pair runs the bf16 forward non-causally at the shard
+    length of the sep = 4 training path (s = 512): out and lse against
+    the plain pair forward."""
+    ra = _ring_module()
+    q, k, v, _ = _flash_case(512, 128, torch.bfloat16, B=2, H=4, seed=11)
+    scale = 1.0 / np.sqrt(128)
+    out, lse = ra._pair_fwd(q, k, v, scale, False)
+    ref, ref_lse = ra._pair_fwd_ref(q, k, v, scale, False)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -23,7 +23,7 @@ def _port_sources():
         dirs[:] = [d for d in dirs if d != "build"]   # kernel build output
         out += [os.path.relpath(os.path.join(root, f), REPO)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py"]
+    return sorted(out) + ["chip_smoke.py", "chip_ab.py"]
 
 
 def _module_names():

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from paddle_tpu.distributed.engine import HybridEngine as JaxEngine
+from paddle_tpu.kernels.flash_attention import \
+    flash_attention as jax_flash
 from paddle_tpu.kernels import ring_attention as jra
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch.distributed import HybridEngine
@@ -185,11 +187,13 @@ def test_pair_bwd_ref_is_the_gradient_of_the_pair():
 # ---------------------------------------------- flash head-dim padding
 
 
-@pytest.mark.parametrize("D", [48, 80])
+@pytest.mark.parametrize("D", [48, 80, 160, 192])
 def test_flash_head_dim_padding_is_exact(D):
     """What the CUDA wrappers do for a D not in ``HEAD_DIMS``: zero-pad
-    q/k/v/dO to the next size, run, slice.  Run here through the plain
-    versions, against ``_naive_attention`` and its autograd at 1e-5."""
+    q/k/v/dO to the next size (256 for 128 < D < 256), run, slice.  Run
+    here through the plain versions, against the JAX package's
+    ``flash_attention`` (Pallas in interpret mode) and its gradient at
+    1e-4, and against ``_naive_attention`` and its autograd at 1e-5."""
     q, k, v, do = _t(*_arrays((1, 2, 128, D), 4, seed=D))
     scale = 1.0 / math.sqrt(D)
     padded = fa._pad_head_dim(q, k, v, do)
@@ -198,6 +202,14 @@ def test_flash_head_dim_padding_is_exact(D):
     grads_p = fa._flash_bwd_ref(*padded[:3], out_p, lse, padded[3], scale,
                                 True)
     out, dq, dk, dv = fa._unpad_head_dim(D, out_p, *grads_p)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    out_j = jax_flash(jq, jk, jv, causal=True)
+    grads_j = jax.grad(lambda *a: jnp.sum(
+        jax_flash(*a, causal=True) * jnp.asarray(do.numpy())),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    for a, b in zip((out, dq, dk, dv), (out_j,) + tuple(grads_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
     nq, nk, nv = (t.clone().requires_grad_(True) for t in (q, k, v))
     ref = _naive_attention(nq, nk, nv, causal=True)
     ref.backward(do)
@@ -207,7 +219,7 @@ def test_flash_head_dim_padding_is_exact(D):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
                                    rtol=1e-5)
     with pytest.raises(ValueError, match="head_dim"):
-        fa._pad_head_dim(torch.zeros(1, 1, 128, 192))
+        fa._pad_head_dim(torch.zeros(1, 1, 128, 320))
 
 
 # ---------------------------------------------------------------- engine

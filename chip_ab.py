@@ -1,23 +1,22 @@
 #!/usr/bin/env python3
 """End-to-end A/B of two trees of the port on one GPU, in turns.
 
-    python3 chip_ab.py OTHER_TREE [--order OTHER,THIS,THIS,OTHER]
+    python3 chip_ab.py OTHER_TREE
 
 Runs ``chip_smoke.py``'s training phases (7: ``HybridEngine`` GPT-3 1.3B
 at batch 8 x 2048; 10: the same with sep=4 ring sequence parallelism)
 for this checkout and for OTHER_TREE (for example the parent commit,
 unpacked with ``git archive``), each run in a fresh process, in the
-order given (by default other, this, this, other), so both are measured
-on the same card in one sitting.  Each tree builds and uses its own
-kernels and its own ``chip_smoke.py``.  Prints every run's ms/step,
-device busy time and launch counts, then one JSON line with the
-numbers of every run, and the card's name and power limit.
+order other, this, this, other, so both are measured on the same card
+in one sitting.  Each tree builds and uses its own kernels and runs its
+own ``chip_smoke.prepare`` and ``chip_smoke.phase_train_throughput``,
+so OTHER_TREE must have both.  Prints every run's ms/step, device busy
+time and launch counts, then one JSON line with the numbers of every
+run, and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import importlib
 import json
 import os
 import re
@@ -25,6 +24,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ORDER = ("other", "this", "this", "other")
 
 
 def run_tree(root, tag):
@@ -33,37 +33,19 @@ def run_tree(root, tag):
     import torch
 
     import chip_smoke as cs
-    from paddle_tpu_torch import distributed
-    from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_flops_per_token
+    import paddle_tpu_torch
 
-    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
-    if not fa.__file__.startswith(root):
-        raise SystemExit(f"chip_ab: imported {fa.__file__}, not {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _build.build_all()
-    cfg = GPT_CONFIGS["gpt3-1.3b"]
-    counts = [fa.launches, ra.launches]
-    cs.phase_train_throughput(
-        torch, cfg, counts, distributed, gpt_flops_per_token,
-        lambda L: {"fwd": 2 * L, "bwd_dkdv": L, "bwd_dq": L,
-                   "pair_bwd_dkdv": 0, "pair_bwd_dq": 0},
-        tag=f"{tag} phase 7")
-    live = 10                          # sep = 4: 4 diagonal + 6 full pairs
-    cs.phase_train_throughput(
-        torch, dataclasses.replace(cfg, seq_parallel="ring"), counts,
-        distributed, gpt_flops_per_token,
-        lambda L: {"fwd": 2 * live * L, "bwd_dkdv": 0, "bwd_dq": 0,
-                   "pair_bwd_dkdv": live * L, "pair_bwd_dq": live * L},
-        sep=4, tag=f"{tag} phase 10")
+    for mod in (cs, paddle_tpu_torch):
+        if not mod.__file__.startswith(root):
+            raise SystemExit(f"chip_ab: imported {mod.__file__}, not {root}")
+    cs.prepare(torch)
+    cs.phase_train_throughput(torch, tag=f"{tag} phase 7")
+    cs.phase_train_throughput(torch, sep=cs.RING_SEP, tag=f"{tag} phase 10")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other", nargs="?")
-    ap.add_argument("--order", default="other,this,this,other")
     ap.add_argument("--run", nargs=2, metavar=("ROOT", "TAG"),
                     help=argparse.SUPPRESS)   # one run, in a child process
     args = ap.parse_args()
@@ -86,7 +68,7 @@ def main():
     busy = re.compile(r"^\[(\w+) (phase \d+)\] one traced step .*?device "
                       r"busy ([\d.]+) ms")
     runs = []
-    for tag in args.order.split(","):
+    for tag in ORDER:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--run", roots[tag],
              tag], cwd=roots[tag], capture_output=True, text=True,

@@ -22,8 +22,8 @@ Phases (any failure exits non-zero):
      plain versions: edge cases (causal and not, ragged S, head dims 32,
      64, 128, 192 (zero-padded to 256) and 256, fp32 and bf16), then the
      1.3B training shapes with each kernel's time, bound, plain-version
-     time and the time of PyTorch's SDPA, and the forward's time at head
-     dim 256 beside SDPA's;
+     time and the time of PyTorch's SDPA, the forward's time at head
+     dim 256 beside SDPA's, and the forward's host time per call;
   6. one full-width GPT-3 1.3B training step (bf16, 24 layers, batch
      1 x 2048): loss and every gradient with the kernels against the
      same step on the plain attention;
@@ -54,6 +54,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -121,6 +122,33 @@ def make_case(torch, *, B, Q, H, hd, P, ps, M, qlens, ctxs, dtype, seed):
 
 def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def prepare(torch):
+    """fp32 products in full fp32 (the plain versions are held to 1e-4),
+    then every kernel built from this checkout's sources; returns the
+    build's seconds."""
+    from paddle_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    return time.perf_counter() - t0
+
+
+def host_us(torch, fn, iters=200):
+    """Host microseconds per call of ``fn`` with the device not waited on:
+    the wrapper's Python, its allocations and the kernel launch."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def phase_kernel_vs_plain(torch, pa):
@@ -567,6 +595,24 @@ def phase_flash_kernels(torch, fa):
           + ", ".join(f"{n} {t:.4f} ms" for n, t in f32.items()))
     del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
+    # the forward's host cost per launch at a ring pair's shape (480
+    # launches a ring step): the bf16 entry encodes three TMA maps a call,
+    # the fp32 entry, through the same wrapper, encodes none
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((B, H, 512, D), generator=g, device="cuda")
+               for _ in range(3))
+    us = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        a, b, c = (t.to(dtype) for t in (q, k, v))
+        us[name] = host_us(torch, lambda: fa._flash_fwd_cuda(
+            a, b, c, scale, False))
+    print(f"[phase 5] flash fwd host time per call at q/k/v [{B}, {H}, "
+          f"512, {D}] (wrapper and launch, device not waited on): bf16 "
+          f"(three TMA maps encoded) {us['bf16']:.2f} us, fp32 (no maps) "
+          f"{us['fp32']:.2f} us; x 480 launches a ring step: "
+          f"{us['bf16'] * 480 / 1e3:.2f} / {us['fp32'] * 480 / 1e3:.2f} ms")
+    del q, k, v, a, b, c
+    torch.cuda.empty_cache()
     # the widest head dim the kernels take: the forward beside SDPA's
     D = 256
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -691,13 +737,44 @@ def profile_step(torch, step):
             "top": sorted(top)[::-1][:6], "ops": sorted(ops)[::-1][:10]}
 
 
-def phase_train_throughput(torch, cfg, counts, distributed,
-                           gpt_flops_per_token, want, sep=1, tag="phase 7"):
+RING_SEP = 4                       # phase 10's ring shards on the card
+
+
+def train_launches(sep):
+    """Kernel launches of one training step, per layer, by counter.
+    Remat "dots" saves matmul outputs only, so every flash forward runs
+    again in backward.  With sep > 1 the ring runs its live pairs (j <=
+    i: sep diagonal, the rest full) through the flash forward, and each
+    pair through both ring-pair backward kernels once."""
+    if sep == 1:
+        return {"fwd": 2, "bwd_dkdv": 1, "bwd_dq": 1, "pair_bwd_dkdv": 0,
+                "pair_bwd_dq": 0}
+    live = sep * (sep + 1) // 2
+    return {"fwd": 2 * live, "bwd_dkdv": 0, "bwd_dq": 0,
+            "pair_bwd_dkdv": live, "pair_bwd_dq": live}
+
+
+def phase_train_throughput(torch, sep=1, tag="phase 7"):
     """HybridEngine at the 1.3B training rung on one card, with ``sep``
-    ring shards (``cfg.seq_parallel == "ring"`` when sep > 1).  ``counts``
-    are the kernels' launch-count dicts, ``want(L)`` the launches of one
-    step.  Returns (launches over the timed steps, the first loss)."""
+    ring shards (``seq_parallel="ring"`` when sep > 1); the launches are
+    held to ``train_launches(sep)``.  Returns (launches over the timed
+    steps, the first loss)."""
+    import importlib
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_flops_per_token
+
+    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+    counts = [fa.launches, ra.launches]
+    cfg = GPT_CONFIGS["gpt3-1.3b"]
+    if sep > 1:
+        cfg = dataclasses.replace(cfg, seq_parallel="ring")
     B, S = 8, 2048
+    # free what earlier phases left in reference cycles (the serving
+    # engine and its KV pool) now, so the peak below is this cell's own
+    gc.collect()
+    torch.cuda.empty_cache()
     eng = distributed.HybridEngine(cfg, sep=sep,
                                    engine_cfg=distributed.EngineConfig(
                                        accum_steps=1), device="cuda")
@@ -759,7 +836,8 @@ def phase_train_throughput(torch, cfg, counts, distributed,
         f"{name} {ms:.1f}" for ms, name in breakdown["ops"]))
     check(all(np.isfinite(losses)), "training loss not finite")
     check(losses[-1] < losses[0], "training loss did not fall")
-    want = {n: k * timed for n, k in want(cfg.num_layers).items()}
+    want = {n: k * cfg.num_layers * timed
+            for n, k in train_launches(sep).items()}
     check(launches == want, f"launches {launches} != {want}")
     del params, opt
     torch.cuda.empty_cache()
@@ -991,27 +1069,21 @@ def main():
     try:
         import importlib
 
-        from paddle_tpu_torch import distributed, serving
+        from paddle_tpu_torch import serving
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import paged_attention as pa
         ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
-        from paddle_tpu_torch.models import (GPT_CONFIGS, gpt_flops_per_token,
-                                             gpt_init, gpt_loss)
+        from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init, gpt_loss
         from paddle_tpu_torch.models.gpt import gpt_ragged_step
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is missing beside "
               f"this script ({e})", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
-    _build.build_all()
     print(f"[phase 1] built {len(_build.SOURCES)} kernel(s) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{prepare(torch):.1f} s")
     for name, log in _build.build_logs().items():
         for line in log.splitlines():
             # registers and spills of every kernel, and ptxas's notes on
@@ -1046,13 +1118,7 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    # remat "dots" saves matmul outputs only, so each block's flash
-    # forward runs again in backward: 2 forward launches per layer
-    flash_launches, loss1 = phase_train_throughput(
-        torch, cfg, [fa.launches, ra.launches], distributed,
-        gpt_flops_per_token, lambda L: {"fwd": 2 * L, "bwd_dkdv": L,
-                                        "bwd_dq": L, "pair_bwd_dkdv": 0,
-                                        "pair_bwd_dq": 0})
+    flash_launches, loss1 = phase_train_throughput(torch)
     print(f"[phase 7] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1064,19 +1130,11 @@ def main():
     print(f"[phase 9] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    sep = 4
-    live = sep * (sep + 1) // 2        # pairs with j <= i: 4 diagonal, 6 full
-    # the ring's forward pairs run the flash forward kernel, again under
-    # "dots"; each live pair runs both backward kernels once
     ring_launches, ring_loss1 = phase_train_throughput(
-        torch, dataclasses.replace(cfg, seq_parallel="ring"),
-        [fa.launches, ra.launches], distributed, gpt_flops_per_token,
-        lambda L: {"fwd": 2 * live * L, "bwd_dkdv": 0, "bwd_dq": 0,
-                   "pair_bwd_dkdv": live * L, "pair_bwd_dq": live * L},
-        sep=sep, tag="phase 10")
+        torch, sep=RING_SEP, tag="phase 10")
     rel = abs(ring_loss1 - loss1) / abs(loss1)
-    print(f"[phase 10] step-1 loss: ring sep=4 {ring_loss1:.6f}, flash "
-          f"(phase 7) {loss1:.6f}, relative difference {rel:.3g} "
+    print(f"[phase 10] step-1 loss: ring sep={RING_SEP} {ring_loss1:.6f}, "
+          f"flash (phase 7) {loss1:.6f}, relative difference {rel:.3g} "
           f"(checked at 2e-3)")
     check(rel <= 2e-3, f"ring step-1 loss differs from phase 7's by "
                        f"{rel:.4g} relative")

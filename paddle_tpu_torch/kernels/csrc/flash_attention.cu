@@ -890,20 +890,17 @@ int prepare(Kernel kernel, size_t smem) {
 
 using bf16 = __nv_bfloat16;
 
+// The fp32 forward (the bf16 one is in flash_fwd_sm90.cu).
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-        int BH, int S, float scale, int causal, int dtype, cudaStream_t st) {
-  dim3 grid(BH, (S + kTile - 1) / kTile);
-  if (dtype == 0) {
-    constexpr size_t smem = fwd_smem<D, kTile>();
-    int rc = prepare(flash_fwd_kernel<D, kTile>, smem);
-    if (rc) return rc;
-    flash_fwd_kernel<D, kTile><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out,
-        (float*)lse, S, scale, causal);
-  } else {
-    return (int)cudaErrorInvalidValue;  // bf16: flash_fwd_sm90.cu
-  }
+        int BH, int S, float scale, int causal, cudaStream_t st) {
+  constexpr size_t smem = fwd_smem<D, kTile>();
+  int rc = prepare(flash_fwd_kernel<D, kTile>, smem);
+  if (rc) return rc;
+  flash_fwd_kernel<D, kTile><<<dim3(BH, (S + kTile - 1) / kTile), kThreads,
+                               smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -974,13 +971,13 @@ int ring_dq(A... a) {
   return dq<D, float, float>(a...);
 }
 
-// Dispatch on the head dim (32, 64, 128, 256); dtype 0 = fp32 (scalar
-// kernels), 1 = bf16 (tensor-core kernels).  The grid's y extent is at
-// most 65535 tiles of the smallest tile (32 rows).
+// Dispatch on the head dim (32, 64, 128, 256).  The grid's y extent is
+// at most 65535 tiles of the smallest tile (32 rows).  The backward
+// entries also take dtype: 0 = fp32 (scalar kernels), 1 = bf16
+// (tensor-core kernels).
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
-    if (BH <= 0 || S <= 0 || (S + 31) / 32 > 65535 ||                   \
-        (dtype != 0 && dtype != 1))                                     \
+    if (BH <= 0 || S <= 0 || (S + 31) / 32 > 65535)                     \
       return (int)cudaErrorInvalidValue;                                \
     if (D == 32) return FN<32>(__VA_ARGS__);                            \
     if (D == 64) return FN<64>(__VA_ARGS__);                            \
@@ -989,13 +986,16 @@ int ring_dq(A... a) {
     return (int)cudaErrorInvalidValue;                                  \
   } while (0)
 
+#define CHECK_DTYPE \
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue
+
 }  // namespace
 
+// The fp32 forward: q, k, v, out [BH, S, D] fp32, lse [BH, S] fp32.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int BH, int S, int D,
-                                float scale, int causal, int dtype,
-                                void* stream) {
-  FLASH_DISPATCH(fwd, q, k, v, out, lse, BH, S, scale, causal, dtype,
+                                float scale, int causal, void* stream) {
+  FLASH_DISPATCH(fwd, q, k, v, out, lse, BH, S, scale, causal,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -1005,6 +1005,7 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      void* dk, void* dv, int BH, int S,
                                      int D, float scale, int causal,
                                      int dtype, void* stream) {
+  CHECK_DTYPE;
   FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }
@@ -1015,6 +1016,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    void* dq_out, int BH, int S, int D,
                                    float scale, int causal, int dtype,
                                    void* stream) {
+  CHECK_DTYPE;
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }
@@ -1027,6 +1029,7 @@ extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
                                          void* dk, void* dv, int BH, int S,
                                          int D, float scale, int causal,
                                          int dtype, void* stream) {
+  CHECK_DTYPE;
   FLASH_DISPATCH(ring_dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }
@@ -1037,6 +1040,7 @@ extern "C" int ring_pair_bwd_dq_launch(const void* q, const void* k,
                                        void* dq_out, int BH, int S, int D,
                                        float scale, int causal, int dtype,
                                        void* stream) {
+  CHECK_DTYPE;
   FLASH_DISPATCH(ring_dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }

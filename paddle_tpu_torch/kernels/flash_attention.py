@@ -121,7 +121,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_fwd_launch.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_launch.argtypes = [ptr] * 5 + [i] * 3 + [f, i, i, ptr]
+        lib.flash_fwd_launch.argtypes = [ptr] * 5 + [i] * 3 + [f, i, ptr]
         lib.flash_bwd_dkdv_launch.argtypes = ([ptr] * 8 + [i] * 3
                                               + [f, i, i, ptr])
         lib.flash_bwd_dq_launch.argtypes = ([ptr] * 7 + [i] * 3
@@ -213,7 +213,7 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
                     v, out, lse, B * H, S, Dk, float(scale), int(causal))
         else:
             _launch(launches, "fwd", _lib().flash_fwd_launch, q, k, v, out,
-                    lse, B * H, S, Dk, float(scale), int(causal), 0)
+                    lse, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, out)[0], lse
 
 

@@ -8,8 +8,9 @@ Phases (any failure exits non-zero):
      the port from the sources in this checkout (one nvcc per source,
      started together);
   2. kernel vs plain version on the card: edge cases (idle rows,
-     qlen == ctx, contexts straddling pages, Q == 1 decode, several head
-     dims) in fp32 and bf16, then the serving shapes, with each
+     qlen == ctx, contexts straddling pages, Q == 1 decode, head dims
+     16 to 512, 544 raising) in fp32 and bf16, then the serving shapes,
+     with each
      kernel's time, bound, plain-version time and the time of one
      library call computing the same function;
   3. one full-width ``gpt_ragged_step`` of GPT-3 1.3B (bf16, 24 layers)
@@ -18,19 +19,22 @@ Phases (any failure exits non-zero):
   4. the serving engine at GPT-3 1.3B serving 8 seeded requests (one
      pair sharing a 256-token prefix) to completion, with the kernel's
      launch count held to 24 per step;
-  5. the three flash-attention kernels (forward, dK/dV, dQ) vs their
-     plain versions: edge cases (causal and not, ragged S, head dims 32,
-     64, 128, 192 (zero-padded to 256) and 256, fp32 and bf16), then the
-     1.3B training shapes with each kernel's time, bound, plain-version
-     time and the time of PyTorch's SDPA, the forward's time at head
-     dim 256 beside SDPA's, and the forward's host time per call;
+  5. the flash-attention kernels (forward; the bf16 backward, dQ, dK
+     and dV in one kernel; the fp32 dK/dV and dQ) vs their plain
+     versions: edge cases (causal and not, ragged S, head dims 32 to 512,
+     fp32 and bf16; 1024 raising), then the 1.3B training shapes with
+     each kernel's time, bound, plain-version time and the time of
+     PyTorch's SDPA (the backward kernel alone and the whole call), the
+     head-grouped mma.sync templates at the same shapes, forward and
+     backward at head dim 256 beside SDPA's, and the forward's host time
+     per call with the TMA maps cached and encoded;
   6. one full-width GPT-3 1.3B training step (bf16, 24 layers, batch
      1 x 2048): loss and every gradient with the kernels against the
      same step on the plain attention;
   7. training throughput: ``HybridEngine`` on GPT-3 1.3B, batch 8 x
      2048, remat "dots", fp32 Adam slots with a master: ms/step,
      tokens/s, MFU, peak memory; the loss falls over 10 steps and the
-     flash launch counts are held to 48 / 24 / 24 per step;
+     flash launch counts are held to 48 forward / 24 backward per step;
   8. ring attention's per-pair backward kernels (dK/dV, dQ; fp32 dO and
      fp32 outputs, ring-global lse and delta) vs their plain versions:
      edge cases (diagonal and full pairs, shard lengths 128/256/512,
@@ -167,6 +171,13 @@ def phase_kernel_vs_plain(torch, pa):
              qlens=[20, 1], ctxs=[70, 13]),
         dict(B=2, Q=20, H=2, hd=256, P=20, ps=8, M=10,
              qlens=[19, 1], ctxs=[50, 80]),
+    ] + [
+        # head dims off the 32-grid and past 256: masked tail lanes, one
+        # element a load where a row is not a multiple of 16 bytes (hd 17
+        # in both dtypes, 100 in bf16), tiles staged without the register
+        # prefetch past 256
+        dict(B=3, Q=20, H=2, hd=hd, P=20, ps=8, M=10, qlens=[17, 1, 0],
+             ctxs=[60, 75, 0]) for hd in (16, 17, 48, 80, 100, 320, 512)
     ]
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -202,8 +213,17 @@ def phase_kernel_vs_plain(torch, pa):
               f"decode entry != plain ({dtype_name}): "
               f"{max_err(torch, out, ref):.3g}")
         n += 1
-    print(f"[phase 2] {n} edge cases agree (fp32 atol=rtol=1e-5; bf16 "
-          f"atol 1e-2 rtol 1.6e-2)")
+    # past 512 the kernel's tiles do not fit a block's shared memory
+    q, kp, vp, tb, ql, cl = make_case(torch, dtype=torch.bfloat16, seed=0,
+                                      **dict(cases[0], hd=544))
+    try:
+        pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+        fail("ragged paged attention took head dim 544")
+    except ValueError as e:
+        check("shared memory" in str(e), f"hd 544 raised {e}")
+    print(f"[phase 2] {n} edge cases agree (head dims 16, 17, 32, 48, 64, "
+          f"80, 100, 128, 256, 320, 512; fp32 atol=rtol=1e-5; bf16 atol "
+          f"1e-2 rtol 1.6e-2); head dim 544 raises")
 
     # ---- serving shapes: one chunk row of 64 + 7 decode rows, bf16
     B, Q, H, hd, P, ps, M = 8, 64, 16, 128, 2048, 16, 128
@@ -449,16 +469,17 @@ def profile_serving(torch, eng, serving, vocab):
 def flash_work(B, H, S, D, causal, nbytes_el=2):
     """(bytes, FLOPs) each flash kernel must move and do for one call on
     these inputs: every input read once, every output written once, and
-    the products of the live (q, k) pairs only (k <= q when causal)."""
+    the products of the live (q, k) pairs only (k <= q when causal).  The
+    backward is one kernel: q, k, v, dO, lse and delta in, dq, dk, dv out,
+    five products (S, dP, dV, dK, dQ: 10 * D FLOPs a pair)."""
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     mat = B * H * S * D * nbytes_el            # one [B, H, S, D] tensor
     rows = B * H * S * 4                       # one fp32 [B, H, S] vector
     return {"fwd": (4 * mat + rows, 4 * D * pairs),
-            "bwd_dkdv": (6 * mat + 2 * rows, 8 * D * pairs),
-            "bwd_dq": (5 * mat + 2 * rows, 6 * D * pairs)}
+            "bwd": (7 * mat + 2 * rows, 10 * D * pairs)}
 
 
-def phase_flash_kernels(torch, fa):
+def phase_flash_kernels(torch, fa, ra):
     """Edge cases, then the training shapes with timings."""
     n = 0
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -467,7 +488,8 @@ def phase_flash_kernels(torch, fa):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         tol = TOL_FLASH[dtype_name]
-        for D in (32, 64, 128, 192, 256):
+        # 192 pads to 256, 320 to 512; bf16 past 256 runs in fp32
+        for D in (32, 64, 128, 192, 256, 320, 512):
             for S, causal in cases:
                 g = torch.Generator(device="cuda").manual_seed(n)
                 q, k, v, do = (torch.randn((2, 3, S, D), generator=g,
@@ -476,15 +498,10 @@ def phase_flash_kernels(torch, fa):
                 scale = 1.0 / np.sqrt(D)
                 out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
                 ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, causal)
-                delta = fa._delta(ref, do)
-                dk, dv = fa._bwd_dkdv_cuda(q, k, v, do, ref_lse, delta,
-                                           scale, causal)
-                dq = fa._bwd_dq_cuda(q, k, v, do, ref_lse, delta, scale,
-                                     causal)
-                rk, rv = fa._bwd_dkdv_ref(q, k, v, do, ref_lse, delta,
-                                          scale, causal)
-                rq = fa._bwd_dq_ref(q, k, v, do, ref_lse, delta, scale,
-                                    causal)
+                dq, dk, dv = fa._flash_bwd_cuda(q, k, v, ref, ref_lse, do,
+                                                scale, causal)
+                rq, rk, rv = fa._flash_bwd_ref(q, k, v, ref, ref_lse, do,
+                                               scale, causal)
                 torch.cuda.synchronize()
                 pairs = (("out", out, ref), ("dq", dq, rq), ("dk", dk, rk),
                          ("dv", dv, rv))
@@ -504,8 +521,16 @@ def phase_flash_kernels(torch, fa):
                       f"D={D}, causal={causal})")
                 n += 1
     print(f"[phase 5] {n} flash edge cases agree on out, lse, dq, dk, dv "
-          f"(fp32 atol=rtol=1e-4, worst {worst['float32']:.3g}; bf16 "
-          f"atol 1e-2 rtol 1.6e-2, worst {worst['bfloat16']:.3g})")
+          f"(head dims 32-512; fp32 atol=rtol=1e-4, worst "
+          f"{worst['float32']:.3g}; bf16 atol 1e-2 rtol 1.6e-2, worst "
+          f"{worst['bfloat16']:.3g})")
+    for D in (1024,):
+        q = torch.zeros((1, 1, 128, D), device="cuda")
+        try:
+            fa.flash_attention(q, q, q, causal=True)
+            fail(f"flash_attention took head dim {D}")
+        except ValueError as e:
+            check("head_dim" in str(e), f"head dim {D} raised {e}")
 
     # ---- training shapes: GPT-3 1.3B, batch 8 x 2048, bf16, causal
     B, H, S, D = 8, 16, 2048, 128
@@ -516,15 +541,14 @@ def phase_flash_kernels(torch, fa):
     out, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
     ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, True)
     delta = fa._delta(ref, do)
-    dk, dv = fa._bwd_dkdv_cuda(q, k, v, do, ref_lse, delta, scale, True)
-    dq = fa._bwd_dq_cuda(q, k, v, do, ref_lse, delta, scale, True)
+    dq, dk, dv = fa._bwd_sm90(q, k, v, do, ref_lse, delta, scale, True)
     rk, rv = fa._bwd_dkdv_ref(q, k, v, do, ref_lse, delta, scale, True)
     rq = fa._bwd_dq_ref(q, k, v, do, ref_lse, delta, scale, True)
     torch.cuda.synchronize()
     errs = {"fwd": max(max_err(torch, out, ref),
                        max_err(torch, lse, ref_lse)),
-            "bwd_dkdv": max(max_err(torch, dk, rk), max_err(torch, dv, rv)),
-            "bwd_dq": max_err(torch, dq, rq)}
+            "bwd": max(max_err(torch, dq, rq), max_err(torch, dk, rk),
+                       max_err(torch, dv, rv))}
     for name, a, b in (("out", out, ref), ("dq", dq, rq), ("dk", dk, rk),
                        ("dv", dv, rv)):
         check(torch.allclose(a.float(), b.float(), **TOL_FLASH["bfloat16"]),
@@ -533,22 +557,47 @@ def phase_flash_kernels(torch, fa):
     del ref, rk, rv, rq
     torch.cuda.empty_cache()
 
+    # the backward kernel alone: one launch on fixed buffers (dQ keeps
+    # adding into the same fp32 sums, which changes no time)
+    lib = fa._lib_bwd_sm90()
+    acc = torch.zeros((B, H, S, D), dtype=torch.float32, device="cuda")
+    gk, gv = torch.empty_like(q), torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel_alone():
+        rc = lib.flash_bwd_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), gk.data_ptr(),
+            gv.data_ptr(), B * H, S, D, float(scale), 1, stream)
+        check(rc == 0, f"flash_bwd_sm90_launch returned {rc}")
+
     ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_cuda(
               q, k, v, scale, True), 10),
-          "bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_cuda(
-              q, k, v, do, lse, delta, scale, True), 5),
-          "bwd_dq": time_ms(torch, lambda: fa._bwd_dq_cuda(
-              q, k, v, do, lse, delta, scale, True), 5)}
+          # the whole call: zeroing the dQ sums, the kernel, the cast
+          "bwd": time_ms(torch, lambda: fa._bwd_sm90(
+              q, k, v, do, lse, delta, scale, True), 10)}
+    kernel_ms = time_ms(torch, kernel_alone, 10)
+    del acc, gk, gv
     plain_ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_ref(
                     q, k, v, scale, True), 3, warmup=1),
-                "bwd_dkdv": time_ms(torch, lambda: fa._bwd_dkdv_ref(
-                    q, k, v, do, lse, delta, scale, True), 3, warmup=1),
-                "bwd_dq": time_ms(torch, lambda: fa._bwd_dq_ref(
-                    q, k, v, do, lse, delta, scale, True), 3, warmup=1)}
+                "bwd": time_ms(torch, lambda: (fa._bwd_dkdv_ref(
+                    q, k, v, do, lse, delta, scale, True), fa._bwd_dq_ref(
+                    q, k, v, do, lse, delta, scale, True)), 3, warmup=1)}
+    torch.cuda.empty_cache()
+    # the mma.sync dK/dV and dQ templates in their head-grouped launch
+    # order, at the same shapes, through the ring-pair entries (the only
+    # ones left on them: fp32 dO and fp32 outputs)
+    do32 = do.float()
+    grouped = {
+        "dkdv": time_ms(torch, lambda: ra._pair_bwd_dkdv_cuda(
+            q, k, v, do32, lse, delta, scale, True), 5),
+        "dq": time_ms(torch, lambda: ra._pair_bwd_dq_cuda(
+            q, k, v, do32, lse, delta, scale, True), 5)}
+    del do32
     torch.cuda.empty_cache()
     # library yardstick: PyTorch's SDPA (the port never calls it); its
     # forward against the forward kernel, its backward (dq, dk, dv in
-    # one call) against dK/dV + dQ
+    # one call) against the backward call
     import torch.nn.functional as F
 
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -558,7 +607,7 @@ def phase_flash_kernels(torch, fa):
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         lout, (lq, lk, lv), do, retain_graph=True), 10)
     del lout
-    library_ms = {"fwd": lib_fwd, "bwd_dkdv": lib_bwd, "bwd_dq": lib_bwd}
+    library_ms = {"fwd": lib_fwd, "bwd": lib_bwd}
 
     result = {}
     for name, (nbytes, flops) in flash_work(B, H, S, D, True).items():
@@ -570,15 +619,28 @@ def phase_flash_kernels(torch, fa):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms[name]}
         print(f"[phase 5] flash {name} at q/k/v {[B, H, S, D]} bf16 "
-              f"causal: kernel {ms[name]:.4f} ms, plain "
-              f"{plain_ms[name]:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
-              f"ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
-              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), max abs err "
-              f"{errs[name]:.3g}; "
-              f"{flops / ms[name] / 1e9:.1f} TFLOP/s achieved")
+              f"causal: {'whole call ' if name == 'bwd' else 'kernel '}"
+              f"{ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({flops / 1e9:.1f} GFLOP at "
+              f"989 TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 TB/s), max abs "
+              f"err {errs[name]:.3g}; {flops / ms[name] / 1e9:.1f} TFLOP/s "
+              f"achieved")
+    bwd_flops = flash_work(B, H, S, D, True)["bwd"][1]
+    print(f"[phase 5] flash bwd (flash_bwd_sm90.cu, one launch) at q/k/v "
+          f"{[B, H, S, D]} bf16 causal: kernel alone {kernel_ms:.4f} ms "
+          f"({bwd_flops / kernel_ms / 1e9:.1f} TFLOP/s), whole call "
+          f"(zeroing, kernel, cast) {ms['bwd']:.4f} ms, SDPA backward "
+          f"{lib_bwd:.4f} ms, bound at 10 D FLOPs a pair "
+          f"{result['bwd']['bound_ms']:.4f} ms; the call is "
+          + ("no slower than" if ms["bwd"] <= lib_bwd else "slower than")
+          + " SDPA's backward")
+    print(f"[phase 5] head-grouped mma.sync templates (fp32 dO and outputs, "
+          f"ring-pair entries) at the same shapes: dK/dV "
+          f"{grouped['dkdv']:.4f} ms + dQ {grouped['dq']:.4f} ms = "
+          f"{grouped['dkdv'] + grouped['dq']:.4f} ms")
     print(f"[phase 5] library: SDPA forward {lib_fwd:.4f} ms (vs fwd), "
-          f"SDPA backward {lib_bwd:.4f} ms (dq, dk, dv in one call; vs "
-          f"bwd_dkdv + bwd_dq = {ms['bwd_dkdv'] + ms['bwd_dq']:.4f} ms)")
+          f"SDPA backward {lib_bwd:.4f} ms (dq, dk, dv in one call)")
+    result["bwd"]["kernel_ms"] = kernel_ms
     del dq, dk, dv, lq, lk, lv
     # fp32 inputs take the scalar-FMA kernels (not the training path):
     # their times at the same shapes
@@ -596,28 +658,53 @@ def phase_flash_kernels(torch, fa):
     del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
     # the forward's host cost per launch at a ring pair's shape (480
-    # launches a ring step): the bf16 entry encodes three TMA maps a call,
-    # the fp32 entry, through the same wrapper, encodes none
+    # launches a ring step): bf16 with its three TMA maps found in the
+    # cache, bf16 with every map encoded (each call on tensors at new
+    # addresses: views into one buffer at 16-byte steps, cycling through
+    # more than the cache's 256 entries hold), and the fp32 entry, through
+    # the same wrapper, which encodes none; three rounds in turns, the
+    # least of each kept (the host's clock moves with its other load)
     g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn((B, H, 512, D), generator=g, device="cuda")
-               for _ in range(3))
-    us = {}
-    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        a, b, c = (t.to(dtype) for t in (q, k, v))
-        us[name] = host_us(torch, lambda: fa._flash_fwd_cuda(
-            a, b, c, scale, False))
+    shape = (B, H, 512, D)
+    numel = B * H * 512 * D
+    views = 300
+    bufs = [torch.randn(numel + 8 * views, generator=g, device="cuda")
+            .bfloat16() for _ in range(3)]
+    fresh = [[b[8 * i:8 * i + numel].view(shape) for b in bufs]
+             for i in range(views)]
+    calls = iter(range(10 ** 9))
+
+    def uncached():
+        a, b, c = fresh[next(calls) % views]
+        fa._flash_fwd_cuda(a, b, c, scale, False)
+
+    a, b, c = fresh[0]
+    a32, b32, c32 = (t.float() for t in fresh[0])
+    kinds = {"bf16 cached maps": lambda: fa._flash_fwd_cuda(a, b, c, scale,
+                                                           False),
+             "bf16 maps encoded": uncached,
+             "fp32 (no maps)": lambda: fa._flash_fwd_cuda(a32, b32, c32,
+                                                         scale, False)}
+    us = {n: [] for n in kinds}
+    for order in (list(kinds), list(kinds)[::-1], list(kinds)):
+        for n in order:
+            us[n].append(host_us(torch, kinds[n]))
     print(f"[phase 5] flash fwd host time per call at q/k/v [{B}, {H}, "
-          f"512, {D}] (wrapper and launch, device not waited on): bf16 "
-          f"(three TMA maps encoded) {us['bf16']:.2f} us, fp32 (no maps) "
-          f"{us['fp32']:.2f} us; x 480 launches a ring step: "
-          f"{us['bf16'] * 480 / 1e3:.2f} / {us['fp32'] * 480 / 1e3:.2f} ms")
-    del q, k, v, a, b, c
+          f"512, {D}] (wrapper and launch, device not waited on; least of "
+          f"3 rounds): " + ", ".join(f"{n} {min(t):.2f} us"
+                                     for n, t in us.items())
+          + "; x 480 launches a ring step: "
+          + " / ".join(f"{min(t) * 480 / 1e3:.2f}" for t in us.values())
+          + " ms")
+    del a32, b32, c32
+    del bufs, fresh, a, b, c
     torch.cuda.empty_cache()
-    # the widest head dim the kernels take: the forward beside SDPA's
+    # the widest head dim of the bf16 kernels: forward and backward beside
+    # SDPA's
     D = 256
     g = torch.Generator(device="cuda").manual_seed(6)
-    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
-               .bfloat16() for _ in range(3))
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
     scale = 1.0 / np.sqrt(D)
     out, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
     ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, True)
@@ -627,17 +714,27 @@ def phase_flash_kernels(torch, fa):
           and torch.allclose(lse, ref_lse, **TOL_FLASH["float32"]),
           f"flash fwd kernel != plain at head dim 256: {err:.3g}")
     del ref, ref_lse
+    delta = fa._delta(out, do)
     t_fwd = time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, scale, True),
                     10)
+    t_bwd = time_ms(torch, lambda: fa._bwd_sm90(q, k, v, do, lse, delta,
+                                                scale, True), 5)
     t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), 10)
-    nbytes, flops = flash_work(B, H, S, D, True)["fwd"]
-    print(f"[phase 5] flash fwd at q/k/v {[B, H, S, D]} bf16 causal: kernel "
-          f"{t_fwd:.4f} ms ({flops / t_fwd / 1e9:.1f} TFLOP/s), SDPA "
-          f"{t_lib:.4f} ms, bound {flops / BF16_FLOPS * 1e3:.4f} ms "
-          f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s), max abs err "
-          f"{err:.3g}")
-    del q, k, v, out, lse
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    t_lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), do, retain_graph=True), 5)
+    del lout, lq, lk, lv
+    work = flash_work(B, H, S, D, True)
+    print(f"[phase 5] flash at q/k/v {[B, H, S, D]} bf16 causal: forward "
+          f"{t_fwd:.4f} ms ({work['fwd'][1] / t_fwd / 1e9:.1f} TFLOP/s), "
+          f"SDPA {t_lib:.4f} ms, bound {work['fwd'][1] / BF16_FLOPS * 1e3:.4f}"
+          f" ms, max abs err {err:.3g}; backward call {t_bwd:.4f} ms "
+          f"({work['bwd'][1] / t_bwd / 1e9:.1f} TFLOP/s), SDPA backward "
+          f"{t_lib_bwd:.4f} ms, bound "
+          f"{work['bwd'][1] / BF16_FLOPS * 1e3:.4f} ms")
+    del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
     return result
 
@@ -669,7 +766,7 @@ def phase_train_step(torch, cfg, params, fa, gpt_loss):
         if label == "kernel":
             got = {n: fa.launches[n] - before[n] for n in before}
             L = cfg.num_layers
-            check(got == {"fwd": 2 * L, "bwd_dkdv": L, "bwd_dq": L},
+            check(got == {"fwd": 2 * L, "bwd": L},
                   f"training step launched {got}")
     for t in leaves:
         t.requires_grad_(False)
@@ -725,7 +822,8 @@ def profile_step(torch, step):
         if us <= 0:
             continue
         key = e.key.lower()
-        kind = ("flash" if "flash_" in key and "_kernel" in key else
+        kind = ("flash" if ("flash_" in key or "ring_bwd" in key)
+                and "_kernel" in key else
                 "matmul" if any(w in key for w in ("gemm", "nvjet", "xmma",
                                                    "cutlass", "cublas"))
                 else "other")
@@ -743,15 +841,15 @@ RING_SEP = 4                       # phase 10's ring shards on the card
 def train_launches(sep):
     """Kernel launches of one training step, per layer, by counter.
     Remat "dots" saves matmul outputs only, so every flash forward runs
-    again in backward.  With sep > 1 the ring runs its live pairs (j <=
-    i: sep diagonal, the rest full) through the flash forward, and each
-    pair through both ring-pair backward kernels once."""
+    again in backward; the bf16 flash backward is one launch.  With sep >
+    1 the ring runs its live pairs (j <= i: sep diagonal, the rest full)
+    through the flash forward, and each pair through both ring-pair
+    backward kernels once."""
     if sep == 1:
-        return {"fwd": 2, "bwd_dkdv": 1, "bwd_dq": 1, "pair_bwd_dkdv": 0,
-                "pair_bwd_dq": 0}
+        return {"fwd": 2, "bwd": 1, "pair_bwd_dkdv": 0, "pair_bwd_dq": 0}
     live = sep * (sep + 1) // 2
-    return {"fwd": 2 * live, "bwd_dkdv": 0, "bwd_dq": 0,
-            "pair_bwd_dkdv": live, "pair_bwd_dq": live}
+    return {"fwd": 2 * live, "bwd": 0, "pair_bwd_dkdv": live,
+            "pair_bwd_dq": live}
 
 
 def phase_train_throughput(torch, sep=1, tag="phase 7"):
@@ -1085,11 +1183,18 @@ def main():
     print(f"[phase 1] built {len(_build.SOURCES)} kernel(s) in "
           f"{prepare(torch):.1f} s")
     for name, log in _build.build_logs().items():
+        kernel, spill = "?", ""
         for line in log.splitlines():
             # registers and spills of every kernel, and ptxas's notes on
             # wgmma serialisation or an ignored setmaxnreg
-            if any(w in line for w in ("Used", "spill", "wgmma",
-                                       "setmaxnreg")):
+            if "Function properties for " in line:
+                kernel = line.split("Function properties for ")[-1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line:
+                used = line.split(":", 1)[-1].strip()
+                print(f"  {name}: {kernel[:72]}: {used}; {spill}")
+            elif "wgmma" in line or "setmaxnreg" in line:
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -1108,7 +1213,7 @@ def main():
     print(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    flash = phase_flash_kernels(torch, fa)
+    flash = phase_flash_kernels(torch, fa, ra)
     print(f"[phase 5] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1141,17 +1246,22 @@ def main():
     print(f"[phase 10] {time.perf_counter() - t0:.1f} s")
 
     src = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-    fwd_src = "paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
+    csrc = "paddle_tpu_torch/kernels/csrc/"
+    # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
+    # both entries carry its launches and times
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
+        "source": csrc + "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
         "launches": launches, **rpa}] + [
         {"name": f"flash_attention_{name}", "route": "cuda",
-         "source": fwd_src if name == "fwd" else src,
+         "source": csrc + source,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
-         "launches": flash_launches[name], **flash[name]}
-        for name, line in (("fwd", 64), ("bwd_dkdv", 168), ("bwd_dq", 215))
+         "launches": flash_launches[key], **flash[key]}
+        for name, key, source, line in (
+            ("fwd", "fwd", "flash_fwd_sm90.cu", 64),
+            ("bwd_dkdv", "bwd", "flash_bwd_sm90.cu", 168),
+            ("bwd_dq", "bwd", "flash_bwd_sm90.cu", 215))
     ] + [
         {"name": f"ring_{name}", "route": "cuda", "source": src,
          "replaces": f"paddle_tpu/kernels/ring_attention.py:{line}",

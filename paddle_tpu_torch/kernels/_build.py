@@ -4,9 +4,9 @@ Each source under ``csrc/`` has a plain C interface (no PyTorch headers),
 so ``nvcc`` builds it in seconds into a shared library that ``ctypes``
 loads; the wrappers pass device pointers, sizes and the current stream
 as Python ints.  Libraries are built at first use into ``build/`` next
-to this file (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once.
+to this file (listed in ``.gitignore``), named by a hash of the source,
+the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines without ``nvcc``.
@@ -14,6 +14,7 @@ the port on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -31,6 +32,7 @@ SOURCES = {
                                            "ragged_paged_attention.cu"),
     "flash_attention": os.path.join("csrc", "flash_attention.cu"),
     "flash_fwd_sm90": os.path.join("csrc", "flash_fwd_sm90.cu"),
+    "flash_bwd_sm90": os.path.join("csrc", "flash_bwd_sm90.cu"),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,8 +55,11 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(_HERE, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(_HERE, "csrc",
+                                                      "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:12]}.so")
 

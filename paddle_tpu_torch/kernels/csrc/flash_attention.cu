@@ -1,6 +1,8 @@
 // Flash attention for Hopper (sm_90a): the fp32 forward, backward dK/dV
-// and backward dQ, each a hand-written kernel behind a plain C interface.
-// The bf16 forward is flash_fwd_sm90.cu (wgmma + TMA).
+// and backward dQ, and ring attention's per-pair backward, each a
+// hand-written kernel behind a plain C interface.  The bf16 flash forward
+// is flash_fwd_sm90.cu and the bf16 flash backward flash_bwd_sm90.cu
+// (wgmma + TMA).
 //
 // Replaces the TPU kernels of paddle_tpu/kernels/flash_attention.py:
 //   forward  <- _fwd_kernel       (the pallas_call in _flash_fwd; fp32)
@@ -13,17 +15,17 @@
 // the tail is masked in-kernel).  The forward runs the online softmax
 // (m, l, acc) with the l == 0 -> 1 guard of the TPU kernel and writes
 // lse = m + log(l); the backward recomputes P = exp(s - lse) and
-// dS = P * (dP - delta) * scale.  Head dims 32, 64, 128 and 256 (the
-// wrapper zero-pads any other D <= 256 up to the next of them).
+// dS = P * (dP - delta) * scale.  Head dims 32, 64, 128 and 256, and 512
+// on the fp32 kernels (the wrapper zero-pads any other D <= 512 up to the
+// next of them, and runs bf16 inputs with D > 256 through the fp32
+// kernels).
 //
-// What bounds them on the H100: operations.  At the GPT-3 1.3B training
-// shapes (B*H = 128, S = 2048, D = 128, bf16, causal) the forward does
-// 4*D FLOPs per live (q, k) pair, 137.5 GFLOP (0.139 ms at 989 TFLOP/s)
-// against 269.5 MB of traffic (0.080 ms at 3.35 TB/s); dK/dV does twice
-// that and dQ 1.5 times, against 405 and 338 MB.  So the design keeps the
-// [S, S] scores out of device memory (one 64 x 64 tile at a time, in
+// What bounds them on the H100: operations.  The forward does 4*D FLOPs
+// per live (q, k) pair, dK/dV twice that and dQ 1.5 times, against a
+// few hundred MB of traffic at the 1.3B training shapes.  So the design
+// keeps the [S, S] scores out of device memory (one tile at a time, in
 // registers), walks only the kv tiles the causal mask leaves, and puts
-// the bf16 products on the tensor cores.
+// the ring pairs' bf16 products on the tensor cores.
 //
 // Layout of the work.  The TPU grid runs in order on one core and
 // carries the softmax state (or the dK/dV, dQ sums) in VMEM scratch from
@@ -45,19 +47,17 @@
 // runs.
 //
 // Two routes share that layout:
-//   bf16 backward (the training path): tensor cores, mma.sync m16n8k16
-//     with fp32 accumulation, 4 warps of 16 rows each; the streamed
-//     tiles are double-buffered with cp.async (see the tensor-core
-//     section).
 //   fp32: scalar fp32 FMAs over fp32 shared-memory tiles, 256 threads
 //     (the first design, kept for fp32 inputs, whose products the
 //     bf16 tensor cores cannot take without rounding them).
+//   ring pairs with bf16 q/k/v: tensor cores, mma.sync m16n8k16 with
+//     fp32 accumulation, 4 warps of 16 rows each; the streamed tiles are
+//     double-buffered with cp.async (see the tensor-core section).
 //
 // Ring attention's per-pair backward (paddle_tpu/kernels/ring_attention.py
-// _pair_bwd, its two pallas_calls of the dK/dV and dQ kernels) is the same
-// pair of backward kernels with two differences, so it is the same
-// templates instantiated once more (ring_pair_bwd_*_launch): dO comes in
-// fp32 while q/k/v are bf16, and dK, dV, dQ are written in fp32 (the
+// _pair_bwd, its two pallas_calls of the dK/dV and dQ kernels) is the
+// flash backward with two differences (ring_pair_bwd_*_launch): dO comes
+// in fp32 while q/k/v are bf16, and dK, dV, dQ are written in fp32 (the
 // ring sums them over the pairs of a rank in fp32).  lse and delta are
 // the ring-global ones, computed outside.  On the tensor-core route dO is
 // rounded to bf16 as it is staged into shared memory, like P and dS:
@@ -425,9 +425,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16: tensor-core kernels
+// ---------------------------- ring pairs, bf16 q/k/v: tensor-core kernels
 //
-// bf16 inputs take these in backward.  The products run on the tensor
+// A ring pair's bf16 q/k/v take these.  The products run on the tensor
 // cores as mma.sync m16n8k16 (bf16 in, fp32 accumulate); softmax, scaling and
 // masking stay fp32 in registers.  4 warps, each owning 16 rows of the
 // block's 64-row tile; Q, K, V (dO) tiles sit in shared memory as bf16
@@ -545,16 +545,10 @@ __device__ __forceinline__ void async_tile(__nv_bfloat16* dst,
   }
 }
 
-// dO tiles into bf16 shared memory: a bf16 dO by cp.async, an fp32 dO
-// (ring pairs) loaded 32 bytes a thread, rounded to bf16 and stored, which
-// finishes before the call returns; the barrier after the next wait makes
-// it visible like the asynchronous copies.
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           int row0, int S) {
-  async_tile<D>(dst, src, row0, S);
-}
+// fp32 dO tiles into bf16 shared memory: loaded 32 bytes a thread,
+// rounded to bf16 and stored, which finishes before the call returns; the
+// barrier after the next wait makes it visible like the asynchronous
+// copies.
 template <int D>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
                                            const float* src, int row0,
@@ -574,11 +568,7 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
   }
 }
 
-// Two neighbouring output columns in the output type: bf16 (flash) or
-// fp32 (ring pairs).
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
+// Two neighbouring fp32 output columns.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -607,15 +597,29 @@ __device__ __forceinline__ void to_a_frag(uint32_t (&frag)[4][4], int j,
   frag[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
 }
 
+// Launch order of the two kernels: blocks go in groups of G heads
+// whose streamed tiles (Q and dO, or K and V) fit the L2 cache together,
+// the tiles of a group's heads side by side and the heaviest causal tile
+// first, so the blocks running at once read those tiles from device
+// memory about once (a b*h-major grid puts ~132 heads on the card at once
+// and each block reads its head's tiles from device memory).  Block x of
+// the grid is (head bh, tile index r in launch order).
+__device__ __forceinline__ void grouped_block(int n_tiles, int BH, int G,
+                                              int& bh, int& r) {
+  const int grp = blockIdx.x / (G * n_tiles), i = blockIdx.x % (G * n_tiles);
+  const int gh = min(G, BH - grp * G);              // heads in this group
+  bh = grp * G + i % gh;
+  r = i / gh;
+}
+
 // Pipelines of the two kernels: the streamed pair of tiles (K, V or
 // Q, dO) is double-buffered.  Iteration i issues the copies of tile
 // i + 1 into the other buffer, waits for tile i's own, computes on it,
 // and ends in a barrier, so tile i + 2's copies (issued at iteration
 // i + 1) never overwrite a buffer still being read.
 
-// TdO: dO's type in device memory; TG: dK/dV's.  bf16/bf16 for flash,
-// fp32/fp32 for a ring pair.  DC: the dK/dV columns one block
-// accumulates, from column blockIdx.z * DC.  DC = D up to D = 128; at
+// dO and dK/dV are fp32 in device memory.  DC: the dK/dV columns one
+// block accumulates, from column blockIdx.y * DC.  DC = D up to D = 128; at
 // D = 256 the columns are split over two blocks per key tile (DC = 128),
 // since one thread would otherwise hold 256 fp32 dK/dV accumulators (the
 // limit is 255 registers).  Each of the two recomputes P and dS over the
@@ -624,16 +628,17 @@ __device__ __forceinline__ void to_a_frag(uint32_t (&frag)[4][4], int j,
 // D = 256) and the register budget of D = 128.  The split was chosen
 // over 32-key tiles, which would halve the work of each mma and read
 // every Q and dO tile twice as often.
-template <int D, int DC, typename TdO, typename TG>
+template <int D, int DC>
 __global__ void __launch_bounds__(kThreadsTC)
-    flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const TdO* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             TG* __restrict__ dk, TG* __restrict__ dv, int S,
-                             float scale, int causal) {
+    ring_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int S,
+                             float scale, int causal, int BH, int G) {
   constexpr int LDS = D + 8, KS = D / 16, TILE = kTile * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -644,8 +649,10 @@ __global__ void __launch_bounds__(kThreadsTC)
   float* delta_s = lse_s + 2 * kTile;                         // 2 x kTile
 
   constexpr int NC = DC / 8;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile, c0 = blockIdx.z * DC;
+  const int n_k = (S + kTile - 1) / kTile;
+  int bh, kt;                          // key tile 0 (most causal work) first
+  grouped_block(n_k, BH, G, bh, kt);
+  const int k0 = kt * kTile, c0 = blockIdx.y * DC;
   const size_t base = (size_t)bh * S * D;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* delta_bh = delta + (size_t)bh * S;
@@ -654,8 +661,8 @@ __global__ void __launch_bounds__(kThreadsTC)
   // this warp's key rows (the rows of S^T = K Q^T it computes)
   const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
   // causal: only q tiles whose last row reaches k0
-  const int qt0 = causal ? blockIdx.y : 0;
-  const int n_tiles = (S + kTile - 1) / kTile - qt0;
+  const int qt0 = causal ? kt : 0;
+  const int n_tiles = n_k - qt0;
 
   async_tile<D>(Ks, k + base, k0, S);
   async_tile<D>(Vs, v + base, k0, S);
@@ -741,16 +748,16 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
-template <int D, typename TdO, typename TG>
+template <int D>
 __global__ void __launch_bounds__(kThreadsTC)
-    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const TdO* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           TG* __restrict__ dq, int S, float scale,
-                           int causal) {
+    ring_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq, int S, float scale,
+                           int causal, int BH, int G) {
   constexpr int LDS = D + 8, KS = D / 16, NT = D / 8, TILE = kTile * LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -758,8 +765,10 @@ __global__ void __launch_bounds__(kThreadsTC)
   __nv_bfloat16* Ks = dOs + TILE;               // 2 buffers
   __nv_bfloat16* Vs = Ks + 2 * TILE;            // 2 buffers
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int n_q = (S + kTile - 1) / kTile;
+  int bh, r;                           // last query tile (most work) first
+  grouped_block(n_q, BH, G, bh, r);
+  const int q0 = (n_q - 1 - r) * kTile;
   const size_t base = (size_t)bh * S * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -841,7 +850,7 @@ __global__ void __launch_bounds__(kThreadsTC)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= S) continue;
-    TG* dst = dq + base + (size_t)row[h] * D + 2 * t;
+    float* dst = dq + base + (size_t)row[h] * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       store2(dst + 8 * n, dqa[n][2 * h], dqa[n][2 * h + 1]);
@@ -868,17 +877,28 @@ template <int D>
 constexpr size_t tc_tiles(int n) {
   return sizeof(__nv_bfloat16) * n * kTile * (D + 8);
 }
-// the backward kernels' fp32 tile: 32 rows at D = 256, where 64 do not
-// fit (dkdv_smem<256, 64> is 297 KB, dq_smem<256, 64> 280 KB)
+// the fp32 forward's tile: 16 rows at D = 512, where 64 do not fit
+// (fwd_smem<512, 64> is 410 KB)
+template <int D>
+constexpr int fwd_tile() {
+  return D > 256 ? 16 : kTile;
+}
+// the fp32 backward kernels' tile: 32 rows at D = 256, where 64 do not
+// fit (dkdv_smem<256, 64> is 297 KB, dq_smem<256, 64> 280 KB), 16 at
+// D = 512
 template <int D>
 constexpr int bwd_tile() {
-  return D > 128 ? 32 : kTile;
+  return D > 256 ? 16 : D > 128 ? 32 : kTile;
 }
 
 constexpr size_t kMaxSmem = 232448;   // 227 KB: a block's limit on sm_90
 static_assert(fwd_smem<256, kTile>() <= kMaxSmem, "fp32 forward tiles");
 static_assert(dkdv_smem<256, bwd_tile<256>()>() <= kMaxSmem, "fp32 dK/dV");
 static_assert(dq_smem<256, bwd_tile<256>()>() <= kMaxSmem, "fp32 dQ");
+// D = 512 (fp32 only): 99.6, 133.6 and 132.5 KB
+static_assert(fwd_smem<512, fwd_tile<512>()>() == 99584, "fp32 fwd 512");
+static_assert(dkdv_smem<512, bwd_tile<512>()>() == 133632, "fp32 dK/dV 512");
+static_assert(dq_smem<512, bwd_tile<512>()>() == 132544, "fp32 dQ 512");
 static_assert(tc_tiles<256>(6) + 4 * kTile * sizeof(float) <= kMaxSmem,
               "bf16 dK/dV");
 
@@ -894,23 +914,32 @@ using bf16 = __nv_bfloat16;
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int BH, int S, float scale, int causal, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<D, kTile>();
-  int rc = prepare(flash_fwd_kernel<D, kTile>, smem);
+  constexpr int T = fwd_tile<D>();
+  constexpr size_t smem = fwd_smem<D, T>();
+  int rc = prepare(flash_fwd_kernel<D, T>, smem);
   if (rc) return rc;
-  flash_fwd_kernel<D, kTile><<<dim3(BH, (S + kTile - 1) / kTile), kThreads,
-                               smem, st>>>(
+  flash_fwd_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
+                           st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out,
       (float*)lse, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
-// TdO, TG: dO's and the gradients' types on the tensor-core route (the
-// scalar fp32 route takes fp32 for both).
-template <int D, typename TdO = bf16, typename TG = bf16>
+// Heads whose streamed tiles take about 16 MB together (a third of the
+// L2), for bytes_per_head bytes of them a head.
+int head_group(int BH, long long bytes_per_head) {
+  return (int)max(1LL, min((long long)BH, (16LL << 20) / bytes_per_head));
+}
+
+// The backward kernels.  dtype 0: q/k/v fp32, the scalar kernels (the
+// flash fp32 backward and a ring pair's); 1: q/k/v bf16, the tensor-core
+// kernels (a ring pair's).  dO and the gradients are fp32 on both.
+template <int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int BH,
          int S, float scale, int causal, int dtype, cudaStream_t st) {
-  if (dtype == 0) {
+  if (dtype == 0 || D > 256) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;   // fp32 only
     constexpr int T = bwd_tile<D>();
     constexpr size_t smem = dkdv_smem<D, T>();
     int rc = prepare(flash_bwd_dkdv_kernel<D, T>, smem);
@@ -920,25 +949,28 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dk, (float*)dv, S, scale, causal);
-  } else {
+  } else if constexpr (D <= 256) {
     constexpr int DC = D > 128 ? 128 : D;
     constexpr size_t smem = tc_tiles<D>(6) + 4 * kTile * sizeof(float);
-    int rc = prepare(flash_bwd_dkdv_tc_kernel<D, DC, TdO, TG>, smem);
+    int rc = prepare(ring_bwd_dkdv_tc_kernel<D, DC>, smem);
     if (rc) return rc;
-    flash_bwd_dkdv_tc_kernel<D, DC, TdO, TG>
-        <<<dim3(BH, (S + kTile - 1) / kTile, D / DC), kThreadsTC, smem, st>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
-            (const float*)lse, (const float*)delta, (TG*)dk, (TG*)dv, S,
-            scale, causal);
+    // streamed a head: bf16 Q and fp32 dO
+    const int G = head_group(BH, 6LL * S * D);
+    ring_bwd_dkdv_tc_kernel<D, DC>
+        <<<dim3(BH * ((S + kTile - 1) / kTile), D / DC), kThreadsTC, smem,
+           st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                 (const float*)dout, (const float*)lse, (const float*)delta,
+                 (float*)dk, (float*)dv, S, scale, causal, BH, G);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D, typename TdO = bf16, typename TG = bf16>
+template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_, int BH, int S,
        float scale, int causal, int dtype, cudaStream_t st) {
-  if (dtype == 0) {
+  if (dtype == 0 || D > 256) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;   // fp32 only
     constexpr int T = bwd_tile<D>();
     constexpr size_t smem = dq_smem<D, T>();
     int rc = prepare(flash_bwd_dq_kernel<D, T>, smem);
@@ -948,41 +980,34 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
         (float*)dq_, S, scale, causal);
-  } else {
+  } else if constexpr (D <= 256) {
     constexpr size_t smem = tc_tiles<D>(6);
-    int rc = prepare(flash_bwd_dq_tc_kernel<D, TdO, TG>, smem);
+    int rc = prepare(ring_bwd_dq_tc_kernel<D>, smem);
     if (rc) return rc;
-    flash_bwd_dq_tc_kernel<D, TdO, TG>
-        <<<dim3(BH, (S + kTile - 1) / kTile), kThreadsTC, smem, st>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const TdO*)dout,
-            (const float*)lse, (const float*)delta, (TG*)dq_, S, scale,
-            causal);
+    // streamed a head: bf16 K and V
+    const int G = head_group(BH, 4LL * S * D);
+    ring_bwd_dq_tc_kernel<D>
+        <<<BH * ((S + kTile - 1) / kTile), kThreadsTC, smem, st>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v,
+            (const float*)dout, (const float*)lse, (const float*)delta,
+            (float*)dq_, S, scale, causal, BH, G);
   }
   return (int)cudaGetLastError();
 }
 
-// A ring pair's backward: fp32 dO in, fp32 gradients out.
-template <int D, typename... A>
-int ring_dkdv(A... a) {
-  return dkdv<D, float, float>(a...);
-}
-template <int D, typename... A>
-int ring_dq(A... a) {
-  return dq<D, float, float>(a...);
-}
-
-// Dispatch on the head dim (32, 64, 128, 256).  The grid's y extent is
-// at most 65535 tiles of the smallest tile (32 rows).  The backward
-// entries also take dtype: 0 = fp32 (scalar kernels), 1 = bf16
-// (tensor-core kernels).
+// Dispatch on the head dim (32, 64, 128, 256, 512).  The scalar
+// kernels' grid y extent is at most 65535 tiles of the smallest tile (16
+// rows); the tensor-core grids are 1-D.
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
-    if (BH <= 0 || S <= 0 || (S + 31) / 32 > 65535)                     \
+    if (BH <= 0 || S <= 0 || (S + 15) / 16 > 65535 ||                   \
+        (long long)BH * ((S + kTile - 1) / kTile) > 2147483647LL)       \
       return (int)cudaErrorInvalidValue;                                \
     if (D == 32) return FN<32>(__VA_ARGS__);                            \
     if (D == 64) return FN<64>(__VA_ARGS__);                            \
     if (D == 128) return FN<128>(__VA_ARGS__);                          \
     if (D == 256) return FN<256>(__VA_ARGS__);                          \
+    if (D == 512) return FN<512>(__VA_ARGS__);                          \
     return (int)cudaErrorInvalidValue;                                  \
   } while (0)
 
@@ -991,7 +1016,8 @@ int ring_dq(A... a) {
 
 }  // namespace
 
-// The fp32 forward: q, k, v, out [BH, S, D] fp32, lse [BH, S] fp32.
+// The fp32 flash kernels: q, k, v, out, dout, dk, dv, dq [BH, S, D] fp32,
+// lse and delta [BH, S] fp32.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int BH, int S, int D,
                                 float scale, int causal, void* stream) {
@@ -1004,25 +1030,23 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      const void* lse, const void* delta,
                                      void* dk, void* dv, int BH, int S,
                                      int D, float scale, int causal,
-                                     int dtype, void* stream) {
-  CHECK_DTYPE;
+                                     void* stream) {
   FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
-                 causal, dtype, static_cast<cudaStream_t>(stream));
+                 causal, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    void* dq_out, int BH, int S, int D,
-                                   float scale, int causal, int dtype,
-                                   void* stream) {
-  CHECK_DTYPE;
+                                   float scale, int causal, void* stream) {
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
-                 causal, dtype, static_cast<cudaStream_t>(stream));
+                 causal, 0, static_cast<cudaStream_t>(stream));
 }
 
 // One ring pair's backward with the ring-global lse and delta: q, k, v
-// [BH, S, D] of dtype (0 fp32, 1 bf16), dout fp32, dk/dv (dq) fp32.
+// [BH, S, D] of dtype (0 fp32, 1 bf16 with D <= 256), dout fp32, dk/dv
+// (dq) fp32.
 extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
@@ -1030,7 +1054,7 @@ extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
                                          int D, float scale, int causal,
                                          int dtype, void* stream) {
   CHECK_DTYPE;
-  FLASH_DISPATCH(ring_dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
+  FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1041,6 +1065,6 @@ extern "C" int ring_pair_bwd_dq_launch(const void* q, const void* k,
                                        float scale, int causal, int dtype,
                                        void* stream) {
   CHECK_DTYPE;
-  FLASH_DISPATCH(ring_dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
+  FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
                  causal, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 """Flash attention — softmax(Q Kᵀ·scale) V with a per-row logsumexp, and
 its backward (the port of ``paddle_tpu/kernels/flash_attention.py``).
 
-Three kernels, each beside its plain PyTorch version:
+Three TPU kernels, each beside its plain PyTorch version:
 
 - forward (``_fwd_kernel``): O and the fp32 row logsumexp ``lse``;
 - backward dK/dV (``_bwd_dkdv_kernel``) and dQ (``_bwd_dq_kernel``):
@@ -10,9 +10,13 @@ Three kernels, each beside its plain PyTorch version:
 The plain versions (``_flash_fwd_ref``, ``_flash_bwd_ref``) compute the
 same formulas over the whole [S, S] score matrix in fp32.  The CUDA
 kernels are built with ``nvcc`` for ``sm_90a`` at first use and called
-through ctypes: the bf16 forward is ``csrc/flash_fwd_sm90.cu`` (wgmma
-and TMA, warp specialised), the fp32 forward and both backward kernels
-are ``csrc/flash_attention.cu``.  ``_Flash`` binds the
+through ctypes.  bf16 inputs: the forward is ``csrc/flash_fwd_sm90.cu``
+and the backward (dQ, dK and dV in one launch) ``csrc/flash_bwd_sm90.cu``,
+both wgmma and TMA, warp specialised; the backward adds dQ into a zeroed
+fp32 buffer across key tiles, so dQ on the card is not bit-reproducible
+from run to run (the order of the fp32 sums varies; well inside the bf16
+tolerance).  fp32 inputs: the scalar forward, dK/dV and dQ kernels of
+``csrc/flash_attention.cu``.  ``_Flash`` binds the
 forward and backward as one ``torch.autograd.Function`` (the JAX
 package's ``_flash`` custom VJP): on CPU tensors it runs the plain
 versions, on CUDA tensors the kernels, and there is no fallback from one
@@ -20,11 +24,16 @@ to the other.
 
 Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
 ``[B, H, S]`` fp32.  Math is fp32 on both paths.  The kernels are
-instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128, 256}; any other
-D ≤ 256 is zero-padded up to the next of them and the result sliced
+instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128, 256, 512}; any other
+D ≤ 512 is zero-padded up to the next of them and the result sliced
 back, which is exact (zero columns add nothing to q·k and give zero
 output and gradient columns; the scale stays that of the real D).
-D > 256 raises ``ValueError`` on the card, as the JAX gate refuses it.
+Routing by shape, not a fallback: the bf16 kernels take D ≤ 256, so
+bf16 inputs with 256 < D ≤ 512 are cast up to fp32, run through the fp32
+kernels (D = 512, 16-row tiles) and rounded back to bf16.  D > 512
+raises ``ValueError`` on the card; the JAX ``flash_attention`` computes
+any D, but its gate refuses D > 256, so no caller of either package
+reaches D > 256 through the gate.
 """
 from __future__ import annotations
 
@@ -39,12 +48,16 @@ __all__ = ["flash_attention", "flash_attention_available",
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels are instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the CUDA kernels are instantiated for (512: fp32 only)
+HEAD_DIMS = (32, 64, 128, 256, 512)
+#: the widest head dim of the bf16 kernels; wider bf16 runs in fp32
+BF16_MAX_HEAD_DIM = 256
 
-#: kernel launches since the counts were last set to 0 (CUDA path only);
-#: one plain integer per kernel
-launches = {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+#: kernel launches since the counts were last set to 0 (CUDA path only):
+#: ``fwd`` every forward kernel, ``bwd`` every backward kernel (a bf16
+#: backward is one launch; an fp32 one launches its dK/dV and its dQ
+#: kernel, two)
+launches = {"fwd": 0, "bwd": 0}
 
 
 # --------------------------------------------------------------- reference
@@ -122,14 +135,14 @@ def _lib():
     if lib.flash_fwd_launch.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_fwd_launch.argtypes = [ptr] * 5 + [i] * 3 + [f, i, ptr]
-        lib.flash_bwd_dkdv_launch.argtypes = ([ptr] * 8 + [i] * 3
-                                              + [f, i, i, ptr])
-        lib.flash_bwd_dq_launch.argtypes = ([ptr] * 7 + [i] * 3
-                                            + [f, i, i, ptr])
-        # ring attention's per-pair backward: the same arguments
-        lib.ring_pair_bwd_dkdv_launch.argtypes = \
-            lib.flash_bwd_dkdv_launch.argtypes
-        lib.ring_pair_bwd_dq_launch.argtypes = lib.flash_bwd_dq_launch.argtypes
+        lib.flash_bwd_dkdv_launch.argtypes = [ptr] * 8 + [i] * 3 + [f, i,
+                                                                   ptr]
+        lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + [i] * 3 + [f, i, ptr]
+        # ring attention's per-pair backward: the same and a dtype
+        lib.ring_pair_bwd_dkdv_launch.argtypes = [ptr] * 8 + [i] * 3 + [
+            f, i, i, ptr]
+        lib.ring_pair_bwd_dq_launch.argtypes = [ptr] * 7 + [i] * 3 + [f, i, i,
+                                                                      ptr]
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkdv_launch,
                    lib.flash_bwd_dq_launch, lib.ring_pair_bwd_dkdv_launch,
                    lib.ring_pair_bwd_dq_launch):
@@ -149,10 +162,22 @@ def _lib_sm90():
     return lib
 
 
+def _lib_bwd_sm90():
+    from . import _build
+
+    lib = _build.load("flash_bwd_sm90")
+    if lib.flash_bwd_sm90_launch.argtypes is None:
+        ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_bwd_sm90_launch.argtypes = [ptr] * 9 + [i] * 3 + [f, i,
+                                                                    ptr]
+        lib.flash_bwd_sm90_launch.restype = ctypes.c_int
+    return lib
+
+
 def _pad_head_dim(*ts, least=0):
     """``ts`` ``[..., D]`` zero-padded on the head dim to the smallest
     size in ``HEAD_DIMS`` that holds D and ``least`` (unchanged when D is
-    that size); ``ValueError`` past the largest."""
+    that size); ``ValueError`` past the largest (512)."""
     D = ts[0].shape[-1]
     n = next((n for n in HEAD_DIMS if n >= max(D, least)), None)
     if n is None:
@@ -193,11 +218,20 @@ def _launch(counts, name, fn, *args):
     counts[name] += 1
 
 
+def _wide_bf16(q):
+    """bf16 inputs whose head dim only the fp32 kernels take."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] > BF16_MAX_HEAD_DIM
+
+
 def _flash_fwd_cuda(q, k, v, scale, causal):
     """bf16: the wgmma/TMA kernel, which takes D ∈ {64, 128, 256} (D = 32
     pads to 64) and a scale ≥ 0 (it takes the row max before scaling; a
-    negative scale runs as −K with |scale|, which is exact); fp32: the
-    scalar kernel."""
+    negative scale runs as −K with |scale|, which is exact); fp32, and
+    bf16 with D > 256: the scalar kernel."""
+    if _wide_bf16(q):
+        out, lse = _flash_fwd_cuda(q.float(), k.float(), v.float(), scale,
+                                   causal)
+        return out.to(q.dtype), lse
     D = q.shape[-1]
     bf16 = q.dtype == torch.bfloat16
     if bf16 and scale < 0:
@@ -218,34 +252,62 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
 
 
 def _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
+    """fp32: (dk, dv) from the scalar dK/dV kernel."""
     D = q.shape[-1]
     q, k, v, do = _pad_head_dim(q, k, v, do)
     _check_cuda(q, k, v, do, lse, delta)
     B, H, S, Dk = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _launch(launches, "bwd_dkdv", _lib().flash_bwd_dkdv_launch, q, k, v,
-                do, lse, delta, dk, dv, B * H, S, Dk, float(scale),
-                int(causal), _DTYPES[q.dtype])
+        _launch(launches, "bwd", _lib().flash_bwd_dkdv_launch, q, k, v, do,
+                lse, delta, dk, dv, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, dk, dv)
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
+    """fp32: dq from the scalar dQ kernel."""
     D = q.shape[-1]
     q, k, v, do = _pad_head_dim(q, k, v, do)
     _check_cuda(q, k, v, do, lse, delta)
     B, H, S, Dk = q.shape
     dq = torch.empty_like(q)
     if q.numel():
-        _launch(launches, "bwd_dq", _lib().flash_bwd_dq_launch, q, k, v, do,
-                lse, delta, dq, B * H, S, Dk, float(scale), int(causal),
-                _DTYPES[q.dtype])
+        _launch(launches, "bwd", _lib().flash_bwd_dq_launch, q, k, v, do,
+                lse, delta, dq, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, dq)[0]
 
 
+def _bwd_sm90(q, k, v, do, lse, delta, scale, causal):
+    """bf16, D ≤ 256: (dq, dk, dv) from the one wgmma/TMA kernel, which
+    takes D ∈ {64, 128, 256} (D = 32 pads to 64).  dQ is summed over the
+    key tiles into a zeroed fp32 buffer and rounded to bf16 here; the
+    zeroing and the rounding are part of the call."""
+    D = q.shape[-1]
+    q, k, v, do = _pad_head_dim(q, k, v, do, least=64)
+    _check_cuda(q, k, v, do, lse, delta)
+    B, H, S, Dk = q.shape
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    if q.numel():
+        _launch(launches, "bwd", _lib_bwd_sm90().flash_bwd_sm90_launch, q,
+                k, v, do, lse, delta, dq_acc, dk, dv, B * H, S, Dk,
+                float(scale), int(causal))
+    return _unpad_head_dim(D, dq_acc.to(q.dtype), dk, dv)
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal):
+    """(dq, dk, dv) in q's dtype: bf16 (D ≤ 256) from the fused kernel in
+    one launch, fp32 (and bf16 with D > 256, cast up) from the scalar
+    dK/dV and dQ kernels; δ = rowsum(dO∘O) is computed here, outside the
+    kernels, as in the JAX package."""
+    if _wide_bf16(q):
+        grads = _flash_bwd_cuda(q.float(), k.float(), v.float(), out, lse,
+                                do.float(), scale, causal)
+        return tuple(g.to(q.dtype) for g in grads)
     do = do.to(q.dtype).contiguous()
     delta = _delta(out, do)
+    if q.dtype == torch.bfloat16:
+        return _bwd_sm90(q, k, v, do, lse, delta, scale, causal)
     dk, dv = _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
     return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal), dk, dv
 
@@ -269,7 +331,7 @@ def _flash_bwd(q, k, v, out, lse, do, scale, causal, plain=False):
 
 class _Flash(torch.autograd.Function):
     """Forward saves (q, k, v, out, lse), as the JAX ``_flash_fwd_rule``
-    does; backward runs the dK/dV and dQ kernels (or the plain
+    does; backward runs the backward kernel(s) (or the plain
     backward).  Every tensor it hands a kernel is allocated in the call,
     so a recompute under activation checkpointing launches the forward
     kernel again into fresh buffers."""
@@ -306,7 +368,8 @@ def _check(q, k, v):
 def flash_attention_available(q, k, v, mask, causal=False):
     """The JAX package's gate, kept as it is: no mask, equal [B, H, S, D]
     shapes, D ≤ 256, and S a multiple of 128 unless causal.  On the card
-    the kernels take every D it admits (padded up to ``HEAD_DIMS``)."""
+    the kernels take every D it admits (padded up to ``HEAD_DIMS``), and
+    ``flash_attention`` called directly takes D ≤ 512."""
     if mask is not None:
         return False
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -335,7 +398,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
     - ``block_q``/``block_kv`` are the TPU kernel's VMEM tiles.  They are
       accepted and ignored: on the card each kernel uses its own tiles
       (128 queries × 128 keys, or × 64 at D = 256, in the bf16 forward;
-      64 × 64 elsewhere, 32 × 32 in the fp32 backward at D = 256).
+      128 keys × 64 queries in the bf16 backward; 64 × 64 in the fp32
+      kernels, 32 × 32 in their backward at D = 256 and 16 × 16 at
+      D = 512).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     and count them in ``launches``."""

@@ -14,7 +14,12 @@ Two implementations with one contract:
   pages, mask, fp32 softmax.  The CPU path and the numerics oracle the
   kernel is held against on the card.
 - the CUDA kernel (``csrc/ragged_paged_attention.cu``), built with
-  ``nvcc`` for ``sm_90a`` at first use and called through ctypes.
+  ``nvcc`` for ``sm_90a`` at first use and called through ctypes.  It
+  takes every head dim from 1 to ``MAX_HEAD_DIM`` = 512 and reads the
+  pool as it is allocated: 16 bytes a load where the rows and pointers
+  allow it, one element a load otherwise (hd odd, or hd % 8 != 0 at
+  bf16).  Past 512 its tiles would not fit in a block's shared memory
+  and it raises.
 
 ``ragged_paged_attention`` picks by device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise.  There is no fallback
@@ -43,6 +48,8 @@ __all__ = ["ragged_paged_attention", "paged_attention"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head dim the CUDA kernel takes
+MAX_HEAD_DIM = 512
 
 
 # ---------------------------------------------------------------- reference
@@ -91,7 +98,8 @@ def _kernel_fn():
     fn = lib.ragged_paged_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -100,13 +108,14 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_tables, query_lens,
                            context_lens, scale):
     B, Q, H, hd = q.shape
     P, page_size = k_pages.shape[:2]
-    if hd % 32 or hd > 256:
-        raise ValueError(f"ragged_paged_attention kernel: head_dim {hd} "
-                         "must be a multiple of 32 and at most 256")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"ragged_paged_attention kernel: {name} must "
-                             "be 16-byte aligned")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(
+            f"ragged_paged_attention kernel: head_dim {hd} is over "
+            f"{MAX_HEAD_DIM}, past which its K, V and query tiles do not "
+            f"fit in the 227 KB of shared memory a block may hold")
+    # 16-byte loads where every row and base pointer allows them
+    vec16 = (hd * q.element_size() % 16 == 0
+             and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -117,7 +126,7 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_tables, query_lens,
                 page_tables.data_ptr(), query_lens.data_ptr(),
                 context_lens.data_ptr(), out.data_ptr(), B, Q, H, hd,
                 page_size, page_tables.shape[1], P, float(scale),
-                _DTYPES[q.dtype], stream)
+                _DTYPES[q.dtype], int(vec16), stream)
     if rc != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: CUDA error {rc}")

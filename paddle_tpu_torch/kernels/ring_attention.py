@@ -38,7 +38,8 @@ between the two):
   bf16 as it is staged (the choice over TF32): exact on the training
   path, where dO is the fp32 copy of a bf16 gradient, and one more
   2⁻⁹-relative rounding per term, like P and dS, for an fp32 dO with more
-  bits.  fp32 q/k/v take the scalar fp32 kernels, with no rounding.
+  bits.  fp32 q/k/v take the scalar fp32 kernels, with no rounding, and
+  so do bf16 q/k/v with D > 256 (cast up; the outputs are fp32 anyway).
 """
 from __future__ import annotations
 
@@ -87,6 +88,8 @@ def _pair_bwd_launch(name, n_out, q, k, v, do, lse, delta, scale, causal):
     if do.dtype != torch.float32:
         raise TypeError(f"a ring pair's backward takes an fp32 dO, got "
                         f"{do.dtype}")
+    if fa._wide_bf16(q):                 # D > 256: the fp32 kernels
+        q, k, v = q.float(), k.float(), v.float()
     D = q.shape[-1]
     q, k, v, do = fa._pad_head_dim(q, k, v, do)
     fa._check_cuda(q, k, v, do, lse, delta)

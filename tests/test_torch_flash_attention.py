@@ -111,6 +111,46 @@ def test_bwd_ref_is_the_autograd_function():
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("S,causal", [(128, False), (72, True)])
+def test_wide_head_dim_matches_jax(S, causal):
+    """D = 320, past the JAX gate's 256, which the JAX ``flash_attention``
+    computes all the same (Pallas in interpret mode) and the port takes on
+    the card by zero-padding to 512 (fp32 kernels; bf16 cast up): the
+    output and dq/dk/dv of the plain route on that padded problem, sliced
+    back, against the JAX package and its gradient at 1e-4."""
+    D = 320
+    q, k, v, do = _qkv(S, D, seed=8)
+    scale = 1.0 / np.sqrt(D)
+
+    def f(q_, k_, v_):
+        return jnp.sum(jax_flash(q_, k_, v_, causal=causal)
+                       * jnp.asarray(do))
+
+    out_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal)
+    grads_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    padded = fa._pad_head_dim(*_t(q, k, v, do))
+    assert padded[0].shape[-1] == 512
+    out_p, lse = fa._flash_fwd_ref(*padded[:3], scale, causal)
+    grads_p = fa._flash_bwd_ref(*padded[:3], out_p, lse, padded[3], scale,
+                                causal)
+    got = fa._unpad_head_dim(D, out_p, *grads_p)
+    for a, b, name in zip(got, (out_j,) + tuple(grads_j),
+                          ("out", "dq", "dk", "dv")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
+                                   err_msg=name)
+    # and the public entry on the CPU (the plain route, unpadded)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(torch.from_numpy(do))
+    for a, b, name in zip((out.detach(), tq.grad, tk.grad, tv.grad),
+                          (out_j,) + tuple(grads_j), ("out", "dq", "dk",
+                                                      "dv")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
+                                   err_msg=f"entry {name}")
+
+
 def test_non_causal_ragged_seq_raises_like_jax():
     q, k, v, _ = _qkv(200, 32)
     with pytest.raises(ValueError, match="128"):

@@ -79,9 +79,33 @@ def test_decode_entry_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 17, 48, 80, 100, 320, 512])
+def test_kernel_any_head_dim(cuda, hd, dtype):
+    """Head dims off the 32-grid (masked tail lanes; one-element loads
+    where a row is not a multiple of 16 bytes: hd 17 in both dtypes, 100
+    in bf16) and past 256 (tiles staged without the register prefetch),
+    against the plain version."""
+    for qlens, ctxs in (CASES[0], CASES[3]):
+        q, kp, vp, tb, ql, cl = _case(qlens, ctxs, hd, seed=hd)
+        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+        before = pa.ragged_paged_attention.launches
+        out = pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+        ref = pa._ragged_attention_ref(q, kp, vp, tb, ql, cl)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        for b, n in enumerate(qlens):
+            assert not out[b, n:].any()
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_load(cuda):
-    q, kp, vp, tb, ql, cl = _case(*CASES[0], 48)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Past a head dim of 512 the tiles do not fit a block's shared
+    memory: the wrapper raises, naming it."""
+    q, kp, vp, tb, ql, cl = _case(*CASES[0], 544)
+    with pytest.raises(ValueError, match="head_dim 544.*shared memory"):
         pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
     q, kp, vp, tb, ql, cl = _case(*CASES[0], 32)
     with pytest.raises(TypeError):
@@ -119,6 +143,12 @@ FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
              torch.bfloat16: dict(atol=1e-2, rtol=1.6e-2)}
 
 
+def _bwd_launches(q):
+    """Backward kernels one flash backward launches: bf16 with D <= 256
+    one (dQ, dK, dV together), fp32 (and wider bf16) two (dK/dV, dQ)."""
+    return 1 if q.dtype == torch.bfloat16 and q.shape[-1] <= 256 else 2
+
+
 def _flash_case(S, D, dtype, B=2, H=2, seed=0):
     rng = np.random.RandomState(seed)
     return [torch.from_numpy(rng.standard_normal((B, H, S, D))
@@ -148,7 +178,8 @@ def test_flash_kernels_match_plain(cuda, S, causal, D, dtype):
                                     causal)
     rq, rk, rv = fa._flash_bwd_ref(q, k, v, ref, ref_lse, do, scale, causal)
     torch.cuda.synchronize()
-    assert fa.launches == {n: before[n] + 1 for n in before}
+    assert fa.launches == {"fwd": before["fwd"] + 1,
+                           "bwd": before["bwd"] + _bwd_launches(q)}
     assert out.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
@@ -177,24 +208,34 @@ def test_flash_autograd_on_card_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_other_head_dims(cuda):
-    """Every D ≤ 256 outside ``HEAD_DIMS`` runs zero-padded (D = 96 up to
-    128, D = 192 up to 256; equal to the plain version); D > 256 fails
-    the JAX gate and raises."""
+    """Every D ≤ 512 outside ``HEAD_DIMS`` runs zero-padded (D = 96 up to
+    128, D = 192 up to 256, D = 320 up to 512; equal to the plain
+    version), and so do D = 320 and 512 past the JAX gate, through
+    ``flash_attention`` and ``ring_attention`` (bf16 runs them in fp32);
+    D > 512 raises."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    for D in (96, 192):
-        q, k, v, do = _flash_case(128, D, torch.float32)
-        assert fa.flash_attention_available(q, k, v, None, causal=True)
-        outs = []
-        for fn in (fa.flash_attention, fa.flash_attention_plain):
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            out = fn(*leaves, causal=True)
-            out.backward(do)
-            outs.append([out.detach()] + [t.grad for t in leaves])
-        for a, b in zip(*outs):
-            assert a.shape == b.shape == q.shape
-            torch.testing.assert_close(a, b, **FLASH_TOL[torch.float32])
-    q, k, v, _ = _flash_case(128, 320, torch.float32)
+    ra = _ring_module()
+    for D, dtype in ((96, torch.float32), (192, torch.float32),
+                     (320, torch.float32), (320, torch.bfloat16),
+                     (512, torch.float32), (512, torch.bfloat16)):
+        q, k, v, do = _flash_case(128, D, dtype)
+        assert fa.flash_attention_available(q, k, v, None,
+                                            causal=True) == (D <= 256)
+        for fns in ((fa.flash_attention, fa.flash_attention_plain),
+                    (lambda *a, causal: ra.ring_attention(*a, sep=1),
+                     fa.flash_attention_plain)):
+            outs = []
+            for fn in fns:
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = fn(*leaves, causal=True)
+                out.backward(do)
+                outs.append([out.detach()] + [t.grad for t in leaves])
+            for a, b in zip(*outs):
+                assert a.shape == b.shape == q.shape and a.dtype == dtype
+                torch.testing.assert_close(a.float(), b.float(),
+                                           **FLASH_TOL[dtype])
+    q, k, v, _ = _flash_case(128, 1024, torch.float32)
     assert not fa.flash_attention_available(q, k, v, None, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v, causal=True)
@@ -222,7 +263,8 @@ def test_flash_kernels_wide_head_dims(cuda, S, causal, D, dtype):
                                     causal)
     rq, rk, rv = fa._flash_bwd_ref(q, k, v, ref, ref_lse, do, scale, causal)
     torch.cuda.synchronize()
-    assert fa.launches == {n: before[n] + 1 for n in before}
+    assert fa.launches == {"fwd": before["fwd"] + 1,
+                           "bwd": before["bwd"] + _bwd_launches(q)}
     assert out.shape == q.shape and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.float32])
@@ -289,6 +331,60 @@ def test_flash_forward_bf16_any_scale(cuda, scale, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 17, 64, 200, 384, 2048])
+def test_flash_backward_bf16_matches_plain(cuda, S, D, causal):
+    """The bf16 backward (dQ, dK and dV in one wgmma/TMA kernel, one
+    launch) against ``_bwd_dq_ref`` / ``_bwd_dkdv_ref`` at the bf16
+    tolerance, over ragged S, both masks and every head dim it takes
+    (D = 32 padded to 64).  dQ is summed with atomics, so it is held to
+    the plain version, never to another run of itself."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_case(S, D, torch.bfloat16, seed=5 * S + D)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    before = fa.launches["bwd"]
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, out, lse, do, scale, causal)
+    rq, rk, rv = fa._flash_bwd_ref(q, k, v, out, lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches["bwd"] == before + 1
+    for name, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape, name
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **FLASH_TOL[torch.bfloat16], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_backward_bf16_any_scale(cuda, scale, causal):
+    """The bf16 backward takes no row max, so any scale runs as it is: a
+    negative one, and zero (every live key weighs the same).  At
+    |scale| = 0.3 the dS terms are 2.4 times those of the default scale
+    at this head dim, so the bf16 rounding of P and dS for the tensor
+    cores alone moves dK by up to 0.027 (measured on an H100): the kernel
+    is held to the plain formulas with P and dS rounded to bf16 where it
+    rounds them."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_case(200, 64, torch.bfloat16, seed=17)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, scale, causal)
+    p, ds = fa._bwd_p_ds(q, k, v, lse, fa._delta(out, do), do, scale,
+                         causal)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    want = (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float()))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b, **FLASH_TOL[torch.bfloat16],
+                                   msg=name)
+
+
+@pytest.mark.cuda
 def test_ring_full_pair_forward_matches_plain(cuda):
     """A ring's full pair runs the bf16 forward non-causally at the shard
     length of the sep = 4 training path (s = 512): out and lse against
@@ -309,8 +405,8 @@ def test_train_step_on_card_matches_cpu(cuda):
     """Two ``HybridEngine`` steps on ``tiny`` fp32 on the card (flash
     kernels) and on the CPU (plain versions): equal losses at 1e-4, and
     the card counted 2 forward launches per layer per step under
-    ``dots`` (the forward and its recompute) and one of each backward
-    kernel."""
+    ``dots`` (the forward and its recompute) and the fp32 backward's two
+    kernels."""
     from paddle_tpu_torch.distributed import HybridEngine
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models import GPT_CONFIGS
@@ -337,8 +433,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         losses[dev] = [float(eng.step(params, opt, tokens, labels,
                                       lr=1e-3)[2]) for _ in range(2)]
     L = cfg.num_layers
-    assert fa.launches == {"fwd": 2 * 2 * L, "bwd_dkdv": 2 * L,
-                           "bwd_dq": 2 * L}
+    # fp32: each backward launches its dK/dV and its dQ kernel
+    assert fa.launches == {"fwd": 2 * 2 * L, "bwd": 2 * 2 * L}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=1e-4)
 

@@ -190,7 +190,8 @@ def test_pair_bwd_ref_is_the_gradient_of_the_pair():
 @pytest.mark.parametrize("D", [48, 80, 160, 192])
 def test_flash_head_dim_padding_is_exact(D):
     """What the CUDA wrappers do for a D not in ``HEAD_DIMS``: zero-pad
-    q/k/v/dO to the next size (256 for 128 < D < 256), run, slice.  Run
+    q/k/v/dO to the next size (256 for 128 < D < 256), run, slice; past
+    512 they raise.  Run
     here through the plain versions, against the JAX package's
     ``flash_attention`` (Pallas in interpret mode) and its gradient at
     1e-4, and against ``_naive_attention`` and its autograd at 1e-5."""
@@ -219,7 +220,7 @@ def test_flash_head_dim_padding_is_exact(D):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
                                    rtol=1e-5)
     with pytest.raises(ValueError, match="head_dim"):
-        fa._pad_head_dim(torch.zeros(1, 1, 128, 320))
+        fa._pad_head_dim(torch.zeros(1, 1, 128, 1024))
 
 
 # ---------------------------------------------------------------- engine

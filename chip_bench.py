@@ -21,8 +21,13 @@ shapes ([8, 16, 512, 128], full and diagonal) and over a whole sequence
 outputs of the two must be equal bit for bit.
 
 ``ragged``: ``ragged_paged_attention.cu`` of OTHER_TREE, of this
-checkout and of any further SOURCE files, at the serving shapes of
-``chip_smoke.py`` phase 2, bf16 and fp32, in turns.
+checkout and of any further SOURCE files, at the two shapes of
+``chip_smoke.py`` phase 2 (the serving batch and the all-decode batch)
+and at the serving batch with head dims 80 and 320, bf16 and fp32, in
+turns: device time per call from CUDA graph replays, then the time of
+calls made one by one from the host (ctypes).  Each tree is called through its own C entry, whichever of the
+three signatures it has (the kv-split entry with its partials scratch,
+sized by this checkout's ``_splits``; the two before it).
 
 Every library is built with the package's nvcc flags into
 ``paddle_tpu_torch/kernels/build/bench/``; ptxas's registers and
@@ -39,6 +44,8 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from chip_smoke import graph_ms
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "paddle_tpu_torch", "kernels", "build", "bench")
@@ -96,12 +103,12 @@ def time_ms(torch, fn, iters=20):
     return s.elapsed_time(e) / iters
 
 
-def in_turns(torch, calls, iters=20):
+def in_turns(torch, calls, iters=20, timer=None):
     """{name: fn} timed in the order a, b, ..., ..., b, a; {name: [ms]}."""
     names = list(calls)
     res = {n: [] for n in names}
     for n in names + names[::-1]:
-        res[n].append(time_ms(torch, calls[n], iters))
+        res[n].append((timer or time_ms)(torch, calls[n], iters))
     return res
 
 
@@ -269,47 +276,72 @@ def bench_ragged(torch, other, sources):
     for path in sources:
         jobs[os.path.splitext(os.path.basename(path))[0]] = (path, ())
     libs = build_all(jobs)
-    fns = {}
+    kinds = {}
     for name, lib in libs.items():
         fn = lib.ragged_paged_attention_launch
-        # a tree whose entry takes the load mode has one more int argument
+        # three generations of the entry: kv splits with partials
+        # scratch; the load mode (one more int); neither
         src = open(jobs[name][0]).read()
-        n = 2 if "int vec16, void* stream" in src else 1
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] + [ctypes.c_int] * n
-                       + [ctypes.c_void_p])
+        kind = ("split" if "void* partials" in src else
+                "vec16" if "int vec16, void* stream" in src else "plain")
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "split": [ptr] * 8 + [i] * 9 + [ctypes.c_float, i, i, ptr],
+            "vec16": [ptr] * 7 + [i] * 7 + [ctypes.c_float, i, i, ptr],
+            "plain": [ptr] * 7 + [i] * 7 + [ctypes.c_float, i, ptr]}[kind]
         fn.restype = ctypes.c_int
-        fns[name] = (fn, n)
-    stream = torch.cuda.current_stream().cuda_stream
-    for dtype in (torch.bfloat16, torch.float32):
-        B, Q, H, hd, P, ps, M = 8, 64, 16, 128, 2048, 16, 128
+        kinds[name] = (fn, kind)
+    # the serving engine's batch (q [8, 64, 16, hd] over pages [2048, 16,
+    # 16, hd]): chunk + decode rows at the head dim of the 1.3B config
+    # and at two others, and every row decoding at the longest context
+    serving = ([64] + [1] * 7, [1024, 64, 2048, 1500, 700, 300, 128, 2000])
+    shapes = [("serving", 128, *serving), ("all-decode", 128, [1] * 8,
+                                           [2048] * 8),
+              ("serving", 80, *serving), ("serving", 320, *serving)]
+    for (tag, hd, qlens, ctxs), dtype in (
+            (shape, dtype) for shape in shapes
+            for dtype in (torch.bfloat16, torch.float32)):
+        B, Q, H, P, ps, M = 8, 64, 16, 2048, 16, 128
         g = torch.Generator(device="cuda").manual_seed(7)
         q = torch.randn((B, Q, H, hd), generator=g, device="cuda").to(dtype)
         kp = torch.randn((P, ps, H, hd), generator=g, device="cuda").to(dtype)
         vp = torch.randn((P, ps, H, hd), generator=g, device="cuda").to(dtype)
         tb = torch.randperm(P, generator=g, device="cuda")[:B * M] \
             .view(B, M).int()
-        ql = torch.tensor([64, 1, 1, 1, 1, 1, 1, 1], dtype=torch.int32,
-                          device="cuda")
-        cl = torch.tensor([1024, 64, 2048, 1500, 700, 300, 128, 2000],
-                          dtype=torch.int32, device="cuda")
+        ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+        cl = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
         ref = pa._ragged_attention_ref(q, kp, vp, tb, ql, cl)
+        splits, span = pa._splits(B, Q, H, hd, M * ps)
+        part = torch.empty(B * H * Q * splits * (hd + 2), device="cuda")
+        dt = 0 if dtype == torch.float32 else 1
         calls = {}
-        for name, (fn, n) in fns.items():
+        for name, (fn, kind) in kinds.items():
             out = torch.empty_like(q)
-            args = ([q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                     tb.data_ptr(), ql.data_ptr(), cl.data_ptr(),
-                     out.data_ptr(), B, Q, H, hd, ps, M, P, hd ** -0.5,
-                     0 if dtype == torch.float32 else 1]
-                    + [1] * (n - 1) + [stream])
-            if fn(*args):
-                raise SystemExit(f"chip_bench: {name} launch failed")
+            head = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    tb.data_ptr(), ql.data_ptr(), cl.data_ptr(),
+                    out.data_ptr()]
+            if kind == "split":
+                args = head + [part.data_ptr(), B, Q, H, hd, ps, M, P,
+                               splits, span, hd ** -0.5, dt, 1]
+            else:
+                args = (head + [B, Q, H, hd, ps, M, P, hd ** -0.5, dt]
+                        + [1] * (kind == "vec16"))
+
+            def call(fn=fn, args=args):       # on the stream of the moment
+                if fn(*args, torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit(f"chip_bench: {name} launch failed")
+
+            call()
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
-            print(f"[ragged] {name} {dtype}: max abs err vs plain {err:.3g}",
-                  flush=True)
-            calls[name] = lambda fn=fn, args=args: fn(*args)
-        print_turns(f"ragged serving shapes {dtype}",
+            print(f"[ragged] {name} {tag} hd {hd} {dtype}: max abs err vs "
+                  f"plain {err:.3g}", flush=True)
+            calls[name] = call
+        # device time (CUDA graph replays), then the time with the host's
+        # ctypes call in the loop
+        print_turns(f"ragged {tag} shape hd {hd} {dtype}, device",
+                    in_turns(torch, calls, iters=20, timer=graph_ms))
+        print_turns(f"ragged {tag} shape hd {hd} {dtype}, eager",
                     in_turns(torch, calls, iters=200))
 
 

@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
      the port from the sources in this checkout (one nvcc per source,
      started together);
   2. kernel vs plain version on the card: edge cases (idle rows,
-     qlen == ctx, contexts straddling pages, Q == 1 decode, head dims
-     16 to 512, 544 raising) in fp32 and bf16, then the serving shapes,
-     with each
+     qlen == ctx, contexts straddling pages and the kv splits, Q == 1
+     decode, head dims 16 to 1024) in fp32 and bf16, then the serving
+     shape (a 64-token chunk and seven decode rows) and an all-decode
+     shape (eight rows at context 2048), with each
      kernel's time, bound, plain-version time and the time of one
      library call computing the same function;
   3. one full-width ``gpt_ragged_step`` of GPT-3 1.3B (bf16, 24 layers)
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero):
   5. the flash-attention kernels (forward; the bf16 backward, dQ, dK
      and dV in one kernel; the fp32 dK/dV and dQ) vs their plain
      versions: edge cases (causal and not, ragged S, head dims 32 to 512,
-     fp32 and bf16; 1024 raising), then the 1.3B training shapes with
+     fp32 and bf16), flash and the ring at head dim 640 through their
+     public entries with gradients, then the 1.3B training shapes with
      each kernel's time, bound, plain-version time and the time of
      PyTorch's SDPA (the backward kernel alone and the whole call), the
      head-grouped mma.sync templates at the same shapes, forward and
@@ -110,6 +112,28 @@ def time_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters=20, reps=10):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's
+    time per call (which can exceed a short kernel's) is not timed."""
+    fn()                                    # warm up, build, set up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def make_case(torch, *, B, Q, H, hd, P, ps, M, qlens, ctxs, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -157,6 +181,7 @@ def host_us(torch, fn, iters=200):
 
 def phase_kernel_vs_plain(torch, pa):
     """Edge cases, then the serving shapes with timings."""
+    span = pa.SPLIT_KEYS
     cases = [
         # mid-prefill chunk, decode, idle rows; ctx straddles ps=4 pages
         dict(B=4, Q=6, H=2, hd=128, P=12, ps=4, M=6,
@@ -171,13 +196,21 @@ def phase_kernel_vs_plain(torch, pa):
              qlens=[20, 1], ctxs=[70, 13]),
         dict(B=2, Q=20, H=2, hd=256, P=20, ps=8, M=10,
              qlens=[19, 1], ctxs=[50, 80]),
+        # the kv splits at the serving widths: contexts either side of a
+        # split boundary, one key, a 64-token chunk whose tiles merge 5
+        # to 8 splits, decode rows at 2048
+        dict(B=4, Q=64, H=2, hd=128, P=600, ps=16, M=128,
+             qlens=[1, 1, 1, 0], ctxs=[span - 1, span, span + 1, 0]),
+        dict(B=4, Q=64, H=2, hd=128, P=600, ps=16, M=128,
+             qlens=[64, 1, 1, 40], ctxs=[2048, 1, 2048, 2 * span])
     ] + [
-        # head dims off the 32-grid and past 256: masked tail lanes, one
-        # element a load where a row is not a multiple of 16 bytes (hd 17
-        # in both dtypes, 100 in bf16), tiles staged without the register
-        # prefetch past 256
+        # head dims off the 64/128-column chunks and past 128: zero-filled
+        # tails, one element a load where a row is not a multiple of 16
+        # bytes (hd 17 in both dtypes, 100 in bf16), scores summed over
+        # head-dim chunks past 128 and one grid slice per output chunk
         dict(B=3, Q=20, H=2, hd=hd, P=20, ps=8, M=10, qlens=[17, 1, 0],
-             ctxs=[60, 75, 0]) for hd in (16, 17, 48, 80, 100, 320, 512)
+             ctxs=[60, 75, 0])
+        for hd in (16, 17, 48, 80, 100, 320, 512, 544, 1024)
     ]
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -213,22 +246,24 @@ def phase_kernel_vs_plain(torch, pa):
               f"decode entry != plain ({dtype_name}): "
               f"{max_err(torch, out, ref):.3g}")
         n += 1
-    # past 512 the kernel's tiles do not fit a block's shared memory
-    q, kp, vp, tb, ql, cl = make_case(torch, dtype=torch.bfloat16, seed=0,
-                                      **dict(cases[0], hd=544))
-    try:
-        pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
-        fail("ragged paged attention took head dim 544")
-    except ValueError as e:
-        check("shared memory" in str(e), f"hd 544 raised {e}")
     print(f"[phase 2] {n} edge cases agree (head dims 16, 17, 32, 48, 64, "
-          f"80, 100, 128, 256, 320, 512; fp32 atol=rtol=1e-5; bf16 atol "
-          f"1e-2 rtol 1.6e-2); head dim 544 raises")
+          f"80, 100, 128, 256, 320, 512, 544, 1024; kv splits of {span} "
+          f"keys; fp32 atol=rtol=1e-5; bf16 atol 1e-2 rtol 1.6e-2)")
 
-    # ---- serving shapes: one chunk row of 64 + 7 decode rows, bf16
+    # ---- serving shape: one chunk row of 64 + 7 decode rows, bf16; then
+    # every row decoding at the longest context
+    res = ragged_shape(torch, pa, "serving shape", [64] + [1] * 7,
+                       [1024, 64, 2048, 1500, 700, 300, 128, 2000])
+    res["decode_shape"] = ragged_shape(torch, pa, "all-decode shape",
+                                       [1] * 8, [2048] * 8)
+    return res
+
+
+def ragged_shape(torch, pa, name, qlens, ctxs):
+    """The kernel against the plain version at one batch of the serving
+    engine's shapes (q [8, 64, 16, 128] bf16 over pages [2048, 16, 16,
+    128]), then its time, the plain version's, SDPA's and the bound."""
     B, Q, H, hd, P, ps, M = 8, 64, 16, 128, 2048, 16, 128
-    qlens = [64, 1, 1, 1, 1, 1, 1, 1]
-    ctxs = [1024, 64, 2048, 1500, 700, 300, 128, 2000]
     g = torch.Generator(device="cuda").manual_seed(7)
     q = torch.randn((B, Q, H, hd), generator=g, device="cuda").bfloat16()
     kp = torch.randn((P, ps, H, hd), generator=g, device="cuda").bfloat16()
@@ -243,10 +278,16 @@ def phase_kernel_vs_plain(torch, pa):
     torch.cuda.synchronize()
     err = max_err(torch, out, ref)
     check(torch.allclose(out.float(), ref.float(), **TOL["bfloat16"]),
-          f"kernel != plain at the serving shapes: max abs err {err:.3g}")
+          f"kernel != plain at the {name}: max abs err {err:.3g}")
 
-    ms = time_ms(torch, lambda: pa.ragged_paged_attention(q, kp, vp, tb, ql,
-                                                          cl), 100)
+    # the kernel's device time (the call captured in a CUDA graph, as a
+    # serving step would run it), and the time of calls made one by one,
+    # where the wrapper's host time can set the pace
+    def call():
+        return pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+
+    ms = graph_ms(torch, call)
+    eager_ms = time_ms(torch, call, 100)
     plain_ms = time_ms(torch, lambda: pa._ragged_attention_ref(
         q, kp, vp, tb, ql, cl, scale), 10)
     # library yardstick: SDPA over the gathered dense K/V with the same
@@ -261,8 +302,8 @@ def phase_kernel_vs_plain(torch, pa):
     mask = (t[None, None, :] <= pos[:, :, None])[:, None]       # [B,1,Q,S]
     import torch.nn.functional as F
 
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, scale=scale), 20)
+    library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale))
     # least time: the bytes this call must move (live queries read, the
     # whole output written, each row's live K/V and page ids read once)
     kv_bytes = sum(ctxs) * H * hd * 2 * 2
@@ -274,15 +315,17 @@ def phase_kernel_vs_plain(torch, pa):
                 for ql_, c in zip(qlens, ctxs) for t_ in range(ql_))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f"[phase 2] serving shapes q{[B, Q, H, hd]} pages{[P, ps, H, hd]} "
-          f"bf16, contexts {ctxs}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, SDPA(dense gathered) {library_ms:.4f} ms, bound "
+    print(f"[phase 2] {name} q{[B, Q, H, hd]} pages{[P, ps, H, hd]} "
+          f"bf16, query lens {qlens}, contexts {ctxs}: kernel {ms:.4f} ms "
+          f"(device, CUDA graph; {eager_ms:.4f} ms a call made from the "
+          f"host), plain {plain_ms:.4f}"
+          f" ms, SDPA(dense gathered, CUDA graph) {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
           f"{flops / 1e9:.3f} GFLOP), max abs err {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "eager_ms": eager_ms}
 
 
 def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
@@ -524,13 +567,37 @@ def phase_flash_kernels(torch, fa, ra):
           f"(head dims 32-512; fp32 atol=rtol=1e-4, worst "
           f"{worst['float32']:.3g}; bf16 atol 1e-2 rtol 1.6e-2, worst "
           f"{worst['bfloat16']:.3g})")
-    for D in (1024,):
-        q = torch.zeros((1, 1, 128, D), device="cuda")
-        try:
-            fa.flash_attention(q, q, q, causal=True)
-            fail(f"flash_attention took head dim {D}")
-        except ValueError as e:
-            check("head_dim" in str(e), f"head dim {D} raised {e}")
+    # past 512: padded to 1024, two 512-column chunks (bf16 in fp32),
+    # through the public entries with their gradients
+    D = 640
+    for dtype_name in ("float32", "bfloat16"):
+        g = torch.Generator(device="cuda").manual_seed(D)
+        q, k, v, do = (torch.randn((2, 2, 256, D), generator=g,
+                                   device="cuda").to(getattr(torch,
+                                                             dtype_name))
+                       for _ in range(4))
+        for name, fn in (("flash_attention", lambda *a: fa.flash_attention(
+                              *a, causal=True)),
+                         ("ring_attention sep=2", lambda *a:
+                          ra.ring_attention(*a, sep=2))):
+            outs = []
+            for f in (fn, lambda *a: fa.flash_attention_plain(*a,
+                                                              causal=True)):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = f(*leaves)
+                out.backward(do)
+                outs.append([out.detach()] + [t.grad for t in leaves])
+            torch.cuda.synchronize()
+            for part, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+                check(a.dtype == q.dtype and a.shape == q.shape,
+                      f"{name} D={D} {part} dtype/shape")
+                check(torch.allclose(a.float(), b.float(),
+                                     **TOL_FLASH[dtype_name]),
+                      f"{name} D={D} {part} != plain ({dtype_name}): max "
+                      f"abs err {max_err(torch, a, b):.3g}")
+    print(f"[phase 5] flash_attention and ring_attention (sep=2) at head "
+          f"dim {D}, S=256, causal: out, dq, dk, dv equal the plain "
+          f"version in fp32 and bf16")
 
     # ---- training shapes: GPT-3 1.3B, batch 8 x 2048, bf16, causal
     B, H, S, D = 8, 16, 2048, 128

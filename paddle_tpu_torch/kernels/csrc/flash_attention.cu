@@ -15,10 +15,10 @@
 // the tail is masked in-kernel).  The forward runs the online softmax
 // (m, l, acc) with the l == 0 -> 1 guard of the TPU kernel and writes
 // lse = m + log(l); the backward recomputes P = exp(s - lse) and
-// dS = P * (dP - delta) * scale.  Head dims 32, 64, 128 and 256, and 512
-// on the fp32 kernels (the wrapper zero-pads any other D <= 512 up to the
-// next of them, and runs bf16 inputs with D > 256 through the fp32
-// kernels).
+// dS = P * (dP - delta) * scale.  Head dims 32, 64, 128 and 256, and on
+// the fp32 kernels 512 and every multiple of 512, walked in 512-column
+// chunks (the wrapper zero-pads any other D up to the next of them, and
+// runs bf16 inputs with D > 256 through the fp32 kernels).
 //
 // What bounds them on the H100: operations.  The forward does 4*D FLOPs
 // per live (q, k) pair, dK/dV twice that and dQ 1.5 times, against a
@@ -93,15 +93,15 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Rows [row0, row0 + T) of a [S, D] matrix into a [T][D + 1] fp32
-// tile; rows at or past S are zeros.
+// Rows [row0, row0 + T), columns [0, D) of a [S, ld] matrix into a
+// [T][D + 1] fp32 tile; rows at or past S are zeros.
 template <int D, int T>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int S) {
+                                          int row0, int S, int ld) {
   for (int idx = threadIdx.x; idx < T * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
-    dst[r * (D + 1) + c] = gr < S ? src[(size_t)gr * D + c] : 0.f;
+    dst[r * (D + 1) + c] = gr < S ? src[(size_t)gr * ld + c] : 0.f;
   }
 }
 
@@ -149,14 +149,26 @@ __device__ __forceinline__ void tile_dot(float (&s)[R][R], const float* A,
 // consecutive lanes, so row max and row sum are 4 xor-shuffles.  Shared
 // rows are padded to D + 1 floats, so the 16 different rows a warp reads
 // at one column fall in 16 different banks.
+//
+// Head dims past 512 (the D = 512 instantiation with ld > 512, a multiple
+// of 512): the tensors are [S, ld] and the products that sum over the
+// head dim (the scores, and dP = dO V^T) walk ld / 512 chunks of 512
+// columns, each staged in the same tiles; every output then needs only
+// its own columns (O = P V[:, c], dV = P^T dO[:, c], dK = dS^T Q[:, c],
+// dQ = dS K[:, c]), so grid z takes one 512-column chunk c of the output
+// and recomputes the scores.  All chunks share the one lse and delta.
+// With ld == D the loop over chunks runs once and stages what it did
+// before.
 
 template <int D, int T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int S, float scale,
-                     int causal) {
+                     int causal, int ld) {
   constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
+  const int ldg = D < 512 ? D : ld;           // row stride in device memory
+  const int nch = ldg / D, c0 = blockIdx.z * D;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + T * LD;
@@ -166,10 +178,10 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.x;
   // heavy (late) query tiles of a causal pass are scheduled first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
-  const size_t base = (size_t)bh * S * D;
+  const size_t base = (size_t)bh * S * ldg;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D, T>(Qs, q + base, q0, S);
+  if (nch == 1) load_tile<D, T>(Qs, q + base, q0, S, ldg);
   float m[R], l[R], acc[R][NC];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -180,12 +192,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int kv_end = causal ? min(S, q0 + T) : S;
   for (int k0 = 0; k0 < kv_end; k0 += T) {
-    __syncthreads();               // last tile's Ps / Vs reads are done
-    load_tile<D, T>(Ks, k + base, k0, S);
-    load_tile<D, T>(Vs, v + base, k0, S);
-    __syncthreads();
     float s[R][R] = {};
-    tile_dot<D, R>(s, Qs, Ks, ty, tx);
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();             // last reads of Qs / Ks / Ps / Vs done
+      if (nch > 1) load_tile<D, T>(Qs, q + base + ch * D, q0, S, ldg);
+      load_tile<D, T>(Ks, k + base + ch * D, k0, S, ldg);
+      if (ch == nch - 1) load_tile<D, T>(Vs, v + base + c0, k0, S, ldg);
+      __syncthreads();
+      tile_dot<D, R>(s, Qs, Ks, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int qr = q0 + ty + 16 * i;
@@ -232,22 +247,19 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / l_safe;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      out[base + (size_t)qr * D + tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) lse[(size_t)bh * S + qr] = m[i] + logf(l_safe);
+      out[base + (size_t)qr * ldg + c0 + tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0 && c0 == 0) lse[(size_t)bh * S + qr] = m[i] + logf(l_safe);
   }
 }
 
 // Shared by both backward kernels: P and dS of one (q tile, kv tile)
-// pair, from the staged Q, dO, K, V tiles and the rows' lse and delta.
-template <int D, int R>
-__device__ __forceinline__ void bwd_scores(
-    float (&p)[R][R], float (&ds)[R][R], const float* Qs, const float* dOs,
-    const float* Ks, const float* Vs, const float* lse_s,
-    const float* delta_s, int q0, int k0, int S, float scale, int causal,
-    int ty, int tx) {
-  float s[R][R] = {}, dp[R][R] = {};
-  tile_dot<D, R>(s, Qs, Ks, ty, tx);
-  tile_dot<D, R>(dp, dOs, Vs, ty, tx);
+// pair, from its scores s = Q K^T and dp = dO V^T (summed over every
+// head-dim chunk) and the rows' lse and delta.
+template <int R>
+__device__ __forceinline__ void bwd_p_ds(
+    float (&p)[R][R], float (&ds)[R][R], const float (&s)[R][R],
+    const float (&dp)[R][R], const float* lse_s, const float* delta_s,
+    int q0, int k0, int S, float scale, int causal, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
@@ -269,8 +281,10 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int S,
-                          float scale, int causal) {
+                          float scale, int causal, int ld) {
   constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
+  const int ldg = D < 512 ? D : ld;           // row stride in device memory
+  const int nch = ldg / D, c0 = blockIdx.z * D;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + T * LD;
@@ -283,13 +297,15 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * T;                // early tiles: most work
-  const size_t base = (size_t)bh * S * D;
+  const size_t base = (size_t)bh * S * ldg;
   const float* lse_bh = lse + (size_t)bh * S;
   const float* delta_bh = delta + (size_t)bh * S;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D, T>(Ks, k + base, k0, S);
-  load_tile<D, T>(Vs, v + base, k0, S);
+  if (nch == 1) {
+    load_tile<D, T>(Ks, k + base, k0, S, ldg);
+    load_tile<D, T>(Vs, v + base, k0, S, ldg);
+  }
   // rows: kv rows ty + 16i of this tile; columns tx + 16c
   float dk_acc[R][NC], dv_acc[R][NC];
 #pragma unroll
@@ -299,15 +315,31 @@ __global__ void __launch_bounds__(kThreads)
 
   // causal: only q tiles whose last row reaches k0
   for (int q0 = causal ? k0 : 0; q0 < S; q0 += T) {
-    __syncthreads();               // last tile's Ps / dSs / Qs reads done
-    load_tile<D, T>(Qs, q + base, q0, S);
-    load_tile<D, T>(dOs, dout + base, q0, S);
-    load_rows<T>(lse_s, lse_bh, q0, S);
-    load_rows<T>(delta_s, delta_bh, q0, S);
-    __syncthreads();
+    float s[R][R] = {}, dp[R][R] = {};
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();             // last tile's Ps / dSs / Qs reads done
+      if (nch > 1) {
+        load_tile<D, T>(Ks, k + base + ch * D, k0, S, ldg);
+        load_tile<D, T>(Vs, v + base + ch * D, k0, S, ldg);
+      }
+      load_tile<D, T>(Qs, q + base + ch * D, q0, S, ldg);
+      load_tile<D, T>(dOs, dout + base + ch * D, q0, S, ldg);
+      if (ch == 0) {
+        load_rows<T>(lse_s, lse_bh, q0, S);
+        load_rows<T>(delta_s, delta_bh, q0, S);
+      }
+      __syncthreads();
+      tile_dot<D, R>(s, Qs, Ks, ty, tx);
+      tile_dot<D, R>(dp, dOs, Vs, ty, tx);
+    }
+    if (nch > 1) {                 // this block's output columns of Q, dO
+      __syncthreads();
+      load_tile<D, T>(Qs, q + base + c0, q0, S, ldg);
+      load_tile<D, T>(dOs, dout + base + c0, q0, S, ldg);
+    }
     float p[R][R], ds[R][R];
-    bwd_scores<D, R>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
-                     scale, causal, ty, tx);
+    bwd_p_ds<R>(p, ds, s, dp, lse_s, delta_s, q0, k0, S, scale, causal, ty,
+                tx);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -345,7 +377,7 @@ __global__ void __launch_bounds__(kThreads)
     if (kr >= S) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const size_t at = base + (size_t)kr * D + tx + 16 * c;
+      const size_t at = base + (size_t)kr * ldg + c0 + tx + 16 * c;
       dk[at] = dk_acc[i][c];
       dv[at] = dv_acc[i][c];
     }
@@ -360,8 +392,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dq,
-                        int S, float scale, int causal) {
+                        int S, float scale, int causal, int ld) {
   constexpr int LD = D + 1, NC = D / 16, R = T / 16, PS = T + 1;
+  const int ldg = D < 512 ? D : ld;           // row stride in device memory
+  const int nch = ldg / D, c0 = blockIdx.z * D;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + T * LD;
@@ -373,11 +407,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
-  const size_t base = (size_t)bh * S * D;
+  const size_t base = (size_t)bh * S * ldg;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D, T>(Qs, q + base, q0, S);
-  load_tile<D, T>(dOs, dout + base, q0, S);
+  if (nch == 1) {
+    load_tile<D, T>(Qs, q + base, q0, S, ldg);
+    load_tile<D, T>(dOs, dout + base, q0, S, ldg);
+  }
   load_rows<T>(lse_s, lse + (size_t)bh * S, q0, S);
   load_rows<T>(delta_s, delta + (size_t)bh * S, q0, S);
   float dq_acc[R][NC];
@@ -388,13 +424,26 @@ __global__ void __launch_bounds__(kThreads)
 
   const int kv_end = causal ? min(S, q0 + T) : S;
   for (int k0 = 0; k0 < kv_end; k0 += T) {
-    __syncthreads();               // last tile's dSs / Ks reads are done
-    load_tile<D, T>(Ks, k + base, k0, S);
-    load_tile<D, T>(Vs, v + base, k0, S);
-    __syncthreads();
+    float s[R][R] = {}, dp[R][R] = {};
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();             // last tile's dSs / Ks reads are done
+      if (nch > 1) {
+        load_tile<D, T>(Qs, q + base + ch * D, q0, S, ldg);
+        load_tile<D, T>(dOs, dout + base + ch * D, q0, S, ldg);
+      }
+      load_tile<D, T>(Ks, k + base + ch * D, k0, S, ldg);
+      load_tile<D, T>(Vs, v + base + ch * D, k0, S, ldg);
+      __syncthreads();
+      tile_dot<D, R>(s, Qs, Ks, ty, tx);
+      tile_dot<D, R>(dp, dOs, Vs, ty, tx);
+    }
+    if (nch > 1) {                 // this block's output columns of K
+      __syncthreads();
+      load_tile<D, T>(Ks, k + base + c0, k0, S, ldg);
+    }
     float p[R][R], ds[R][R];
-    bwd_scores<D, R>(p, ds, Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
-                     scale, causal, ty, tx);
+    bwd_p_ds<R>(p, ds, s, dp, lse_s, delta_s, q0, k0, S, scale, causal, ty,
+                tx);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -421,7 +470,7 @@ __global__ void __launch_bounds__(kThreads)
     if (qr >= S) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      dq[base + (size_t)qr * D + tx + 16 * c] = dq_acc[i][c];
+      dq[base + (size_t)qr * ldg + c0 + tx + 16 * c] = dq_acc[i][c];
   }
 }
 
@@ -910,18 +959,20 @@ int prepare(Kernel kernel, size_t smem) {
 
 using bf16 = __nv_bfloat16;
 
-// The fp32 forward (the bf16 one is in flash_fwd_sm90.cu).
+// The fp32 forward (the bf16 one is in flash_fwd_sm90.cu).  ld: the
+// head dim of the tensors (D, or a multiple of 512 for D = 512); grid z
+// takes its 512-column output chunks.
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-        int BH, int S, float scale, int causal, cudaStream_t st) {
+        int BH, int S, float scale, int causal, int ld, cudaStream_t st) {
   constexpr int T = fwd_tile<D>();
   constexpr size_t smem = fwd_smem<D, T>();
   int rc = prepare(flash_fwd_kernel<D, T>, smem);
   if (rc) return rc;
-  flash_fwd_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
-                           st>>>(
+  flash_fwd_kernel<D, T><<<dim3(BH, (S + T - 1) / T, ld / D), kThreads,
+                           smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out,
-      (float*)lse, S, scale, causal);
+      (float*)lse, S, scale, causal, ld);
   return (int)cudaGetLastError();
 }
 
@@ -937,18 +988,19 @@ int head_group(int BH, long long bytes_per_head) {
 template <int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int BH,
-         int S, float scale, int causal, int dtype, cudaStream_t st) {
+         int S, float scale, int causal, int dtype, int ld,
+         cudaStream_t st) {
   if (dtype == 0 || D > 256) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;   // fp32 only
     constexpr int T = bwd_tile<D>();
     constexpr size_t smem = dkdv_smem<D, T>();
     int rc = prepare(flash_bwd_dkdv_kernel<D, T>, smem);
     if (rc) return rc;
-    flash_bwd_dkdv_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
-                                  st>>>(
+    flash_bwd_dkdv_kernel<D, T><<<dim3(BH, (S + T - 1) / T, ld / D),
+                                  kThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dk, (float*)dv, S, scale, causal);
+        (float*)dk, (float*)dv, S, scale, causal, ld);
   } else if constexpr (D <= 256) {
     constexpr int DC = D > 128 ? 128 : D;
     constexpr size_t smem = tc_tiles<D>(6) + 4 * kTile * sizeof(float);
@@ -968,18 +1020,18 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_, int BH, int S,
-       float scale, int causal, int dtype, cudaStream_t st) {
+       float scale, int causal, int dtype, int ld, cudaStream_t st) {
   if (dtype == 0 || D > 256) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;   // fp32 only
     constexpr int T = bwd_tile<D>();
     constexpr size_t smem = dq_smem<D, T>();
     int rc = prepare(flash_bwd_dq_kernel<D, T>, smem);
     if (rc) return rc;
-    flash_bwd_dq_kernel<D, T><<<dim3(BH, (S + T - 1) / T), kThreads, smem,
-                                st>>>(
+    flash_bwd_dq_kernel<D, T><<<dim3(BH, (S + T - 1) / T, ld / D),
+                                kThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, (const float*)lse, (const float*)delta,
-        (float*)dq_, S, scale, causal);
+        (float*)dq_, S, scale, causal, ld);
   } else if constexpr (D <= 256) {
     constexpr size_t smem = tc_tiles<D>(6);
     int rc = prepare(ring_bwd_dq_tc_kernel<D>, smem);
@@ -995,19 +1047,22 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Dispatch on the head dim (32, 64, 128, 256, 512).  The scalar
-// kernels' grid y extent is at most 65535 tiles of the smallest tile (16
-// rows); the tensor-core grids are 1-D.
+// Dispatch on the head dim (32, 64, 128, 256, 512, and any multiple of
+// 512 past it: the D = 512 kernels in 512-column chunks), passing it on
+// as the tensors' row stride.  The scalar kernels' grid y extent is at
+// most 65535 tiles of the smallest tile (16 rows), z at most 65535
+// chunks; the tensor-core grids are 1-D.
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
     if (BH <= 0 || S <= 0 || (S + 15) / 16 > 65535 ||                   \
-        (long long)BH * ((S + kTile - 1) / kTile) > 2147483647LL)       \
+        (long long)BH * ((S + kTile - 1) / kTile) > 2147483647LL ||     \
+        D / 512 > 65535)                                                \
       return (int)cudaErrorInvalidValue;                                \
-    if (D == 32) return FN<32>(__VA_ARGS__);                            \
-    if (D == 64) return FN<64>(__VA_ARGS__);                            \
-    if (D == 128) return FN<128>(__VA_ARGS__);                          \
-    if (D == 256) return FN<256>(__VA_ARGS__);                          \
-    if (D == 512) return FN<512>(__VA_ARGS__);                          \
+    if (D == 32) return FN<32>(__VA_ARGS__, D, st);                     \
+    if (D == 64) return FN<64>(__VA_ARGS__, D, st);                     \
+    if (D == 128) return FN<128>(__VA_ARGS__, D, st);                   \
+    if (D == 256) return FN<256>(__VA_ARGS__, D, st);                   \
+    if (D >= 512 && D % 512 == 0) return FN<512>(__VA_ARGS__, D, st);   \
     return (int)cudaErrorInvalidValue;                                  \
   } while (0)
 
@@ -1017,12 +1072,13 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // The fp32 flash kernels: q, k, v, out, dout, dk, dv, dq [BH, S, D] fp32,
-// lse and delta [BH, S] fp32.
+// lse and delta [BH, S] fp32; D one of 32, 64, 128, 256 or a multiple of
+// 512.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int BH, int S, int D,
                                 float scale, int causal, void* stream) {
-  FLASH_DISPATCH(fwd, q, k, v, out, lse, BH, S, scale, causal,
-                 static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(fwd, q, k, v, out, lse, BH, S, scale, causal);
 }
 
 extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
@@ -1031,8 +1087,9 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      void* dk, void* dv, int BH, int S,
                                      int D, float scale, int causal,
                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
-                 causal, 0, static_cast<cudaStream_t>(stream));
+                 causal, 0);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -1040,13 +1097,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dq_out, int BH, int S, int D,
                                    float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
-                 causal, 0, static_cast<cudaStream_t>(stream));
+                 causal, 0);
 }
 
 // One ring pair's backward with the ring-global lse and delta: q, k, v
 // [BH, S, D] of dtype (0 fp32, 1 bf16 with D <= 256), dout fp32, dk/dv
-// (dq) fp32.
+// (dq) fp32; D as for the flash entries.
 extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
@@ -1054,8 +1112,9 @@ extern "C" int ring_pair_bwd_dkdv_launch(const void* q, const void* k,
                                          int D, float scale, int causal,
                                          int dtype, void* stream) {
   CHECK_DTYPE;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, BH, S, scale,
-                 causal, dtype, static_cast<cudaStream_t>(stream));
+                 causal, dtype);
 }
 
 extern "C" int ring_pair_bwd_dq_launch(const void* q, const void* k,
@@ -1065,6 +1124,7 @@ extern "C" int ring_pair_bwd_dq_launch(const void* q, const void* k,
                                        float scale, int causal, int dtype,
                                        void* stream) {
   CHECK_DTYPE;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, S, scale,
-                 causal, dtype, static_cast<cudaStream_t>(stream));
+                 causal, dtype);
 }

@@ -24,16 +24,18 @@ to the other.
 
 Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
 ``[B, H, S]`` fp32.  Math is fp32 on both paths.  The kernels are
-instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128, 256, 512}; any other
-D ≤ 512 is zero-padded up to the next of them and the result sliced
-back, which is exact (zero columns add nothing to q·k and give zero
-output and gradient columns; the scale stays that of the real D).
-Routing by shape, not a fallback: the bf16 kernels take D ≤ 256, so
-bf16 inputs with 256 < D ≤ 512 are cast up to fp32, run through the fp32
-kernels (D = 512, 16-row tiles) and rounded back to bf16.  D > 512
-raises ``ValueError`` on the card; the JAX ``flash_attention`` computes
-any D, but its gate refuses D > 256, so no caller of either package
-reaches D > 256 through the gate.
+instantiated for D ∈ ``HEAD_DIMS`` = {32, 64, 128, 256, 512}, and the fp32
+ones take any multiple of 512 as well, in 512-column chunks (the scores
+and dP = dO·Vᵀ summed over the chunks, each output chunk from its own
+columns, one grid slice a chunk, all on one lse and δ).  Any other D is
+zero-padded up to the next of them (past 512, the next multiple of 512)
+and the result sliced back, which is exact (zero columns add nothing to
+q·k and give zero output and gradient columns; the scale stays that of
+the real D).  Routing by shape, not a fallback: the bf16 kernels take
+D ≤ 256, so bf16 inputs with D > 256 are cast up to fp32, run through
+the fp32 kernels (D = 512 tiles of 16 rows) and rounded back to bf16.
+The JAX ``flash_attention`` computes any D too, but its gate refuses
+D > 256, so no caller of either package reaches D > 256 through the gate.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ __all__ = ["flash_attention", "flash_attention_available",
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the CUDA kernels are instantiated for (512: fp32 only)
+#: head dims the CUDA kernels are instantiated for (512: fp32 only, and
+#: every multiple of 512 in chunks of 512)
 HEAD_DIMS = (32, 64, 128, 256, 512)
 #: the widest head dim of the bf16 kernels; wider bf16 runs in fp32
 BF16_MAX_HEAD_DIM = 256
@@ -176,14 +179,11 @@ def _lib_bwd_sm90():
 
 def _pad_head_dim(*ts, least=0):
     """``ts`` ``[..., D]`` zero-padded on the head dim to the smallest
-    size in ``HEAD_DIMS`` that holds D and ``least`` (unchanged when D is
-    that size); ``ValueError`` past the largest (512)."""
+    size in ``HEAD_DIMS`` that holds D and ``least``, past 512 to the next
+    multiple of 512 (unchanged when D is that size)."""
     D = ts[0].shape[-1]
-    n = next((n for n in HEAD_DIMS if n >= max(D, least)), None)
-    if n is None:
-        raise ValueError(f"flash_attention CUDA kernels take head_dim <= "
-                         f"{HEAD_DIMS[-1]} (zero-padded up to one of "
-                         f"{HEAD_DIMS}), got {D}")
+    n = next((n for n in HEAD_DIMS if n >= max(D, least)),
+             -(-D // HEAD_DIMS[-1]) * HEAD_DIMS[-1])
     return ts if n == D else tuple(F.pad(t, (0, n - D)) for t in ts)
 
 
@@ -369,7 +369,7 @@ def flash_attention_available(q, k, v, mask, causal=False):
     """The JAX package's gate, kept as it is: no mask, equal [B, H, S, D]
     shapes, D ≤ 256, and S a multiple of 128 unless causal.  On the card
     the kernels take every D it admits (padded up to ``HEAD_DIMS``), and
-    ``flash_attention`` called directly takes D ≤ 512."""
+    ``flash_attention`` called directly takes any D."""
     if mask is not None:
         return False
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -400,7 +400,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=512,
       (128 queries × 128 keys, or × 64 at D = 256, in the bf16 forward;
       128 keys × 64 queries in the bf16 backward; 64 × 64 in the fp32
       kernels, 32 × 32 in their backward at D = 256 and 16 × 16 at
-      D = 512).
+      D ≥ 512).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     and count them in ``launches``."""

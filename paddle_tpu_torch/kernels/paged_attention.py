@@ -15,11 +15,15 @@ Two implementations with one contract:
   kernel is held against on the card.
 - the CUDA kernel (``csrc/ragged_paged_attention.cu``), built with
   ``nvcc`` for ``sm_90a`` at first use and called through ctypes.  It
-  takes every head dim from 1 to ``MAX_HEAD_DIM`` = 512 and reads the
-  pool as it is allocated: 16 bytes a load where the rows and pointers
-  allow it, one element a load otherwise (hd odd, or hd % 8 != 0 at
-  bf16).  Past 512 its tiles would not fit in a block's shared memory
-  and it raises.
+  takes every head dim (a stage holds a 64- or 128-column chunk of it)
+  and reads the pool as it is allocated: 16 bytes a load where the rows
+  and pointers allow it, one element a load otherwise (hd odd, or
+  hd % 8 != 0 at bf16).  It splits the kv axis into spans of
+  ``SPLIT_KEYS`` keys (``_splits``); a tile whose keys span several
+  splits leaves fp32 partials in a scratch tensor that a second kernel
+  merges.  The grid and the scratch follow from the shapes alone: a call
+  reads no value of ``query_lens``, ``context_lens`` or ``page_tables``
+  on the host, so it can be captured in a CUDA graph.
 
 ``ragged_paged_attention`` picks by device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise.  There is no fallback
@@ -48,8 +52,13 @@ __all__ = ["ragged_paged_attention", "paged_attention"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the widest head dim the CUDA kernel takes
-MAX_HEAD_DIM = 512
+#: keys one block of the CUDA kernel walks: its span of the kv axis
+SPLIT_KEYS = 256
+#: the partials of a split call may take this much fp32 scratch before
+#: the span widens
+_SCRATCH_BYTES = 64 << 20
+#: splits whose merge weights fit the combine kernel's shared memory
+_MAX_SPLITS = 512
 
 
 # ---------------------------------------------------------------- reference
@@ -97,35 +106,52 @@ def _kernel_fn():
     lib = _build.load("ragged_paged_attention")
     fn = lib.ragged_paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _splits(B, Q, H, hd, max_kv):
+    """(splits, span) of the kv axis for these static shapes: spans of
+    ``SPLIT_KEYS`` keys, doubled while the partials would pass 64 MiB of
+    scratch or the splits ``_MAX_SPLITS``.  Prefill-heavy shapes (large Q)
+    get fewer, longer splits: their query tiles already fill the card."""
+    span = SPLIT_KEYS
+    while True:
+        splits = -(-max_kv // span)
+        if splits == 1 or (splits <= _MAX_SPLITS and
+                           B * H * Q * splits * (hd + 2) * 4
+                           <= _SCRATCH_BYTES):
+            return splits, span
+        span *= 2
+
+
 def _ragged_attention_cuda(q, k_pages, v_pages, page_tables, query_lens,
                            context_lens, scale):
     B, Q, H, hd = q.shape
     P, page_size = k_pages.shape[:2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(
-            f"ragged_paged_attention kernel: head_dim {hd} is over "
-            f"{MAX_HEAD_DIM}, past which its K, V and query tiles do not "
-            f"fit in the 227 KB of shared memory a block may hold")
+    max_pages = page_tables.shape[1]
     # 16-byte loads where every row and base pointer allows them
     vec16 = (hd * q.element_size() % 16 == 0
              and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, span = _splits(B, Q, H, hd, max_pages * page_size)
+    # m, l and acc of every (row, head, query, split), when there are
+    # splits to merge
+    part = torch.empty(B * H * Q * splits * (hd + 2) if splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_tables.data_ptr(), query_lens.data_ptr(),
-                context_lens.data_ptr(), out.data_ptr(), B, Q, H, hd,
-                page_size, page_tables.shape[1], P, float(scale),
+                context_lens.data_ptr(), out.data_ptr(),
+                part.data_ptr() if splits > 1 else None, B, Q, H, hd,
+                page_size, max_pages, P, splits, span, float(scale),
                 _DTYPES[q.dtype], int(vec16), stream)
     if rc != 0:
         raise RuntimeError(
@@ -190,7 +216,9 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, query_lens,
         context_lens.to(torch.int32).contiguous(), scale)
 
 
-#: kernel launches since the count was last set to 0 (CUDA path only)
+#: calls that launched the kernel since the count was last set to 0 (CUDA
+#: path only; a call whose tiles span several splits also launches the
+#: combine, which is not counted apart)
 ragged_paged_attention.launches = 0
 
 

@@ -40,6 +40,9 @@ between the two):
   2⁻⁹-relative rounding per term, like P and dS, for an fp32 dO with more
   bits.  fp32 q/k/v take the scalar fp32 kernels, with no rounding, and
   so do bf16 q/k/v with D > 256 (cast up; the outputs are fp32 anyway).
+  Every head dim runs on the card: as in ``flash_attention``, a D off the
+  instantiated sizes is zero-padded, past 512 to a multiple of 512 that
+  the fp32 kernels walk in 512-column chunks.
 """
 from __future__ import annotations
 

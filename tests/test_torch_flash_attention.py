@@ -151,6 +151,57 @@ def test_wide_head_dim_matches_jax(S, causal):
                                    err_msg=f"entry {name}")
 
 
+@pytest.mark.parametrize("S,causal", [(128, False), (72, True)])
+def test_head_dim_past_512_matches_jax(S, causal):
+    """D = 640, which the port takes on the card by zero-padding to 1024
+    and walking two 512-column chunks (the scores and dP summed over both,
+    each output chunk from its own columns, one lse and δ): the plain
+    route on that padded problem, and its 512-column chunks of out, dq,
+    dk and dv computed from the summed scores alone, against the JAX
+    ``flash_attention`` (Pallas in interpret mode) and its gradient at
+    1e-4."""
+    D = 640
+    q, k, v, do = _qkv(S, D, seed=9)
+    scale = 1.0 / np.sqrt(D)
+
+    def f(q_, k_, v_):
+        return jnp.sum(jax_flash(q_, k_, v_, causal=causal)
+                       * jnp.asarray(do))
+
+    out_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal)
+    grads_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    padded = fa._pad_head_dim(*_t(q, k, v, do))
+    assert padded[0].shape[-1] == 1024
+    pq, pk, pv, pdo = padded
+    out_p, lse = fa._flash_fwd_ref(pq, pk, pv, scale, causal)
+    p, ds = fa._bwd_p_ds(pq, pk, pv, lse, fa._delta(out_p, pdo), pdo, scale,
+                         causal)
+    # the kernels' output chunks: P, dS over all columns, then each
+    # chunk's columns alone
+    chunks = [(torch.einsum("bhqk,bhkd->bhqd", p, pv[..., c:c + 512]),
+               torch.einsum("bhqk,bhkd->bhqd", ds, pk[..., c:c + 512]),
+               torch.einsum("bhqk,bhqd->bhkd", ds, pq[..., c:c + 512]),
+               torch.einsum("bhqk,bhqd->bhkd", p, pdo[..., c:c + 512]))
+              for c in (0, 512)]
+    # P = exp(s - lse) is normalised already, so P V is the output
+    got = [torch.cat(parts, -1)[..., :D] for parts in zip(*chunks)]
+    for a, b, name in zip(got, (out_j,) + tuple(grads_j),
+                          ("out", "dq", "dk", "dv")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
+                                   err_msg=name)
+    # and the public entry on the CPU (the plain route, unpadded)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(torch.from_numpy(do))
+    for a, b, name in zip((out.detach(), tq.grad, tk.grad, tv.grad),
+                          (out_j,) + tuple(grads_j), ("out", "dq", "dk",
+                                                      "dv")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL,
+                                   err_msg=f"entry {name}")
+
+
 def test_non_causal_ragged_seq_raises_like_jax():
     q, k, v, _ = _qkv(200, 32)
     with pytest.raises(ValueError, match="128"):

@@ -82,10 +82,10 @@ def test_decode_entry_on_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 17, 48, 80, 100, 320, 512])
 def test_kernel_any_head_dim(cuda, hd, dtype):
-    """Head dims off the 32-grid (masked tail lanes; one-element loads
-    where a row is not a multiple of 16 bytes: hd 17 in both dtypes, 100
-    in bf16) and past 256 (tiles staged without the register prefetch),
-    against the plain version."""
+    """Head dims off the 64/128-column chunks (zero-filled tails; one-
+    element loads where a row is not a multiple of 16 bytes: hd 17 in both
+    dtypes, 100 in bf16) and past 128 (scores summed over head-dim chunks,
+    one grid slice per output chunk), against the plain version."""
     for qlens, ctxs in (CASES[0], CASES[3]):
         q, kp, vp, tb, ql, cl = _case(qlens, ctxs, hd, seed=hd)
         q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
@@ -102,14 +102,94 @@ def test_kernel_any_head_dim(cuda, hd, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_load(cuda):
-    """Past a head dim of 512 the tiles do not fit a block's shared
-    memory: the wrapper raises, naming it."""
-    q, kp, vp, tb, ql, cl = _case(*CASES[0], 544)
-    with pytest.raises(ValueError, match="head_dim 544.*shared memory"):
-        pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+    """Head dims past 512 (544, 1024) run, in head-dim chunks, and equal
+    the plain version in both dtypes; a dtype the kernel has no route for
+    (fp16) raises."""
+    for hd in (544, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, tb, ql, cl = _case(*CASES[3], hd, seed=hd)
+            q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+            out = pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+            ref = pa._ragged_attention_ref(q, kp, vp, tb, ql, cl)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and out.shape == q.shape
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **TOL[dtype])
     q, kp, vp, tb, ql, cl = _case(*CASES[0], 32)
     with pytest.raises(TypeError):
         pa.ragged_paged_attention(q.half(), kp.half(), vp.half(), tb, ql, cl)
+
+
+def _serving_case(qlens, ctxs, dtype, hd=128, Q=64, H=2, P=320, ps=16,
+                  M=128, seed=0):
+    """Rows at the serving engine's widths (chunks of up to 64 queries,
+    contexts up to 2048 over 16-token pages), few heads."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(qlens)
+    q, kp, vp = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Q, H, hd), (P, ps, H, hd),
+                               (P, ps, H, hd)))
+    tb = torch.randint(0, P, (B, M), generator=g, device="cuda",
+                       dtype=torch.int32)
+    return (q, kp, vp, tb,
+            torch.tensor(qlens, dtype=torch.int32, device="cuda"),
+            torch.tensor(ctxs, dtype=torch.int32, device="cuda"))
+
+
+SPAN = pa.SPLIT_KEYS
+# contexts either side of a split boundary, one key, a 64-query chunk
+# whose tiles end in different splits, all-decode rows at the longest
+# context, idle rows among them
+SPLIT_CASES = [((1, 1, 1, 1), (SPAN - 1, SPAN, SPAN + 1, 2 * SPAN)),
+               ((1, 0, 1, 0), (1, 0, 2 * SPAN + 1, 5)),
+               ((64, 1, 0, 64), (2048, 2048, 0, SPAN + 3)),
+               ((1,) * 8, (2048,) * 8),
+               ((64, 40, 16, 17), (64, 2 * SPAN, SPAN + 16, SPAN))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qlens,ctxs", SPLIT_CASES)
+def test_kernel_split_boundaries(cuda, qlens, ctxs, dtype):
+    """The kv split: tiles whose keys end just before, on and just after a
+    split boundary, a single key, a prompt chunk of 64 queries at context
+    2048 (its tiles merge 5 to 8 splits), all-decode rows at 2048 and idle
+    rows: against the plain version, padded slots zeros."""
+    args = _serving_case(qlens, ctxs, dtype, seed=sum(ctxs))
+    assert pa._splits(len(qlens), 64, 2, 128, 2048) == (2048 // SPAN, SPAN)
+    before = pa.ragged_paged_attention.launches
+    out = pa.ragged_paged_attention(*args)
+    ref = pa._ragged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    for b, n in enumerate(qlens):
+        assert not out[b, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """One call captured in a CUDA graph and replayed with other query
+    and context lengths written into the captured inputs: the kernel reads
+    them on the device only, so each replay equals the plain version on
+    that replay's inputs."""
+    q, kp, vp, tb, ql, cl = _serving_case(SPLIT_CASES[2][0],
+                                          SPLIT_CASES[2][1], dtype, seed=3)
+    pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)        # build, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.ragged_paged_attention(q, kp, vp, tb, ql, cl)
+    for qlens, ctxs in (c for c in SPLIT_CASES if len(c[0]) == len(ql)):
+        ql.copy_(torch.tensor(qlens, dtype=torch.int32))
+        cl.copy_(torch.tensor(ctxs, dtype=torch.int32))
+        graph.replay()
+        ref = pa._ragged_attention_ref(q, kp, vp, tb, ql, cl)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        for b, n in enumerate(qlens):
+            assert not out[b, n:].any()
 
 
 @pytest.mark.cuda
@@ -208,17 +288,19 @@ def test_flash_autograd_on_card_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_other_head_dims(cuda):
-    """Every D ≤ 512 outside ``HEAD_DIMS`` runs zero-padded (D = 96 up to
-    128, D = 192 up to 256, D = 320 up to 512; equal to the plain
-    version), and so do D = 320 and 512 past the JAX gate, through
-    ``flash_attention`` and ``ring_attention`` (bf16 runs them in fp32);
-    D > 512 raises."""
+    """Every D outside ``HEAD_DIMS`` runs zero-padded (D = 96 up to 128,
+    D = 192 up to 256, D = 320 up to 512, D = 640 up to 1024; equal to the
+    plain version), and so do D = 320, 512, 640 and 1024 past the JAX
+    gate, through ``flash_attention`` and ``ring_attention`` with their
+    gradients (bf16 runs them in fp32; past 512 in 512-column chunks)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     ra = _ring_module()
     for D, dtype in ((96, torch.float32), (192, torch.float32),
                      (320, torch.float32), (320, torch.bfloat16),
-                     (512, torch.float32), (512, torch.bfloat16)):
+                     (512, torch.float32), (512, torch.bfloat16),
+                     (640, torch.float32), (640, torch.bfloat16),
+                     (1024, torch.float32), (1024, torch.bfloat16)):
         q, k, v, do = _flash_case(128, D, dtype)
         assert fa.flash_attention_available(q, k, v, None,
                                             causal=True) == (D <= 256)
@@ -235,10 +317,6 @@ def test_flash_kernels_reject_other_head_dims(cuda):
                 assert a.shape == b.shape == q.shape and a.dtype == dtype
                 torch.testing.assert_close(a.float(), b.float(),
                                            **FLASH_TOL[dtype])
-    q, k, v, _ = _flash_case(128, 1024, torch.float32)
-    assert not fa.flash_attention_available(q, k, v, None, causal=True)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q, k, v, causal=True)
 
 
 @pytest.mark.cuda

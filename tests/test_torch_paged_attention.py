@@ -64,10 +64,11 @@ def test_plain_matches_jax_reference(qlens, ctxs):
         assert not out[b, ql:].any()
 
 
-@pytest.mark.parametrize("hd", [16, 17, 48, 80, 100, 320])
+@pytest.mark.parametrize("hd", [16, 17, 48, 80, 100, 320, 544, 1024])
 def test_plain_matches_jax_reference_any_head_dim(hd):
-    """Head dims off the 32-grid and past 256, which the CUDA kernel takes
-    through masked tail lanes (and one-element loads where a row is not a
+    """Head dims off the kernel's 64/128-column chunks and past them (544
+    and 1024 walk 5 and 8 chunks), which the CUDA kernel takes through
+    zero-filled tails (and one-element loads where a row is not a
     multiple of 16 bytes): the plain version it is held against on the
     card equals the JAX reference on the CPU."""
     args = _case(*CASES[1], hd=hd, seed=hd)
@@ -144,3 +145,115 @@ def test_wrapper_rejects_bad_shapes_and_devices():
         pa.ragged_paged_attention(*(t.to("meta") for t in
                                     (q, kp, vp, tb, ql, cl)))
 
+
+
+# ------------------------------------------- the kernel's split and merge
+
+
+def _partial(q, k, v, pos, qpos, scale):
+    """(m, l, acc) of the queries q [R, H, hd] over keys k/v [n, H, hd]
+    at positions pos [n], query i seeing the keys at or before qpos[i]:
+    m = -inf, l = 0 and acc = 0 where a query sees none, as in the
+    kernel's online softmax."""
+    R, H, hd = q.shape
+    if not len(pos):
+        return (torch.full((H, R), -np.inf), torch.zeros(H, R),
+                torch.zeros(H, R, hd))
+    s = torch.einsum("rhd,nhd->hrn", q, k) * scale
+    s = torch.where((pos[None, :] <= qpos[:, None])[None], s, -np.inf)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(m == -np.inf, 0.0, m)[..., None])
+    return m, p.sum(-1), torch.einsum("hrn,nhd->hrd", p, v)
+
+
+def _merge(parts):
+    """Merge (m, l, acc) partials in order: weights e^(m_i - M), and a
+    partial with m = -inf weighs 0."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    out_l, out_acc = 0.0, 0.0
+    for m, l, acc in parts:
+        w = torch.where(M == -np.inf, 0.0, torch.exp(m - M))
+        out_l = out_l + w * l
+        out_acc = out_acc + w[..., None] * acc
+    return M, out_l, out_acc
+
+
+def _split_merge(q, kp, vp, tables, qlens, ctxs, scale, span, rows=16,
+                 stage=64, warps=4):
+    """The CUDA kernel's algorithm in plain PyTorch, used only here: tiles
+    of ``rows`` query tokens; the kv axis cut into splits of ``span`` keys
+    up to what the tile's last query sees; in each split, every ``stage``
+    keys dealt to ``warps`` warps a slice each; a warp's (m, l, acc)
+    merged over the warps, then the splits in order, and divided by l
+    (l == 0 -> 1).  Padded slots and idle rows stay zeros."""
+    B, Q, H, hd = q.shape
+    ps, M = kp.shape[1], tables.shape[1]
+    out = torch.zeros(B, Q, H, hd)
+    for b in range(B):
+        qlen, ctx = int(qlens[b]), min(int(ctxs[b]), M * ps)
+        keys = kp[tables[b].long()].reshape(M * ps, H, hd).float()
+        vals = vp[tables[b].long()].reshape(M * ps, H, hd).float()
+        for t0 in range(0, Q, rows):
+            t1 = min(t0 + rows, qlen, Q)
+            if t0 >= t1:
+                continue
+            kv_len = ctx - qlen + t1
+            nsplit = -(-kv_len // span) if kv_len > span else 1
+            qpos = ctx - qlen + torch.arange(t0, t1)
+            qs = q[b, t0:t1].float()
+            splits = []
+            for s in range(nsplit):
+                kb, ke = s * span, min(s * span + span, kv_len)
+                parts = []
+                for w in range(warps):
+                    pos = torch.tensor([k for k in range(kb, ke) if
+                                        (k - kb) % stage // (stage // warps)
+                                        == w], dtype=torch.long)
+                    parts.append(_partial(qs, keys[pos], vals[pos], pos,
+                                          qpos, scale))
+                splits.append(_merge(parts))
+            _, l, acc = _merge(splits)
+            o = acc / torch.where(l == 0, 1.0, l)[..., None]      # [H, R, hd]
+            out[b, t0:t1] = o.permute(1, 0, 2)
+    return out.to(q.dtype)
+
+
+# contexts on a split boundary and either side of it (for spans 16 and
+# 64), a whole prompt in one chunk (qlen == ctx), idle rows, a chunk
+# whose two query tiles end in different splits, one key
+SPLIT_CASES = [((1, 1, 1, 0), (16, 17, 64, 0)),
+               ((20, 0, 1, 3), (20, 0, 63, 65)),
+               ((1, 18, 1, 0), (1, 40, 129, 0))]
+
+
+@pytest.mark.parametrize("span", [1, 16, 64, 256, 1000])
+@pytest.mark.parametrize("qlens,ctxs", SPLIT_CASES)
+def test_split_and_merge_matches_jax_reference(qlens, ctxs, span):
+    """The kernel's kv split and its merges (of the warps within a split,
+    then of the splits in order, a split with no visible key weighing 0)
+    reproduce the JAX reference: spans of one key, 16, 64, 256 and one
+    longer than every context."""
+    args = _case(qlens, ctxs, Q=24, hd=16, P=48, ps=4, M=40, seed=span)
+    scale = 1.0 / np.sqrt(16)
+    ref = np.asarray(jax_ragged_ref(*[jnp.asarray(a) for a in args], scale))
+    out = _split_merge(*_torch(*args), scale, span).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    for b, ql in enumerate(qlens):
+        assert not out[b, ql:].any()
+
+
+@pytest.mark.parametrize("B,Q,H,hd,max_kv,want", [
+    (8, 64, 16, 128, 2048, (8, 256)),       # the serving batch
+    (8, 64, 16, 128, 100, (1, 256)),        # one split: no scratch
+    (1, 2048, 16, 128, 2048, (2, 1024)),    # a long prefill: wider spans
+    (1, 1, 1, 64, 1 << 20, (512, 2048)),    # at most 512 splits
+])
+def test_split_plan_follows_the_shapes(B, Q, H, hd, max_kv, want):
+    """The wrapper's kv split, from the static shapes alone: spans of
+    ``SPLIT_KEYS`` (a multiple of the kernel's 64-key stage), doubled
+    while the partials would pass 64 MiB or the splits 512, and always
+    covering every key."""
+    splits, span = pa._splits(B, Q, H, hd, max_kv)
+    assert (splits, span) == want
+    assert span % 64 == 0 and splits * span >= max_kv
+    assert splits == 1 or B * H * Q * splits * (hd + 2) * 4 <= 64 << 20

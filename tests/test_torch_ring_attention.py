@@ -191,7 +191,8 @@ def test_pair_bwd_ref_is_the_gradient_of_the_pair():
 def test_flash_head_dim_padding_is_exact(D):
     """What the CUDA wrappers do for a D not in ``HEAD_DIMS``: zero-pad
     q/k/v/dO to the next size (256 for 128 < D < 256), run, slice; past
-    512 they raise.  Run
+    512 they pad to the next multiple of 512, which the fp32 kernels walk
+    in 512-column chunks.  Run
     here through the plain versions, against the JAX package's
     ``flash_attention`` (Pallas in interpret mode) and its gradient at
     1e-4, and against ``_naive_attention`` and its autograd at 1e-5."""
@@ -219,8 +220,9 @@ def test_flash_head_dim_padding_is_exact(D):
         assert a.shape == b.shape and a.is_contiguous()
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
                                    rtol=1e-5)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa._pad_head_dim(torch.zeros(1, 1, 128, 1024))
+    for wide, padded in ((640, 1024), (1024, 1024), (1100, 1536)):
+        assert fa._pad_head_dim(torch.zeros(1, 1, 8, wide))[0].shape[-1] \
+            == padded
 
 
 # ---------------------------------------------------------------- engine

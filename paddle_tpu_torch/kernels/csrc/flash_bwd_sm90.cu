@@ -1,7 +1,7 @@
 // Flash attention backward for Hopper (sm_90a): dQ, dK and dV of every
-// bf16 flash backward in one kernel, wgmma + TMA, warp specialised (the
-// FlashAttention-3 arrangement).  fp32 inputs keep the scalar kernels of
-// flash_attention.cu, and so do a ring pair's (fp32 dO and outputs).
+// bf16 flash backward, and of every bf16 ring pair, in one kernel, wgmma
+// + TMA, warp specialised (the FlashAttention-3 arrangement).  fp32
+// inputs keep the scalar kernels of flash_attention.cu.
 //
 // Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:168
 // _bwd_dkdv_kernel and :215 _bwd_dq_kernel, called by _flash_bwd (:257)
@@ -79,7 +79,31 @@
 // P^T and dS^T are rounded to bf16 for their products, where the TPU
 // kernels keep them fp32: one more rounding (2^-9 relative) per term,
 // which the bf16 tolerances cover.
+//
+// A ring pair (RING = true, ring_pair_bwd_sm90_launch) is the same
+// kernel.  It replaces the TPU's per-pair backward,
+// paddle_tpu/kernels/ring_attention.py _pair_bwd (:89) and its two
+// pallas_calls (:105 dK/dV, :133 dQ) of the flash kernels above, fed the
+// ring-global lse and delta; the diagonal pair is causal, a full pair
+// not.  What differs is where the outputs go: dQ, dK and dV are terms of
+// the ring's running fp32 sums, and the kernel adds them in place.  dQ
+// goes by the same TMA reduce-adds (atomics at D = 256) into the
+// caller's sum dq[i], which the ring zeroes once, not per pair; dK and
+// dV are read, added and written back in fp32 by the one thread that
+// owns each element, so they stay deterministic.  dO comes in bf16 (the
+// ring rounds its fp32 dO once a call, exact on the training path,
+// where it is the copy of a bf16 gradient).  At the sep = 4 training
+// shapes (B*H = 128, s = 512, D = 128) bytes bound a pair: q, k, v and
+// dO in bf16 (67.1 MB), lse and delta (0.5 MB), the dK/dV sums read and
+// written (134.2 MB) and the dQ sums (67.1 MB), 268.9 MB or 0.080 ms at
+// 3.35 TB/s, against 42.9 GFLOP (a full pair; 0.043 ms at 989 TFLOP/s).
+// Fused, the pair saves the parent route's second recompute of S and dP
+// and its three separate fp32 adds (302 MB a pair).  A pair has only 4
+// key tiles a head, so its 512 blocks are 3.9 waves of one block an SM;
+// the head-grouped, heaviest-first order is the flash backward's.
 #include <math.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -117,12 +141,17 @@ struct BwdTiles {
   static constexpr int SMEM = TILE_BYTES + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// dK and dV in device memory: bf16, written once (the flash backward),
+// or fp32 running sums the kernel adds into (a ring pair).
+template <bool RING>
+using DkType = std::conditional_t<RING, float, __nv_bfloat16>;
+
 // Accumulator layout of wgmma m64nN (fp32), per thread of a warpgroup:
 // warp w owns rows 16w + g and 16w + g + 8 (g = lane / 4); element
 // 4j + e is column 8j + 2(lane % 4) + (e & 1) of row 16w + g + 8(e >> 1).
 // Here the rows of S^T and dP^T are keys, their columns queries.
 
-template <int D>
+template <int D, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -132,8 +161,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           float* __restrict__ dq_acc,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int S,
+                          DkType<RING>* __restrict__ dk,
+                          DkType<RING>* __restrict__ dv, int S,
                           float scale, int causal, int BH, int G) {
   using T = BwdTiles<D>;
   constexpr int NB = T::NB, DC = T::DC, ST = T::STAGES;
@@ -399,17 +428,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     // goes
     if (T::DQ_TMA && does_dq && tid == 0) bulk_wait<0>();
 
-    // epilogue: dK and dV in bf16, each element once
+    // epilogue: dK and dV, each element by one thread: in bf16, written
+    // once, or (a ring pair) added into the fp32 sums, all of a row's
+    // loads issued before its stores
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (key[h] >= S) continue;
       const size_t at = ((size_t)bh * S + key[h]) * D + c0 + 2 * t;
-      uint32_t* kdst = reinterpret_cast<uint32_t*>(dk + at);
-      uint32_t* vdst = reinterpret_cast<uint32_t*>(dv + at);
+      if constexpr (RING) {
+        float2* kdst = reinterpret_cast<float2*>(dk + at);
+        float2* vdst = reinterpret_cast<float2*>(dv + at);
+        float2 ko[DC / 8], vo[DC / 8];
 #pragma unroll
-      for (int j = 0; j < DC / 8; ++j) {
-        kdst[4 * j] = pack_bf16(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
-        vdst[4 * j] = pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+        for (int j = 0; j < DC / 8; ++j) {
+          ko[j] = kdst[4 * j];
+          vo[j] = vdst[4 * j];
+        }
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          kdst[4 * j] = make_float2(ko[j].x + dka[4 * j + 2 * h],
+                                    ko[j].y + dka[4 * j + 2 * h + 1]);
+          vdst[4 * j] = make_float2(vo[j].x + dva[4 * j + 2 * h],
+                                    vo[j].y + dva[4 * j + 2 * h + 1]);
+        }
+      } else {
+        uint32_t* kdst = reinterpret_cast<uint32_t*>(dk + at);
+        uint32_t* vdst = reinterpret_cast<uint32_t*>(dv + at);
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          kdst[4 * j] = pack_bf16(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
+          vdst[4 * j] = pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+        }
       }
     }
   }
@@ -417,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------- host
 
-template <int D>
+template <int D, bool RING>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
         int BH, int S, float scale, int causal, cudaStream_t st) {
@@ -433,14 +482,14 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   // together (a third of the L2)
   const long long per_head = 8LL * S * D;
   const int G = (int)max(1LL, min((long long)BH, (16LL << 20) / per_head));
-  rc = (int)cudaFuncSetAttribute(flash_bwd_sm90_kernel<D>,
+  rc = (int)cudaFuncSetAttribute(flash_bwd_sm90_kernel<D, RING>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  T::SMEM);
   if (rc) return rc;
-  flash_bwd_sm90_kernel<D>
+  flash_bwd_sm90_kernel<D, RING>
       <<<dim3(BH * ((S + kBK - 1) / kBK), T::Z), kThreads, T::SMEM, st>>>(
           tq, tk, tv, tdo, tdq, (const float*)lse, (const float*)delta,
-          (float*)dq_acc, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, scale,
+          (float*)dq_acc, (DkType<RING>*)dk, (DkType<RING>*)dv, S, scale,
           causal, BH, G);
   return (int)cudaGetLastError();
 }
@@ -448,6 +497,27 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
 static_assert(BwdTiles<256>::SMEM <= 232448, "227 KB a block");
 static_assert(BwdTiles<128>::SMEM <= 232448, "227 KB a block");
 static_assert(BwdTiles<64>::SMEM <= 232448, "227 KB a block");
+
+template <bool RING>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq_acc, void* dk,
+             void* dv, int BH, int S, int D, float scale, int causal,
+             void* stream) {
+  if (BH <= 0 || S <= 0 ||
+      (long long)BH * ((S + kBK - 1) / kBK) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return bwd<64, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
+                         scale, causal, st);
+  if (D == 128)
+    return bwd<128, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
+                          scale, causal, st);
+  if (D == 256)
+    return bwd<256, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
+                          scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -461,18 +531,21 @@ extern "C" int flash_bwd_sm90_launch(const void* q, const void* k,
                                      void* dq_acc, void* dk, void* dv,
                                      int BH, int S, int D, float scale,
                                      int causal, void* stream) {
-  if (BH <= 0 || S <= 0 ||
-      (long long)BH * ((S + kBK - 1) / kBK) > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return bwd<64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S, scale,
-                   causal, st);
-  if (D == 128)
-    return bwd<128>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S, scale,
-                    causal, st);
-  if (D == 256)
-    return bwd<256>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S, scale,
-                    causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
+                         D, scale, causal, stream);
+}
+
+// One ring pair's backward with the ring-global lse and delta: q, k, v,
+// dout [BH, S, D] bf16 as above; dq_sum, dk_sum, dv_sum [BH, S, D] fp32
+// running sums (16-byte aligned, contiguous) that the pair's dQ, dK and
+// dV are added into; D in {64, 128, 256}.  Returns a CUDA error code.
+extern "C" int ring_pair_bwd_sm90_launch(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dq_sum, void* dk_sum,
+                                         void* dv_sum, int BH, int S, int D,
+                                         float scale, int causal,
+                                         void* stream) {
+  return dispatch<true>(q, k, v, dout, lse, delta, dq_sum, dk_sum, dv_sum,
+                        BH, S, D, scale, causal, stream);
 }

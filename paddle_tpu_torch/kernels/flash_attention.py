@@ -59,7 +59,7 @@ BF16_MAX_HEAD_DIM = 256
 #: kernel launches since the counts were last set to 0 (CUDA path only):
 #: ``fwd`` every forward kernel, ``bwd`` every backward kernel (a bf16
 #: backward is one launch; an fp32 one launches its dK/dV and its dQ
-#: kernel, two)
+#: kernel, two, and so does a ring pair with fp32 q/k/v)
 launches = {"fwd": 0, "bwd": 0}
 
 
@@ -141,14 +141,8 @@ def _lib():
         lib.flash_bwd_dkdv_launch.argtypes = [ptr] * 8 + [i] * 3 + [f, i,
                                                                    ptr]
         lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + [i] * 3 + [f, i, ptr]
-        # ring attention's per-pair backward: the same and a dtype
-        lib.ring_pair_bwd_dkdv_launch.argtypes = [ptr] * 8 + [i] * 3 + [
-            f, i, i, ptr]
-        lib.ring_pair_bwd_dq_launch.argtypes = [ptr] * 7 + [i] * 3 + [f, i, i,
-                                                                      ptr]
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkdv_launch,
-                   lib.flash_bwd_dq_launch, lib.ring_pair_bwd_dkdv_launch,
-                   lib.ring_pair_bwd_dq_launch):
+                   lib.flash_bwd_dq_launch):
             fn.restype = ctypes.c_int
     return lib
 
@@ -171,9 +165,11 @@ def _lib_bwd_sm90():
     lib = _build.load("flash_bwd_sm90")
     if lib.flash_bwd_sm90_launch.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_bwd_sm90_launch.argtypes = [ptr] * 9 + [i] * 3 + [f, i,
-                                                                    ptr]
-        lib.flash_bwd_sm90_launch.restype = ctypes.c_int
+        # the flash backward and a ring pair's (one signature: the ring's
+        # dq, dk and dv are fp32 sums the kernel adds into)
+        for fn in (lib.flash_bwd_sm90_launch, lib.ring_pair_bwd_sm90_launch):
+            fn.argtypes = [ptr] * 9 + [i] * 3 + [f, i, ptr]
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -12,10 +12,11 @@ logsumexp in fp32.
 
 Backward (FlashAttention-2 style, a second pass round the ring): δ comes
 from the final output and the fp32 dO; each pair recomputes P from the
-ring-global lse, so its dK/dV and dQ kernels are the flash backward
-kernels fed the global lse and δ.  dQ sums per rank; dK/dV sum per
-visiting block in fp32, the sums that ride the ring home.  Everything is
-cast to q's dtype at the end.
+ring-global lse, so its backward is the flash backward fed the global
+lse and δ.  dQ sums per rank; dK/dV sum per visiting block in fp32, the
+sums that ride the ring home.  The three sums are zeroed once a call and
+every pair adds its terms into them in place.  Everything is cast to
+q's dtype at the end.
 
 This module runs every rank on one device (the local layout): the shards
 are slices of the whole sequence and the rotation is an index, not a
@@ -31,18 +32,24 @@ between the two):
   (``flash_attention._flash_fwd``), causal for the diagonal pair and
   non-causal for a full pair; its output comes in q's dtype, as the TPU
   kernel's does, before the fp32 merge;
-- a pair's backward is ``ring_pair_bwd_dkdv_launch`` and
-  ``ring_pair_bwd_dq_launch`` of ``csrc/flash_attention.cu``: the flash
-  backward kernels instantiated for an fp32 dO and fp32 dK/dV/dQ, counted
-  in ``launches``.  bf16 q/k/v run on the tensor cores, which round dO to
-  bf16 as it is staged (the choice over TF32): exact on the training
-  path, where dO is the fp32 copy of a bf16 gradient, and one more
-  2⁻⁹-relative rounding per term, like P and dS, for an fp32 dO with more
-  bits.  fp32 q/k/v take the scalar fp32 kernels, with no rounding, and
-  so do bf16 q/k/v with D > 256 (cast up; the outputs are fp32 anyway).
+- a pair's backward with bf16 q/k/v and D ≤ 256 is one launch of
+  ``ring_pair_bwd_sm90_launch`` (``csrc/flash_bwd_sm90.cu``, the bf16
+  flash backward's wgmma + TMA kernel), counted in ``launches["pair_bwd"]``.
+  It takes dO in bf16 and adds the pair's dQ, dK and dV into the ring's
+  fp32 sums in place: dQ by TMA reduce-adds (the order of those fp32
+  sums varies from run to run, so dQ is not bit-reproducible on the
+  card), dK and dV by the one thread that owns each element
+  (deterministic).  The ring rounds its fp32 dO to bf16 once a call:
+  exact on the training path, where dO is the copy of a bf16 gradient,
+  and one more 2⁻⁹-relative rounding per term, like P and dS, for an
+  fp32 dO with more bits.  fp32 q/k/v take the scalar fp32 dK/dV and dQ
+  kernels of ``csrc/flash_attention.cu`` (two launches, counted in
+  ``flash_attention.launches["bwd"]``), whose outputs are added into the
+  sums, and so do bf16 q/k/v with D > 256 (cast up to fp32 once a call).
   Every head dim runs on the card: as in ``flash_attention``, a D off the
-  instantiated sizes is zero-padded, past 512 to a multiple of 512 that
-  the fp32 kernels walk in 512-column chunks.
+  instantiated sizes is zero-padded once a call (q/k/v, dO and the sums),
+  past 512 to a multiple of 512 that the fp32 kernels walk in
+  512-column chunks.
 """
 from __future__ import annotations
 
@@ -56,10 +63,11 @@ __all__ = ["ring_attention", "launches"]
 
 _NEG_INF = -1e30
 
-#: kernel launches of the pair backward since the counts were last set
-#: to 0 (CUDA path only); the pair forwards count in
-#: ``flash_attention.launches["fwd"]``
-launches = {"pair_bwd_dkdv": 0, "pair_bwd_dq": 0}
+#: launches of the bf16 pair backward kernel since the counts were last
+#: set to 0 (CUDA path only); the pair forwards count in
+#: ``flash_attention.launches["fwd"]``, the fp32 pair backwards in its
+#: ``["bwd"]``
+launches = {"pair_bwd": 0}
 
 
 # --------------------------------------------------------------- per pair
@@ -85,37 +93,33 @@ def _pair_bwd_ref(q, k, v, do, lse, delta, scale, causal):
             dk, dv)
 
 
-def _pair_bwd_launch(name, n_out, q, k, v, do, lse, delta, scale, causal):
-    """Launch ``ring_<name>_launch`` on padded copies as needed; returns
-    its ``n_out`` fp32 outputs, sliced back to q's head dim."""
-    if do.dtype != torch.float32:
-        raise TypeError(f"a ring pair's backward takes an fp32 dO, got "
-                        f"{do.dtype}")
+def _pair_operands(q, k, v, do):
+    """q/k/v and dO as the pair backward kernels take them:
+    bf16 with D ≤ 256 zero-padded to 64, 128 or 256; fp32 (and bf16 with
+    D > 256, cast up) padded to ``flash_attention.HEAD_DIMS`` or a
+    multiple of 512.  Exact: zero columns add nothing to the scores and
+    give zero gradient columns."""
     if fa._wide_bf16(q):                 # D > 256: the fp32 kernels
-        q, k, v = q.float(), k.float(), v.float()
-    D = q.shape[-1]
-    q, k, v, do = fa._pad_head_dim(q, k, v, do)
-    fa._check_cuda(q, k, v, do, lse, delta)
-    B, H, S, Dk = q.shape
-    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
-            for _ in range(n_out)]
+        q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    return fa._pad_head_dim(q, k, v, do,
+                            least=64 if q.dtype == torch.bfloat16 else 0)
+
+
+def _pair_bwd_sm90(q, k, v, do, lse, delta, scale, causal, dq, dk, dv):
+    """bf16 q/k/v/dO at D ∈ {64, 128, 256}: one launch that adds the
+    pair's dQ, dK and dV into the fp32 sums ``dq``, ``dk``, ``dv``."""
+    fa._check_cuda(q, k, v, do, lse, delta, dq, dk, dv)
+    if do.dtype != q.dtype or q.shape[-1] not in (64, 128, 256) or any(
+            t.shape != q.shape or t.dtype != torch.float32
+            for t in (dq, dk, dv)):
+        raise ValueError("the ring pair kernel takes bf16 q/k/v/dO at head "
+                         "dim 64, 128 or 256 and fp32 sums of q's shape")
+    B, H, S, D = q.shape
     if q.numel():
-        fa._launch(launches, name, getattr(fa._lib(), f"ring_{name}_launch"),
-                   q, k, v, do, lse, delta, *outs, B * H, S, Dk, float(scale),
-                   int(causal), fa._DTYPES[q.dtype])
-    return fa._unpad_head_dim(D, *outs)
-
-
-def _pair_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
-    """(dk, dv) fp32 of one pair from the dK/dV kernel."""
-    return _pair_bwd_launch("pair_bwd_dkdv", 2, q, k, v, do, lse, delta,
-                            scale, causal)
-
-
-def _pair_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
-    """dq fp32 of one pair from the dQ kernel."""
-    return _pair_bwd_launch("pair_bwd_dq", 1, q, k, v, do, lse, delta,
-                            scale, causal)[0]
+        fa._launch(launches, "pair_bwd",
+                   fa._lib_bwd_sm90().ring_pair_bwd_sm90_launch, q, k, v, do,
+                   lse, delta, dq, dk, dv, B * H, S, D, float(scale),
+                   int(causal))
 
 
 def _on_cpu(q):
@@ -133,13 +137,23 @@ def _pair_fwd(q, k, v, scale, causal):
     return fa._flash_fwd(q, k, v, scale, causal)
 
 
-def _pair_bwd(q, k, v, do, lse, delta, scale, causal):
-    """One pair's (dq, dk, dv) in fp32 from the ring-global lse and δ;
-    ``do`` fp32."""
+def _pair_bwd(q, k, v, do, lse, delta, scale, causal, dq, dk, dv):
+    """Add one pair's dQ, dK and dV, from the ring-global lse and δ, into
+    the fp32 sums ``dq``, ``dk``, ``dv`` in place.  q/k/v/dO come as
+    ``_pair_operands`` makes them (on the card bf16 needs it) and the
+    sums at their width.  bf16 runs the one kernel that adds into the
+    sums; fp32 the scalar dK/dV and dQ kernels, whose outputs are added
+    here."""
     if _on_cpu(q):
-        return _pair_bwd_ref(q, k, v, do, lse, delta, scale, causal)
-    dk, dv = _pair_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
-    return _pair_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal), dk, dv
+        grads = _pair_bwd_ref(q, k, v, do, lse, delta, scale, causal)
+    elif q.dtype == torch.bfloat16:
+        return _pair_bwd_sm90(q, k, v, do, lse, delta, scale, causal, dq, dk,
+                              dv)
+    else:
+        grads = (fa._bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal),
+                 *fa._bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal))
+    for acc, t in zip((dq, dk, dv), grads):
+        acc += t
 
 
 # ------------------------------------------------------------- the ring
@@ -154,9 +168,13 @@ def _shards(t, sep, dtype=None):
 
 
 def _unshard(t, dtype=None):
-    """Inverse of ``_shards``."""
+    """Inverse of ``_shards``, from any strided ``t``; one copy (cast to
+    ``dtype`` on the way)."""
     x = t.movedim(0, 2)
-    return x.reshape(*x.shape[:2], -1, *x.shape[4:]).to(dtype or t.dtype)
+    out = torch.empty((*x.shape[:2], x.shape[2] * x.shape[3],
+                       *x.shape[4:]), dtype=dtype or t.dtype, device=t.device)
+    out.view(x.shape).copy_(x)
+    return out
 
 
 def _schedule(sep):
@@ -169,9 +187,9 @@ def _schedule(sep):
 class _Ring(torch.autograd.Function):
     """Forward saves the shards of q, k, v, the output and the global
     lse, as the JAX ``_ring_fwd_rule`` does; backward runs the pair
-    backward kernels.  Every tensor a kernel gets is allocated in the
-    call, so a recompute under activation checkpointing launches the
-    forward kernels again."""
+    backward kernels, which add into the ring's fp32 sums.  Every tensor
+    a kernel gets is allocated in the call, so a recompute under
+    activation checkpointing launches the forward kernels again."""
 
     @staticmethod
     def forward(ctx, q, k, v, sep, scale):
@@ -195,21 +213,23 @@ class _Ring(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qs, ks, vs, out, lse = ctx.saved_tensors
-        sep = qs.shape[0]
-        do = _shards(g, sep, torch.float32)
-        delta = (do * out.float()).sum(dim=-1)
-        dq, dk, dv = (torch.zeros_like(t, dtype=torch.float32)
-                      for t in (qs, ks, vs))
+        sep, dtype, D = qs.shape[0], qs.dtype, qs.shape[-1]
+        do = _shards(g, sep, dtype)
+        # δ from the fp32 dO, as the JAX _ring_bwd_rule computes it
+        delta = fa._delta(out, do if g.dtype == dtype else
+                          _shards(g, sep, torch.float32))
+        # at the kernels' width once a call (on the CPU too, where the
+        # plain pairs take any width: the same path as on the card)
+        qs, ks, vs, do = _pair_operands(qs, ks, vs, do)
+        dq, dk, dv = (torch.zeros(qs.shape, dtype=torch.float32,
+                                  device=qs.device) for _ in range(3))
         # ring order: each sum adds its terms in the order the JAX ring
         # adds them
         for _, i, j in _schedule(sep):
-            dq_p, dk_p, dv_p = _pair_bwd(qs[i], ks[j], vs[j], do[i], lse[i],
-                                         delta[i], ctx.scale, j == i)
-            dq[i] += dq_p
-            dk[j] += dk_p
-            dv[j] += dv_p
-        return (_unshard(dq, qs.dtype), _unshard(dk, ks.dtype),
-                _unshard(dv, vs.dtype), None, None)
+            _pair_bwd(qs[i], ks[j], vs[j], do[i], lse[i], delta[i],
+                      ctx.scale, j == i, dq[i], dk[j], dv[j])
+        return (*(_unshard(t[..., :D], dtype) for t in (dq, dk, dv)), None,
+                None)
 
 
 def ring_attention(q, k, v, sep, causal=True, scale=None, block_q=512,

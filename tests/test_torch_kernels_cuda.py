@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import paged_attention as pa
 
@@ -326,12 +327,11 @@ def test_flash_kernels_reject_other_head_dims(cuda):
 @pytest.mark.parametrize("S", [1, 17, 200, 256])
 def test_flash_kernels_wide_head_dims(cuda, S, causal, D, dtype):
     """128 < D ≤ 256 on every flash-family kernel: the forward, dK/dV and
-    dQ, and a ring pair's dK/dV and dQ (fp32 dO and outputs, a
-    ring-global lse), each against its plain version on the same
-    inputs.  D = 192 runs zero-padded to 256."""
+    dQ, and a ring pair's backward (adding into fp32 sums, a ring-global
+    lse), each against its plain version on the same inputs.  D = 192
+    runs zero-padded to 256."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    ra = _ring_module()
     q, k, v, do = _flash_case(S, D, dtype, seed=S + D)
     scale = 1.0 / np.sqrt(D)
     before = dict(fa.launches)
@@ -350,19 +350,9 @@ def test_flash_kernels_wide_head_dims(cuda, S, causal, D, dtype):
         assert a.dtype == dtype and a.shape == q.shape, name
         torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype],
                                    msg=name)
-    do32 = do.float()
     lse_g = ref_lse + np.log(2.0)          # as if merged with one more block
-    delta = (do32 * ref.float()).sum(-1)
-    before = dict(ra.launches)
-    pk, pv = ra._pair_bwd_dkdv_cuda(q, k, v, do32, lse_g, delta, scale,
-                                    causal)
-    pq = ra._pair_bwd_dq_cuda(q, k, v, do32, lse_g, delta, scale, causal)
-    want = ra._pair_bwd_ref(q, k, v, do32, lse_g, delta, scale, causal)
-    torch.cuda.synchronize()
-    assert ra.launches == {n: before[n] + 1 for n in before}
-    for name, a, b in zip(("dq", "dk", "dv"), (pq, pk, pv), want):
-        assert a.dtype == torch.float32 and a.shape == q.shape, name
-        torch.testing.assert_close(a, b, **FLASH_TOL[dtype], msg=name)
+    delta = (do.float() * ref.float()).sum(-1)
+    _check_ring_pair(q, k, v, do, lse_g, delta, scale, causal, seed=D)
 
 
 @pytest.mark.cuda
@@ -526,34 +516,65 @@ def _ring_module():
     return importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_ring_pair_kernels_match_plain(cuda, causal, D, dtype):
-    """One ring pair's dK/dV and dQ kernels (fp32 dO, fp32 outputs)
-    against ``_pair_bwd_ref`` with a ring-global lse and δ (the pair's
-    merged with one more block).  bf16 q/k/v round P, dS and the fp32 dO
-    to bf16 for the tensor cores: the bf16 tolerance."""
+def _check_ring_pair(q, k, v, do, lse, delta, scale, causal, seed):
+    """One ring pair's backward as the ring runs it (q/k/v/dO at the
+    kernels' width from ``_pair_operands``, fp32 sums at that width)
+    from non-zero starting sums: the sums end at start + ``_pair_bwd_ref``
+    at the flash tolerance of q's dtype, zero-padded columns stay zero,
+    and the launches are counted (bf16: one ``pair_bwd``; fp32: the
+    scalar dK/dV and dQ kernels, two flash ``bwd``).  Returns the sums."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     ra = _ring_module()
-    q, k, v, k2 = _flash_case(256, D, dtype, seed=D)
-    v2, do = _flash_case(256, D, torch.float32, seed=D + 1)[:2]
-    scale = 1.0 / np.sqrt(D)
-    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
-    _, lse2 = fa._flash_fwd_ref(q, k2, v2.to(dtype), scale, False)
-    lse = torch.logaddexp(lse, lse2)
-    delta = (do * out.float()).sum(-1)
-    before = dict(ra.launches)
-    dk, dv = ra._pair_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
-    dq = ra._pair_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    D = q.shape[-1]
+    ops = ra._pair_operands(q, k, v, do)
+    start = [F.pad(t.float(), (0, ops[0].shape[-1] - D))
+             for t in _flash_case(q.shape[2], D, torch.float32,
+                                  B=q.shape[0], H=q.shape[1], seed=seed)[:3]]
+    sums = [t.clone() for t in start]
+    before = (dict(ra.launches), fa.launches["bwd"])
+    ra._pair_bwd(*ops, lse, delta, scale, causal, *sums)
     want = ra._pair_bwd_ref(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
-    assert ra.launches == {n: before[n] + 1 for n in before}
-    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        assert a.dtype == torch.float32 and a.shape == q.shape, name
-        torch.testing.assert_close(a, b, **FLASH_TOL[dtype], msg=name)
+    bf16 = ops[0].dtype == torch.bfloat16
+    assert ra.launches["pair_bwd"] == before[0]["pair_bwd"] + bf16
+    assert fa.launches["bwd"] == before[1] + 2 * (not bf16)
+    for name, a, s0, b in zip(("dq", "dk", "dv"), sums, start, want):
+        assert a.dtype == torch.float32 and a.shape == ops[0].shape, name
+        torch.testing.assert_close(a[..., :D], s0[..., :D] + b,
+                                   **FLASH_TOL[q.dtype], msg=name)
+        assert not a[..., D:].any(), name
+    return sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("s", [128, 256, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_pair_kernels_match_plain(cuda, causal, s, D, dtype):
+    """One ring pair's backward (bf16: the one wgmma/TMA kernel adding
+    into the sums; fp32: the scalar kernels, added) against
+    ``_pair_bwd_ref`` with a ring-global lse and δ (the pair's merged
+    with one more block), from non-zero starting sums, over the shard
+    lengths and head dims of the ring (D = 32 and 80 zero-padded).  bf16
+    dO as the ring hands it; P and dS rounded to bf16 for the tensor
+    cores: the bf16 tolerance.  A second run from the same start gives
+    the same dK and dV bit for bit (one thread adds each element); dQ is
+    summed with TMA reduce-adds and is only held to the plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, k2 = _flash_case(s, D, dtype, seed=s + D)
+    v2, do = _flash_case(s, D, dtype, seed=s + D + 1)[:2]
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    _, lse2 = fa._flash_fwd_ref(q, k2, v2, scale, False)
+    lse = torch.logaddexp(lse, lse2)
+    delta = (do.float() * out.float()).sum(-1)
+    first = _check_ring_pair(q, k, v, do, lse, delta, scale, causal, seed=D)
+    again = _check_ring_pair(q, k, v, do, lse, delta, scale, causal, seed=D)
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2],
+                                                           again[2])
 
 
 @pytest.mark.cuda
@@ -561,7 +582,8 @@ def test_ring_pair_kernels_match_plain(cuda, causal, D, dtype):
 def test_ring_attention_on_card_matches_flash(cuda, dtype):
     """``ring_attention`` over 4 shards against ``flash_attention`` on
     the whole sequence: output and grads at the flash tolerances, and 10
-    live pairs launched (4 diagonal, 6 full) of each kernel."""
+    live pairs (4 diagonal, 6 full): 10 forward launches, and one pair
+    backward launch a pair in bf16 (two scalar kernels a pair in fp32)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     ra = _ring_module()
@@ -573,11 +595,13 @@ def test_ring_attention_on_card_matches_flash(cuda, dtype):
         out = fn(*leaves)
         out.backward(do)
         outs.append([out.detach()] + [t.grad for t in leaves])
-    fwd0, bwd0 = fa.launches["fwd"], dict(ra.launches)
+    before = (dict(fa.launches), ra.launches["pair_bwd"])
     ra.ring_attention(*(t.clone().requires_grad_(True) for t in (q, k, v)),
                       sep=4).backward(do)
-    assert fa.launches["fwd"] - fwd0 == 10
-    assert ra.launches == {n: bwd0[n] + 10 for n in bwd0}
+    bf16 = dtype == torch.bfloat16
+    assert fa.launches["fwd"] - before[0]["fwd"] == 10
+    assert ra.launches["pair_bwd"] - before[1] == 10 * bf16
+    assert fa.launches["bwd"] - before[0]["bwd"] == 20 * (not bf16)
     for a, b in zip(*outs):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype])

@@ -184,6 +184,111 @@ def test_pair_bwd_ref_is_the_gradient_of_the_pair():
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_pair_bwd_adds_into_the_sums(causal, dtype):
+    """``_pair_bwd`` adds one pair's dq, dk, dv into fp32 running sums in
+    place (the ring zeroes them once a call, not per pair): from
+    non-zero starting sums the result is start + the JAX package's
+    ``_pair_bwd_ref`` on the same q/k/v and dO in the same dtype (bf16 dO
+    with bf16 q/k/v, as the ring hands it), at 1e-4: both compute in
+    fp32 from the same values, only the order of the sums differs."""
+    qn, kn, vn, don = _arrays((1, 2, 128, 64), 4, seed=12)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in (qn, kn, vn, don))
+    scale = 1.0 / math.sqrt(64)
+    out, lse = ra._pair_fwd_ref(q, k, v, scale, causal)
+    lse = lse + math.log(2.0)               # as if merged with one more
+    delta = (do.float() * out).sum(-1)
+    start = _arrays((1, 2, 128, 64), 3, seed=13)
+    sums = _t(*start)
+    ptrs = [t.data_ptr() for t in sums]
+    assert ra._pair_bwd(q, k, v, do, lse, delta, scale, causal,
+                        *sums) is None
+    assert [t.data_ptr() for t in sums] == ptrs
+    jx = [jnp.asarray(t.float().numpy(), jnp.dtype(str(dtype)[6:]))
+          for t in (q, k, v, do)]
+    want = jra._pair_bwd_ref(*jx, jnp.asarray(lse.numpy()),
+                             jnp.asarray(delta.numpy()), scale, causal)
+    for a, s0, b, name in zip(sums, start, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), s0 + np.asarray(b), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def _pair_widths(monkeypatch):
+    """Record the head dim of the q/k/v/dO and sums every pair backward
+    of the ring gets."""
+    seen = []
+    pair_bwd = ra._pair_bwd
+
+    def spy(q, k, v, do, *rest):
+        seen.append({q.shape[-1], do.shape[-1]}
+                    | {t.shape[-1] for t in rest[-3:]})
+        return pair_bwd(q, k, v, do, *rest)
+
+    monkeypatch.setattr(ra, "_pair_bwd", spy)
+    return seen
+
+
+@pytest.mark.parametrize("D", [32, 80])
+@pytest.mark.parametrize("sep", [2, 4])
+def test_ring_padded_width_sums_match_jax(monkeypatch, sep, D):
+    """The ring's backward pads q/k/v/dO and allocates its fp32 sums at
+    the kernels' width once a call (fp32: 32 stays 32, 80 goes to 128)
+    and slices the gradients back: dq/dk/dv match the JAX ring's at
+    1e-4, and every pair saw the padded width."""
+    seen = _pair_widths(monkeypatch)
+    q, k, v, g = _arrays((1, 2, 128 * sep, D), 4, seed=20 + D, scale=0.5)
+    _, grads_j = _jax_ring(q, k, v, g, sep)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    ra.ring_attention(tq, tk, tv, sep).backward(torch.from_numpy(g))
+    assert seen == [{32 if D == 32 else 128}] * (sep * (sep + 1) // 2)
+    for a, b, name in zip((tq.grad, tk.grad, tv.grad), grads_j, "qkv"):
+        assert a.shape == (1, 2, 128 * sep, D) and a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("sep", [2, 4])
+def test_ring_bf16_route_model_matches_jax(monkeypatch, sep):
+    """A plain model of the card's bf16 route: bf16 q/k/v, dO rounded to
+    bf16 once a call, D = 32 padded to the kernel's 64, every pair's
+    terms summed in fp32, the gradients rounded to bf16 at the end.
+    Against the JAX ring in fp32 on the same bf16 values at the bf16
+    tolerance (atol 1e-2, rtol 1.6e-2: one rounding of each gradient)."""
+    seen = _pair_widths(monkeypatch)
+    rnd = [torch.from_numpy(a).bfloat16()
+           for a in _arrays((1, 2, 128 * sep, 32), 4, seed=30 + sep)]
+    q, k, v, g = (t.float().numpy() for t in rnd)
+    _, grads_j = _jax_ring(q, k, v, g, sep)
+    leaves = [t.clone().requires_grad_(True) for t in rnd[:3]]
+    ra.ring_attention(*leaves, sep).backward(rnd[3])
+    assert seen == [{64}] * (sep * (sep + 1) // 2)
+    for a, b, name in zip((t.grad for t in leaves), grads_j, "qkv"):
+        assert a.dtype == torch.bfloat16 and a.shape == rnd[0].shape
+        np.testing.assert_allclose(a.float().numpy(), b, atol=1e-2,
+                                   rtol=1.6e-2, err_msg=f"d{name}")
+
+
+def test_pair_operands_widths():
+    """The widths the pair kernels take: bf16 64, 128 or 256 (D = 32 up
+    to 64), fp32 ``HEAD_DIMS`` and multiples of 512; bf16 past 256 is
+    cast up to fp32 for the scalar kernels."""
+    for D, dtype, want, want_dtype in (
+            (32, torch.bfloat16, 64, torch.bfloat16),
+            (80, torch.bfloat16, 128, torch.bfloat16),
+            (192, torch.bfloat16, 256, torch.bfloat16),
+            (320, torch.bfloat16, 512, torch.float32),
+            (32, torch.float32, 32, torch.float32),
+            (80, torch.float32, 128, torch.float32),
+            (640, torch.float32, 1024, torch.float32)):
+        ts = [torch.ones(1, 1, 8, D, dtype=dtype) for _ in range(4)]
+        got = ra._pair_operands(*ts)
+        assert all(t.shape[-1] == want and t.dtype == want_dtype
+                   for t in got), (D, dtype)
+        assert all(float(t[..., D:].abs().sum()) == 0 for t in got)
+
+
 # ---------------------------------------------- flash head-dim padding
 
 

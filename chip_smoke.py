@@ -53,7 +53,21 @@ Phases (any failure exits non-zero):
      card, as in phase 7: ms/step, tokens/s, MFU, peak memory, busy
      share; the loss falls, its first step equals phase 7's, and the
      launches per step are held to the ring's schedule (10 live pairs a
-     layer: 480 forward, 240 pair backward).
+     layer: 480 forward, 240 pair backward);
+ 11. the serving fleet: ``FleetRouter`` over three GPT-3 1.3B engines
+     (phase 4's pool and batch, one set of params, warmed before
+     rotation) with an ``Autoscaler`` (2 to 4 replicas), 28 seeded
+     arrivals (prompts 64-1024, three cohorts sharing 256-token
+     prefixes, a burst) replayed in wall time, and chaos: an io_error at
+     ``serving.step`` on a replica mid-decode, a hard kill of another, a
+     rolling restart of a third; the burst scales up to a fourth engine,
+     the quiet tail scales down.  Every request finishes with 32 tokens,
+     none is lost, each failed-over request re-dispatched once per event
+     it was aboard and its output begins with the tokens harvested
+     before it; kernel launches equal 24 x the engines' steps; device
+     memory follows the engines held (one pool each) after the kill, the
+     restart and the scale-down; tok/s, TTFT, scale events, peak memory
+     and token identity against one engine are reported.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -1243,6 +1257,433 @@ def phase_ring_vs_flash(torch, fa, ra):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ serving fleet (11)
+
+FLEET_SEED = 0
+FLEET_NEW = 32                     # new tokens a request, greedy
+FLEET_ENGINE = dict(page_size=16, num_pages=2048, max_batch_size=8,
+                    chunk_len=64)  # phase 4's pool and batch
+# burst then quiet: 28 arrivals over 8 s (14 inside the burst window,
+# which the first arrival opens; the replay starts at the first arrival)
+FLEET_TRAFFIC = dict(base_rate_per_s=2.0, diurnal_amplitude=0.0,
+                     bursts=((1.0, 1.5, 5.0),), n_cohorts=3,
+                     cohort_prefix_len=256, cohort_fraction=0.5,
+                     prompt_len=(64, 1024),
+                     max_new_tokens=(FLEET_NEW, FLEET_NEW), seed=FLEET_SEED)
+FLEET_HORIZON_S = 8.0
+# the autoscaler's bands: pressure is the mean drain estimate of a ready
+# replica (decode tokens owed over its measured decode rate) plus the
+# router queue's term.  One request owes 32 tokens, about 0.05 s at a
+# batch's rate: a replica with two or more aboard crosses 0.1 s, an idle
+# fleet owes nothing
+FLEET_SCALER = dict(min_replicas=2, max_replicas=4, poll_interval_s=0.05,
+                    up_pressure_s=0.1, down_pressure_s=0.02,
+                    up_pending_depth=6, scale_up_cooldown_s=1.0,
+                    scale_down_cooldown_s=2.0)
+FLEET_MEM_SLACK = 64 << 20         # bytes beyond pools + params
+
+
+def fleet_engine_class(serving):
+    """The port's Engine, counting what phase 11 checks: every step it
+    runs (the kernel's launches are held to 24 x their sum), whether its
+    live logits were finite, its warmups and its prefix-cache hits.  A
+    subclass, not a patched method: a bound method stored on the engine
+    would tie it into a reference cycle and keep its pool alive."""
+
+    class FleetEngine(serving.Engine):
+        steps_by_engine = {}           # serial -> steps
+        step_s = {}                    # serial -> host seconds in step()
+        hits_by_engine = {}            # serial -> prefix-cache hits
+        warmed = set()                 # serials warmed up
+        finite = []
+        _serials = iter(range(1 << 30))
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.serial = next(FleetEngine._serials)
+
+        def _run_step(self, tokens, rows, slots, qlens, ctxs, tables):
+            logits = super()._run_step(tokens, rows, slots, qlens, ctxs,
+                                       tables)
+            FleetEngine.finite.append(
+                bool(np.isfinite(logits[qlens > 0]).all()))
+            FleetEngine.steps_by_engine[self.serial] = self.steps
+            return logits
+
+        def step(self):
+            t = time.perf_counter()
+            done = super().step()
+            FleetEngine.step_s[self.serial] = FleetEngine.step_s.get(
+                self.serial, 0.0) + time.perf_counter() - t
+            FleetEngine.hits_by_engine[self.serial] = \
+                self.cache.prefix_stats()["hits"]
+            return done
+
+        def warmup(self, *args, **kw):
+            FleetEngine.warmed.add(self.serial)
+            return super().warmup(*args, **kw)
+
+    return FleetEngine
+
+
+def phase_fleet(torch, cfg, pa, serving, resilience):
+    """Phase 11: ``FleetRouter`` over three GPT-3 1.3B engines with an
+    ``Autoscaler``, a seeded burst-then-quiet trace replayed in wall
+    time, and chaos at fixed points: (a) an io_error at ``serving.step``
+    on a replica with requests mid-decode, (b) a hard kill of another,
+    (c) a rolling restart (``drain``) of a third; (d) the burst scales
+    the fleet up to a fourth engine and the quiet tail scales it down.
+    Returns the kernel's launches over the phase."""
+    from paddle_tpu_torch.models import gpt_init
+    from paddle_tpu_torch.observability.metrics import Histogram
+
+    FleetEngine = fleet_engine_class(serving)
+    RS, FRS = serving.ReplicaState, serving.FleetRequestState
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - base
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    pool_bytes = (2 * L * FLEET_ENGINE["num_pages"]
+                  * FLEET_ENGINE["page_size"] * H * hd * 2)
+
+    def factory():
+        return FleetEngine(cfg, params, device="cuda", **FLEET_ENGINE)
+
+    mem_checks = []
+
+    def check_memory(when):
+        gc.collect()
+        torch.cuda.synchronize()
+        held = [rep.replica_id for rep in router.replicas
+                if isinstance(rep.engine, serving.Engine)]
+        want = base + params_bytes + len(held) * pool_bytes
+        got = torch.cuda.memory_allocated()
+        mem_checks.append((when, len(held), got - want))
+        check(abs(got - want) <= FLEET_MEM_SLACK,
+              f"after {when}: {got / 2**30:.3f} GiB allocated, "
+              f"{len(held)} engines account for {want / 2**30:.3f} GiB")
+
+    pa.ragged_paged_attention.launches = 0
+    router = serving.FleetRouter([factory] * 3,
+                                 warmup=lambda eng: eng.warmup())
+    sp = serving.SamplingParams(max_new_tokens=FLEET_NEW)
+    for rep in router.replicas:
+        # the first build is the caller's to warm; then one short request
+        # each, so the fleet starts as a serving fleet does, with a
+        # measured decode rate (a warmed engine counts as warming until
+        # its first real decode)
+        rep.engine.warmup()
+        rep.engine.generate([[1, 2, 3, 4]],
+                            serving.SamplingParams(max_new_tokens=4))
+    scaler = serving.Autoscaler(router, **FLEET_SCALER)
+    arrivals = serving.TrafficGenerator(
+        vocab_size=cfg.vocab_size, **FLEET_TRAFFIC).trace(FLEET_HORIZON_S)
+    check(24 <= len(arrivals) <= 32,
+          f"{len(arrivals)} arrivals, expected 24-32")
+    t_first = arrivals[0].t
+
+    def mid_decode(rid):
+        return [f for f in router._assigned[rid].values()
+                if f.tokens_out and len(f.tokens_out) < FLEET_NEW]
+
+    def pick(exclude, need_decode=True):
+        for rep in router.replicas:
+            if rep.state == RS.HEALTHY and rep.replica_id not in exclude \
+                    and (mid_decode(rep.replica_id) or not need_decode):
+                return rep.replica_id
+        return None
+
+    def stepping_before(rid, now):
+        """Replicas ahead of ``rid`` that the next tick steps: the io_error
+        must land on the ``serving.step`` hit of ``rid``'s engine."""
+        n = 0
+        for rep in router.replicas:
+            if rep.replica_id == rid:
+                return n
+            if rep.state == RS.DEAD:
+                continue
+            try:
+                work = rep.engine.has_work()
+            except OSError:
+                continue
+            if work and not (rep.state == RS.DRAINING
+                             and now >= rep.drain_deadline):
+                n += 1
+        return n
+
+    serial_rep = {}         # engine serial -> the replica it served
+    reqs, events = [], {}
+    harvested = {}          # fleet request id -> [tokens at each failure]
+    expected_moves = 0
+    draining_seen = {}      # replica id -> {request id: tokens} last tick
+    ticks = 0
+    # host seconds in router.step, in the engine steps it ran, and in
+    # scaler.tick (whose spawns build and warm engines)
+    router_s = router_steps_s = scaler_s = 0.0
+    t0 = time.perf_counter()
+    with resilience.injected_faults() as inj:
+        while True:
+            now = time.perf_counter() - t0
+            while len(reqs) < len(arrivals) and \
+                    arrivals[len(reqs)].t - t_first <= now:
+                reqs.append(router.submit(arrivals[len(reqs)].prompt, sp))
+            if "tail_down_done" in events:
+                break
+            check(now < FLEET_HORIZON_S + 30.0,
+                  f"fleet did not settle: {len(reqs)} submitted, events "
+                  f"{sorted(events)}, scaler {scaler.status()['scale_events']}")
+            # ---- chaos, each at a fixed tick (or the first tick after it
+            # where its target exists)
+            if "a" not in events and ticks >= 20 and (
+                    len(router.replicas) == 4 or now > 3.0):
+                rid = pick(exclude=())
+                if rid is not None and not any(
+                        rep.state == RS.DRAINING for rep in router.replicas):
+                    moving = router._assigned[rid]
+                    for f in moving.values():
+                        harvested.setdefault(f.id, []).append(
+                            list(f.tokens_out))
+                    expected_moves += len(moving)
+                    inj.specs.append(resilience.FaultSpec(
+                        "serving.step", "io_error",
+                        occurrence=inj.hits("serving.step") + 1
+                        + stepping_before(rid, router._clock())))
+                    events["a"] = (ticks, rid, len(moving))
+            elif "a" in events and "b" not in events and \
+                    ticks >= events["a"][0] + 5:
+                rid = pick(exclude=(events["a"][1],))
+                if rid is not None:
+                    moving = router._assigned[rid]
+                    for f in moving.values():
+                        harvested.setdefault(f.id, []).append(
+                            list(f.tokens_out))
+                    expected_moves += len(moving)
+                    router.kill_replica(rid)
+                    events["b"] = (ticks, rid, len(moving))
+                    check_memory("(b) kill_replica")
+            elif "b" in events and "c" not in events and \
+                    ticks >= events["b"][0] + 5:
+                rid = pick(exclude=(events["a"][1], events["b"][1]),
+                           need_decode=False)
+                if rid is not None:
+                    router.drain(rid, deadline_s=0.5)
+                    events["c"] = (ticks, rid, len(router._assigned[rid]))
+            # stragglers of a drain are reclaimed with the tokens they had
+            # before the tick that reclaims them (a draining replica past
+            # its deadline is not stepped again)
+            draining_seen = {
+                rep.replica_id: {f.id: list(f.tokens_out)
+                                 for f in router._assigned[
+                                     rep.replica_id].values()}
+                for rep in router.replicas if rep.state == RS.DRAINING}
+            moved0 = router.metrics.redispatched.value
+            fails0 = router.metrics.failure_events.value
+            t_tick = time.perf_counter()
+            in_steps = sum(FleetEngine.step_s.values())
+            router.step()
+            router_s += time.perf_counter() - t_tick
+            router_steps_s += sum(FleetEngine.step_s.values()) - in_steps
+            ticks += 1
+            for rid, seen in draining_seen.items():
+                rep = router._rep(rid)
+                if rep.state == RS.DRAINING:
+                    continue
+                # this tick ended rid's drain: its stragglers moved now
+                check(router.metrics.failure_events.value == fails0,
+                      "a failure landed on a drain's last tick")
+                stragglers = router.metrics.redispatched.value - moved0
+                check(stragglers == len(seen),
+                      f"drain of {rid}: {stragglers} moved, {len(seen)} "
+                      f"were aboard")
+                for fid, toks in seen.items():
+                    harvested.setdefault(fid, []).append(toks)
+                expected_moves += len(seen)
+                events.setdefault("drains", []).append(
+                    (ticks, rid, len(seen), rep.state))
+                if rid == events.get("c", (None, None))[1] and \
+                        "c_done" not in events:
+                    events["c_done"] = ticks
+                    check(rep.state == RS.HEALTHY,
+                          f"drained replica {rid} did not restart")
+                    check_memory("(c) drain and restart")
+                elif rep.state == RS.DEAD:
+                    check_memory(f"scale-down of replica {rid}")
+                    if "tail_down" in events:
+                        events["tail_down_done"] = ticks
+            t_tick = time.perf_counter()
+            decision = scaler.tick()
+            scaler_s += time.perf_counter() - t_tick
+            if decision is not None:
+                events.setdefault(decision[0], ticks)
+                if decision[0] == "down" and len(reqs) == len(arrivals) \
+                        and not router.has_work():
+                    events.setdefault("tail_down", ticks)
+            for rep in router.replicas:
+                if isinstance(rep.engine, FleetEngine):
+                    serial_rep[rep.engine.serial] = rep.replica_id
+            if not router.has_work() and len(reqs) < len(arrivals):
+                time.sleep(max(0.0, min(
+                    arrivals[len(reqs)].t - t_first
+                    - (time.perf_counter() - t0), 0.005)))
+        fired = inj.fired
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the traffic's span: first submission to last completion (the quiet
+    # tail that waits for the scale-down is not serving time)
+    served_s = max(f.t_finished for f in reqs) - t0
+    launches = pa.ragged_paged_attention.launches
+    total_steps = sum(FleetEngine.steps_by_engine.values())
+    snap = router.metrics.snapshot()
+    status = scaler.status()
+
+    # ---- checks
+    for f in reqs:
+        check(f.state == FRS.FINISHED and len(f.output) == FLEET_NEW,
+              f"fleet request {f.id} ended {f.state} with "
+              f"{len(f.output)} tokens ({f.finish_reason})")
+    check(snap["lost"] == 0, f"router lost {snap['lost']} requests")
+    check(all(k in events for k in ("a", "b", "c", "c_done")),
+          f"chaos did not run: {events}")
+    check(len(fired) == 1 and fired[0][:2] == ("serving.step", "io_error"),
+          f"injected faults fired: {fired}")
+    check(snap["failovers"] == {f"{events['a'][1]},io_error": 1,
+                                f"{events['b'][1]},crash": 1},
+          f"failovers {snap['failovers']}")
+    check(snap["redispatched"] == expected_moves,
+          f"redispatched {snap['redispatched']} != {expected_moves} in "
+          f"flight at (a), (b) and the drains' stragglers")
+    for f in reqs:
+        prefixes = harvested.get(f.id, [])
+        check(f.redispatches == len(prefixes),
+              f"request {f.id}: {f.redispatches} re-dispatches, aboard "
+              f"{len(prefixes)} failure events")
+        for toks in prefixes:
+            check(f.output[:len(toks)] == toks,
+                  f"request {f.id}: output does not begin with the "
+                  f"{len(toks)} tokens harvested before its failover")
+        if prefixes:
+            # the last dispatch admitted prompt + exactly the tokens
+            # harvested before the last failover: none twice, none lost
+            check(len(f._engine_req.prompt)
+                  == len(f.prompt) + len(prefixes[-1]),
+                  f"request {f.id}: re-dispatched with "
+                  f"{len(f._engine_req.prompt) - len(f.prompt)} tokens, "
+                  f"{len(prefixes[-1])} were harvested")
+    check(FleetEngine.finite and all(FleetEngine.finite),
+          "fleet logits not finite")
+    check(launches == cfg.num_layers * total_steps,
+          f"kernel launches {launches} != {cfg.num_layers} x "
+          f"{total_steps} engine steps")
+    ups = [e for e in status["events"] if e["direction"] == "up"]
+    downs = [e for e in status["events"] if e["direction"] == "down"]
+    check(any(e.get("replica") == 3 for e in ups),
+          f"no fourth engine was appended: {status['events']}")
+    check(set(serial_rep) <= FleetEngine.warmed,
+          "an engine entered rotation without its warmup")
+    check(downs and "tail_down_done" in events,
+          "no scale-down in the quiet tail")
+    check(sum(FleetEngine.hits_by_engine.values()) >= 1,
+          "no prefix-cache hit in the fleet")
+    check(snap["cache_aware_dispatches"] >= 1, "no cache-aware dispatch")
+
+    # ---- report
+    gen = sum(len(f.output) for f in reqs)
+    ttft, moved = Histogram("ttft"), Histogram("ttft_failed_over")
+    for f in reqs:
+        for h in (ttft, moved) if f.redispatches else (ttft,):
+            h.observe(f.t_first_token - f.t_submit)
+    by_rep = {}
+    for serial, rid in serial_rep.items():
+        by_rep[rid] = by_rep.get(rid, 0) + \
+            FleetEngine.steps_by_engine.get(serial, 0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[phase 11] fleet of gpt3-1.3b bf16 engines (pool "
+          f"{FLEET_ENGINE}), {len(reqs)} requests (trace seed "
+          f"{FLEET_SEED}: prompts 64-1024, 3 cohorts sharing 256-token "
+          f"prefixes at fraction 0.5, burst x5 over 1.0-2.5 s, {FLEET_NEW} "
+          f"new tokens, greedy) replayed in wall time: served in "
+          f"{served_s:.2f} s ({wall:.2f} s with the quiet tail), {ticks} "
+          f"fleet ticks, {gen / served_s:.1f} generated tok/s "
+          f"({card_line()})")
+    print(f"[phase 11] TTFT (fleet clock) p50 "
+          f"{ttft.percentile(50) * 1e3:.1f} ms p95 "
+          f"{ttft.percentile(95) * 1e3:.1f} ms; failed-over requests "
+          f"({moved.total}): p50 {moved.percentile(50) * 1e3:.1f} ms p95 "
+          f"{moved.percentile(95) * 1e3:.1f} ms")
+    print(f"[phase 11] chaos: (a) io_error on replica {events['a'][1]} at "
+          f"tick {events['a'][0]} ({events['a'][2]} aboard), (b) kill of "
+          f"replica {events['b'][1]} at tick {events['b'][0]} "
+          f"({events['b'][2]} aboard), (c) drain of replica "
+          f"{events['c'][1]} at tick {events['c'][0]} (restarted at tick "
+          f"{events['c_done']}); drains {events.get('drains')}; "
+          f"redispatched {snap['redispatched']} = expected "
+          f"{expected_moves}; lost {snap['lost']}; failovers "
+          f"{snap['failovers']}")
+    print(f"[phase 11] autoscaler bands {FLEET_SCALER}: events "
+          + "; ".join(f"{e['direction']} {e['reason']} replica "
+                      f"{e.get('replica')} at {e['time'] - t0:.2f} s "
+                      f"(pressure {e['pressure_s']})"
+                      for e in status["events"]))
+    # where the host's time went (one thread drives every replica): the
+    # engines' steps, the router around them, the autoscaler (its spawns
+    # build and warm engines), and the rest (waits for arrivals, chaos,
+    # the memory checks' collections)
+    print(f"[phase 11] host time over {wall:.2f} s: router ticks "
+          f"{router_s:.2f} s, of which engine steps {router_steps_s:.2f} s "
+          f"and routing {router_s - router_steps_s:.2f} s "
+          f"({(router_s - router_steps_s) / ticks * 1e3:.3f} ms/tick); "
+          f"autoscaler {scaler_s:.2f} s; the rest "
+          f"{wall - router_s - scaler_s:.2f} s; all engine steps "
+          f"{sum(FleetEngine.step_s.values()) / max(total_steps, 1) * 1e3:.2f}"
+          f" ms/step on the host (warmups included)")
+    print(f"[phase 11] engine steps by replica {by_rep} (sum "
+          f"{total_steps}); kernel launches {launches} = "
+          f"{cfg.num_layers} x {total_steps}; prefix hits "
+          f"{sum(FleetEngine.hits_by_engine.values())}; cache-aware "
+          f"dispatches {snap['cache_aware_dispatches']}; peak memory "
+          f"{peak / 2**30:.2f} GiB; memory beyond pools + params: "
+          + ", ".join(f"{w} ({n} engines) {d / 2**20:+.1f} MiB"
+                      for w, n, d in mem_checks))
+
+    # ---- a single-engine oracle on the same prompts and params
+    outputs = [f.output for f in reqs]
+    prompts = [list(f.prompt) for f in reqs]
+    del router, scaler, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle = serving.Engine(cfg, params, device="cuda", **FLEET_ENGINE)
+    oracle.warmup()
+    steps0 = oracle.steps
+    torch.cuda.synchronize()
+    t_one = time.perf_counter()
+    ref = oracle.generate(prompts, sp)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t_one
+    same, diffs = 0, []
+    for i, (a, b) in enumerate(zip(outputs, ref)):
+        if a == b:
+            same += 1
+        else:
+            diffs.append((i, next(j for j, (x, y) in enumerate(zip(a, b))
+                                  if x != y)))
+    print(f"[phase 11] one engine on the same {len(prompts)} prompts, "
+          f"all submitted at once: {one_s:.2f} s, {oracle.steps - steps0} "
+          f"steps, "
+          f"{gen / one_s:.1f} generated tok/s; token identity against "
+          f"it: {same}/{len(outputs)} equal; first differing position "
+          f"of the others (request, position): {diffs}")
+    del oracle, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1253,7 +1694,7 @@ def main():
     try:
         import importlib
 
-        from paddle_tpu_torch import serving
+        from paddle_tpu_torch import resilience, serving
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import paged_attention as pa
@@ -1331,6 +1772,10 @@ def main():
                        f"{rel:.4g} relative")
     print(f"[phase 10] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    fleet_launches = phase_fleet(torch, cfg, pa, serving, resilience)
+    print(f"[phase 11] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -1338,7 +1783,8 @@ def main():
         "name": "ragged_paged_attention", "route": "cuda",
         "source": csrc + "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
-        "launches": launches, **rpa}] + [
+        "launches": launches, "fleet_launches": fleet_launches,
+        **rpa}] + [
         {"name": f"flash_attention_{name}", "route": "cuda",
          "source": csrc + source,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",

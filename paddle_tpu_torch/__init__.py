@@ -2,8 +2,8 @@
 
 The JAX package stays the reference; this package mirrors its layout
 (``models/gpt.py``, ``kernels/``, ``ops/``, ``distributed/`` for
-one-GPU training, ``serving/``, ``observability/``) so each module has
-an obvious counterpart.  It
+one-GPU training, ``serving/`` with the fleet, ``observability/``,
+``resilience/``) so each module has an obvious counterpart.  It
 imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``paddle_tpu`` (importing any ``paddle_tpu`` submodule runs that
 package's ``__init__``, which imports jax).

@@ -1,10 +1,19 @@
-"""Counter / Gauge / Histogram and a named registry — the subset of
-``paddle_tpu/observability/metrics.py`` that the serving metrics use.
+"""Framework-wide metrics: Counter / Gauge / Histogram + MetricsRegistry
+(the port of ``paddle_tpu/observability/metrics.py``, less its scrape
+collectors and the Prometheus exposition).
 
-Thread-safe: the engine mutates metrics on its thread while an operator
-thread reads them; every mutation and read takes the metric's lock.
-Label families, scrape collectors, the registry snapshot and the
-Prometheus exposition are not ported yet.
+- **thread-safe**: the serving engine and the fleet router mutate
+  metrics on the driving thread while an operator thread reads them;
+  every mutation and every read takes the metric's lock.
+- **labels**: a metric constructed with ``labelnames`` is a *family*;
+  ``m.labels(replica="0")`` returns (creating on first use) the child
+  carrying those label values.  Unlabelled metrics keep the scalar API
+  (``inc``/``set``/``observe`` directly).
+- **process-wide default registry** (``default_registry()``): named
+  singletons with get-or-create semantics (``registry.counter(name)``)
+  and replace-on-re-register, so a subsystem that rebuilds its metrics
+  swaps the old series out of the snapshot.
+- ``snapshot()`` → a JSON-able dict of every series.
 """
 from __future__ import annotations
 
@@ -17,20 +26,64 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
 
 
 class _Metric:
-    def __init__(self, name, help=""):  # noqa: A002
+    """Shared family/child machinery.  A child is an instance of the same
+    class with ``labelnames=()`` and ``_labelvalues`` set."""
+
+    kind = "untyped"
+
+    def __init__(self, name, help="", labelnames=()):  # noqa: A002
         self.name = name
         self.help = help
+        self.labelnames = tuple(labelnames)
+        self._labelvalues = ()
+        self._children = {}     # guarded-by: self._lock
         self._lock = threading.Lock()
+
+    # ---- family surface -------------------------------------------------
+    def labels(self, **kw):
+        if not self.labelnames:
+            raise ValueError(f"{self.name} was created without labelnames")
+        if set(kw) != set(self.labelnames):
+            raise ValueError(f"{self.name} expects labels "
+                             f"{self.labelnames}, got {tuple(kw)}")
+        key = tuple(str(kw[k]) for k in self.labelnames)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._make_child()
+                child._labelvalues = key
+                self._children[key] = child
+            return child
+
+    def _make_child(self):
+        return type(self)(self.name, self.help)
+
+    def _series(self):
+        """[(labelvalues, child)] — the family's children, or self when
+        unlabelled."""
+        if self.labelnames:
+            with self._lock:
+                return sorted(self._children.items())
+        return [((), self)]
+
+    def _check_scalar(self, op):
+        if self.labelnames:
+            raise ValueError(
+                f"{self.name} has labels {self.labelnames}; call "
+                f".labels(...).{op}()")
 
 
 class Counter(_Metric):
     """Monotonic event counter."""
 
-    def __init__(self, name, help=""):  # noqa: A002
-        super().__init__(name, help)
+    kind = "counter"
+
+    def __init__(self, name, help="", labelnames=()):  # noqa: A002
+        super().__init__(name, help, labelnames)
         self._value = 0         # guarded-by: self._lock
 
     def inc(self, n=1):
+        self._check_scalar("inc")
         if n < 0:
             raise ValueError("counters only go up; use a Gauge")
         with self._lock:
@@ -41,19 +94,36 @@ class Counter(_Metric):
         with self._lock:
             return self._value
 
+    def snapshot_value(self):
+        return self.value
+
 
 class Gauge(_Metric):
     """Last-value gauge that also tracks its peak."""
 
-    def __init__(self, name, help=""):  # noqa: A002
-        super().__init__(name, help)
+    kind = "gauge"
+
+    def __init__(self, name, help="", labelnames=()):  # noqa: A002
+        super().__init__(name, help, labelnames)
         self._value = 0.0       # guarded-by: self._lock
         self._peak = 0.0        # guarded-by: self._lock
 
     def set(self, v):
+        self._check_scalar("set")
         with self._lock:
             self._value = float(v)
             self._peak = max(self._peak, self._value)
+
+    def inc(self, n=1):
+        self._check_scalar("inc")
+        with self._lock:
+            self._value += n
+            self._peak = max(self._peak, self._value)
+
+    def dec(self, n=1):
+        self._check_scalar("dec")
+        with self._lock:
+            self._value -= n
 
     @property
     def value(self):
@@ -65,26 +135,44 @@ class Gauge(_Metric):
         with self._lock:
             return self._peak
 
+    def snapshot_value(self):
+        with self._lock:
+            return {"current": self._value, "peak": self._peak}
+
 
 class Histogram(_Metric):
     """Log-bucketed histogram with exact bounded-reservoir percentiles
-    (the reservoir keeps the newest ``reservoir`` samples)."""
+    (the reservoir keeps the newest ``reservoir`` samples — telemetry
+    should reflect current behavior, not cold-start)."""
 
-    def __init__(self, name, help="", start=1e-4, factor=2.0, count=20,
-                 reservoir=2048):  # noqa: A002
-        super().__init__(name, help)
+    kind = "histogram"
+
+    def __init__(self, name, help="", labelnames=(), start=1e-4,
+                 factor=2.0, count=20, reservoir=2048):  # noqa: A002
+        super().__init__(name, help, labelnames)
+        self._bucket_args = (start, factor, count, reservoir)
         self.buckets = [start * factor ** i for i in range(count)]
         self.counts = [0] * (count + 1)  # overflow bucket; guarded-by: self._lock
         self.total = 0          # guarded-by: self._lock
         self.sum = 0.0          # guarded-by: self._lock
         self._reservoir = reservoir
         self._samples = []      # guarded-by: self._lock
-        # bucket index -> (exemplar trace_id, observed value)
+        # bucket index -> (exemplar trace_id, observed value): the last
+        # exemplar-carrying observation per bucket, so the exposition
+        # links each latency band to a concrete retained trace
         self._exemplars = {}    # guarded-by: self._lock
+
+    def _make_child(self):
+        start, factor, count, reservoir = self._bucket_args
+        return type(self)(self.name, self.help, start=start, factor=factor,
+                          count=count, reservoir=reservoir)
 
     def observe(self, v, exemplar=None):
         """Record ``v``; ``exemplar`` (a trace_id string, or None) pins
-        this observation as its bucket's exemplar."""
+        this observation as the bucket's exemplar — the OpenMetrics
+        ``# {trace_id="..."} v`` annotation that lets a p99 spike be
+        followed to one retained trace."""
+        self._check_scalar("observe")
         v = float(v)
         with self._lock:
             idx = bisect.bisect_left(self.buckets, v)
@@ -98,8 +186,9 @@ class Histogram(_Metric):
                 self._exemplars[idx] = (str(exemplar), v)
 
     def exemplars(self):
-        """{bucket_le: {"trace_id", "value"}} — newest exemplar per
-        bucket."""
+        """{bucket_le: {"trace_id", "value"}} — the newest exemplar per
+        bucket (``le`` is the bucket's upper bound as a string,
+        ``"+Inf"`` for the overflow bucket)."""
         with self._lock:
             ex = dict(self._exemplars)
         out = {}
@@ -109,6 +198,11 @@ class Histogram(_Metric):
             out[le] = {"trace_id": tid, "value": v}
         return out
 
+    @property
+    def mean(self):
+        with self._lock:
+            return self.sum / self.total if self.total else 0.0
+
     @staticmethod
     def _pct(sorted_samples, p):
         if not sorted_samples:
@@ -117,8 +211,19 @@ class Histogram(_Metric):
         idx = min(n - 1, max(0, math.ceil(p / 100.0 * n) - 1))
         return sorted_samples[idx]
 
+    def percentile(self, p):
+        """Exact percentile over the reservoir (p in 0..100); ``None``
+        on an empty series — a fresh process's exporter scrape must not
+        raise, and 0.0 would read as "instant", not "no data"."""
+        with self._lock:
+            s = sorted(self._samples)
+        return self._pct(s, p)
+
     def summary(self):
-        """count/mean/p50/p95/p99 from one consistent locked read."""
+        """count/mean/p50/p95/p99 — ONE reservoir sort per call (not one
+        per percentile) and one lock hold, so it is also a consistent
+        point-in-time read against concurrent ``observe``.  An empty
+        series yields ``count=0`` with None-filled stats (JSON null)."""
         with self._lock:
             s = sorted(self._samples)
             total, total_sum = self.total, self.sum
@@ -128,18 +233,28 @@ class Histogram(_Metric):
                "p50": self._pct(s, 50), "p95": self._pct(s, 95),
                "p99": self._pct(s, 99)}
         if n_ex:
+            # surfaced in /varz only when some observation carried one:
+            # exemplar-free histograms keep their exact old shape
             out["exemplars"] = self.exemplars()
         return out
 
+    def snapshot_value(self):
+        return self.summary()
+
 
 class MetricsRegistry:
-    """Thread-safe named-metric registry.  ``register(m, replace=True)``
-    swaps a freshly built metric in under an existing name."""
+    """Thread-safe named-metric registry.
+
+    ``counter/gauge/histogram`` are get-or-create: repeated calls with the
+    same name return the same object, a kind mismatch raises.
+    ``register(m, replace=True)`` swaps a freshly built metric in under an
+    existing name — the reset idiom."""
 
     def __init__(self):
         self._metrics = {}      # guarded-by: self._lock
         self._lock = threading.RLock()
 
+    # ---- registration ---------------------------------------------------
     def register(self, metric, replace=False):
         with self._lock:
             old = self._metrics.get(metric.name)
@@ -149,9 +264,58 @@ class MetricsRegistry:
             self._metrics[metric.name] = metric
         return metric
 
+    def unregister(self, name):
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def get(self, name):
+        with self._lock:
+            return self._metrics.get(name)
+
+    def _get_or_create(self, cls, name, help, labelnames, **kw):  # noqa: A002
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls) or \
+                        m.labelnames != tuple(labelnames):
+                    raise ValueError(
+                        f"metric {name!r} exists as {m.kind} with labels "
+                        f"{m.labelnames}; requested {cls.kind} "
+                        f"{tuple(labelnames)}")
+                return m
+            m = cls(name, help, labelnames, **kw)
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name, help="", labelnames=()):  # noqa: A002
+        return self._get_or_create(Counter, name, help, labelnames)
+
+    def gauge(self, name, help="", labelnames=()):  # noqa: A002
+        return self._get_or_create(Gauge, name, help, labelnames)
+
+    def histogram(self, name, help="", labelnames=(), **kw):  # noqa: A002
+        return self._get_or_create(Histogram, name, help, labelnames, **kw)
+
+    # ---- readers --------------------------------------------------------
     def metrics(self):
         with self._lock:
             return list(self._metrics.values())
+
+    def snapshot(self):
+        """JSON-able {name: {type, value|series}} of every metric."""
+        out = {}
+        for m in self.metrics():
+            entry = {"type": m.kind}
+            if m.labelnames:
+                entry["labels"] = list(m.labelnames)
+                entry["series"] = [
+                    {"labels": dict(zip(m.labelnames, lv)),
+                     "value": child.snapshot_value()}
+                    for lv, child in m._series()]
+            else:
+                entry["value"] = m.snapshot_value()
+            out[m.name] = entry
+        return out
 
 
 _DEFAULT = MetricsRegistry()

@@ -29,11 +29,26 @@ prefix in read-only at admission and inserts completed prompts back.
 Sampling is host-side (greedy / temperature / top-k / top-p) with a
 per-request numpy Generator seeded at submit.
 
+Fleet surface, as in the JAX engine: ``add_request(trace_context=)``
+continues a router's trace; ``health()``, ``decode_rate()`` and
+``prefix_summary()`` are the signals the fleet router and autoscaler
+poll; ``evacuate()`` pulls every in-flight request off the engine
+(state ``EVACUATED``, pages freed, sampled tokens kept) for a failover
+or a drain.  The fault sites ``serving.admit`` (top of ``add_request``)
+and ``serving.step`` (top of ``step``, before any request state changes
+and before any device work is queued; the KV pool is exposed to the
+``bitflip`` kind and every in-flight token stream to
+``poison_request``) fire through ``paddle_tpu_torch.resilience``.
+
 What differs from the JAX engine: the step is an eager PyTorch call on
 ``device`` (default CUDA) — no jit, so no compile watchdog — and the
 page pool is updated in place where JAX donates buffers.  Logits come
-back to the host with ``.float().cpu().numpy()``.  The mesh-sharded
-path, fault-injection sites and profiler phases are later slices.
+back to the host with ``.float().cpu().numpy()``.  Admission is
+host-only: ``add_request`` never waits on the device, so a router's
+wall-clock stall detection reads only real admission wedges.  The JAX
+features this engine still lacks are later slices: mesh-sharded
+serving (``Engine(mesh=)``), the profiler phases (``profiling_phase``,
+``RecordEvent``) and one CUDA graph per step.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ import torch
 from .._device import resolve_device
 from ..models.gpt import GPTConfig, gpt_init, gpt_ragged_step
 from ..observability.tracing import Tracer, default_tracer
+from ..resilience.faults import fault_point
 from .kv_cache import PagedKVCache
 from .metrics import ServingMetrics
 
@@ -60,6 +76,8 @@ class RequestState:
     REJECTED = "rejected"      # hard: can never be served (infeasible)
     RETRY_AFTER = "retry_after"  # soft: shed under load, resubmit later
     EVICTED = "evicted"        # deadline/TTL passed before completion
+    EVACUATED = "evacuated"    # pulled off a failed/draining replica; the
+    #                            fleet router re-enqueues it elsewhere
     FAILED = "failed"          # a row-attributable exception: THIS request
     #                            broke, its pages are freed, the engine
     #                            (and every co-batched request) lives on
@@ -199,10 +217,17 @@ class Engine:
         self.steps = 0                      # unified steps run
 
     # ------------------------------------------------------------- submit
-    def add_request(self, prompt, sampling: SamplingParams = None):
+    def add_request(self, prompt, sampling: SamplingParams = None, *,
+                    trace_context=None):
         """Queue a prompt (list of token ids).  Returns the Request;
         state is REJECTED immediately when it can never be served, and
-        a shed request carries ``retry_after_s``."""
+        a shed request carries ``retry_after_s``.  ``trace_context`` (a
+        ``TraceContext`` or its dict form) continues a caller's trace:
+        the router hands its dispatch span's context over, so the
+        request's engine lifecycle records under the fleet trace."""
+        # fault site: a stall here is an admission wedge, an io_error the
+        # transport refusing the request; the fleet router detects both
+        fault_point("serving.admit")
         sampling = sampling or SamplingParams()
         req = Request(id=self._next_id, prompt=list(prompt),
                       sampling=sampling, t_submit=self._clock())
@@ -218,7 +243,8 @@ class Engine:
             f"request#{req.id}", start_s=req.t_submit,
             attributes={"request_id": req.id,
                         "prompt_len": len(req.prompt),
-                        "max_new_tokens": sampling.max_new_tokens})
+                        "max_new_tokens": sampling.max_new_tokens},
+            context=trace_context)
 
         total = len(req.prompt) + sampling.max_new_tokens
         reason = None
@@ -281,6 +307,11 @@ class Engine:
         owed += sum(max(0, r.sampling.max_new_tokens - len(r.output))
                     for r in self._running())
         return owed
+
+    def decode_rate(self):
+        """EWMA decode throughput in tok/s (None before the first
+        decode step)."""
+        return self._decode_rate_ewma
 
     def estimated_drain_s(self):
         """Seconds to decode the current backlog at the measured rate;
@@ -627,6 +658,18 @@ class Engine:
         """One scheduler iteration: evict past-deadline requests, admit,
         run the unified ragged step, update gauges.  Returns requests
         that finished (or were evicted) this step."""
+        # fault site: an io_error here is the whole step failing the way
+        # a crashed replica's RPC would — before any request state
+        # changes and before any device work is queued, so a router can
+        # re-dispatch losslessly.  tree= exposes the KV pool to bitflip
+        # (flipped in place on its device), tokens= every in-flight
+        # stream to poison_request
+        kv = {"k_pages": self.cache.k_pages, "v_pages": self.cache.v_pages}
+        fault_point("serving.step", tree=kv,
+                    tokens=[r.tokens for r in self._running()]
+                    + [r.tokens for r in self._queue])
+        self.cache.k_pages, self.cache.v_pages = kv["k_pages"], \
+            kv["v_pages"]
         self._evict_expired()
         self._try_admit()
         self._unified_step_once(self._ensure_capacity())
@@ -651,6 +694,53 @@ class Engine:
                 counter.inc(delta)
                 self._prefix_seen[key] = stats[key]
         m.prefix_cache_pages.set(stats["cached_pages"])
+
+    def prefix_summary(self, max_entries=32):
+        """Bounded radix-tree summary for cache-aware routing (root
+        hashes + hit stats); see ``PagedKVCache.prefix_summary``."""
+        out = self.cache.prefix_summary(max_entries=max_entries)
+        out["enabled"] = self.prefix_cache
+        return out
+
+    def evacuate(self):
+        """Pull EVERY in-flight request off this engine — running
+        (mid-prefill or decoding) and queued — free their pages, and
+        return them with their sampled tokens intact, in admission
+        order (running first, then the queue).
+
+        The fleet router's failover/drain primitive: the caller
+        re-enqueues each request elsewhere as an ordinary admission
+        (prompt + already-sampled tokens), so this engine's KV pool is
+        never trusted again.  Each request leaves in state ``EVACUATED``
+        with its trace closed; it holds tokens and spans, no tensor."""
+        now = self._clock()
+        running = sorted(self._running(), key=lambda r: r._admit_seq)
+        for req in running:
+            self.cache.free(req.id)
+            self._slots[self._slots.index(req)] = None
+        queued = list(self._queue)
+        self._queue.clear()
+        out = running + queued
+        for req in out:
+            req.state = RequestState.EVACUATED
+            req.finish_reason = "evacuated"
+            self._end_trace(req, end_s=now)
+        self.metrics.queue_depth.set(0)
+        self.metrics.page_occupancy.set(self.cache.occupancy())
+        return out
+
+    def health(self):
+        """Live scheduler health: shedding flag, queue depth, in-flight
+        batch, pool occupancy, and the drain estimate a cooperating
+        front-end should back off by.  Host bookkeeping only."""
+        return {"healthy": not self._shedding,
+                "queue_depth": len(self._queue),
+                "running": len(self._running()),
+                "page_occupancy": self.cache.occupancy(),
+                "estimated_drain_s": self.estimated_drain_s(),
+                "decode_rate_tok_s": self._decode_rate_ewma,
+                "prefix_cache": {"enabled": self.prefix_cache,
+                                 **self.cache.prefix_stats()}}
 
     def generate(self, prompts, sampling=None):
         """Submit all prompts, drive the scheduler to completion, return

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+what the serving fleet does on the card alone (a bitflip flipping a CUDA
+pool in place, device memory following the engines a fleet holds).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips where ``torch.cuda.is_available()`` is false.  This
@@ -606,3 +608,101 @@ def test_ring_attention_on_card_matches_flash(cuda, dtype):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype])
 
+
+
+# ------------------------------------------------ the fleet on the card
+
+
+@pytest.mark.cuda
+def test_bitflip_flips_the_pool_in_place_on_the_card(cuda):
+    """The bitflip kind on a CUDA pool XORs one byte where the pool
+    lives: same tensors, no new device memory, and the same byte and bit
+    as the kind flips on a CPU copy for the same seed; through the
+    engine's ``serving.step`` site the pool it flips stays the engine's."""
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.resilience import (FaultSpec, fault_point,
+                                             injected_faults)
+    from paddle_tpu_torch.serving import Engine
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (4, 64, 8, 4, 32)
+    card = {k: torch.randn(shape, generator=g, device=cuda).bfloat16()
+            for k in ("k_pages", "v_pages")}
+    host = {k: v.cpu() for k, v in card.items()}
+    orig = {k: v.clone() for k, v in host.items()}
+    ptrs = {k: v.data_ptr() for k, v in card.items()}
+    for tree in (card, host):
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        with injected_faults(FaultSpec("x", "bitflip"), seed=3):
+            fault_point("x", tree=tree)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == mem
+    assert {k: v.data_ptr() for k, v in card.items()} == ptrs
+    flipped = 0
+    for k in card:
+        a = card[k].cpu().view(torch.int16)
+        assert torch.equal(a, host[k].view(torch.int16))
+        x = (a ^ orig[k].view(torch.int16)).view(torch.uint8)
+        flipped += int(sum(bin(int(b)).count("1") for b in x[x != 0]))
+    assert flipped == 1
+
+    cfg = GPT_CONFIGS["tiny"]
+    eng = Engine(cfg, gpt_init(cfg, device="cuda"), page_size=8,
+                 num_pages=64, max_batch_size=2, chunk_len=8)
+    eng.add_request([1, 2, 3])
+    pool = (eng.cache.k_pages, eng.cache.v_pages)
+    before = (pool[0].clone(), pool[1].clone())
+    with injected_faults(FaultSpec("serving.step", "bitflip"), seed=1):
+        eng.step()
+    assert (eng.cache.k_pages, eng.cache.v_pages) == pool
+    assert any(not torch.equal(a, b) for a, b in zip(pool, before))
+
+
+@pytest.mark.cuda
+def test_fleet_returns_engine_memory_on_the_card(cuda):
+    """kill_replica, drain(restart=False) and restart_replica give the old
+    engine's pool back to the card at once: device memory follows the
+    number of engines the fleet holds, one pool each."""
+    import gc
+
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    from paddle_tpu_torch.serving import (Engine, FleetRequestState,
+                                          FleetRouter, SamplingParams)
+
+    cfg = GPT_CONFIGS["tiny"]
+    params = gpt_init(cfg, device="cuda")
+
+    def make():
+        return Engine(cfg, params, page_size=8, num_pages=4096,
+                      max_batch_size=2, chunk_len=8)
+
+    def held():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - base
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    router = FleetRouter([make] * 3, registry=MetricsRegistry())
+    pool = held() / 3
+    slack = 8 << 20
+    rng = np.random.RandomState(0)
+    sp = SamplingParams(max_new_tokens=6)
+    reqs = [router.submit(list(rng.randint(0, cfg.vocab_size, n)), sp)
+            for n in (5, 9, 7, 12)]
+    for _ in range(3):
+        router.step()
+    router.kill_replica(0)
+    assert abs(held() - 2 * pool) <= slack
+    router.drain(1, restart=False)
+    while router.has_work():
+        router.step()
+    assert all(r.state == FleetRequestState.FINISHED for r in reqs)
+    assert abs(held() - pool) <= slack
+    router.restart_replica(0)
+    router.drain(2)                       # a rolling restart
+    router.step()
+    assert abs(held() - 2 * pool) <= slack
+    assert router.metrics.snapshot()["lost"] == 0

@@ -67,7 +67,27 @@ Phases (any failure exits non-zero):
      before it; kernel launches equal 24 x the engines' steps; device
      memory follows the engines held (one pool each) after the kill, the
      restart and the scale-down; tok/s, TTFT, scale events, peak memory
-     and token identity against one engine are reported.
+     and token identity against one engine are reported;
+ 12. MoE serving: GPT-3 1.3B's widths with every FFN an 8-expert top-2
+     MoE (capacity factor 2.0), all 24 layers: (a) one fp32
+     ``gpt_ragged_step`` on phase 3's batch, kernel vs plain attention,
+     logits and pages at the fp32 tolerance and every layer routed
+     identically; (b) the bf16 ``Engine`` serving phase 4's requests,
+     launches held to 24 per step, tok/s, ms/step untraced and on the
+     device by kind (attention, dense products, expert products,
+     routing/dispatch/combine, other) and the share of (token, choice)
+     assignments capacity drops, padding slots apart;
+ 13. MoE training at those widths on 8 of the 24 layers: one fp32 step
+     at batch 1 x 2048 (loss and every gradient, gate_w included, kernels
+     vs plain attention, identical routing), then ``HybridEngine`` bf16
+     at batch 8 x 2048 as in phase 7 with flash launches held to 16
+     forward / 8 backward per step, and MFU on the FLOPs the step does
+     and on ``gpt_flops_per_token``'s 6N;
+ 14. BERT-base MLM training (``BertAdapter``, bf16, batch 32 x 512,
+     masking rate 0.15) as in phase 7 with flash launches held to 24
+     forward / 12 backward per step, then the non-causal flash forward
+     and backward at q/k/v [32, 12, 512, 64] with times, bounds, plain
+     and SDPA times.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -344,28 +364,30 @@ def ragged_shape(torch, pa, name, qlens, ctxs):
             "library_ms": library_ms, "eager_ms": eager_ms}
 
 
-def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
-    """One full-width step, kernel vs plain attention on equal inputs."""
+MIXED_QLENS = [64, 1, 1, 1, 1, 1, 1, 0]
+MIXED_CTXS = [256, 100, 513, 1024, 2000, 37, 700, 0]
+
+
+def mixed_batch(torch, cfg, P, dtype):
+    """Phase 3's batch on a pool of ``P`` pages of 16 with random older
+    context: row 0 a mid-prefill chunk (positions 192..255), rows 1-6
+    decode, row 7 idle, one padding token.  Returns (step arguments
+    tokens/rows/slots/qlens/ctxs, k_pages, v_pages, page tables, Q)."""
     L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
-    P, ps, B, Q = 2048, 16, 8, 64
+    ps, B, Q = 16, 8, 64
     M = cfg.max_seq_len // ps
     g = torch.Generator(device="cuda").manual_seed(11)
-    # older context already in the pool: random K/V
     k0 = torch.randn((L, P, ps, H, hd), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
+                     dtype=dtype)
     v0 = torch.randn((L, P, ps, H, hd), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
+                     dtype=dtype)
     tables = torch.randperm(P, generator=g, device="cuda")[:B * M] \
         .view(B, M).to(torch.int32)
-    # row 0 mid-prefill chunk (positions 192..255), rows 1-6 decode,
-    # row 7 idle; one padding token
-    qlens = [64, 1, 1, 1, 1, 1, 1, 0]
-    ctxs = [256, 100, 513, 1024, 2000, 37, 700, 0]
     T = Q + B - 1
     rows = np.full(T, B, np.int32)
     slots = np.zeros(T, np.int32)
     off = 0
-    for b, n in enumerate(qlens):
+    for b, n in enumerate(MIXED_QLENS):
         rows[off:off + n] = b
         slots[off:off + n] = np.arange(n)
         off += n
@@ -375,7 +397,16 @@ def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
     def dev(a):
         return torch.from_numpy(np.asarray(a, np.int32)).cuda()
 
-    args = (dev(tokens), dev(rows), dev(slots), dev(qlens), dev(ctxs))
+    args = (dev(tokens), dev(rows), dev(slots), dev(MIXED_QLENS),
+            dev(MIXED_CTXS))
+    return args, k0, v0, tables, Q
+
+
+def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
+    """One full-width step, kernel vs plain attention on equal inputs."""
+    L = cfg.num_layers
+    args, k0, v0, tables, Q = mixed_batch(torch, cfg, 2048, torch.bfloat16)
+    qlens = MIXED_QLENS
     k1, v1 = k0.clone(), v0.clone()
     t0 = time.perf_counter()
     lk, _, _ = gpt_ragged_step(cfg, params, *args, k1, v1, tables, max_q=Q)
@@ -403,6 +434,30 @@ def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
     torch.cuda.empty_cache()
 
 
+def serving_prompts(vocab):
+    """Phase 4's 8 seeded prompts: 512 tokens and seven of 64-1024, the
+    last sharing request 0's first 256 tokens.  Returns (lens, prompts)."""
+    rng = np.random.default_rng(0)
+    lens = [512] + [int(n) for n in rng.integers(64, 1025, 7)]
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)] for n in lens]
+    prompts[7] = prompts[0][:256] + prompts[7][256:] \
+        if lens[7] > 256 else prompts[0][:256] + prompts[7]
+    return lens, prompts
+
+
+def serve_requests(eng, serving, prompts):
+    """Serve ``prompts`` to completion, 32 greedy tokens each; the last
+    arrives once request 0's prompt is in the radix cache."""
+    sp = serving.SamplingParams(max_new_tokens=32)
+    reqs = [eng.add_request(p, sp) for p in prompts[:-1]]
+    while reqs[0].prompt_pos < len(prompts[0]):
+        eng.step()
+    reqs.append(eng.add_request(prompts[-1], sp))
+    while eng.has_work():
+        eng.step()
+    return reqs
+
+
 def phase_serving(torch, cfg, params, pa, serving):
     eng = serving.Engine(cfg, params, page_size=16, num_pages=2048,
                          max_batch_size=8, chunk_len=64, device="cuda")
@@ -417,25 +472,12 @@ def phase_serving(torch, cfg, params, pa, serving):
         return logits
 
     eng._run_step = checked
-    rng = np.random.default_rng(0)
-    lens = [512] + [int(n) for n in rng.integers(64, 1025, 7)]
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
-    prompts[7] = prompts[0][:256] + prompts[7][256:] \
-        if lens[7] > 256 else prompts[0][:256] + prompts[7]
-    sp = serving.SamplingParams(max_new_tokens=32)
-
+    lens, prompts = serving_prompts(cfg.vocab_size)
     torch.cuda.synchronize()
     pa.ragged_paged_attention.launches = 0
     steps0 = eng.steps
     t0 = time.perf_counter()
-    reqs = [eng.add_request(p, sp) for p in prompts[:7]]
-    while reqs[0].prompt_pos < len(prompts[0]):
-        eng.step()
-    # request 7 arrives once request 0's prompt is in the radix cache
-    reqs.append(eng.add_request(prompts[7], sp))
-    while eng.has_work():
-        eng.step()
+    reqs = serve_requests(eng, serving, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.ragged_paged_attention.launches
@@ -465,11 +507,14 @@ def phase_serving(torch, cfg, params, pa, serving):
     return launches
 
 
-def profile_serving(torch, eng, serving, vocab):
+def profile_serving(torch, eng, serving, vocab, tag="phase 4", experts=0):
     """Where a serving step's time goes: the same request mix is run
     untraced (step wall time) and then traced with torch.profiler
     (device time by kernel), on fresh prompts so neither run hits the
-    other's prefix cache.  Runs after the launch count was read."""
+    other's prefix cache.  Runs after the launch count was read.  With
+    ``experts`` (a MoE model) the expert products and the routing,
+    dispatch and combine are split out of the matrix products and the
+    rest (``moe_split``)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
@@ -486,8 +531,8 @@ def profile_serving(torch, eng, serving, vocab):
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) * 1e6 / (eng.steps - steps0)
     steps0 = eng.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(experts)) as prof:
         eng.generate(fresh(), sp)
         torch.cuda.synchronize()
     steps = eng.steps - steps0
@@ -495,8 +540,10 @@ def profile_serving(torch, eng, serving, vocab):
     top = []
     for e in prof.key_averages():
         # device-side kernel events only: the CPU ops that launched them
-        # carry the same device time again
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # carry the same device time again, and a range's device-side
+        # span is not a kernel
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith(("engine::", "moe::")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -512,13 +559,15 @@ def profile_serving(torch, eng, serving, vocab):
         top.append((us, e.key[:48]))
     busy = sum(by_kind.values()) / steps
     check(busy > 0, "profiler saw no device time")
-    print(f"[phase 4] step breakdown over {steps} steps (prompts 700, 300, "
+    if experts:
+        split_moe_kinds(by_kind, "matmul", moe_split(torch, prof, experts))
+    print(f"[{tag}] step breakdown over {steps} steps (prompts 700, 300, "
           f"64, 64; 8 new tokens): untraced {step_us / 1e3:.3f} ms/step, "
           f"device {busy / 1e3:.3f} ms/step (busy share "
           f"{busy / step_us:.3f}); device time by kind: "
           + ", ".join(f"{k} {v / steps / 1e3:.3f} ms/step"
                       for k, v in by_kind.items()))
-    print("[phase 4] top device kernels, ms/step: " + "; ".join(
+    print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
         f"{name} {us / steps / 1e3:.3f}" for us, name in sorted(top)[::-1][:6]))
 
 
@@ -862,13 +911,66 @@ def phase_train_step(torch, cfg, params, fa, gpt_loss):
     torch.cuda.empty_cache()
 
 
-def profile_step(torch, step):
+GEMM_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+MOE_ROUTING = ("moe::route", "moe::dispatch", "moe::combine")
+
+
+def is_gemm(name):
+    return any(w in name.lower() for w in GEMM_WORDS)
+
+
+def moe_split(torch, prof, experts):
+    """Device µs of a trace's MoE work (``record_shapes`` on), from the
+    op that launched each kernel: ``expert`` the GEMMs of ``aten::bmm``
+    over ``[experts, ...]`` operands (forward and backward);
+    ``route_gemm`` / ``route_other`` every kernel under a ``moe::route``,
+    ``moe::dispatch`` or ``moe::combine`` range, and in backward the
+    GEMMs of the other ``aten::bmm`` (the combine's) and of ``aten::mm``
+    with an ``experts``-wide operand (the gate's)."""
+    out = {"expert": 0.0, "route_gemm": 0.0, "route_other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        rng = e
+        while rng is not None and not rng.name.startswith("moe::"):
+            rng = rng.cpu_parent
+        routing = rng is not None and rng.name in MOE_ROUTING
+        shapes = [sh for sh in (e.input_shapes or []) if sh]
+        batched = e.name == "aten::bmm"
+        expert = batched and bool(shapes) and shapes[0][0] == experts
+        gate = e.name in ("aten::mm", "aten::addmm") and any(
+            len(sh) == 2 and sh[-1] == experts for sh in shapes)
+        for k in e.kernels:
+            gemm = is_gemm(k.name)
+            if gemm and expert:
+                out["expert"] += k.duration
+            elif routing or (gemm and (batched or gate)):
+                out["route_gemm" if gemm else "route_other"] += k.duration
+    return out
+
+
+def split_moe_kinds(by_kind, matmul, split, scale=1.0):
+    """Move a ``moe_split`` (times ``scale``) out of a by-kind dict whose
+    GEMMs are under ``matmul``: those left are the dense products, and
+    expert products and routing/dispatch/combine become kinds of their
+    own."""
+    split = {k: v * scale for k, v in split.items()}
+    by_kind["dense products"] = by_kind.pop(matmul) - split["expert"] \
+        - split["route_gemm"]
+    by_kind["other"] -= split["route_other"]
+    by_kind["expert products"] = split["expert"]
+    by_kind["routing/dispatch/combine"] = (split["route_gemm"]
+                                           + split["route_other"])
+
+
+def profile_step(torch, step, experts=0):
     """Device time of one training step by kind (flash kernels, matrix
-    products, the rest), traced with torch.profiler."""
+    products, the rest; with ``experts`` the MoE's expert products and
+    routing/dispatch/combine apart), traced with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(experts)) as prof:
         step()
         torch.cuda.synchronize()
     by_kind = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
@@ -882,7 +984,7 @@ def profile_step(torch, step):
             if e.key.startswith("aten::"):
                 ops.append((us / 1e3, e.key))
             continue
-        if e.key.startswith("engine::"):
+        if e.key.startswith(("engine::", "moe::")):
             # the device-side span of a record_function range, not a
             # kernel: kept apart from the sums
             spans[e.key] = us / 1e3
@@ -891,13 +993,14 @@ def profile_step(torch, step):
             continue
         key = e.key.lower()
         kind = ("flash" if "flash_" in key and "_kernel" in key else
-                "matmul" if any(w in key for w in ("gemm", "nvjet", "xmma",
-                                                   "cutlass", "cublas"))
-                else "other")
+                "matmul" if is_gemm(key) else "other")
         by_kind[kind] += us / 1e3
         top.append((us, e.key[:48]))
     busy = sum(by_kind.values())
     check(busy > 0, "profiler saw no device time")
+    if experts:
+        split_moe_kinds(by_kind, "matmul", moe_split(torch, prof, experts),
+                        1e-3)
     return {"busy_ms": busy, "by_kind": by_kind, "spans": spans,
             "top": sorted(top)[::-1][:6], "ops": sorted(ops)[::-1][:10]}
 
@@ -918,36 +1021,12 @@ def train_launches(sep):
     return {"fwd": 2 * live, "bwd": 0, "pair_bwd": live}
 
 
-def phase_train_throughput(torch, sep=1, tag="phase 7"):
-    """HybridEngine at the 1.3B training rung on one card, with ``sep``
-    ring shards (``seq_parallel="ring"`` when sep > 1); the launches are
-    held to ``train_launches(sep)``.  Returns (launches over the timed
-    steps, the first loss)."""
-    import importlib
-
-    from paddle_tpu_torch import distributed
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_flops_per_token
-
-    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
-    counts = [fa.launches, ra.launches]
-    cfg = GPT_CONFIGS["gpt3-1.3b"]
-    if sep > 1:
-        cfg = dataclasses.replace(cfg, seq_parallel="ring")
-    B, S = 8, 2048
-    # free what earlier phases left in reference cycles (the serving
-    # engine and its KV pool) now, so the peak below is this cell's own
-    gc.collect()
-    torch.cuda.empty_cache()
-    eng = distributed.HybridEngine(cfg, sep=sep,
-                                   engine_cfg=distributed.EngineConfig(
-                                       accum_steps=1), device="cuda")
-    check(cfg.remat == "dots" and eng._has_master(),
-          "expected remat 'dots' and an fp32 master")
+def train_run(torch, eng, tokens, labels, counts, experts=0):
+    """Ten steps of ``eng`` from ``eng.init(seed=0)`` on one batch: 2
+    warm-up, 5 timed (every launch count in ``counts`` set to 0 just
+    before them and read just after; peak memory over them), 2 more and
+    a profiled one.  Returns the numbers the training phases print."""
     params, opt = eng.init(seed=0)
-    rng = np.random.default_rng(3)
-    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
-    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
     losses = []
 
     def step():
@@ -972,40 +1051,97 @@ def phase_train_throughput(torch, sep=1, tag="phase 7"):
     peak = torch.cuda.max_memory_allocated()
     for _ in range(2):
         step()
-    breakdown = profile_step(torch, step)
-    losses = [float(x) for x in losses]
-    ms_step = wall / timed * 1e3
-    tok_s = B * S * timed / wall
-    mfu = tok_s * gpt_flops_per_token(cfg, S) / BF16_FLOPS
-    print(f"[{tag}] HybridEngine gpt3-1.3b bf16, sep {sep} "
-          f"(seq_parallel {cfg.seq_parallel!r}), batch {B} x {S}, "
-          f"remat dots, fp32 Adam slots + master: {ms_step:.1f} ms/step, "
-          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (989 TFLOP/s peak; "
-          f"{card_line()}), peak memory {peak / 2**30:.2f} GiB "
-          f"(max_memory_allocated)")
+    breakdown = profile_step(torch, step, experts)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"timed": timed, "wall": wall, "ms_step": wall / timed * 1e3,
+            "launches": launches, "peak": peak, "breakdown": breakdown,
+            "losses": [float(x) for x in losses]}
+
+
+def print_breakdown(tag, run):
+    """The profiled step's lines of a training phase."""
+    bd, ms_step = run["breakdown"], run["ms_step"]
+    print(f"[{tag}] one traced step (10th): device busy "
+          f"{bd['busy_ms']:.1f} ms of the untraced {ms_step:.1f} "
+          f"ms/step (busy share {bd['busy_ms'] / ms_step:.3f}); by "
+          f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                bd["by_kind"].items()))
+    print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
+        f"{name} {us / 1e3:.2f}" for us, name in bd["top"]))
+    print(f"[{tag}] device spans of the ranges: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in bd["spans"].items()))
+    print(f"[{tag}] top aten ops by device ms: " + "; ".join(
+        f"{name} {ms:.1f}" for ms, name in bd["ops"]))
+
+
+def report_training(torch, tag, cfg, run, B, S, flops, per_step, name):
+    """Print a training phase's numbers and hold its loss and launches;
+    ``flops`` is (FLOPs the step does, the 6N count) or one count.
+    Returns the launches over the timed steps."""
+    losses, launches, timed = run["losses"], run["launches"], run["timed"]
+    ms_step = run["ms_step"]
+    tok_s = B * S * timed / run["wall"]
+    if isinstance(flops, tuple):
+        done, six_n = flops
+        mfu = (f"MFU {done / (ms_step / 1e3) / BF16_FLOPS:.4f} on the "
+               f"{done / 1e12:.1f} TFLOP the step does (E·C expert slots), "
+               f"{six_n / (ms_step / 1e3) / BF16_FLOPS:.4f} on "
+               f"gpt_flops_per_token's {six_n / 1e12:.1f} TFLOP (6N, all "
+               f"{cfg.moe_experts} experts a token)")
+    else:
+        mfu = (f"MFU {flops / (ms_step / 1e3) / BF16_FLOPS:.4f} "
+               f"({flops / 1e12:.2f} TFLOP a step: 6N + attention)")
+    print(f"[{tag}] HybridEngine {name}, batch {B} x {S}, remat dots, "
+          f"fp32 Adam slots + master: {ms_step:.1f} ms/step, {tok_s:.1f} "
+          f"tokens/s, {mfu} (989 TFLOP/s peak; {card_line()}), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB (max_memory_allocated)")
     print(f"[{tag}] losses over 10 steps: "
           + " ".join(f"{x:.4f}" for x in losses))
     print(f"[{tag}] launches over {timed} timed steps: {launches}")
-    print(f"[{tag}] one traced step (10th): device busy "
-          f"{breakdown['busy_ms']:.1f} ms of the untraced {ms_step:.1f} "
-          f"ms/step (busy share {breakdown['busy_ms'] / ms_step:.3f}); by "
-          f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
-                                breakdown["by_kind"].items()))
-    print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
-        f"{name} {us / 1e3:.2f}" for us, name in breakdown["top"]))
-    print(f"[{tag}] device span of the optimizer update "
-          "(engine::optimizer): " + ", ".join(
-              f"{v:.1f} ms" for v in breakdown["spans"].values()))
-    print(f"[{tag}] top aten ops by device ms: " + "; ".join(
-        f"{name} {ms:.1f}" for ms, name in breakdown["ops"]))
-    check(all(np.isfinite(losses)), "training loss not finite")
-    check(losses[-1] < losses[0], "training loss did not fall")
-    want = {n: k * cfg.num_layers * timed
-            for n, k in train_launches(sep).items()}
-    check(launches == want, f"launches {launches} != {want}")
-    del params, opt
+    print_breakdown(tag, run)
+    check(all(np.isfinite(losses)), f"{tag}: training loss not finite")
+    check(losses[-1] < losses[0], f"{tag}: training loss did not fall")
+    want = {n: k * timed for n, k in per_step.items()}
+    check(launches == want, f"{tag}: launches {launches} != {want}")
+    return launches
+
+
+def phase_train_throughput(torch, sep=1, tag="phase 7"):
+    """HybridEngine at the 1.3B training rung on one card, with ``sep``
+    ring shards (``seq_parallel="ring"`` when sep > 1); the launches are
+    held to ``train_launches(sep)``.  Returns (launches over the timed
+    steps, the first loss)."""
+    import importlib
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_flops_per_token
+
+    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+    cfg = GPT_CONFIGS["gpt3-1.3b"]
+    if sep > 1:
+        cfg = dataclasses.replace(cfg, seq_parallel="ring")
+    B, S = 8, 2048
+    # free what earlier phases left in reference cycles (the serving
+    # engine and its KV pool) now, so the peak below is this cell's own
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches, losses[0]
+    eng = distributed.HybridEngine(cfg, sep=sep,
+                                   engine_cfg=distributed.EngineConfig(
+                                       accum_steps=1), device="cuda")
+    check(cfg.remat == "dots" and eng._has_master(),
+          "expected remat 'dots' and an fp32 master")
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+    run = train_run(torch, eng, tokens, labels, [fa.launches, ra.launches])
+    launches = report_training(
+        torch, tag, cfg, run, B, S, B * S * gpt_flops_per_token(cfg, S),
+        {n: k * cfg.num_layers for n, k in train_launches(sep).items()},
+        f"gpt3-1.3b bf16, sep {sep} (seq_parallel {cfg.seq_parallel!r})")
+    return launches, run["losses"][0]
 
 
 # ------------------------------------------------ ring attention (8-10)
@@ -1684,6 +1820,427 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
     return launches
 
 
+# ------------------------------------------------ MoE and BERT (12-14)
+
+MOE_EXPERTS = 8                    # Mixtral's expert count, top-2
+MOE_TRAIN_LAYERS = 8               # phase 13's depth: what one card holds
+MOE_CHECK_BATCH = (1, 2048)        # phase 13's fp32 kernel-vs-plain step
+MOE_TRAIN_BATCH = (8, 2048)        # phase 13's throughput batch
+BERT_BATCH = (32, 512)             # phase 14's batch
+
+
+def moe_config(cfg):
+    """``cfg``'s widths with every FFN a top-2 MoE of ``MOE_EXPERTS``
+    experts (capacity factor 2.0, aux weight 0.01: GPTConfig's
+    defaults)."""
+    return dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
+
+
+class RouteLog:
+    """While installed, keeps every ``moe_route`` result (one MoE layer
+    call's routing), in call order."""
+
+    def __init__(self, moe):
+        self.moe, self.routes = moe, []
+
+    def __enter__(self):
+        route = self._route = self.moe.moe_route
+
+        def spy(logits, **kw):
+            r = route(logits, **kw)
+            self.routes.append(r)
+            return r
+
+        self.moe.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self._route
+
+
+def same_routes(torch, a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x.expert, y.expert) and torch.equal(x.slot, y.slot)
+        and torch.equal(x.keep, y.keep) for x, y in zip(a, b))
+
+
+def drop_shares(torch, routes, batches, L):
+    """(dropped, all) (token, choice) assignments of the valid tokens and
+    of the padding slots, over serving steps whose packings (rows, slots,
+    qlens) are ``batches`` and whose ``L`` routings each are
+    ``routes``."""
+    check(len(routes) == L * len(batches),
+          f"{len(routes)} routings for {len(batches)} steps of {L} layers")
+    sums = torch.zeros(4, dtype=torch.long, device="cuda")
+    for i, (rows, slots, qlens) in enumerate(batches):
+        B = len(qlens)
+        valid = (rows < B) & (slots < qlens[np.minimum(rows, B - 1)])
+        v = torch.from_numpy(valid).cuda()[:, None]
+        for r in routes[i * L:(i + 1) * L]:
+            drop = ~r.keep
+            sums += torch.stack([(drop & v).sum(), v.sum() * r.keep.shape[1],
+                                 (drop & ~v).sum(),
+                                 (~v).sum() * r.keep.shape[1]])
+    d, n, pd, pn = sums.tolist()
+    return (d, n), (pd, pn)
+
+
+def recording_engine(serving):
+    """The port's Engine, keeping each step's packing as the host built
+    it (rows, slots, qlens) and whether its live logits were finite (a
+    subclass: a patched bound method would tie the engine into a
+    reference cycle)."""
+
+    class RecordingEngine(serving.Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.batches, self.finite = [], []
+
+        def _run_step(self, tokens, rows, slots, qlens, ctxs, tables):
+            logits = super()._run_step(tokens, rows, slots, qlens, ctxs,
+                                       tables)
+            self.batches.append((rows.copy(), slots.copy(), qlens.copy()))
+            self.finite.append(bool(np.isfinite(logits[qlens > 0]).all()))
+            return logits
+
+    return RecordingEngine
+
+
+def phase_moe_step(torch, cfg, pa, moe, gpt_init, gpt_ragged_step):
+    """Phase 12(a): one full-width MoE serving step in fp32 on phase 3's
+    batch (a pool of 1024 pages), the kernel against the plain
+    attention: each layer's ragged call at ``TOL["float32"]`` against the
+    plain version on its inputs, every layer routed identically, and
+    logits and written pages at ``TOL_FLASH["float32"]`` (the one-call
+    differences grow through 24 layers; the CPU tests hold the whole
+    step to JAX's at the same 1e-4)."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    L = cfg.num_layers
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(12),
+                      device="cuda")
+    args, k0, v0, tables, Q = mixed_batch(torch, cfg, 1024, torch.float32)
+    k1, v1 = k0.clone(), v0.clone()
+    call_errs = []
+
+    def kernel_and_ref(q, kp, vp, pt, qlens, ctxs):
+        # each layer's kernel call against the plain version on the same
+        # inputs, at its live query slots
+        out = pa.ragged_paged_attention(q, kp, vp, pt, qlens, ctxs)
+        ref = pa._ragged_attention_ref(q, kp, vp, pt, qlens, ctxs)
+        live_q = (torch.arange(q.shape[1], device=q.device)[None]
+                  < qlens[:, None])
+        call_errs.append((max_err(torch, out[live_q], ref[live_q]),
+                          torch.allclose(out[live_q], ref[live_q],
+                                         **TOL["float32"])))
+        return out
+
+    runs = []
+    for kw, kp, vp in (({"attention": kernel_and_ref}, k1, v1),
+                       ({"attention": pa._ragged_attention_ref}, k0, v0)):
+        with RouteLog(moe) as log:
+            logits, _, _ = gpt_ragged_step(cfg, params, *args, kp, vp,
+                                           tables, max_q=Q, **kw)
+        runs.append((logits, log.routes))
+    torch.cuda.synchronize()
+    live = torch.tensor([n > 0 for n in MIXED_QLENS], device="cuda")
+    (lk, rk), (lp, rp) = runs
+    lk, lp = lk[live], lp[live]
+    check(bool(torch.isfinite(lk).all()), "MoE step logits not finite")
+    err = max_err(torch, lk, lp)
+    page_err = max(max_err(torch, k1, k0), max_err(torch, v1, v0))
+    routed = same_routes(torch, rk, rp) and len(rk) == L
+    r = rk[0]
+    T, C = r.keep.shape[0], r.capacity
+    dropped = sum(int((~x.keep).sum()) for x in rk)
+    print(f"[phase 12] gpt3-1.3b x{MOE_EXPERTS} experts fp32 x{L} layers, "
+          f"phase 3's batch ({T} tokens, C = {C}): logits max abs err "
+          f"{err:.3g} (max |logit| {float(lp.abs().max()):.3g}), written "
+          f"pages {page_err:.3g}; routing identical in all {len(rk)} "
+          f"layers: {routed}; (token, choice) assignments dropped "
+          f"{dropped} of {T * r.keep.shape[1] * L}")
+    call_err = max(e for e, _ in call_errs)
+    print(f"[phase 12] one ragged call, kernel vs plain on the same "
+          f"inputs: max abs err {call_err:.3g} over {len(call_errs)} "
+          f"layers (held to TOL float32 {TOL['float32']}); the whole "
+          f"step above is held to TOL_FLASH float32 "
+          f"{TOL_FLASH['float32']}, since the calls' differences feed "
+          f"the next layers")
+    check(len(call_errs) == L and all(ok for _, ok in call_errs),
+          f"MoE step: a ragged call differs from the plain version by "
+          f"{call_err:.3g}")
+    check(routed, "MoE routing differs between kernel and plain attention")
+    check(torch.allclose(lk, lp, **TOL_FLASH["float32"]),
+          f"MoE step: kernel vs plain logits differ by {err:.3g}")
+    check(torch.allclose(k1, k0, **TOL_FLASH["float32"])
+          and torch.allclose(v1, v0, **TOL_FLASH["float32"]),
+          f"MoE step: written pages differ by {page_err:.3g}")
+    del params, k0, v0, k1, v1, runs, rk, rp, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_serving(torch, cfg, pa, moe, serving, gpt_init):
+    """Phase 12(b): the bf16 Engine over the full-width MoE model serving
+    phase 4's 8 requests, ragged launches held to L a step; tok/s,
+    ms/step untraced and on the device by kind, and the share of
+    (token, choice) assignments capacity drops.  Returns the launches."""
+    L, E = cfg.num_layers, cfg.moe_experts
+    t0 = time.perf_counter()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(12),
+                      device="cuda")
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "blocks")
+    eng = recording_engine(serving)(cfg, params, page_size=16,
+                                    num_pages=2048, max_batch_size=8,
+                                    chunk_len=64, device="cuda")
+    eng.warmup()
+    eng.metrics = serving.ServingMetrics()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    lens, prompts = serving_prompts(cfg.vocab_size)
+    eng.batches.clear()
+    with RouteLog(moe) as log:
+        pa.ragged_paged_attention.launches = 0
+        steps0 = eng.steps
+        t0 = time.perf_counter()
+        reqs = serve_requests(eng, serving, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pa.ragged_paged_attention.launches
+    steps = eng.steps - steps0
+    for r in reqs:
+        check(r.state == serving.RequestState.FINISHED,
+              f"request {r.id} ended {r.state}: {r.finish_reason}")
+        check(len(r.output) == 32, f"request {r.id} made {len(r.output)}")
+    check(all(eng.finite), "MoE serving logits not finite")
+    check(launches == L * steps,
+          f"MoE serving: kernel launches {launches} != {L} x {steps} steps")
+    (d, n), (pd, pn) = drop_shares(torch, log.routes, eng.batches, L)
+    del log
+    gen = sum(len(r.output) for r in reqs)
+    snap = eng.metrics.snapshot()
+    print(f"[phase 12] Engine gpt3-1.3b x{E} experts bf16 x{L} layers "
+          f"({n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB; "
+          f"params, pool and warm-up {setup:.1f} s): served {len(reqs)} "
+          f"requests (phase 4's prompts, 32 new tokens each, greedy) in "
+          f"{steps} steps, {wall:.3f} s: {gen / wall:.1f} generated tok/s, "
+          f"mean step {wall / steps * 1e3:.2f} ms, TTFT p50 "
+          f"{snap['ttft_s']['p50'] * 1e3:.1f} ms, kernel launches "
+          f"{launches} = {L} x {steps}")
+    print(f"[phase 12] capacity drops of (token, choice) assignments: "
+          f"valid tokens {d} of {n} ({d / max(n, 1):.4f}), padding slots "
+          f"{pd} of {pn} ({pd / max(pn, 1):.4f})")
+    profile_serving(torch, eng, serving, cfg.vocab_size, tag="phase 12",
+                    experts=E)
+    del eng, params, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_step_flops(cfg, B, S):
+    """(FLOPs one training step does, FLOPs by ``gpt_flops_per_token``)
+    at batch ``B`` x ``S``: the first counts the E·C expert slots the
+    expert products compute (forward and backward, 12·D·F a slot), the
+    dense products and the tied head at 6 FLOPs a weight a token, and
+    attention at ``gpt_flops_per_token``'s 12·L·D·S a token; the second
+    is 6N + attention, with N counting all E experts for every token."""
+    from paddle_tpu_torch.distributed.moe import moe_capacity
+    from paddle_tpu_torch.models import gpt_flops_per_token
+
+    D, F_, L, V = cfg.hidden, cfg.ffn_hidden, cfg.num_layers, cfg.vocab_size
+    E, n = cfg.moe_experts, B * S
+    C = moe_capacity(n, E, cfg.moe_capacity_factor, cfg.moe_top_k)
+    dense = 6 * n * (L * (4 * D * D + D * E) + V * D)
+    attention = n * 12 * L * D * S
+    experts = L * E * C * 12 * D * F_
+    return dense + attention + experts, n * gpt_flops_per_token(cfg, S)
+
+
+def moe_train_check(torch, cfg, fa, moe, gpt_init, gpt_loss):
+    """Phase 13's first part: one fp32 step of the MoE model at
+    ``MOE_CHECK_BATCH``, loss and every gradient (gate_w included) with
+    the kernels against the plain attention at ``TOL_FLASH["float32"]``,
+    and identical routing.  Everything it allocates is freed on return."""
+    L, E = cfg.num_layers, cfg.moe_experts
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = gpt_init(c32, torch.Generator(device="cuda").manual_seed(13),
+                      device="cuda")
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           MOE_CHECK_BATCH)).cuda()
+    names = ["wte", "wpe", "lnf_g", "lnf_b"] + [
+        f"blocks/{k}" for k in sorted(params["blocks"])]
+    leaves = [params[n] if "/" not in n else params["blocks"][n[7:]]
+              for n in names]
+    for t in leaves:
+        t.requires_grad_(True)
+    runs = {}
+    for label, attention in (("kernel", None),
+                             ("plain", lambda q, k, v:
+                              fa.flash_attention_plain(q, k, v,
+                                                       causal=True))):
+        before = dict(fa.launches)
+        with RouteLog(moe) as log:
+            loss = gpt_loss(c32, params, tokens, attention=attention)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[label] = (float(loss.detach()), grads, log.routes)
+        if label == "kernel":
+            # remat "dots" runs each forward twice; an fp32 backward is
+            # two kernels (dK/dV, then dQ)
+            got = {n: fa.launches[n] - before[n] for n in before}
+            check(got == {"fwd": 2 * L, "bwd": 2 * L},
+                  f"MoE fp32 training step launched {got}")
+    (lk, gk, rk), (lp, gp, rp) = runs["kernel"], runs["plain"]
+    routed = same_routes(torch, rk, rp)
+    worst = (0.0, "")
+    bad = []
+    for name, a, b in zip(names, gk, gp):
+        check(bool(torch.isfinite(a).all()), f"grad {name} not finite")
+        worst = max(worst, (max_err(torch, a, b), name))
+        if not torch.allclose(a, b, **TOL_FLASH["float32"]):
+            bad.append(name)
+    print(f"[phase 13] gpt3-1.3b x{E} experts fp32 x{L} layers, batch "
+          f"{MOE_CHECK_BATCH[0]} x {MOE_CHECK_BATCH[1]}, one training step: "
+          f"loss kernel {lk:.6f} plain {lp:.6f} (|diff| {abs(lk - lp):.3g});"
+          f" worst gradient max abs err {worst[0]:.3g} ({worst[1]}) over "
+          f"{len(names)} leaves, gate_w included; routing identical in all "
+          f"{len(rk)} calls (forward and recompute): {routed}; flash "
+          f"launches {got}")
+    check(routed, "MoE training: routing differs between kernel and plain")
+    check(abs(lk - lp) <= 1e-4 + 1e-4 * abs(lp),
+          f"MoE training: loss differs by {abs(lk - lp):.3g}")
+    check(not bad, f"MoE training: gradients {bad} differ beyond "
+                   f"atol = rtol = 1e-4")
+
+
+def phase_moe_train(torch, cfg, fa, moe, distributed, gpt_init, gpt_loss):
+    """Phase 13: MoE training at the full width on ``MOE_TRAIN_LAYERS``
+    layers.  First one fp32 step (``moe_train_check``); then
+    ``HybridEngine`` bf16 at ``MOE_TRAIN_BATCH``, 10 steps.  Returns the
+    flash launches over the timed steps."""
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    L, E = cfg.num_layers, cfg.moe_experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_check(torch, cfg, fa, moe, gpt_init, gpt_loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S = MOE_TRAIN_BATCH
+    eng = distributed.HybridEngine(cfg, device="cuda")
+    check(cfg.remat == "dots" and eng._has_master(),
+          "expected remat 'dots' and an fp32 master")
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+    run = train_run(torch, eng, tokens, labels, [fa.launches], experts=E)
+    return report_training(torch, "phase 13", cfg, run, B, S,
+                           moe_step_flops(cfg, B, S), {
+                               "fwd": 2 * L, "bwd": L},
+                           f"gpt3-1.3b x{E} experts bf16 x{L} layers")
+
+
+def flash_noncausal(torch, fa, B, H, S, D):
+    """The bf16 flash forward and backward at q/k/v ``[B, H, S, D]``
+    without the causal mask: kernel (forward) and whole-call (backward)
+    ms, plain ms, bound and SDPA's times, and the max abs error against
+    the plain version."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(D)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, False)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, scale, False)
+    delta = fa._delta(ref, do)
+    dq, dk, dv = fa._bwd_sm90(q, k, v, do, ref_lse, delta, scale, False)
+    rk, rv = fa._bwd_dkdv_ref(q, k, v, do, ref_lse, delta, scale, False)
+    rq = fa._bwd_dq_ref(q, k, v, do, ref_lse, delta, scale, False)
+    torch.cuda.synchronize()
+    errs = {"fwd": max(max_err(torch, out, ref), max_err(torch, lse,
+                                                          ref_lse)),
+            "bwd": max(max_err(torch, dq, rq), max_err(torch, dk, rk),
+                       max_err(torch, dv, rv))}
+    for name, a, b in (("out", out, ref), ("dq", dq, rq), ("dk", dk, rk),
+                       ("dv", dv, rv)):
+        check(torch.allclose(a.float(), b.float(), **TOL_FLASH["bfloat16"]),
+              f"non-causal flash {name} != plain at {[B, H, S, D]}: "
+              f"{max_err(torch, a, b):.3g}")
+    del ref, rq, rk, rv, dq, dk, dv
+    ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_cuda(
+              q, k, v, scale, False), 20),
+          "bwd": time_ms(torch, lambda: fa._bwd_sm90(
+              q, k, v, do, lse, delta, scale, False), 20)}
+    plain = {"fwd": time_ms(torch, lambda: fa._flash_fwd_ref(
+                 q, k, v, scale, False), 3, warmup=1),
+             "bwd": time_ms(torch, lambda: (fa._bwd_dkdv_ref(
+                 q, k, v, do, lse, delta, scale, False), fa._bwd_dq_ref(
+                 q, k, v, do, lse, delta, scale, False)), 3, warmup=1)}
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib = {"fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v), 20)}
+    lout = F.scaled_dot_product_attention(lq, lk, lv)
+    lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), do, retain_graph=True), 20)
+    result = {}
+    for name, (nbytes, flops) in flash_work(B, H, S, D, False).items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        result[name] = {"shape": [B, H, S, D], "max_abs_err": errs[name],
+                     "ms": ms[name], "plain_ms": plain[name],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "library_ms": lib[name]}
+    del q, k, v, do, out, lse, delta, lq, lk, lv, lout
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_bert_train(torch, fa, distributed, models):
+    """Phase 14: ``HybridEngine(BertAdapter)`` on BERT-base, bf16, batch
+    32 x 512 with MLM corruption at 0.15 ([MASK] the last id), 10 steps;
+    then the non-causal flash kernels at its attention shape against
+    their bound and SDPA.  Returns (flash launches over the timed steps,
+    the non-causal times)."""
+    cfg = models.BERT_CONFIGS["bert-base"]
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, S = BERT_BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(14)
+    tokens = rng.randint(0, V, (B, S))
+    mask = rng.rand(B, S) < 0.15
+    labels = np.where(mask, tokens, -100)
+    corrupted = np.where(mask, V - 1, tokens)
+    eng = distributed.HybridEngine(distributed.BertAdapter(cfg),
+                                   device="cuda")
+    n_params = sum(t.numel() for t in _leaves(models.bert_init(
+        cfg, device="cuda")))
+    flops = B * S * (6 * n_params + 12 * L * cfg.hidden * S)
+    run = train_run(torch, eng, corrupted, labels, [fa.launches])
+    launches = report_training(torch, "phase 14", cfg, run, B, S, flops,
+                               {"fwd": 2 * L, "bwd": L},
+                               f"bert-base bf16 ({n_params / 1e6:.1f} M "
+                               f"params), MLM at 0.15")
+    H, D = cfg.num_heads, cfg.head_dim
+    times = flash_noncausal(torch, fa, B, H, S, D)
+    for name, t in times.items():
+        print(f"[phase 14] flash {name} at q/k/v {[B, H, S, D]} bf16 "
+              f"non-causal: {'whole call ' if name == 'bwd' else 'kernel '}"
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), SDPA "
+              f"{t['library_ms']:.4f} ms, max abs err {t['max_abs_err']:.3g}")
+    return launches, times
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
 def main():
     import torch
 
@@ -1694,7 +2251,8 @@ def main():
     try:
         import importlib
 
-        from paddle_tpu_torch import resilience, serving
+        from paddle_tpu_torch import distributed, models, resilience, serving
+        from paddle_tpu_torch.distributed import moe
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.kernels import flash_attention as fa
         from paddle_tpu_torch.kernels import paged_attention as pa
@@ -1776,6 +2334,22 @@ def main():
     fleet_launches = phase_fleet(torch, cfg, pa, serving, resilience)
     print(f"[phase 11] {time.perf_counter() - t0:.1f} s")
 
+    moe_cfg = moe_config(cfg)
+    t0 = time.perf_counter()
+    phase_moe_step(torch, moe_cfg, pa, moe, gpt_init, gpt_ragged_step)
+    moe_launches = phase_moe_serving(torch, moe_cfg, pa, moe, serving,
+                                     gpt_init)
+    print(f"[phase 12] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    moe_flash = phase_moe_train(torch, moe_cfg, fa, moe, distributed,
+                                gpt_init, gpt_loss)
+    print(f"[phase 13] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bert_flash, noncausal = phase_bert_train(torch, fa, distributed, models)
+    print(f"[phase 14] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -1784,11 +2358,13 @@ def main():
         "source": csrc + "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
         "launches": launches, "fleet_launches": fleet_launches,
-        **rpa}] + [
+        "moe_launches": moe_launches, **rpa}] + [
         {"name": f"flash_attention_{name}", "route": "cuda",
          "source": csrc + source,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
-         "launches": flash_launches[key], **flash[key]}
+         "launches": flash_launches[key], "moe_launches": moe_flash[key],
+         "bert_launches": bert_flash[key], **flash[key],
+         "noncausal_d64": noncausal[key]}
         for name, key, source, line in (
             ("fwd", "fwd", "flash_fwd_sm90.cu", 64),
             ("bwd_dkdv", "bwd", "flash_bwd_sm90.cu", 168),

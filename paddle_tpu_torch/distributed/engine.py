@@ -6,9 +6,10 @@ dp = pp = sharding = mp = ep = 1, written eagerly:
 
   tokens [B, S] → embedding → blocks in a Python loop, each under the
   ``cfg.remat`` checkpoint policy → final LN + tied-vocab CE in
-  sequence chunks → grads (``torch.autograd.grad``), accumulated in fp32
-  over ``accum_steps`` micro-batches → global-norm clip → Adam with
-  bias correction and decoupled weight decay, in windows of at most
+  sequence chunks (+ ``moe_aux_weight`` × the per-layer mean MoE aux
+  loss for a MoE model) → grads (``torch.autograd.grad``), accumulated
+  in fp32 over ``accum_steps`` micro-batches → global-norm clip → Adam
+  with bias correction and decoupled weight decay, in windows of at most
   ``opt_update_window`` elements, in place.
 
 Sequence parallelism with ``cfg.seq_parallel == "ring"`` and ``sep > 1``
@@ -17,7 +18,9 @@ on it, each block's attention is ``ring_attention`` over ``sep``
 contiguous shards (``_attention``), and dropout draws its mask per
 shard with the shard index folded into the seed (``_dropout``), as the
 JAX step folds the sep index into its key.  Everything else in a step
-is per token, so it equals the JAX engine's sharded step.
+is per token, so it equals the JAX engine's sharded step.  MoE and
+bidirectional (``BertAdapter``) models train at sep = 1 only: the JAX
+engine gates each sep shard separately, which is a later slice.
 
 What has no counterpart on one GPU is left out: the mesh and its
 collectives, ZeRO chunking, the ``_SLOT_LANE`` padding of optimizer
@@ -102,10 +105,10 @@ class HybridEngine:
     def __init__(self, cfg, dp=1, pp=1, sharding=1, sep=1, mp=1, ep=1,
                  engine_cfg: EngineConfig = None, device=None):
         """``cfg``: a model config (GPTConfig trains through GPTAdapter)
-        or a ``ModelAdapter``.  Entry point: runs on CUDA unless
-        ``device`` says otherwise.  ``sep > 1`` trains with ring
-        sequence parallelism on this one device when
-        ``cfg.seq_parallel == "ring"``."""
+        or a ``ModelAdapter`` (``BertAdapter(BertConfig)`` for BERT).
+        Entry point: runs on CUDA unless ``device`` says otherwise.
+        ``sep > 1`` trains with ring sequence parallelism on this one
+        device when ``cfg.seq_parallel == "ring"``."""
         self.model = cfg if isinstance(cfg, ModelAdapter) else GPTAdapter(cfg)
         self.cfg = self.model.cfg
         if self.cfg.seq_parallel not in ("ulysses", "ring"):
@@ -260,9 +263,11 @@ class HybridEngine:
         return s_sum, c_sum
 
     def _local_loss(self, params, tokens, labels, seed=None):
-        """Mean CE of one micro-batch.  ``seed``: the dropout seed,
-        already folded with the step and micro-batch (None: no
-        dropout)."""
+        """Mean CE of one micro-batch, plus ``moe_aux_weight`` × the
+        per-layer mean aux loss for a MoE model (the JAX step's
+        ``_aux_mean`` is the identity on one device).  ``seed``: the
+        dropout seed, already folded with the step and micro-batch
+        (None: no dropout)."""
         cfg = self.cfg
         aux = {k: v for k, v in params.items() if k != "blocks"}
         x = self.model.embed(self, aux, tokens)
@@ -272,9 +277,13 @@ class HybridEngine:
         def block_fn(bp, x, s):
             return self.model.block(self, bp, x, s)
 
-        out = run_blocks(block_fn, params["blocks"], x, cfg.remat, seed)
+        out, moe_aux = run_blocks(block_fn, params["blocks"], x, cfg.remat,
+                                  seed)
         s, c = self.model.head_loss(self, aux, out, labels)
-        return s / torch.clamp(c, min=1.0)
+        loss = s / torch.clamp(c, min=1.0)
+        if cfg.moe_experts:
+            loss = loss + cfg.moe_aux_weight * moe_aux / cfg.num_layers
+        return loss
 
     # ------------------------------------------------------------- the step
     def _as_ids(self, a):

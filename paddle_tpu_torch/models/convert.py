@@ -14,6 +14,10 @@ from .._device import resolve_device
 
 __all__ = ["params_from_jax", "params_to_numpy", "opt_from_jax"]
 
+#: leaves the JAX ``gpt_init`` makes fp32 in every model dtype (the MoE
+#: gate: routing decisions are precision-sensitive)
+FP32_LEAVES = frozenset({"gate_w"})
+
 
 def _to_numpy(leaf):
     arr = np.asarray(leaf)
@@ -25,15 +29,21 @@ def _to_numpy(leaf):
 def params_from_jax(tree, device=None, dtype=None):
     """JAX ``gpt_init``-style tree → the port's nested dict of tensors on
     ``device`` (default CUDA).  Float leaves are cast to ``dtype`` when it
-    is given, else kept at fp32 (the numpy carrier's precision)."""
+    is given, else kept at fp32 (the numpy carrier's precision); the
+    leaves named in ``FP32_LEAVES`` stay fp32, as JAX keeps them."""
+    return _convert(tree, device, dtype, FP32_LEAVES)
+
+
+def _convert(tree, device, dtype, keep_fp32=frozenset()):
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         arr = _to_numpy(node)
         t = torch.from_numpy(np.array(arr, copy=True, order="C"))
-        if t.is_floating_point() and dtype is not None:
+        if t.is_floating_point() and dtype is not None \
+                and name not in keep_fp32:
             t = t.to(dtype)
         return t.to(dev)
 
@@ -43,9 +53,10 @@ def params_from_jax(tree, device=None, dtype=None):
 def opt_from_jax(canon, device=None, dtype=None):
     """The JAX engine's canonical optimizer state (``opt_canonical``:
     ``{"m", "v", "master"}`` trees of param-shaped arrays) → the same
-    three trees of tensors, as ``params_from_jax`` carries each;
+    three trees of tensors, every float leaf cast to ``dtype`` when it is
+    given (the slots are kept in one dtype);
     ``HybridEngine.opt_from_canonical`` turns them into a state."""
-    return {name: params_from_jax(canon[name], device=device, dtype=dtype)
+    return {name: _convert(canon[name], device, dtype)
             for name in ("m", "v", "master")}
 
 

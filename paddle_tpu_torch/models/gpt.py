@@ -9,7 +9,10 @@ layer loop is a Python loop over the leading axis where JAX runs a
 The serving half is ``gpt_ragged_step`` (the serving engine's one step);
 the training half is ``gpt_block`` / ``gpt_forward`` / ``gpt_loss`` with
 per-block activation checkpointing (``cfg.remat``) and the ``GPT``
-module facade.  MoE blocks are a later slice of the port.
+module facade.  With ``cfg.moe_experts > 0`` every block's dense FFN is
+a Mixtral-style MoE (``distributed/moe.py``, routed in index form) in
+training, in the loss (its load-balance aux loss) and in the serving
+step.
 """
 from __future__ import annotations
 
@@ -76,12 +79,6 @@ GPT_CONFIGS = {
 }
 
 
-def _require_dense(cfg: GPTConfig):
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet; the port runs dense GPTs")
-
-
 # ------------------------------------------------------------------ params
 
 
@@ -89,22 +86,31 @@ def gpt_init(cfg: GPTConfig, generator=None, device=None, dtype=None):
     """Random parameters with the JAX package's names, shapes and init
     stds (normal 0.02, wpe 0.01, residual projections 0.02/sqrt(2L);
     LayerNorm gains 1, biases 0).  Block params are stacked on axis 0.
+    With ``cfg.moe_experts`` = E the FFN leaves are per expert (``up_w
+    [L, E, D, F]`` ...) and ``gate_w [L, D, E]`` is fp32 in every model
+    dtype, as in JAX; the expert weights are drawn one layer at a time,
+    so the fp32 draw never holds more than one layer's.
 
     ``generator`` is a ``torch.Generator`` on ``device`` (default: one
     seeded with 0).  The draws differ from ``jax.random``'s for the same
     seed; tests that compare with JAX carry the JAX tree across instead
     (``params_from_jax``)."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.torch_dtype()
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     D, F_, L, V = cfg.hidden, cfg.ffn_hidden, cfg.num_layers, cfg.vocab_size
 
-    def init(shape, std=0.02):
+    def init(shape, std=0.02, dtype=dt):
         w = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return w.mul_(std).to(dt)
+        return w.mul_(std).to(dtype)
+
+    def init_layers(shape, std=0.02):
+        out = torch.empty(shape, device=dev, dtype=dt)
+        for l in range(shape[0]):
+            out[l] = init(shape[1:], std)
+        return out
 
     def ones(*shape):
         return torch.ones(shape, device=dev, dtype=dt)
@@ -123,13 +129,26 @@ def gpt_init(cfg: GPTConfig, generator=None, device=None, dtype=None):
             "proj_w": init((L, D, D), resid_std),
             "proj_b": zeros(L, D),
             "ln2_g": ones(L, D), "ln2_b": zeros(L, D),
+        },
+        "lnf_g": ones(D), "lnf_b": zeros(D),
+    }
+    E = cfg.moe_experts
+    if E:
+        params["blocks"].update({
+            # gate in fp32: routing decisions are precision-sensitive
+            "gate_w": init((L, D, E), dtype=torch.float32),
+            "up_w": init_layers((L, E, D, F_)),
+            "up_b": zeros(L, E, F_),
+            "down_w": init_layers((L, E, F_, D), resid_std),
+            "down_b": zeros(L, E, D),
+        })
+    else:
+        params["blocks"].update({
             "up_w": init((L, D, F_)),
             "up_b": zeros(L, F_),
             "down_w": init((L, F_, D), resid_std),
             "down_b": zeros(L, D),
-        },
-        "lnf_g": ones(D), "lnf_b": zeros(D),
-    }
+        })
     if not cfg.tie_embeddings:
         params["lm_head"] = init((D, V))
     return params
@@ -188,9 +207,10 @@ def _default_attention(cfg, q, k, v, causal=True):
 
 def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
               dropout=_dropout):
-    """One pre-LN transformer block (attention + dense MLP) on
+    """One pre-LN transformer block (attention + dense or MoE FFN) on
     ``x [B, S, D]``; ``bp`` is this layer's slice of the stacked block
-    params.  Returns the new ``x`` (a dense block has no MoE aux loss).
+    params.  Returns ``(x, aux)``: aux is the MoE load-balance loss, a
+    fp32 0 for a dense block.
 
     ``dropout_seed`` (an int) enables residual dropout on the attention
     projection and the FFN output, drawn by ``dropout(x, rate, seed)``
@@ -198,8 +218,8 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
     v)`` on ``[B, H, S, hd]`` replaces the causal attention call
     (default: flash attention where available, else the naive route) —
     the hook through which a caller runs the block on the plain version
-    for comparison, and the engine its sequence-parallel attention."""
-    _require_dense(cfg)
+    for comparison, the engine its sequence-parallel attention and the
+    BERT adapter its bidirectional one."""
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     s_attn = s_ffn = None
@@ -222,10 +242,23 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
     x = x + dropout(proj, cfg.dropout, s_attn)
 
     h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
+    if cfg.moe_experts:
+        y, aux = _moe(cfg, bp, h)
+        return x + dropout(y, cfg.dropout, s_ffn), aux
     h = h @ bp["up_w"] + bp["up_b"]
     h = F.gelu(h, approximate="tanh")
     h = h @ bp["down_w"] + bp["down_b"]
-    return x + dropout(h, cfg.dropout, s_ffn)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + dropout(h, cfg.dropout, s_ffn), aux
+
+
+def _moe(cfg, bp, h):
+    """The MoE FFN of one block on ``h [B, S, D]``: ``(y, aux)``."""
+    from ..distributed.moe import moe_layer
+
+    return moe_layer(
+        {k: bp[k] for k in ("gate_w", "up_w", "up_b", "down_w", "down_b")},
+        h, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
 
 
 def unbind_layers(blocks):
@@ -239,26 +272,29 @@ def unbind_layers(blocks):
 
 
 def run_blocks(block_fn, blocks, x, remat="nothing", dropout_seed=None):
-    """Apply ``block_fn(bp, x, seed) -> x`` over the stacked blocks, each
-    under the ``remat`` checkpoint policy; the loop the JAX package runs
-    as a ``lax.scan``.  Layer ``l``'s dropout seed is ``dropout_seed``
-    folded with ``l``."""
+    """Apply ``block_fn(bp, x, seed) -> (x, aux)`` over the stacked
+    blocks, each under the ``remat`` checkpoint policy, and sum the aux
+    losses in fp32: the loop the JAX package runs as a ``lax.scan`` with
+    ``(x, aux_sum)`` as its carry.  Layer ``l``'s dropout seed is
+    ``dropout_seed`` folded with ``l``.  Returns ``(x, aux_sum)``."""
     from ..distributed.recompute import checkpoint_policy
 
     fn = checkpoint_policy(remat)(block_fn)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, bp in enumerate(unbind_layers(blocks)):
-        x = fn(bp, x, None if dropout_seed is None
-               else _fold(dropout_seed, l))
-    return x
+        x, aux = fn(bp, x, None if dropout_seed is None
+                    else _fold(dropout_seed, l))
+        aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def gpt_forward(cfg: GPTConfig, params, tokens, *, dropout_seed=None,
-                attention=None):
-    """tokens ``[B, S]`` → logits ``[B, S, V]`` in the working dtype.
+                attention=None, return_aux=False):
+    """tokens ``[B, S]`` → logits ``[B, S, V]`` in the working dtype, and
+    with ``return_aux`` the summed MoE load-balance loss as well.
     Blocks run in a Python loop, each under ``cfg.remat``'s checkpoint
     policy.  ``dropout_seed`` (training only) drives embedding and
     residual dropout; ``attention`` is ``gpt_block``'s hook."""
-    _require_dense(cfg)
     B, S = tokens.shape
     tokens = tokens.long()
     x = params["wte"][tokens] + params["wpe"][:S]
@@ -271,27 +307,37 @@ def gpt_forward(cfg: GPTConfig, params, tokens, *, dropout_seed=None,
     def block_fn(bp, x, seed):
         return gpt_block(cfg, bp, x, dropout_seed=seed, attention=attention)
 
-    x = run_blocks(block_fn, params["blocks"], x, cfg.remat, layers_seed)
+    x, aux = run_blocks(block_fn, params["blocks"], x, cfg.remat,
+                        layers_seed)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     if cfg.tie_embeddings:
-        return x @ params["wte"].t()
-    return x @ params["lm_head"]
+        logits = x @ params["wte"].t()
+    else:
+        logits = x @ params["lm_head"]
+    return (logits, aux) if return_aux else logits
 
 
 def gpt_loss(cfg: GPTConfig, params, tokens, labels=None,
              dropout_seed=None, attention=None):
     """Next-token cross entropy in fp32: log-softmax over fp32 logits,
-    labels of -100 ignored, mean over the counted tokens."""
+    labels of -100 ignored, mean over the counted tokens; a MoE model
+    adds ``moe_aux_weight`` × the per-layer mean aux loss."""
     tokens = tokens.long()
     if labels is None:
         labels = F.pad(tokens[:, 1:], (0, 1), value=-100)
     labels = labels.long()
-    logits = gpt_forward(cfg, params, tokens, dropout_seed=dropout_seed,
-                         attention=attention)
+    logits, aux = gpt_forward(cfg, params, tokens,
+                              dropout_seed=dropout_seed,
+                              attention=attention, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels != -100).float()
-    return -(picked * mask).sum() / mask.sum().clamp(min=1.0)
+    ce = -(picked * mask).sum() / mask.sum().clamp(min=1.0)
+    if cfg.moe_experts:
+        # sum over layers / L keeps the weight's scale independent of
+        # depth, as the engine's loss does
+        ce = ce + cfg.moe_aux_weight * aux / cfg.num_layers
+    return ce
 
 
 # ----------------------------------------------- KV-cache ragged step
@@ -325,9 +371,14 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     paged-attention kernel's wrapper) — the hook through which a caller
     runs the same step on the plain version for comparison.
 
+    A MoE model routes all ``T`` packed tokens, padding slots included,
+    in packing order, as the JAX step does, so padding tokens take
+    expert capacity like any other token.  Their hidden states match
+    JAX's: a padding token (row ``B``) reads row ``B - 1``'s attention
+    output at its slot, which is zero past that row's ``query_len``.
+
     Returns (logits [B, V] at each row's last packed token — rows with
     query_len 0 return garbage the engine ignores — k_pages, v_pages)."""
-    _require_dense(cfg)
     if attention is None:
         from ..kernels.paged_attention import ragged_paged_attention
 
@@ -384,6 +435,10 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
         x = x + attn @ blocks["proj_w"][l] + blocks["proj_b"][l]
 
         h = _layer_norm(x, blocks["ln2_g"][l], blocks["ln2_b"][l])
+        if cfg.moe_experts:
+            y, _ = _moe(cfg, {k: v[l] for k, v in blocks.items()}, h[None])
+            x = x + y[0]
+            continue
         h = h @ blocks["up_w"][l] + blocks["up_b"][l]
         h = F.gelu(h, approximate="tanh")
         x = x + (h @ blocks["down_w"][l] + blocks["down_b"][l])

@@ -40,6 +40,11 @@ and before any device work is queued; the KV pool is exposed to the
 ``bitflip`` kind and every in-flight token stream to
 ``poison_request``) fire through ``paddle_tpu_torch.resilience``.
 
+A MoE model (``cfg.moe_experts > 0``) serves through the MoE branch of
+``gpt_ragged_step``: every packed token of the ``token_budget``, the
+padding slots included, is routed in packing order as the JAX step
+routes it, so padding takes expert capacity there as here.
+
 What differs from the JAX engine: the step is an eager PyTorch call on
 ``device`` (default CUDA) — no jit, so no compile watchdog — and the
 page pool is updated in place where JAX donates buffers.  Logits come

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions, and
 what the serving fleet does on the card alone (a bitflip flipping a CUDA
-pool in place, device memory following the engines a fleet holds).
+pool in place, device memory following the engines a fleet holds); the
+MoE block on the card against its CPU result, and flash attention at
+BERT-base's non-causal head dim 64.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips where ``torch.cuda.is_available()`` is false.  This
@@ -507,6 +509,73 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert fa.launches == {"fwd": 2 * 2 * L, "bwd": 2 * 2 * L}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_noncausal_d64_matches_plain(cuda, dtype):
+    """BERT-base's attention (non-causal, head dim 64, S = 512) through
+    ``flash_attention`` on the card against ``flash_attention_plain``:
+    output and q/k/v gradients at the flash tolerance of the dtype; the
+    kernels launch once forward and once (bf16) or twice (fp32) backward,
+    the plain version never."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_case(512, 64, dtype, B=2, H=12, seed=64)
+    outs, launched = [], []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = dict(fa.launches)
+        out = fn(*leaves, causal=False)
+        grads = torch.autograd.grad(out, leaves, do)
+        launched.append({n: fa.launches[n] - before[n] for n in before})
+        outs.append([out.detach()] + list(grads))
+    torch.cuda.synchronize()
+    assert launched == [{"fwd": 1, "bwd": _bwd_launches(q)},
+                        {"fwd": 0, "bwd": 0}]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_card_matches_cpu(cuda):
+    """``moe_layer`` in fp32 on the card and on the CPU with equal inputs
+    (capacity factor 1.0, so choices are dropped): the same routing, y
+    at 1e-5 and the gradients of Σ y·r + aux at 1e-4."""
+    from paddle_tpu_torch.distributed import moe
+
+    rng = np.random.RandomState(0)
+    E, D, F_ = 8, 64, 128
+    arrays = {"gate_w": rng.randn(D, E) * 0.5, "up_w": rng.randn(E, D, F_)
+              * 0.1, "up_b": rng.randn(E, F_) * 0.1,
+              "down_w": rng.randn(E, F_, D) * 0.1,
+              "down_b": rng.randn(E, D) * 0.1,
+              "x": rng.randn(4, 64, D), "r": rng.randn(4, 64, D)}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev,
+                             requires_grad=k != "r")
+             for k, v in arrays.items()}
+        params = {k: t[k] for k in ("gate_w", "up_w", "up_b", "down_w",
+                                    "down_b")}
+        route = moe.moe_route(t["x"].detach().reshape(-1, D)
+                              @ t["gate_w"].detach(), top_k=2,
+                              capacity_factor=1.0)
+        y, aux = moe.moe_layer(params, t["x"], top_k=2, capacity_factor=1.0)
+        grads = torch.autograd.grad((y * t["r"]).sum() + aux,
+                                    [t["x"]] + list(params.values()))
+        runs[dev] = ([route.expert, route.slot, route.keep],
+                     [y.detach(), aux.detach()], grads)
+    torch.cuda.synchronize()
+    assert not bool(runs["cpu"][0][2].all())           # drops happened
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+    for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
 # ----------------------------------------------------- ring attention

@@ -21,9 +21,11 @@ from paddle_tpu.models.gpt import GPT_CONFIGS as JAX_CONFIGS
 from paddle_tpu.models.gpt import gpt_forward as jax_gpt_forward
 from paddle_tpu.models.gpt import gpt_init as jax_gpt_init
 from paddle_tpu.models.gpt import gpt_loss as jax_gpt_loss
-from paddle_tpu_torch.distributed import (EngineConfig, GPTAdapter,
-                                          HybridEngine, checkpoint_policy)
-from paddle_tpu_torch.models import (GPT, GPT_CONFIGS, gpt_flops_per_token,
+from paddle_tpu_torch.distributed import (BertAdapter, EngineConfig,
+                                          GPTAdapter, HybridEngine,
+                                          checkpoint_policy)
+from paddle_tpu_torch.models import (BERT_CONFIGS, GPT, GPT_CONFIGS,
+                                     gpt_flops_per_token,
                                      gpt_forward, gpt_init, gpt_loss,
                                      gpt_num_params, opt_from_jax,
                                      params_from_jax, params_to_numpy)
@@ -179,11 +181,20 @@ def test_counts_and_module_facade(tiny):
 
 
 def test_engine_rejects_parallel_axes_and_moe():
+    """Every multi-GPU axis raises; MoE trains at ep = 1 but not at
+    ep > 1, and MoE or BERT not at sep > 1 (ring or Ulysses)."""
     for axis in ("dp", "pp", "sharding", "sep", "mp", "ep"):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             HybridEngine(CFG, device="cpu", **{axis: 2})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        HybridEngine(dataclasses.replace(CFG, moe_experts=4), device="cpu")
+    moe = dataclasses.replace(CFG, moe_experts=4)
+    HybridEngine(moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        HybridEngine(moe, device="cpu", ep=2)
+    bert = BertAdapter(dataclasses.replace(BERT_CONFIGS["tiny"],
+                                           dtype="float32"))
+    for model in (moe, dataclasses.replace(moe, seq_parallel="ring"), bert):
+        with pytest.raises(NotImplementedError, match="sep > 1"):
+            HybridEngine(model, device="cpu", sep=2)
     with pytest.raises(ValueError):
         EngineConfig(opt_dtype="float16")
     assert GPTAdapter(CFG).decay_this("blocks/qkv_w")

@@ -87,7 +87,26 @@ Phases (any failure exits non-zero):
      masking rate 0.15) as in phase 7 with flash launches held to 24
      forward / 12 backward per step, then the non-causal flash forward
      and backward at q/k/v [32, 12, 512, 64] with times, bounds, plain
-     and SDPA times.
+     and SDPA times;
+ 15. the eager Paddle API (``import paddle_tpu_torch as paddle``) under
+     PyTorch's default TF32 flags, so that the port, not this script,
+     decides the precision of a convolution: (a) one fp32
+     ``hapi.Model.train_batch`` of ResNet-50 (1000 classes, Momentum
+     0.1/0.9, weight decay 1e-4) at 4 x 3 x 224 x 224 on the card and,
+     from the same weights, on the CPU: loss, logits, every parameter
+     after the step and every batch-norm buffer; (b) the
+     ``bench_resnet`` protocol (bf16 O1 ``auto_cast``, train-mode batch
+     norm, Momentum 0.1/0.9) at batch 32 and 128: imgs/s, ms/step,
+     device busy time and share, device time by kind, peak memory and
+     MFU on the FLOPs counted from the convolution and linear shapes,
+     and the loss falling over 10 steps on a fixed batch; (c) ``fit``
+     for one epoch over an in-memory seeded dataset, ``evaluate``,
+     ``predict``, and ``save``/``load`` bit-equal on the card; (d)
+     ``nn.TransformerEncoder`` at BERT-base widths (12 layers, batch 32 x
+     512, bf16 ``auto_cast``): flash launches 12 forward in eval, 12
+     forward and 12 backward a training step, none with attention
+     dropout, and the eval output held to the same encoder on the plain
+     attention.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -95,6 +114,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -116,6 +136,11 @@ TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
 # products of unit-variance terms; bf16 by one rounding of each output
 TOL_FLASH = {"float32": dict(atol=1e-4, rtol=1e-4),
              "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
+# a bf16 encoder's output on the flash kernels vs on their plain
+# versions: the attention's one-rounding differences pass on through the
+# output projection, the residual's LayerNorm and the FFN in bf16
+# (0.017 max abs measured at BERT-base widths, 12 layers, 32 x 512)
+TOL_ENCODER = dict(atol=3e-2, rtol=1.6e-2)
 
 
 def fail(msg):
@@ -1827,6 +1852,10 @@ MOE_TRAIN_LAYERS = 8               # phase 13's depth: what one card holds
 MOE_CHECK_BATCH = (1, 2048)        # phase 13's fp32 kernel-vs-plain step
 MOE_TRAIN_BATCH = (8, 2048)        # phase 13's throughput batch
 BERT_BATCH = (32, 512)             # phase 14's batch
+RESNET_CHECK_BATCH = 4             # phase 15 (a): card vs CPU, fp32
+RESNET_BATCHES = (32, 128)         # phase 15 (b): bench_resnet's and 4x it
+HAPI_FIT = (8, 32)                 # phase 15 (c): batches x images
+ENCODER_BATCH = (32, 512)          # phase 15 (d), BERT-base widths
 
 
 def moe_config(cfg):
@@ -2236,6 +2265,385 @@ def phase_bert_train(torch, fa, distributed, models):
     return launches, times
 
 
+
+# ------------------------------------------------ the eager API (15)
+
+
+@contextlib.contextmanager
+def torch_default_tf32(torch):
+    """PyTorch's default flags (fp32 matmuls exact, cuDNN's fp32
+    convolutions allowed TF32) for the duration, then this script's."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def _maxrel(torch, a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def resnet_model(paddle, lr, wd=None, metrics=None, seed=0):
+    paddle.seed(seed)
+    net = paddle.vision.resnet50(num_classes=1000)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9, parameters=model.parameters(),
+        weight_decay=wd), paddle.nn.CrossEntropyLoss(), metrics)
+    return model
+
+
+def resnet_card_vs_cpu(torch, paddle):
+    """Phase 15 (a): one fp32 train_batch of ResNet-50 on the card and on
+    the CPU from the same weights and batch (numpy seed 15)."""
+    B = RESNET_CHECK_BATCH
+    rng = np.random.RandomState(15)
+    x = rng.rand(B, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, (B,)).astype(np.int64)
+    runs, start = {}, None
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        model = resnet_model(paddle, 0.1, 1e-4, paddle.metric.Accuracy())
+        if start is None:
+            start = {k: v.detach().cpu().clone()
+                     for k, v in model.network.state_dict().items()}
+        else:
+            model.network.set_state_dict(start)
+        logits = []
+        hook = model.network.register_forward_post_hook(
+            lambda m, a, out: logits.append(out.detach().cpu()))
+        t0 = time.perf_counter()
+        loss, res = model.train_batch(x, y)
+        secs = time.perf_counter() - t0
+        hook.remove()
+        runs[dev] = {"loss": loss, "acc": res["acc"], "logits": logits[0],
+                     "s": secs, "state": {
+                         k: v.detach().cpu() for k, v in
+                         model.network.state_dict().items()}}
+        del model
+    paddle.set_device("gpu")
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    logit_err = _maxrel(torch, gpu["logits"], cpu["logits"])
+    buf_err = max(_maxrel(torch, gpu["state"][k], cpu["state"][k])
+                  for k in start if k.endswith(("_mean", "_variance")))
+    params = [k for k in start if not k.endswith(("_mean", "_variance"))]
+    upd = {k: (gpu["state"][k] - start[k], cpu["state"][k] - start[k])
+           for k in params}
+    per = {k: _maxrel(torch, g, c) for k, (g, c) in upd.items()}
+    worst = max(per, key=per.get)
+    diff = sum(float((g - c).square().sum()) for g, c in upd.values())
+    ref = sum(float(c.square().sum()) for _, c in upd.values())
+    glob = (diff / ref) ** 0.5
+    print(f"[phase 15a] ResNet-50 fp32 train_batch at {B} x 3 x 224 x 224, "
+          f"card {gpu['s']:.2f} s, CPU {cpu['s']:.2f} s: loss card "
+          f"{gpu['loss']:.6f} CPU {cpu['loss']:.6f} (relative "
+          f"{loss_rel:.3g}, checked at 1e-4); logits max diff / max "
+          f"{logit_err:.3g} (checked at 1e-3); BN buffers worst "
+          f"{buf_err:.3g} (1e-3); parameter updates: L2 of the difference "
+          f"/ L2 of the CPU's {glob:.3g} (0.1), worst tensor {worst} "
+          f"{per[worst]:.3g} (1.0); {len(params)} parameters, "
+          f"{len(start) - len(params)} buffers")
+    check(loss_rel <= 1e-4, f"15a: loss differs by {loss_rel:.3g}")
+    check(logit_err <= 1e-3, f"15a: logits differ by {logit_err:.3g}")
+    check(buf_err <= 1e-3, f"15a: BN buffers differ by {buf_err:.3g}")
+    check(glob <= 0.1 and per[worst] <= 1.0,
+          f"15a: parameter updates differ ({glob:.3g}, {worst} "
+          f"{per[worst]:.3g})")
+    check(gpu["acc"] == cpu["acc"], "15a: accuracy differs")
+
+
+def resnet_flops(torch, net, B):
+    """Training FLOPs of one step from the convolution and linear shapes:
+    2 x MACs forward, x 3 for forward and backward."""
+    macs = []
+
+    def conv(m, args, out):
+        macs.append(out.numel() * m.weight.shape[1]
+                    * int(np.prod(m.weight.shape[2:])))
+
+    def linear(m, args, out):
+        macs.append(out.numel() * m.weight.shape[0])
+
+    hooks = [m.register_forward_post_hook(
+        conv if type(m).__name__ == "Conv2D" else linear)
+        for m in net.modules() if type(m).__name__ in ("Conv2D", "Linear")]
+    net.eval()
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224, device="cuda"))
+    net.train()
+    for h in hooks:
+        h.remove()
+    return 3 * 2 * sum(macs) * B
+
+
+def resnet_kind(op):
+    """The kind an aten op's device time counts under in phase 15 (b)."""
+    if "convolution_backward" in op:
+        return "conv backward"
+    if op in ("aten::cudnn_convolution", "aten::_convolution",
+              "aten::convolution"):
+        return "conv forward"
+    if "batch_norm" in op or op == "aten::var_mean":
+        return "batch norm"
+    if op.startswith("aten::_foreach_"):
+        return "optimizer"
+    return None
+
+
+def profile_kinds(torch, step, kind_of):
+    """Device time of one step: busy ms from the kernels, and the device
+    ms of the aten ops ``kind_of`` names a kind (the kernels each op
+    launched itself), the rest under 'elementwise and rest'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy, by_kind, top = 0.0, {}, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += us / 1e3
+            top.append((us / 1e3, e.key[:56]))
+            continue
+        kind = kind_of(e.key)
+        if kind is not None:
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    check(busy > 0, "profiler saw no device time")
+    by_kind["elementwise and rest"] = busy - sum(by_kind.values())
+    return busy, by_kind, sorted(top)[::-1][:6]
+
+
+def resnet_throughput(torch, paddle, B):
+    """Phase 15 (b) at batch ``B``: 2 warm-up steps, 5 timed, 2 more and
+    a profiled one, all of ``train_batch`` under bf16 ``auto_cast`` on one
+    fixed batch (bench_resnet's inputs: numpy seeds 0 and 1)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    model = resnet_model(paddle, 0.1)
+    flops = resnet_flops(torch, model.network, B)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        B, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 1000, (B,))).cuda()
+    losses = []
+
+    def step():
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            losses.append(model.train_batch(x, y)[0])
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 5
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        step()
+    busy, kinds, top = profile_kinds(torch, step, resnet_kind)
+    mfu = flops / (ms / 1e3) / BF16_FLOPS
+    print(f"[phase 15b] ResNet-50 bench_resnet protocol, batch {B}: "
+          f"{B / ms * 1e3:.1f} imgs/s, {ms:.1f} ms/step, MFU {mfu:.4f} on "
+          f"{flops / 1e12:.3f} TFLOP a step (convolutions and the linear "
+          f"layer: 2 x MACs forward, x 3; 989 TFLOP/s peak; {card_line()}), "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"[phase 15b] batch {B}, one traced step (10th): device busy "
+          f"{busy:.1f} ms of the untraced {ms:.1f} ms/step (busy share "
+          f"{busy / ms:.3f}); by kind: " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in kinds.items()))
+    print(f"[phase 15b] batch {B}, top kernels ms: " + "; ".join(
+        f"{name} {t:.2f}" for t, name in top))
+    print(f"[phase 15b] batch {B}, losses over the 10 steps at lr 0.1: "
+          + " ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)), f"15b: loss not finite at batch {B}")
+    del model
+
+
+def resnet_loss_falls(torch, paddle, B, lr=0.01):
+    """The loss of 10 bf16 O1 steps on a fixed batch falls; at the
+    protocol's lr 0.1 the random-init net first blows up, so this check
+    runs at ``lr``."""
+    paddle.set_device("gpu")
+    model = resnet_model(paddle, lr)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        B, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 1000, (B,))).cuda()
+    losses = []
+    for _ in range(10):
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            losses.append(model.train_batch(x, y)[0])
+    print(f"[phase 15b] batch {B}, losses over 10 steps at lr {lr}: "
+          + " ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"15b: loss did not fall at batch {B}")
+    del model
+
+
+def hapi_on_card(torch, paddle):
+    """Phase 15 (c): fit one epoch, evaluate, predict; save and load."""
+    import tempfile
+
+    n_batch, bs = HAPI_FIT
+
+    class Images(paddle.io.Dataset):
+        def __init__(self, n, seed):
+            rng = np.random.RandomState(seed)
+            self.x = rng.rand(n, 3, 224, 224).astype(np.float32)
+            self.y = rng.randint(0, 1000, (n,)).astype(np.int64)
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return self.x[i], self.y[i]
+
+    paddle.set_device("gpu")
+    model = resnet_model(paddle, 0.01, 1e-4, paddle.metric.Accuracy())
+    train, test = Images(n_batch * bs, 17), Images(2 * bs, 18)
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    hist = model.fit(train, batch_size=bs, epochs=1, verbose=0)
+    fit_s = time.perf_counter() - t0
+    logs = model.evaluate(test, batch_size=bs, verbose=0)
+    preds = model.predict(test, batch_size=bs)[0]
+    print(f"[phase 15c] fit: 1 epoch of {n_batch} x {bs} at 224 x 224 "
+          f"fp32 in {fit_s:.2f} s, loss {hist[0]['loss']:.4f} acc "
+          f"{hist[0]['acc']:.4f}; evaluate loss {logs['loss']:.4f} acc "
+          f"{logs['acc']:.4f}; predict {preds.shape}")
+    check(len(hist) == 1 and np.isfinite(hist[0]["loss"]), "15c: fit")
+    check(np.isfinite(logs["loss"]) and 0 <= logs["acc"] <= 1, "15c: eval")
+    check(preds.shape == (2 * bs, 1000) and np.isfinite(preds).all(),
+          "15c: predict")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "resnet50")
+        model.save(path)
+        other = resnet_model(paddle, 0.01, 1e-4, seed=1)
+        other.load(path)
+    same = all(torch.equal(a, b) for a, b in zip(
+        model.network.state_dict().values(),
+        other.network.state_dict().values()))
+    same_opt = all(torch.equal(s["velocity"],
+                               other._opt_state["slots"][k]["velocity"])
+                   for k, s in model._opt_state["slots"].items())
+    print(f"[phase 15c] save/load on the card: weights and buffers "
+          f"bit-equal {same}, velocities bit-equal {same_opt}")
+    check(same and same_opt, "15c: save/load is not bit-equal")
+    del model, other, train, test
+
+
+def encoder_on_flash(torch, paddle, fa):
+    """Phase 15 (d): nn.TransformerEncoder at BERT-base widths on the flash
+    kernels.  Returns the launches over the timed training steps."""
+    B, S = ENCODER_BATCH
+    L = 12
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    enc = paddle.nn.TransformerEncoder(paddle.nn.TransformerEncoderLayer(
+        768, 12, 3072, dropout=0.1, activation="gelu", attn_dropout=0.0), L)
+    x = torch.randn(B, S, 768, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(15))
+
+    def zero():
+        for k in fa.launches:
+            fa.launches[k] = 0
+
+    enc.eval()
+    zero()
+    with torch.no_grad(), paddle.amp.auto_cast():
+        out = enc(x)
+    torch.cuda.synchronize()
+    eval_launches = dict(fa.launches)
+    real = fa.flash_attention
+    fa.flash_attention = fa.flash_attention_plain
+    try:
+        with torch.no_grad(), paddle.amp.auto_cast():
+            plain = enc(x)
+    finally:
+        fa.flash_attention = real
+    err = max_err(torch, out, plain)
+    print(f"[phase 15d] TransformerEncoder 12 x (768, 12 heads, FFN 3072) "
+          f"at {B} x {S}, bf16 auto_cast: eval launches {eval_launches}; "
+          f"output vs the plain attention max abs err {err:.3g} (atol "
+          f"{TOL_ENCODER['atol']}, rtol {TOL_ENCODER['rtol']})")
+    check(eval_launches == {"fwd": L, "bwd": 0},
+          f"15d: eval launches {eval_launches}")
+    check(torch.allclose(out.float(), plain.float(), **TOL_ENCODER),
+          f"15d: encoder on flash != plain: {err:.3g}")
+    del out, plain
+    enc.train()
+    opt = paddle.optimizer.AdamW(1e-4, parameters=enc.parameters())
+
+    def step():
+        with paddle.amp.auto_cast():
+            loss = enc(x).float().square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    zero()
+    timed = 5
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    train_launches = dict(fa.launches)
+    for layer in enc.layers:
+        layer.self_attn.dropout = 0.1
+    zero()
+    step()
+    torch.cuda.synchronize()
+    drop_launches = dict(fa.launches)
+    print(f"[phase 15d] training step (AdamW, bf16 auto_cast): {ms:.1f} "
+          f"ms/step, launches over {timed} steps {train_launches}; with "
+          f"attention dropout 0.1 one step launches {drop_launches}")
+    check(train_launches == {"fwd": L * timed, "bwd": L * timed},
+          f"15d: training launches {train_launches}")
+    check(drop_launches == {"fwd": 0, "bwd": 0},
+          f"15d: attention dropout launched {drop_launches}")
+    del enc, opt, x
+    return train_launches
+
+
+def phase_eager(torch, fa):
+    """Phase 15, under PyTorch's default TF32 flags."""
+    import paddle_tpu_torch as paddle
+
+    with torch_default_tf32(torch):
+        resnet_card_vs_cpu(torch, paddle)
+        for B in RESNET_BATCHES:
+            resnet_throughput(torch, paddle, B)
+            resnet_loss_falls(torch, paddle, B)
+        hapi_on_card(torch, paddle)
+        launches = encoder_on_flash(torch, paddle, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -2350,6 +2758,10 @@ def main():
     bert_flash, noncausal = phase_bert_train(torch, fa, distributed, models)
     print(f"[phase 14] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    eager_flash = phase_eager(torch, fa)
+    print(f"[phase 15] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -2363,7 +2775,8 @@ def main():
          "source": csrc + source,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
          "launches": flash_launches[key], "moe_launches": moe_flash[key],
-         "bert_launches": bert_flash[key], **flash[key],
+         "bert_launches": bert_flash[key],
+         "eager_launches": eager_flash[key], **flash[key],
          "noncausal_d64": noncausal[key]}
         for name, key, source, line in (
             ("fwd", "fwd", "flash_fwd_sm90.cu", 64),

@@ -1,0 +1,145 @@
+"""DataLoader (the port of ``paddle_tpu/io/dataloader.py``).
+
+Batches are built (sampled, read, collated with numpy) by one background
+thread, a batch ahead, and pinned when the target is the card; the
+iterating thread copies each to the device of ``set_device`` with
+``non_blocking`` (the JAX package's ``_device_prefetch``).  The batch order
+is the samplers', drawn from numpy's global state when iteration begins,
+as in JAX.  Worker processes (``num_workers > 0``, the JAX package's
+shared-memory workers) are not ported and raise."""
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from ..core.place import current_device
+from .dataset import IterableDataset
+from .sampler import BatchSampler
+
+__all__ = ["DataLoader", "default_collate_fn"]
+
+
+def default_collate_fn(batch):
+    """Stack samples (tuples, dicts, arrays, tensors) into CPU tensors;
+    float64 becomes float32, as in JAX."""
+    sample = batch[0]
+    if isinstance(sample, (tuple, list)):
+        return tuple(default_collate_fn(list(s)) for s in zip(*batch))
+    if isinstance(sample, dict):
+        return {k: default_collate_fn([b[k] for b in batch]) for k in sample}
+    if isinstance(sample, torch.Tensor):
+        return torch.stack([s.cpu() for s in batch])
+    arr = np.stack([np.asarray(s) for s in batch])
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(arr)
+
+
+def _map(batch, fn):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map(b, fn) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _map(v, fn) for k, v in batch.items()}
+    return fn(batch) if isinstance(batch, torch.Tensor) else batch
+
+
+class _Failed:
+    def __init__(self, exc):
+        self.exc = exc
+
+
+_DONE = object()
+
+
+class DataLoader:
+    def __init__(self, dataset, feed_list=None, places=None,
+                 return_list=True, batch_sampler=None, batch_size=1,
+                 shuffle=False, drop_last=False, collate_fn=None,
+                 num_workers=0, use_buffer_reader=True, prefetch_factor=2,
+                 use_shared_memory=True, timeout=0, worker_init_fn=None,
+                 use_thread_workers=False, mp_context=None):
+        if num_workers > 0:
+            raise NotImplementedError(
+                "DataLoader(num_workers > 0): worker processes are not "
+                "ported; batches are built by one prefetch thread")
+        self.dataset = dataset
+        self.collate_fn = collate_fn or default_collate_fn
+        self.num_workers = num_workers
+        self.prefetch_factor = max(prefetch_factor, 2)
+        self.iterable_mode = isinstance(dataset, IterableDataset)
+        if self.iterable_mode:
+            self.batch_sampler = None
+            self.batch_size = batch_size
+            self.drop_last = drop_last
+        elif batch_sampler is not None:
+            self.batch_sampler = batch_sampler
+        else:
+            self.batch_sampler = BatchSampler(
+                dataset, shuffle=shuffle, batch_size=batch_size,
+                drop_last=drop_last)
+
+    def __len__(self):
+        if self.iterable_mode:
+            raise TypeError("IterableDataset DataLoader has no len()")
+        return len(self.batch_sampler)
+
+    def _host_batches(self, index_batches):
+        if self.iterable_mode:
+            batch = []
+            for item in self.dataset:
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    yield self.collate_fn(batch)
+                    batch = []
+            if batch and not self.drop_last:
+                yield self.collate_fn(batch)
+        else:
+            for indices in index_batches:
+                yield self.collate_fn([self.dataset[i] for i in indices])
+
+    def __iter__(self):
+        device = current_device()
+        # the sampler draws here, in the iterating thread, so the order
+        # follows numpy's global state as the JAX loader's does
+        index_batches = (None if self.iterable_mode
+                         else list(self.batch_sampler))
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch_factor)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in self._host_batches(index_batches):
+                    if device.type == "cuda":
+                        batch = _map(batch, torch.Tensor.pin_memory)
+                    if not put(batch):
+                        return
+                put(_DONE)
+            except Exception as e:  # handed to the iterating thread
+                put(_Failed(e))
+
+        thread = threading.Thread(target=produce, daemon=True,
+                                  name="DataLoader-prefetch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _DONE:
+                    return
+                if isinstance(item, _Failed):
+                    raise item.exc
+                yield _map(item, lambda t: t.to(device, non_blocking=True))
+        finally:
+            stop.set()
+            thread.join()

@@ -12,7 +12,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_numpy", "opt_from_jax"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_from_jax",
+           "layer_state_from_jax", "opt_state_from_jax"]
 
 #: leaves the JAX ``gpt_init`` makes fp32 in every model dtype (the MoE
 #: gate: routing decisions are precision-sensitive)
@@ -69,3 +70,31 @@ def params_to_numpy(params):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def layer_state_from_jax(state, device=None):
+    """A JAX ``Layer.state_dict()`` (values as numpy, or anything
+    ``np.asarray`` takes) → ``{name: tensor}`` on ``device`` (default
+    CUDA), names unchanged; ``Layer.set_state_dict`` takes it."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(_to_numpy(v), copy=True)).to(dev)
+            for k, v in state.items()}
+
+
+def opt_state_from_jax(tree, device=None, templates=None):
+    """hapi's optimizer state tree (``Model._opt_state``: ``{"step",
+    "slots": {name: {slot: array}}}``) → the port's ``train_batch`` state
+    on ``device``.  ``templates`` (``{name: {slot: tensor}}``, e.g. from
+    ``optimizer.init_state``) gives each slot its dtype; without it the
+    slots stay fp32 (the numpy carrier's precision)."""
+    dev = resolve_device(device)
+    slots = {}
+    for name, s in tree["slots"].items():
+        tmpl = (templates or {}).get(name, {})
+        slots[name] = {}
+        for n, v in s.items():
+            t = torch.from_numpy(np.array(_to_numpy(v), copy=True)).to(dev)
+            if n in tmpl:
+                t = t.to(tmpl[n].dtype)
+            slots[name][n] = t
+    return {"step": int(np.asarray(tree["step"])), "slots": slots}

@@ -10,8 +10,10 @@ on (the port of ``paddle_tpu.resilience``'s fault injection and retry):
   :func:`backoff_delays`) and :class:`Deadline`; the router's
   backpressure windows and the autoscaler's spawn budget use it.
 
-Atomic writes, the checkpoint manager, the integrity sentinel and the
-training supervisor are later slices.
+- :mod:`.atomic` — tmp + rename file writes (``hapi.Model.save``).
+
+The checkpoint manager, the integrity sentinel and the training
+supervisor are later slices.
 """
 from __future__ import annotations
 

@@ -253,5 +253,9 @@ def test_naive_attention_mask_and_scale():
     got = _naive_attention(*_t(q, k, v), mask=torch.from_numpy(mask),
                            causal=True, scale=0.2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):
-        _naive_attention(*_t(q, k, v), dropout_p=0.1)
+    # attention dropout: off outside training, drawn while training
+    plain = _naive_attention(*_t(q, k, v))
+    assert torch.equal(_naive_attention(*_t(q, k, v), dropout_p=0.1,
+                                        training=False), plain)
+    dropped = _naive_attention(*_t(q, k, v), dropout_p=0.1)
+    assert torch.isfinite(dropped).all() and not torch.equal(dropped, plain)

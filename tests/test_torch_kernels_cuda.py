@@ -775,3 +775,74 @@ def test_fleet_returns_engine_memory_on_the_card(cuda):
     router.step()
     assert abs(held() - 2 * pool) <= slack
     assert router.metrics.snapshot()["lost"] == 0
+
+
+# ------------------------------------------------ the eager API on the card
+
+
+@pytest.mark.cuda
+def test_eager_multi_head_attention_launches_flash(cuda):
+    """``nn.MultiHeadAttention`` on the card launches the flash forward
+    (and, training, the backward); with attention dropout drawn it takes
+    the naive route and launches nothing."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    mha = paddle.nn.MultiHeadAttention(256, 4)
+    x = torch.randn(2, 128, 256, device=cuda)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    with paddle.amp.auto_cast():
+        mha(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches == {"fwd": 1, "bwd": 1}
+    drop = paddle.nn.MultiHeadAttention(256, 4, dropout=0.1)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    with paddle.amp.auto_cast():
+        drop(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches == {"fwd": 0, "bwd": 0}
+    drop.eval()
+    with torch.no_grad(), paddle.amp.auto_cast():
+        drop(x)
+    assert fa.launches == {"fwd": 1, "bwd": 0}
+
+
+@pytest.mark.cuda
+def test_fp32_conv2d_on_card_is_exact_under_default_tf32_flags(cuda):
+    """With PyTorch's default flags (cuDNN TF32 on) the port's fp32
+    ``Conv2D`` still computes in fp32, forward and backward: it matches
+    the CPU at 1e-5 of the largest entry (TF32 would miss by about
+    1e-3)."""
+    import paddle_tpu_torch as paddle
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        conv = paddle.nn.Conv2D(64, 128, 3, padding=1)
+        x = torch.randn(8, 64, 28, 28)
+        ct = torch.randn(8, 128, 28, 28)
+        xs = [x.clone().requires_grad_(True),
+              x.cuda().requires_grad_(True)]
+        outs, grads = [], []
+        for dev, xi in zip(("cpu", "cuda"), xs):
+            conv.to(dev)
+            conv.weight.grad = None
+            out = conv(xi)
+            (out * ct.to(dev)).sum().backward()
+            # clones: moving the layer later moves its .grad in place
+            outs.append(out.detach().cpu().clone())
+            grads.append((xi.grad.cpu().clone(),
+                           conv.weight.grad.cpu().clone()))
+        assert torch.backends.cudnn.allow_tf32        # left as it was
+        for a, b in zip([outs[1], *grads[1]], [outs[0], *grads[0]]):
+            err = (a - b).abs().max() / b.abs().max()
+            assert err < 1e-5, float(err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        paddle.set_device("cpu")

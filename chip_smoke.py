@@ -18,8 +18,9 @@ Phases (any failure exits non-zero):
      on a mixed chunk + decode + idle batch, kernel against the plain
      attention on the same inputs;
   4. the serving engine at GPT-3 1.3B serving 8 seeded requests (one
-     pair sharing a 256-token prefix) to completion, with the kernel's
-     launch count held to 24 per step;
+     pair sharing a 256-token prefix) to completion from its captured
+     CUDA graph, with the kernel's launch count held to 24 per step and
+     the compile watchdog to one capture;
   5. the flash-attention kernels (forward; the bf16 backward, dQ, dK
      and dV in one kernel; the fp32 dK/dV and dQ) vs their plain
      versions: edge cases (causal and not, ragged S, head dims 32 to 512,
@@ -64,19 +65,23 @@ Phases (any failure exits non-zero):
      the quiet tail scales down.  Every request finishes with 32 tokens,
      none is lost, each failed-over request re-dispatched once per event
      it was aboard and its output begins with the tokens harvested
-     before it; kernel launches equal 24 x the engines' steps; device
-     memory follows the engines held (one pool each) after the kill, the
-     restart and the scale-down; tok/s, TTFT, scale events, peak memory
-     and token identity against one engine are reported;
+     before it; kernel launches equal 24 x the engines' steps; each
+     engine captured its step once; device memory follows the engines
+     held (one pool each) after the kill, the restart and the
+     scale-down, and each engine's graph pool stays within its bound;
+     tok/s, TTFT, scale events, peak memory and token identity against
+     one engine are reported;
  12. MoE serving: GPT-3 1.3B's widths with every FFN an 8-expert top-2
      MoE (capacity factor 2.0), all 24 layers: (a) one fp32
      ``gpt_ragged_step`` on phase 3's batch, kernel vs plain attention,
      logits and pages at the fp32 tolerance and every layer routed
-     identically; (b) the bf16 ``Engine`` serving phase 4's requests,
-     launches held to 24 per step, tok/s, ms/step untraced and on the
-     device by kind (attention, dense products, expert products,
-     routing/dispatch/combine, other) and the share of (token, choice)
-     assignments capacity drops, padding slots apart;
+     identically; (b) the bf16 ``Engine`` serving phase 4's requests
+     from its captured step, launches held to 24 per step and one
+     capture, tok/s, ms/step untraced and on the device by kind
+     (attention, matrix products, other; phase 16 splits expert
+     products and routing/dispatch/combine out on the eager route) and
+     the share of (token, choice) assignments capacity drops, padding
+     slots apart;
  13. MoE training at those widths on 8 of the 24 layers: one fp32 step
      at batch 1 x 2048 (loss and every gradient, gate_w included, kernels
      vs plain attention, identical routing), then ``HybridEngine`` bf16
@@ -106,7 +111,18 @@ Phases (any failure exits non-zero):
      512, bf16 ``auto_cast``): flash launches 12 forward in eval, 12
      forward and 12 backward a training step, none with attention
      dropout, and the eval output held to the same encoder on the plain
-     attention.
+     attention;
+ 16. the captured step against the eager one (run after phase 4 on its
+     params, and after phase 12 on the MoE model's): phase 4's engine
+     and requests, one engine calling ``gpt_ragged_step`` eagerly each
+     step and one replaying its CUDA graph, each with a ``defrag()``
+     mid-run: greedy tokens identical, pages equal, the graph engine
+     built once (compile watchdog) and launches 24 a step on both;
+     ms/step on the host, device ms/step and busy share from a run
+     traced by the ported ``Profiler`` (whose chrome export holds one
+     ``serving::unified_step`` span a step), tok/s, beside the card's
+     name and power limit; for the MoE model, the eager route's device
+     time by kind with the expert products and the routing apart.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -397,14 +413,16 @@ def mixed_batch(torch, cfg, P, dtype):
     """Phase 3's batch on a pool of ``P`` pages of 16 with random older
     context: row 0 a mid-prefill chunk (positions 192..255), rows 1-6
     decode, row 7 idle, one padding token.  Returns (step arguments
-    tokens/rows/slots/qlens/ctxs, k_pages, v_pages, page tables, Q)."""
+    tokens/rows/slots/qlens/ctxs, k_pages, v_pages, page tables, Q); the
+    pools hold the step's scratch page after the ``P`` pages, which no
+    table points to."""
     L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
     ps, B, Q = 16, 8, 64
     M = cfg.max_seq_len // ps
     g = torch.Generator(device="cuda").manual_seed(11)
-    k0 = torch.randn((L, P, ps, H, hd), generator=g, device="cuda",
+    k0 = torch.randn((L, P + 1, ps, H, hd), generator=g, device="cuda",
                      dtype=dtype)
-    v0 = torch.randn((L, P, ps, H, hd), generator=g, device="cuda",
+    v0 = torch.randn((L, P + 1, ps, H, hd), generator=g, device="cuda",
                      dtype=dtype)
     tables = torch.randperm(P, generator=g, device="cuda")[:B * M] \
         .view(B, M).to(torch.int32)
@@ -445,7 +463,11 @@ def phase_full_step(torch, cfg, params, pa, gpt_ragged_step):
     check(bool(torch.isfinite(lk).all()), "full-width logits not finite")
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
-    page_err = max(float((k1 - k0).abs().max()), float((v1 - v0).abs().max()))
+    # the pages a table can point to: the scratch page takes the padding
+    # token's throwaway writes
+    P = k0.shape[1] - 1
+    page_err = max(float((k1[:, :P] - k0[:, :P]).abs().max()),
+                   float((v1[:, :P] - v0[:, :P]).abs().max()))
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
     print(f"[phase 3] gpt3-1.3b bf16 x{L} layers, batch chunk64+6 decode+"
           f"idle: logits max abs err {err:.4g} (max |logit| {scale:.3g}), "
@@ -483,7 +505,26 @@ def serve_requests(eng, serving, prompts):
     return reqs
 
 
-def phase_serving(torch, cfg, params, pa, serving):
+def check_one_capture(watchdog, engines, what):
+    """Each engine captured its step once, and the compile watchdog
+    (reset before the engines were built) saw one build of
+    ``serving::unified_step`` an engine and no rebuild.  Returns the
+    line the phase prints."""
+    caps = [e.captures for e in engines]
+    rep = watchdog.report().get("serving::unified_step", {})
+    check(all(c == 1 for c in caps),
+          f"{what}: engines captured their step {caps} times")
+    check(rep.get("compiles") == len(engines)
+          and rep.get("recompiles") == 0,
+          f"{what}: watchdog report {rep} for {len(engines)} engines")
+    return (f"captures {sum(caps)} (watchdog serving::unified_step: "
+            f"{rep['calls']} calls, {rep['compiles']} builds, "
+            f"{rep['recompiles']} rebuilds, {rep['compile_time_s']:.2f} s "
+            f"building)")
+
+
+def phase_serving(torch, cfg, params, pa, serving, watchdog):
+    watchdog.reset()
     eng = serving.Engine(cfg, params, page_size=16, num_pages=2048,
                          max_batch_size=8, chunk_len=64, device="cuda")
     eng.warmup()
@@ -515,6 +556,7 @@ def phase_serving(torch, cfg, params, pa, serving):
     check(all(finite), "serving logits not finite")
     check(launches == cfg.num_layers * steps,
           f"kernel launches {launches} != {cfg.num_layers} x {steps} steps")
+    captures = check_one_capture(watchdog, [eng], "serving")
     snap = eng.metrics.snapshot()
     check(snap["prefix_cache"]["hits"] >= 1, "no prefix-cache hit")
     gen = sum(len(r.output) for r in reqs)
@@ -527,7 +569,7 @@ def phase_serving(torch, cfg, params, pa, serving):
           f"mean step {wall / steps * 1e3:.2f} ms, prefix hits "
           f"{snap['prefix_cache']['hits']} ({snap['prefix_cache']['hit_tokens']}"
           f" tokens), kernel launches {launches} = {cfg.num_layers} x "
-          f"{steps}")
+          f"{steps}, {captures}")
     profile_serving(torch, eng, serving, cfg.vocab_size)
     return launches
 
@@ -568,7 +610,7 @@ def profile_serving(torch, eng, serving, vocab, tag="phase 4", experts=0):
         # carry the same device time again, and a range's device-side
         # span is not a kernel
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.key.startswith(("engine::", "moe::")):
+                or e.key.startswith(("engine::", "moe::", "serving::")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -594,6 +636,198 @@ def profile_serving(torch, eng, serving, vocab, tag="phase 4", experts=0):
                       for k, v in by_kind.items()))
     print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
         f"{name} {us / steps / 1e3:.3f}" for us, name in sorted(top)[::-1][:6]))
+
+
+# ------------------------------------------- the captured step (16)
+
+GRAPH_DEFRAG_AT = 40               # phase 16's defrag: after this step
+
+
+def eager_engine_class(serving, gpt_ragged_step):
+    """The port's Engine with the step it had before it captured one:
+    ``gpt_ragged_step`` called eagerly every step on tensors copied from
+    the host arrays, logits read back with ``.float().cpu().numpy()``.
+    Phase 16's baseline; the Engine itself has no eager route on the
+    card, as the JAX engine has none beside its jit."""
+    import torch
+
+    class EagerEngine(serving.Engine):
+        def _run_step(self, tokens, rows, slots, qlens, ctxs, tables):
+            dev = self.device
+
+            def put(a):
+                return torch.from_numpy(a).to(dev, non_blocking=True)
+
+            logits, _, _ = gpt_ragged_step(
+                self.cfg, self.params, put(tokens), put(rows), put(slots),
+                put(qlens), put(ctxs), self.cache.k_pages,
+                self.cache.v_pages, put(tables), max_q=self.chunk_len)
+            self.steps += 1
+            return logits.float().cpu().numpy()
+
+    return EagerEngine
+
+
+def serve_with_defrag(eng, serving, prompts):
+    """``serve_requests`` with a ``defrag()`` after GRAPH_DEFRAG_AT steps
+    (pages of finished requests leave holes below live ones by then).
+    Returns (requests, pages moved)."""
+    sp = serving.SamplingParams(max_new_tokens=32)
+    steps0 = eng.steps
+    moved = None
+    reqs = [eng.add_request(p, sp) for p in prompts[:-1]]
+
+    def step():
+        nonlocal moved
+        eng.step()
+        if moved is None and eng.steps - steps0 >= GRAPH_DEFRAG_AT:
+            moved = eng.cache.defrag()
+
+    while reqs[0].prompt_pos < len(prompts[0]):
+        step()
+    reqs.append(eng.add_request(prompts[-1], sp))
+    while eng.has_work():
+        step()
+    return reqs, moved
+
+
+def profiled_steps(torch, eng, serving, vocab, tmp):
+    """Host ms/step untraced, then device ms/step from the ported
+    ``Profiler``'s device trace (``torch.profiler``) over the same
+    request mix on fresh prompts, its chrome export holding one
+    ``serving::unified_step`` span a step.  Returns (host ms/step,
+    device ms/step, steps traced)."""
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    rng = np.random.RandomState(16)
+    sp = serving.SamplingParams(max_new_tokens=8)
+
+    def fresh():
+        return [[int(t) for t in rng.randint(0, vocab, n)]
+                for n in (700, 300, 64, 64)]
+
+    steps0 = eng.steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(fresh(), sp)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (eng.steps - steps0)
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                    emit_counters=False)
+    steps0 = eng.steps
+    with prof:
+        eng.generate(fresh(), sp)
+    steps = eng.steps - steps0
+    path = os.path.join(tmp, f"{type(eng).__name__}_{id(eng)}.json")
+    prof.export(path)
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X" and e["name"] == "serving::unified_step"]
+    check(len(spans) == steps,
+          f"chrome export holds {len(spans)} serving::unified_step spans "
+          f"for {steps} steps")
+    us = 0.0
+    for e in prof.device_profile.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith(("serving::", "moe::")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        us += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    check(us > 0, "the profiler saw no device time")
+    return host_ms, us / steps / 1e3, steps
+
+
+def phase_graph_vs_eager(torch, cfg, params, pa, serving, gpt_ragged_step,
+                         watchdog, name):
+    """Phase 16: phase 4's engine and requests on ``params``, one engine
+    on the eager step (``eager_engine_class``) and one on the captured
+    step, each with a ``defrag()`` mid-run: greedy tokens identical,
+    pages equal, the graph engine built once (watchdog) and the kernel's
+    launches 24 a step on both; ms/step on the host, device ms/step and
+    busy share from a profiled run, tok/s."""
+    import tempfile
+
+    L = cfg.num_layers
+    lens, prompts = serving_prompts(cfg.vocab_size)
+    EagerEngine = eager_engine_class(serving, gpt_ragged_step)
+    runs, engines = {}, {}
+    for route, cls in (("eager", EagerEngine), ("graph", serving.Engine)):
+        watchdog.reset()
+        eng = cls(cfg, params, page_size=16, num_pages=2048,
+                  max_batch_size=8, chunk_len=64, device="cuda")
+        eng.warmup()
+        torch.cuda.synchronize()
+        pa.ragged_paged_attention.launches = 0
+        steps0 = eng.steps
+        t0 = time.perf_counter()
+        reqs, moved = serve_with_defrag(eng, serving, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pa.ragged_paged_attention.launches
+        steps = eng.steps - steps0
+        rep = watchdog.report().get("serving::unified_step", {})
+        for r in reqs:
+            check(r.state == serving.RequestState.FINISHED
+                  and len(r.output) == 32,
+                  f"{name} {route}: request {r.id} ended {r.state} with "
+                  f"{len(r.output)} tokens")
+        check(moved, f"{name} {route}: the defrag moved no page")
+        check(launches == L * steps,
+              f"{name} {route}: kernel launches {launches} != {L} x "
+              f"{steps} steps")
+        if route == "graph":
+            captures = check_one_capture(watchdog, [eng], f"{name} graph")
+        else:
+            check(eng.captures == 0 and rep.get("calls", 0) == 0,
+                  f"{name} eager: the eager engine went through the "
+                  f"captured step ({rep})")
+            captures = "captures 0"
+        gen = sum(len(r.output) for r in reqs)
+        runs[route] = dict(tokens=[r.output for r in reqs], steps=steps,
+                           wall=wall, gen=gen, launches=launches,
+                           moved=moved, captures=captures)
+        engines[route] = eng
+    e, g = engines["eager"], engines["graph"]
+    P = e.cache.num_pages
+    same_tokens = runs["eager"]["tokens"] == runs["graph"]["tokens"]
+    page_err = max(max_err(torch, e.cache.k_pages[:, :P],
+                           g.cache.k_pages[:, :P]),
+                   max_err(torch, e.cache.v_pages[:, :P],
+                           g.cache.v_pages[:, :P]))
+    check(same_tokens, f"{name}: graph and eager greedy tokens differ")
+    check(runs["eager"]["steps"] == runs["graph"]["steps"]
+          and runs["eager"]["moved"] == runs["graph"]["moved"],
+          f"{name}: the routes ran different schedules")
+    check(page_err == 0.0, f"{name}: graph and eager pages differ by "
+                           f"{page_err:.3g}")
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        for route, eng in engines.items():
+            host_ms, dev_ms, n = profiled_steps(torch, eng, serving,
+                                                cfg.vocab_size, tmp)
+            r = runs[route]
+            print(f"[phase 16] {name} {route}: {r['steps']} steps (defrag "
+                  f"after {GRAPH_DEFRAG_AT}, {r['moved']} pages moved) in "
+                  f"{r['wall']:.3f} s: {r['wall'] / r['steps'] * 1e3:.3f} "
+                  f"ms/step, {r['gen'] / r['wall']:.1f} generated tok/s; "
+                  f"profiled run ({n} steps, prompts 700, 300, 64, 64; 8 "
+                  f"new tokens): host {host_ms:.3f} ms/step, device "
+                  f"{dev_ms:.3f} ms/step, busy share "
+                  f"{dev_ms / host_ms:.3f}; launches {r['launches']} = "
+                  f"{L} x {r['steps']}; {r['captures']} ({card})")
+    speed = runs["eager"]["wall"] / runs["graph"]["wall"]
+    print(f"[phase 16] {name}: greedy tokens identical: {same_tokens}; "
+          f"pages max abs diff {page_err:.3g}; graph / eager tok/s "
+          f"{speed:.2f}x")
+    if cfg.moe_experts:
+        # the device time by kind, MoE work apart, from the eager route's
+        # launching ops; the graph replays the same kernels
+        profile_serving(torch, e, serving, cfg.vocab_size,
+                        tag=f"phase 16 {name} eager",
+                        experts=cfg.moe_experts)
+    del e, g, engines
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ flash attention (5-7)
@@ -869,13 +1103,15 @@ def phase_flash_kernels(torch, fa, ra):
         lout, (lq, lk, lv), do, retain_graph=True), 5)
     del lout, lq, lk, lv
     work = flash_work(B, H, S, D, True)
+    # the larger of the bytes' and the operations' time
+    bound = {key: max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+             for key, (nbytes, flops) in work.items()}
     print(f"[phase 5] flash at q/k/v {[B, H, S, D]} bf16 causal: forward "
           f"{t_fwd:.4f} ms ({work['fwd'][1] / t_fwd / 1e9:.1f} TFLOP/s), "
-          f"SDPA {t_lib:.4f} ms, bound {work['fwd'][1] / BF16_FLOPS * 1e3:.4f}"
-          f" ms, max abs err {err:.3g}; backward call {t_bwd:.4f} ms "
+          f"SDPA {t_lib:.4f} ms, bound {bound['fwd']:.4f} ms, max abs err "
+          f"{err:.3g}; backward call {t_bwd:.4f} ms "
           f"({work['bwd'][1] / t_bwd / 1e9:.1f} TFLOP/s), SDPA backward "
-          f"{t_lib_bwd:.4f} ms, bound "
-          f"{work['bwd'][1] / BF16_FLOPS * 1e3:.4f} ms")
+          f"{t_lib_bwd:.4f} ms, bound {bound['bwd']:.4f} ms")
     del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
     return result
@@ -1442,6 +1678,13 @@ FLEET_SCALER = dict(min_replicas=2, max_replicas=4, poll_interval_s=0.05,
                     up_pending_depth=6, scale_up_cooldown_s=1.0,
                     scale_down_cooldown_s=2.0)
 FLEET_MEM_SLACK = 64 << 20         # bytes beyond pools + params
+# an engine's captured step keeps a private memory pool: the ragged
+# kernel's split scratch (at most 64 MiB, ``_SCRATCH_BYTES``; 34 MiB at
+# these shapes) and the step's activations (a few MiB at 71 tokens),
+# rounded up to the allocator's segments.  Memory allocated stays within
+# FLEET_MEM_SLACK of params + pools (the graph's live outputs are its
+# logits, 1.6 MB); what the pools reserve is held apart to this bound
+GRAPH_POOL_BOUND = 80 << 20
 
 
 def fleet_engine_class(serving):
@@ -1455,6 +1698,7 @@ def fleet_engine_class(serving):
         steps_by_engine = {}           # serial -> steps
         step_s = {}                    # serial -> host seconds in step()
         hits_by_engine = {}            # serial -> prefix-cache hits
+        graphs = {}                    # serial -> (captures, pool bytes)
         warmed = set()                 # serials warmed up
         finite = []
         _serials = iter(range(1 << 30))
@@ -1469,6 +1713,8 @@ def fleet_engine_class(serving):
             FleetEngine.finite.append(
                 bool(np.isfinite(logits[qlens > 0]).all()))
             FleetEngine.steps_by_engine[self.serial] = self.steps
+            FleetEngine.graphs[self.serial] = (self.captures,
+                                               self.graph_pool_bytes)
             return logits
 
         def step(self):
@@ -1487,7 +1733,7 @@ def fleet_engine_class(serving):
     return FleetEngine
 
 
-def phase_fleet(torch, cfg, pa, serving, resilience):
+def phase_fleet(torch, cfg, pa, serving, resilience, watchdog):
     """Phase 11: ``FleetRouter`` over three GPT-3 1.3B engines with an
     ``Autoscaler``, a seeded burst-then-quiet trace replayed in wall
     time, and chaos at fixed points: (a) an io_error at ``serving.step``
@@ -1531,6 +1777,7 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
               f"{len(held)} engines account for {want / 2**30:.3f} GiB")
 
     pa.ragged_paged_attention.launches = 0
+    watchdog.reset()
     router = serving.FleetRouter([factory] * 3,
                                  warmup=lambda eng: eng.warmup())
     sp = serving.SamplingParams(max_new_tokens=FLEET_NEW)
@@ -1637,9 +1884,12 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
                     events["c"] = (ticks, rid, len(router._assigned[rid]))
             # stragglers of a drain are reclaimed with the tokens they had
             # before the tick that reclaims them (a draining replica past
-            # its deadline is not stepped again)
+            # its deadline is not stepped again); a request that finishes
+            # on the replica in the tick that ends its drain is no
+            # straggler
             draining_seen = {
-                rep.replica_id: {f.id: list(f.tokens_out)
+                rep.replica_id: {f.id: (f, list(f.tokens_out),
+                                        f.redispatches)
                                  for f in router._assigned[
                                      rep.replica_id].values()}
                 for rep in router.replicas if rep.state == RS.DRAINING}
@@ -1655,18 +1905,28 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
                 rep = router._rep(rid)
                 if rep.state == RS.DRAINING:
                     continue
-                # this tick ended rid's drain: its stragglers moved now
+                # this tick ended rid's drain: its stragglers moved now,
+                # once each; every other request aboard finished here
                 check(router.metrics.failure_events.value == fails0,
                       "a failure landed on a drain's last tick")
+                moved = {fid: toks for fid, (f, toks, n) in seen.items()
+                         if f.redispatches > n}
+                check(all(f.redispatches == n + 1 for f, _, n in
+                          (seen[fid] for fid in moved))
+                      and all(f.state == FRS.FINISHED
+                              for fid, (f, _, _) in seen.items()
+                              if fid not in moved),
+                      f"drain of {rid}: of {len(seen)} aboard, "
+                      f"{len(moved)} moved and the rest did not finish")
                 stragglers = router.metrics.redispatched.value - moved0
-                check(stragglers == len(seen),
-                      f"drain of {rid}: {stragglers} moved, {len(seen)} "
-                      f"were aboard")
-                for fid, toks in seen.items():
+                check(stragglers == len(moved),
+                      f"drain of {rid}: {stragglers} moved, {len(moved)} "
+                      f"stragglers were aboard")
+                for fid, toks in moved.items():
                     harvested.setdefault(fid, []).append(toks)
-                expected_moves += len(seen)
+                expected_moves += len(moved)
                 events.setdefault("drains", []).append(
-                    (ticks, rid, len(seen), rep.state))
+                    (ticks, rid, len(seen), len(moved), rep.state))
                 if rid == events.get("c", (None, None))[1] and \
                         "c_done" not in events:
                     events["c_done"] = ticks
@@ -1741,6 +2001,16 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
     check(launches == cfg.num_layers * total_steps,
           f"kernel launches {launches} != {cfg.num_layers} x "
           f"{total_steps} engine steps")
+    caps = [c for c, _ in FleetEngine.graphs.values()]
+    rep = watchdog.report().get("serving::unified_step", {})
+    check(caps and all(c == 1 for c in caps)
+          and rep.get("compiles") == len(caps)
+          and rep.get("recompiles") == 0,
+          f"fleet engines captured {caps}; watchdog {rep}")
+    pools = [b for _, b in FleetEngine.graphs.values()]
+    check(max(pools) <= GRAPH_POOL_BOUND,
+          f"a graph pool holds {max(pools) / 2**20:.1f} MiB, bound "
+          f"{GRAPH_POOL_BOUND / 2**20:.0f} MiB")
     ups = [e for e in status["events"] if e["direction"] == "up"]
     downs = [e for e in status["events"] if e["direction"] == "down"]
     check(any(e.get("replica") == 3 for e in ups),
@@ -1782,7 +2052,8 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
           f"replica {events['b'][1]} at tick {events['b'][0]} "
           f"({events['b'][2]} aboard), (c) drain of replica "
           f"{events['c'][1]} at tick {events['c'][0]} (restarted at tick "
-          f"{events['c_done']}); drains {events.get('drains')}; "
+          f"{events['c_done']}); drains (tick, replica, aboard, moved, "
+          f"state) {events.get('drains')}; "
           f"redispatched {snap['redispatched']} = expected "
           f"{expected_moves}; lost {snap['lost']}; failovers "
           f"{snap['failovers']}")
@@ -1811,6 +2082,12 @@ def phase_fleet(torch, cfg, pa, serving, resilience):
           f"{peak / 2**30:.2f} GiB; memory beyond pools + params: "
           + ", ".join(f"{w} ({n} engines) {d / 2**20:+.1f} MiB"
                       for w, n, d in mem_checks))
+    print(f"[phase 11] captured steps: {len(caps)} engines, captures "
+          f"{sum(caps)} (watchdog serving::unified_step: {rep['calls']} "
+          f"calls, {rep['compiles']} builds, {rep['recompiles']} "
+          f"rebuilds); graph pools {min(pools) / 2**20:.1f}-"
+          f"{max(pools) / 2**20:.1f} MiB an engine (bound "
+          f"{GRAPH_POOL_BOUND / 2**20:.0f} MiB)")
 
     # ---- a single-engine oracle on the same prompts and params
     outputs = [f.output for f in reqs]
@@ -1867,17 +2144,22 @@ def moe_config(cfg):
 
 class RouteLog:
     """While installed, keeps every ``moe_route`` result (one MoE layer
-    call's routing), in call order."""
+    call's routing), in call order; a routing made while a CUDA graph is
+    being captured goes to ``captured`` instead: its tensors live in the
+    graph's memory, and every replay of the graph writes that step's
+    routing into them."""
 
     def __init__(self, moe):
-        self.moe, self.routes = moe, []
+        self.moe, self.routes, self.captured = moe, [], []
 
     def __enter__(self):
         route = self._route = self.moe.moe_route
+        import torch
 
         def spy(logits, **kw):
             r = route(logits, **kw)
-            self.routes.append(r)
+            (self.captured if torch.cuda.is_current_stream_capturing()
+             else self.routes).append(r)
             return r
 
         self.moe.moe_route = spy
@@ -1893,43 +2175,50 @@ def same_routes(torch, a, b):
         and torch.equal(x.keep, y.keep) for x, y in zip(a, b))
 
 
-def drop_shares(torch, routes, batches, L):
+def drop_shares(torch, keeps, batches, L):
     """(dropped, all) (token, choice) assignments of the valid tokens and
     of the padding slots, over serving steps whose packings (rows, slots,
-    qlens) are ``batches`` and whose ``L`` routings each are
-    ``routes``."""
-    check(len(routes) == L * len(batches),
-          f"{len(routes)} routings for {len(batches)} steps of {L} layers")
+    qlens) are ``batches`` and whose routings' ``keep`` masks are
+    ``keeps`` (one ``[L, T, top_k]`` tensor a step)."""
+    check(len(keeps) == len(batches) and all(k.shape[0] == L
+                                             for k in keeps),
+          f"{len(keeps)} routings for {len(batches)} steps of {L} layers")
     sums = torch.zeros(4, dtype=torch.long, device="cuda")
-    for i, (rows, slots, qlens) in enumerate(batches):
+    for keep, (rows, slots, qlens) in zip(keeps, batches):
         B = len(qlens)
         valid = (rows < B) & (slots < qlens[np.minimum(rows, B - 1)])
         v = torch.from_numpy(valid).cuda()[:, None]
-        for r in routes[i * L:(i + 1) * L]:
-            drop = ~r.keep
-            sums += torch.stack([(drop & v).sum(), v.sum() * r.keep.shape[1],
+        for kp in keep:
+            drop = ~kp
+            sums += torch.stack([(drop & v).sum(), v.sum() * kp.shape[1],
                                  (drop & ~v).sum(),
-                                 (~v).sum() * r.keep.shape[1]])
+                                 (~v).sum() * kp.shape[1]])
     d, n, pd, pn = sums.tolist()
     return (d, n), (pd, pn)
 
 
 def recording_engine(serving):
     """The port's Engine, keeping each step's packing as the host built
-    it (rows, slots, qlens) and whether its live logits were finite (a
-    subclass: a patched bound method would tie the engine into a
-    reference cycle)."""
+    it (rows, slots, qlens), whether its live logits were finite and,
+    with a ``RouteLog`` installed before its capture (``log``), the
+    ``keep`` masks its replay routed (a subclass: a patched bound method
+    would tie the engine into a reference cycle)."""
+    import torch
 
     class RecordingEngine(serving.Engine):
-        def __init__(self, *args, **kw):
+        def __init__(self, *args, log=None, **kw):
             super().__init__(*args, **kw)
-            self.batches, self.finite = [], []
+            self.batches, self.finite, self.keeps = [], [], []
+            self.log = log
 
         def _run_step(self, tokens, rows, slots, qlens, ctxs, tables):
             logits = super()._run_step(tokens, rows, slots, qlens, ctxs,
                                        tables)
             self.batches.append((rows.copy(), slots.copy(), qlens.copy()))
             self.finite.append(bool(np.isfinite(logits[qlens > 0]).all()))
+            if self.log is not None and self.log.captured:
+                self.keeps.append(torch.stack(
+                    [r.keep for r in self.log.captured]))
             return logits
 
     return RecordingEngine
@@ -1976,6 +2265,8 @@ def phase_moe_step(torch, cfg, pa, moe, gpt_init, gpt_ragged_step):
     lk, lp = lk[live], lp[live]
     check(bool(torch.isfinite(lk).all()), "MoE step logits not finite")
     err = max_err(torch, lk, lp)
+    P = k0.shape[1] - 1                  # the scratch page is not compared
+    k0, v0, k1, v1 = k0[:, :P], v0[:, :P], k1[:, :P], v1[:, :P]
     page_err = max(max_err(torch, k1, k0), max_err(torch, v1, v0))
     routed = same_routes(torch, rk, rp) and len(rk) == L
     r = rk[0]
@@ -2008,27 +2299,32 @@ def phase_moe_step(torch, cfg, pa, moe, gpt_init, gpt_ragged_step):
     torch.cuda.empty_cache()
 
 
-def phase_moe_serving(torch, cfg, pa, moe, serving, gpt_init):
+def phase_moe_serving(torch, cfg, params, pa, moe, serving, watchdog):
     """Phase 12(b): the bf16 Engine over the full-width MoE model serving
-    phase 4's 8 requests, ragged launches held to L a step; tok/s,
-    ms/step untraced and on the device by kind, and the share of
-    (token, choice) assignments capacity drops.  Returns the launches."""
+    phase 4's 8 requests from its captured step, ragged launches held to
+    L a step and one capture; tok/s, ms/step untraced and on the device
+    by kind, and the share of (token, choice) assignments capacity drops
+    (read from the captured routing after each replay).  Returns the
+    launches."""
     L, E = cfg.num_layers, cfg.moe_experts
     t0 = time.perf_counter()
-    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(12),
-                      device="cuda")
     n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
         t.numel() for k, t in params.items() if k != "blocks")
-    eng = recording_engine(serving)(cfg, params, page_size=16,
-                                    num_pages=2048, max_batch_size=8,
-                                    chunk_len=64, device="cuda")
-    eng.warmup()
-    eng.metrics = serving.ServingMetrics()
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    lens, prompts = serving_prompts(cfg.vocab_size)
-    eng.batches.clear()
+    watchdog.reset()
     with RouteLog(moe) as log:
+        eng = recording_engine(serving)(cfg, params, page_size=16,
+                                        num_pages=2048, max_batch_size=8,
+                                        chunk_len=64, device="cuda",
+                                        log=log)
+        eng.warmup()
+        eng.metrics = serving.ServingMetrics()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        check(len(log.captured) == L,
+              f"{len(log.captured)} routings captured, {L} layers")
+        lens, prompts = serving_prompts(cfg.vocab_size)
+        eng.batches.clear()
+        eng.keeps.clear()
         pa.ragged_paged_attention.launches = 0
         steps0 = eng.steps
         t0 = time.perf_counter()
@@ -2036,6 +2332,7 @@ def phase_moe_serving(torch, cfg, pa, moe, serving, gpt_init):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = pa.ragged_paged_attention.launches
+        eng.log = None
     steps = eng.steps - steps0
     for r in reqs:
         check(r.state == serving.RequestState.FINISHED,
@@ -2044,7 +2341,9 @@ def phase_moe_serving(torch, cfg, pa, moe, serving, gpt_init):
     check(all(eng.finite), "MoE serving logits not finite")
     check(launches == L * steps,
           f"MoE serving: kernel launches {launches} != {L} x {steps} steps")
-    (d, n), (pd, pn) = drop_shares(torch, log.routes, eng.batches, L)
+    captures = check_one_capture(watchdog, [eng], "MoE serving")
+    (d, n), (pd, pn) = drop_shares(torch, eng.keeps, eng.batches, L)
+    eng.keeps.clear()
     del log
     gen = sum(len(r.output) for r in reqs)
     snap = eng.metrics.snapshot()
@@ -2055,13 +2354,14 @@ def phase_moe_serving(torch, cfg, pa, moe, serving, gpt_init):
           f"{steps} steps, {wall:.3f} s: {gen / wall:.1f} generated tok/s, "
           f"mean step {wall / steps * 1e3:.2f} ms, TTFT p50 "
           f"{snap['ttft_s']['p50'] * 1e3:.1f} ms, kernel launches "
-          f"{launches} = {L} x {steps}")
+          f"{launches} = {L} x {steps}, {captures}")
     print(f"[phase 12] capacity drops of (token, choice) assignments: "
           f"valid tokens {d} of {n} ({d / max(n, 1):.4f}), padding slots "
           f"{pd} of {pn} ({pd / max(pn, 1):.4f})")
-    profile_serving(torch, eng, serving, cfg.vocab_size, tag="phase 12",
-                    experts=E)
-    del eng, params, reqs
+    # a replayed graph's kernels have no launching op to split the MoE
+    # work by: phase 16 splits it on the eager route's trace
+    profile_serving(torch, eng, serving, cfg.vocab_size, tag="phase 12")
+    del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2667,6 +2967,7 @@ def main():
         ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
         from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init, gpt_loss
         from paddle_tpu_torch.models.gpt import gpt_ragged_step
+        from paddle_tpu_torch.observability import default_watchdog
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is missing beside "
               f"this script ({e})", file=sys.stderr)
@@ -2701,9 +3002,17 @@ def main():
     phase_full_step(torch, cfg, params, pa, gpt_ragged_step)
     print(f"[phase 3] {time.perf_counter() - t0:.1f} s")
 
+    # the serving engines' captures are held to one each (phases 4, 11,
+    # 12 and 16)
+    watchdog = default_watchdog().enable()
     t0 = time.perf_counter()
-    launches = phase_serving(torch, cfg, params, pa, serving)
+    launches = phase_serving(torch, cfg, params, pa, serving, watchdog)
     print(f"[phase 4] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_graph_vs_eager(torch, cfg, params, pa, serving, gpt_ragged_step,
+                         watchdog, "gpt3-1.3b")
+    print(f"[phase 16] gpt3-1.3b {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     flash = phase_flash_kernels(torch, fa, ra)
@@ -2739,15 +3048,28 @@ def main():
     print(f"[phase 10] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    fleet_launches = phase_fleet(torch, cfg, pa, serving, resilience)
+    fleet_launches = phase_fleet(torch, cfg, pa, serving, resilience,
+                                 watchdog)
     print(f"[phase 11] {time.perf_counter() - t0:.1f} s")
 
     moe_cfg = moe_config(cfg)
     t0 = time.perf_counter()
     phase_moe_step(torch, moe_cfg, pa, moe, gpt_init, gpt_ragged_step)
-    moe_launches = phase_moe_serving(torch, moe_cfg, pa, moe, serving,
-                                     gpt_init)
+    moe_params = gpt_init(moe_cfg,
+                          torch.Generator(device="cuda").manual_seed(12),
+                          device="cuda")
+    moe_launches = phase_moe_serving(torch, moe_cfg, moe_params, pa, moe,
+                                     serving, watchdog)
     print(f"[phase 12] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_graph_vs_eager(torch, moe_cfg, moe_params, pa, serving,
+                         gpt_ragged_step, watchdog,
+                         f"gpt3-1.3b x{MOE_EXPERTS} experts")
+    del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase 16] MoE {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     moe_flash = phase_moe_train(torch, moe_cfg, fa, moe, distributed,

@@ -26,7 +26,10 @@ pair) is the multi-GPU slice of the port and raises
 ``NotImplementedError``.  The routing, dispatch, combine and expert
 products are XLA ops in the JAX package and PyTorch ops here; each runs
 inside a ``torch.profiler`` range (``moe::route``, ``moe::dispatch``,
-``moe::experts``, ``moe::combine``).
+``moe::experts``, ``moe::combine``).  Every shape follows from ``n``,
+``E``, ``top_k`` and the capacity, and no op reads a value on the host,
+so the serving step that calls ``moe_layer`` is captured in a CUDA
+graph as it is.
 """
 from __future__ import annotations
 

@@ -23,7 +23,18 @@ Two implementations with one contract:
   splits leaves fp32 partials in a scratch tensor that a second kernel
   merges.  The grid and the scratch follow from the shapes alone: a call
   reads no value of ``query_lens``, ``context_lens`` or ``page_tables``
-  on the host, so it can be captured in a CUDA graph.
+  on the host, so it can be captured in a CUDA graph (the serving
+  engine replays its whole step from one).  Inside a capture the scratch
+  comes from the graph's private memory pool and stays there for the
+  graph's life: at most ``_SCRATCH_BYTES`` a call, and the calls of one
+  step reuse it.  The 16-byte-load choice (``vec16``) is made from the
+  pointers the capture sees, which are the pointers every replay uses.
+
+Launch counts: ``ragged_paged_attention.launches`` counts kernel
+launches; a call made while the current stream is being captured
+launches nothing and counts in ``ragged_paged_attention.captured``
+instead.  Whoever replays the graph adds its captured calls to
+``launches`` at each replay (``serving/engine.py``).
 
 ``ragged_paged_attention`` picks by device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise.  There is no fallback
@@ -156,7 +167,10 @@ def _ragged_attention_cuda(q, k_pages, v_pages, page_tables, query_lens,
     if rc != 0:
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
-    ragged_paged_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        ragged_paged_attention.captured += 1
+    else:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -198,7 +212,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, query_lens,
     """Fused prefill+decode attention over a paged KV cache (see module
     docstring for layouts).  CPU tensors take the plain PyTorch version;
     CUDA tensors launch the hand-written kernel (and count one launch in
-    ``ragged_paged_attention.launches``) or raise."""
+    ``ragged_paged_attention.launches``, or one captured call in
+    ``.captured`` under a CUDA-graph capture) or raise."""
     device = _check(q, k_pages, v_pages, page_tables, query_lens,
                     context_lens)
     if scale is None:
@@ -218,8 +233,11 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, query_lens,
 
 #: calls that launched the kernel since the count was last set to 0 (CUDA
 #: path only; a call whose tiles span several splits also launches the
-#: combine, which is not counted apart)
+#: combine, which is not counted apart), replays of captured calls
+#: included
 ragged_paged_attention.launches = 0
+#: calls recorded into a CUDA graph under capture (launched at replay)
+ragged_paged_attention.captured = 0
 
 
 # ------------------------------------------- decode (Q == 1) degenerate

@@ -6,7 +6,8 @@ leaf names and its stacked ``[L, ...]`` block layout, so a JAX
 layer loop is a Python loop over the leading axis where JAX runs a
 ``lax.scan``.
 
-The serving half is ``gpt_ragged_step`` (the serving engine's one step);
+The serving half is ``gpt_ragged_step`` (the serving engine's one step,
+which makes no host sync, so the engine replays it from a CUDA graph);
 the training half is ``gpt_block`` / ``gpt_forward`` / ``gpt_loss`` with
 per-block activation checkpointing (``cfg.remat``) and the ``GPT``
 module facade.  With ``cfg.moe_experts > 0`` every block's dense FFN is
@@ -360,12 +361,22 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     ``context_lens[b] - query_lens[b] + t``.  ``max_q`` bounds any single
     row's chunk — the padded query width of the attention call.
 
-    ``k_pages``/``v_pages`` [L, P, page_size, H, hd] are updated **in
-    place** (``index_put_``), where the JAX step returns new arrays; they
-    are returned as well so the call reads like its counterpart.  JAX
-    drops out-of-bounds scatter indices (``mode="drop"``) while torch
-    raises on them, so padding and invalid tokens are masked out before
-    every scatter: they write no page and no query slot.
+    ``k_pages``/``v_pages`` [L, P + 1, page_size, H, hd] are updated **in
+    place** (``index_put_``), where the JAX step takes [L, P, ...] and
+    returns new arrays; they are returned as well so the call reads like
+    its counterpart.  Their last page, ``P``, is a scratch page that no
+    page table may point to (``PagedKVCache`` never hands it out).
+
+    The step reads nothing on the host and allocates nothing whose size
+    depends on the data, so it can be captured in a CUDA graph: every
+    one of the ``T`` packed tokens is written, each to a target fixed by
+    the shapes.  A valid token writes its page slot and its row's query
+    slot, as in JAX.  A padding or invalid token, which JAX drops with an
+    out-of-bounds scatter index, writes the scratch page (at its
+    position's slot) and a spare query row ``B`` of the ``[B + 1, Q, H,
+    hd]`` scatter buffer, which is sliced off before the attention call.
+    No two valid tokens share a target; several throwaway writes may, and
+    what lands there is never read.
 
     ``attention`` replaces the attention call (default: the ragged
     paged-attention kernel's wrapper) — the hook through which a caller
@@ -386,9 +397,9 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     T = tokens.shape[0]
     B = query_lens.shape[0]
     H, hd, D = cfg.num_heads, cfg.head_dim, cfg.hidden
+    L, P = k_pages.shape[0], k_pages.shape[1] - 1
     page_size = k_pages.shape[2]
     Q = max_q or T
-    L = k_pages.shape[0]
 
     tokens = tokens.long()
     row_of_token = row_of_token.long()
@@ -403,16 +414,15 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     x = params["wte"][tokens] + params["wpe"][pos]
     x = x.to(cfg.torch_dtype())                                    # [T, D]
 
-    # scatter targets of the valid tokens only, computed once per step
-    # (one host sync for the nonzero; no per-layer sync)
-    vidx = valid.nonzero().squeeze(1)
-    v_row = row_c[vidx]
-    v_slot = slot_of_token[vidx]
-    v_pos = pos[vidx]
-    v_page = page_tables.long()[
-        v_row, (v_pos // page_size).clamp(max=page_tables.shape[1] - 1)]
-    v_in_page = v_pos % page_size
-    gather_slot = slot_of_token.clamp(max=Q - 1)
+    # scatter targets of all T tokens, computed once per step: a valid
+    # token's page slot and query slot, else the scratch page P and the
+    # spare query row B
+    page_of_pos = page_tables.long()[
+        row_c, (pos // page_size).clamp(max=page_tables.shape[1] - 1)]
+    w_page = torch.where(valid, page_of_pos, P)
+    w_slot = pos % page_size
+    scat_row = torch.where(valid, row_c, B)
+    scat_slot = slot_of_token.clamp(max=Q - 1)
 
     blocks = params["blocks"]
     for l in range(L):
@@ -422,16 +432,16 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
         qkv = qkv.view(T, H, 3, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # [T, H, hd]
         kp, vp = k_pages[l], v_pages[l]
-        kp.index_put_((v_page, v_in_page), k[vidx].to(kp.dtype))
-        vp.index_put_((v_page, v_in_page), v[vidx].to(vp.dtype))
+        kp.index_put_((w_page, w_slot), k.to(kp.dtype))
+        vp.index_put_((w_page, w_slot), v.to(vp.dtype))
         # the attention call wants per-row padded queries; scatter the
-        # valid packed tokens out, gather the outputs back flat (padding
-        # tokens read a slot whose result never reaches pages or logits)
-        q_pad = q.new_zeros((B, Q, H, hd))
-        q_pad[v_row, v_slot] = q[vidx]
-        attn = attention(q_pad, kp, vp, page_tables, query_lens,
+        # packed tokens out, gather the outputs back flat (padding tokens
+        # read a slot whose result never reaches pages or logits)
+        q_pad = q.new_zeros((B + 1, Q, H, hd))
+        q_pad[scat_row, scat_slot] = q
+        attn = attention(q_pad[:B], kp, vp, page_tables, query_lens,
                          context_lens)
-        attn = attn[row_c, gather_slot].reshape(T, D).to(x.dtype)
+        attn = attn[row_c, scat_slot].reshape(T, D).to(x.dtype)
         x = x + attn @ blocks["proj_w"][l] + blocks["proj_b"][l]
 
         h = _layer_norm(x, blocks["ln2_g"][l], blocks["ln2_b"][l])

@@ -13,7 +13,9 @@ collectors and the Prometheus exposition).
   singletons with get-or-create semantics (``registry.counter(name)``)
   and replace-on-re-register, so a subsystem that rebuilds its metrics
   swaps the old series out of the snapshot.
-- ``snapshot()`` → a JSON-able dict of every series.
+- ``snapshot()`` → a JSON-able dict of every series; ``gauges()`` →
+  every gauge series by name, which the profiler samples into its
+  chrome-trace counter tracks.
 """
 from __future__ import annotations
 
@@ -300,6 +302,20 @@ class MetricsRegistry:
     def metrics(self):
         with self._lock:
             return list(self._metrics.values())
+
+    def gauges(self):
+        """[(series_name, value)] for every gauge series — the profiler
+        turns these into chrome-trace counter tracks."""
+        out = []
+        for m in self.metrics():
+            if m.kind != "gauge":
+                continue
+            for lv, child in m._series():
+                suffix = "{%s}" % ",".join(
+                    f'{k}="{v}"' for k, v in zip(m.labelnames, lv)) \
+                    if lv else ""
+                out.append((m.name + suffix, child.value))
+        return out
 
     def snapshot(self):
         """JSON-able {name: {type, value|series}} of every metric."""

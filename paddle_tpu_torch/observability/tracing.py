@@ -41,6 +41,9 @@ sharing a ``trace_id``.  Design points:
 - **JSON export**: :meth:`Tracer.traces` returns completed traces as
   JSON-able dicts; :func:`merge_traces` folds several rings (the
   router's and each replica engine's) into one fleet view by trace_id.
+- **cross-thread read**: :func:`active_span_for_thread` reads another
+  thread's ambient span, which the sampling profiler
+  (``observability/profiling.py``) tags its samples with.
 
 Nothing here starts threads or opens sockets; the process-wide
 :func:`default_tracer` is a plain object created at import.
@@ -54,7 +57,8 @@ import threading
 import time
 
 __all__ = ["Span", "TraceContext", "TailRetention", "Tracer",
-           "default_tracer", "active_span", "activate", "merge_traces"]
+           "default_tracer", "active_span", "active_span_for_thread",
+           "activate", "merge_traces"]
 
 
 class TraceContext:
@@ -461,6 +465,14 @@ class Tracer:
 # ---- active-span ambient context ---------------------------------------
 _ACTIVE = threading.local()
 
+# tid -> that thread's activation stack (the SAME list object as its
+# _ACTIVE.stack).  threading.local cannot be enumerated from another
+# thread, but the sampling profiler must read every thread's ambient
+# span; this registry is the cross-thread view.  Mutated only by the
+# owning thread with GIL-atomic dict ops; readers tolerate a raced
+# pop (one misattributed sample, never corruption).
+_ACTIVE_STACKS = {}
+
 
 def active_span():
     """The innermost span activated on this thread via :func:`activate`
@@ -471,17 +483,36 @@ def active_span():
     return stack[-1] if stack else None
 
 
+def active_span_for_thread(tid):
+    """The innermost span thread ``tid`` currently has activated, or
+    None — the sampling profiler's cross-thread attribution read.  Best
+    effort by design: the owning thread may pop concurrently."""
+    stack = _ACTIVE_STACKS.get(tid)
+    if not stack:
+        return None
+    try:
+        return stack[-1]
+    except IndexError:      # raced the owning thread's deactivation
+        return None
+
+
 @contextlib.contextmanager
 def activate(span):
     """Make ``span`` the thread's ambient span for the block, so
     :func:`active_span` callers underneath (e.g. a firing fault point)
     can attach events to it without plumbing."""
     stack = _ACTIVE.__dict__.setdefault("stack", [])
+    tid = threading.get_ident()
+    _ACTIVE_STACKS[tid] = stack     # idempotent re-registration
     stack.append(span)
     try:
         yield span
     finally:
         stack.pop()
+        if not stack:
+            # drop the registry entry so a dead (or reused) thread id
+            # never shows a stale stack
+            _ACTIVE_STACKS.pop(tid, None)
 
 
 # ---- merging + export ----------------------------------------------------

@@ -45,20 +45,45 @@ A MoE model (``cfg.moe_experts > 0``) serves through the MoE branch of
 padding slots included, is routed in packing order as the JAX step
 routes it, so padding takes expert capacity there as here.
 
-What differs from the JAX engine: the step is an eager PyTorch call on
-``device`` (default CUDA) — no jit, so no compile watchdog — and the
-page pool is updated in place where JAX donates buffers.  Logits come
-back to the host with ``.float().cpu().numpy()``.  Admission is
+The step is the port's ``watch(jax.jit(_step))``: every step has the
+same static shapes (``token_budget`` packed tokens, ``max_batch_size``
+rows), so on CUDA the engine captures ``gpt_ragged_step`` once as a
+``torch.cuda.CUDAGraph`` and replays it every step after that.  Each
+step copies its host arrays, through one pinned buffer, into static
+device buffers the graph reads, replays the graph, and reads the
+logits back into one pinned buffer with one sync (JAX's
+``np.asarray(logits)``); sampling stays on the host.  The first step
+runs the step eagerly on a side stream (its result is that step's; the
+kernel builds and the libraries set up there), then captures on that
+stream; the graph's private memory pool (``graph_pool_bytes``: the
+step's activations and the kernel's split scratch) stays with the
+engine.  The capture is watched by the compile watchdog under
+``serving::unified_step`` (``observability/compile_watchdog.py``): one
+build per engine.  The graph holds the addresses of the parameters and
+the page pool; the pool never moves (``PagedKVCache`` writes in place,
+defrag included, and the ``serving.step`` fault site's tree is written
+back in place), and if the parameters or the pool are ever replaced the
+engine captures again, which the watchdog reports as a recompile.  A
+failed capture raises: nothing falls back to the eager step.  On the
+CPU (``device="cpu"``) the same static-shape step runs eagerly through
+the same watched call.  The ragged kernel's launch count
+(``ragged_paged_attention.launches``) gains the graph's captured calls
+at every replay.
+
+Admission runs under ``profiling_phase("admission")`` and the step under
+``profiling_phase("prefill_chunk" | "decode")`` and
+``RecordEvent("serving::unified_step")``, as in the JAX engine.  The
+page pool is updated in place where JAX donates buffers.  Admission is
 host-only: ``add_request`` never waits on the device, so a router's
 wall-clock stall detection reads only real admission wedges.  The JAX
-features this engine still lacks are later slices: mesh-sharded
-serving (``Engine(mesh=)``), the profiler phases (``profiling_phase``,
-``RecordEvent``) and one CUDA graph per step.
+feature this engine still lacks is a later slice: mesh-sharded serving
+(``Engine(mesh=)``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from collections import deque
 
 import numpy as np
@@ -66,7 +91,10 @@ import torch
 
 from .._device import resolve_device
 from ..models.gpt import GPTConfig, gpt_init, gpt_ragged_step
+from ..observability.compile_watchdog import watch
+from ..observability.profiling import phase as profiling_phase
 from ..observability.tracing import Tracer, default_tracer
+from ..profiler.profiler import RecordEvent
 from ..resilience.faults import fault_point
 from .kv_cache import PagedKVCache
 from .metrics import ServingMetrics
@@ -135,6 +163,81 @@ class Request:
         self._chunks_done = 0
         self.state = RequestState.QUEUED
         self._rng = np.random.default_rng(self.sampling.seed)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+#: device index -> the side stream every engine warms up and captures on.
+#: cuBLAS keeps a workspace for each stream it has run on, for the life
+#: of the process: a stream of its own per engine would leave one
+#: workspace behind for every engine a fleet ever built
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(device):
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+class _CapturedStep:
+    """The engine's unified step over static buffers: ``gpt_ragged_step``
+    eagerly on the CPU; on CUDA captured once as a CUDA graph (after one
+    eager run on a side stream) and replayed after that.  It holds no
+    reference to its engine, so an engine dropped by its owner frees its
+    pool and graph at once, without waiting for a garbage collection."""
+
+    def __init__(self, cfg, max_q, device):
+        self.cfg, self.max_q, self.device = cfg, max_q, device
+        self.graph = None
+        self.out = None           # the graph's logits [B, V] fp32
+        self.storage = None       # the addresses the graph was captured on
+        self.launches = 0         # ragged kernel calls the graph holds
+        self.captures = 0
+        self.pool_bytes = 0       # device memory the graph's pool holds
+
+    def _run(self, params, k_pages, v_pages, inputs):
+        tokens, rows, slots, qlens, ctxs, tables = inputs
+        logits, _, _ = gpt_ragged_step(
+            self.cfg, params, tokens, rows, slots, qlens, ctxs, k_pages,
+            v_pages, tables, max_q=self.max_q)
+        return logits.float()
+
+    def __call__(self, params, k_pages, v_pages, inputs, storage=None):
+        if self.device.type != "cuda":
+            return self._run(params, k_pages, v_pages, inputs)
+        from ..kernels.paged_attention import ragged_paged_attention
+
+        if self.graph is not None and storage == self.storage:
+            self.graph.replay()
+            ragged_paged_attention.launches += self.launches
+            return self.out
+        # warm up on the capture stream: this step's real result, the
+        # kernel build and the libraries' first-use set-up happen here
+        dev = self.device
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = self._run(params, k_pages, v_pages, inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = self.out = None
+        graph = torch.cuda.CUDAGraph()
+        captured = ragged_paged_attention.captured
+        with torch.cuda.graph(graph, stream=side):
+            # the graph's private pool takes new segments only: the
+            # reserved bytes grow by what the pool holds
+            reserved = torch.cuda.memory_reserved(dev)
+            static = self._run(params, k_pages, v_pages, inputs)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = ragged_paged_attention.captured - captured
+        self.graph, self.out, self.storage = graph, static, storage
+        self.captures += 1
+        return out
 
 
 class Engine:
@@ -220,6 +323,49 @@ class Engine:
         self._admit_seq = 0                 # admission order, for preemption
         self._next_id = 0
         self.steps = 0                      # unified steps run
+        # the step's static inputs, one int32 buffer (page tables first):
+        # filled on the host, copied to the device in one transfer
+        B, T = max_batch_size, self.token_budget
+        M = self.cache.max_pages_per_seq
+        cuda = self.device.type == "cuda"
+        n = B * M + 2 * B + 3 * T
+        self._in_host = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+        self._in_dev = (torch.zeros(n, dtype=torch.int32, device=self.device)
+                        if cuda else self._in_host)
+        cut = np.cumsum([B * M, B, B, T, T])
+        tables, qlens, ctxs, tokens, rows, slots = \
+            self._in_dev.tensor_split(cut.tolist())
+        self._inputs = (tokens, rows, slots, qlens, ctxs, tables.view(B, M))
+        self._in_views = self._in_host.numpy()
+        self._in_cut = cut
+        self._logits_host = (torch.empty((B, cfg.vocab_size),
+                                         dtype=torch.float32,
+                                         pin_memory=True) if cuda else None)
+        # the watched step: one capture per engine (CUDA), the port's
+        # watch(jax.jit(_step), name="serving::unified_step")
+        self._step_fn = watch(_CapturedStep(cfg, self.chunk_len,
+                                            self.device),
+                              name="serving::unified_step")
+
+    @property
+    def captures(self):
+        """CUDA graphs this engine has captured (0 on the CPU)."""
+        return self._step_fn.captures
+
+    @property
+    def graph_pool_bytes(self):
+        """Device memory the captured graph's private pool holds: the
+        step's activations and the ragged kernel's split scratch, for the
+        engine's life (0 before the capture and on the CPU)."""
+        return self._step_fn.pool_bytes
+
+    def _storage(self):
+        """The addresses a captured step reads: the parameters and the
+        page pool, as a short tag (a static argument of the watched step,
+        so a replaced tensor shows as a recompile)."""
+        ptrs = [t.data_ptr() for t in _leaves(self.params)]
+        ptrs += [self.cache.k_pages.data_ptr(), self.cache.v_pages.data_ptr()]
+        return f"{zlib.crc32(np.asarray(ptrs, np.uint64).tobytes()):08x}"
 
     # ------------------------------------------------------------- submit
     def add_request(self, prompt, sampling: SamplingParams = None, *,
@@ -398,6 +544,10 @@ class Engine:
         return None
 
     def _try_admit(self):
+        with profiling_phase("admission"):
+            self._try_admit_inner()
+
+    def _try_admit_inner(self):
         while self._queue:
             slot = self._free_slot()
             if slot is None:
@@ -502,19 +652,27 @@ class Engine:
                 return plan
 
     def _run_step(self, tokens, rows, slots, qlens, ctxs, tables):
-        """The one step over the device: pack host arrays into tensors,
-        run gpt_ragged_step (pages written in place), logits to host."""
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(a).to(dev, non_blocking=True)
-
-        logits, _, _ = gpt_ragged_step(
-            self.cfg, self.params, put(tokens), put(rows), put(slots),
-            put(qlens), put(ctxs), self.cache.k_pages, self.cache.v_pages,
-            put(tables), max_q=self.chunk_len)
+        """The one step over the device: the host arrays into the static
+        input buffer (one pinned host-to-device copy), the watched step
+        (the graph's replay on CUDA; pages written in place), the logits
+        into the pinned host buffer with one sync.  Returns the logits
+        [B, V] fp32 as numpy, valid until the next step."""
+        parts = np.split(self._in_views, self._in_cut)
+        for dst, src in zip(parts, (tables.reshape(-1), qlens, ctxs, tokens,
+                                    rows, slots)):
+            dst[:] = src
+        kw = {}
+        if self._logits_host is not None:
+            self._in_dev.copy_(self._in_host, non_blocking=True)
+            kw["storage"] = self._storage()
+        logits = self._step_fn(self.params, self.cache.k_pages,
+                               self.cache.v_pages, self._inputs, **kw)
         self.steps += 1
-        return logits.float().cpu().numpy()
+        if self._logits_host is None:
+            return logits.numpy()
+        self._logits_host.copy_(logits, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._logits_host.numpy()
 
     def _unified_step_once(self, plan):
         """Run the step over the planned ragged batch and fold the
@@ -557,8 +715,16 @@ class Engine:
             off += q
         if not sched:
             return
+        # phase attribution for the sampling profiler: a step with any
+        # mid-prefill row is a prefill chunk, else pure decode
+        step_phase = "prefill_chunk" if any(
+            req.prompt_pos < len(req.prompt)
+            for _, req, _, _ in sched) else "decode"
         t0 = self._clock()
-        logits = self._run_step(tokens, rows, slots, qlens, ctxs, tables)
+        with profiling_phase(step_phase), \
+                RecordEvent("serving::unified_step"):
+            logits = self._run_step(tokens, rows, slots, qlens, ctxs,
+                                    tables)
         t1 = self._clock()
         dt = t1 - t0
         occ = round(self.cache.occupancy(), 4)
@@ -668,13 +834,17 @@ class Engine:
         # changes and before any device work is queued, so a router can
         # re-dispatch losslessly.  tree= exposes the KV pool to bitflip
         # (flipped in place on its device), tokens= every in-flight
-        # stream to poison_request
+        # stream to poison_request.  A kind that hands a new tensor back
+        # is written into the pool in place: the captured step reads the
+        # pool's storage
         kv = {"k_pages": self.cache.k_pages, "v_pages": self.cache.v_pages}
         fault_point("serving.step", tree=kv,
                     tokens=[r.tokens for r in self._running()]
                     + [r.tokens for r in self._queue])
-        self.cache.k_pages, self.cache.v_pages = kv["k_pages"], \
-            kv["v_pages"]
+        for name in kv:
+            pool = getattr(self.cache, name)
+            if kv[name] is not pool:
+                pool.copy_(kv[name])
         self._evict_expired()
         self._try_admit()
         self._unified_step_once(self._ensure_capacity())

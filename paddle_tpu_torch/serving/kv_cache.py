@@ -5,8 +5,13 @@ K/V live in fixed-size pages drawn from one shared pool, a per-sequence
 page table maps logical token positions to physical pages, and
 sequences of very different lengths share the pool with at most
 page_size-1 slots of waste each.  The pool is one stacked tensor
-``[L, P, page_size, H, hd]`` per K and V on the engine's device (bf16 by
-default); the model step writes it in place.
+``[L, P + 1, page_size, H, hd]`` per K and V on the engine's device
+(bf16 by default); the model step writes it in place.  Page ``P`` is a
+scratch page the allocator never hands out: the step writes its padding
+tokens there (``gpt_ragged_step``), so the JAX pool's ``[L, P, ...]`` is
+``k_pages[:, :P]``.  The two tensors never move: every method that
+changes them writes in place, so a CUDA graph that captured their
+addresses stays valid.
 
 Allocation is chunk-granular: the chunked-prefill scheduler
 ``allocate``s a prompt's first chunk at admission and ``extend``s the
@@ -84,11 +89,12 @@ class PagedKVCache:
     """Page pool + per-sequence page tables with alloc/free/defrag,
     per-page refcounts and a radix prefix cache.
 
-    ``k_pages``/``v_pages`` are tensors on ``device`` (default CUDA) that
-    the model step updates in place.  Bookkeeping methods touch them only
-    in ``defrag`` (an ``index_select`` on the page axis), the
+    ``k_pages``/``v_pages`` are tensors on ``device`` (default CUDA) of
+    ``num_pages + 1`` pages, the last one scratch, that the model step
+    updates in place.  Bookkeeping methods touch them only in ``defrag``
+    (a page permutation written back in place, one layer at a time), the
     copy-on-write path of ``allocate_prefixed`` (one page copy) and
-    ``reset`` (``zero_``)."""
+    ``reset`` (``zero_``); none of them reassigns the tensors."""
 
     def __init__(self, *, num_layers, num_heads, head_dim, num_pages,
                  page_size, max_seq_len, dtype=torch.bfloat16, device=None):
@@ -98,7 +104,9 @@ class PagedKVCache:
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.max_pages_per_seq = math.ceil(max_seq_len / page_size)
-        shape = (num_layers, num_pages, page_size, num_heads, head_dim)
+        # one page past the pool: the step's scratch page
+        shape = (num_layers, num_pages + 1, page_size, num_heads,
+                 head_dim)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         # LIFO free list: recently-freed (still-warm) pages are reused first
@@ -455,10 +463,12 @@ class PagedKVCache:
 
     # -------------------------------------------------------------- defrag
     def defrag(self):
-        """Compact live pages into the low-index prefix of the pool with
-        one ``index_select`` per pool tensor.  Refcount-aware: a shared
-        page relocates once and every table and tree node referencing it
-        is remapped.  Returns pages moved."""
+        """Compact live pages into the low-index prefix of the pool: one
+        ``index_select`` a layer of each pool tensor, copied back in place
+        (the tensors keep their storage, and the temporary is one layer's
+        pages, not the pool's).  Refcount-aware: a shared page relocates
+        once and every table and tree node referencing it is remapped.
+        Returns pages moved."""
         with self._lock:
             order = []               # new physical slot -> old page id
             remap = {}               # old page id -> new page id
@@ -478,8 +488,10 @@ class PagedKVCache:
             order += [p for p in range(self.num_pages) if p not in remap]
             idx = torch.as_tensor(order, dtype=torch.long,
                                   device=self.device)
-            self.k_pages = self.k_pages.index_select(1, idx)
-            self.v_pages = self.v_pages.index_select(1, idx)
+            P = self.num_pages
+            for pool in (self.k_pages, self.v_pages):
+                for layer in pool:
+                    layer[:P] = layer[:P].index_select(0, idx)
             self._tables = {sid: [remap[p] for p in t]
                             for sid, t in self._tables.items()}
             for node in self._iter_nodes_locked():

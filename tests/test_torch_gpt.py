@@ -120,13 +120,23 @@ def _batch(cfg, seed=5):
                 kp=kp, vp=vp, tables=tables, max_q=max_q, ps=ps)
 
 
+def _with_scratch(pages):
+    """The port's pool: JAX's [L, P, ...] and one scratch page after it,
+    which the step writes its padding and invalid tokens to."""
+    return torch.cat([pages, torch.zeros_like(pages[:, :1])], dim=1)
+
+
 def _run_port(cfg, params, d, **kw):
+    """The port's step on ``d``; returns the logits and the pool's first
+    ``P`` pages (the scratch page cut off), as numpy."""
     t = {k: torch.from_numpy(np.array(d[k])) for k in
          ("tokens", "rows", "slots", "qlens", "ctxs", "kp", "vp", "tables")}
+    P = t["kp"].shape[1]
     logits, kp, vp = gpt_ragged_step(
         cfg, params, t["tokens"], t["rows"], t["slots"], t["qlens"],
-        t["ctxs"], t["kp"], t["vp"], t["tables"], max_q=d["max_q"], **kw)
-    return logits.numpy(), kp.numpy(), vp.numpy()
+        t["ctxs"], _with_scratch(t["kp"]), _with_scratch(t["vp"]),
+        t["tables"], max_q=d["max_q"], **kw)
+    return logits.numpy(), kp[:, :P].numpy(), vp[:, :P].numpy()
 
 
 def test_ragged_step_matches_jax(tiny):

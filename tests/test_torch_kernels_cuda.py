@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-what the serving fleet does on the card alone (a bitflip flipping a CUDA
-pool in place, device memory following the engines a fleet holds); the
-MoE block on the card against its CPU result, and flash attention at
+what the serving engine and fleet do on the card alone (the step making
+no host sync, the engine's captured step replayed on other batches and
+captured again when its tensors move, a bitflip flipping a CUDA pool in
+place, device memory following the engines a fleet holds); the MoE
+block on the card against its CPU result, and flash attention at
 BERT-base's non-causal head dim 64.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
@@ -219,6 +221,180 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     pa.ragged_paged_attention.launches = 0
     assert eng.generate(prompts, sp) == cpu
     assert pa.ragged_paged_attention.launches == cfg.num_layers * eng.steps
+
+
+def _random_step(rng, cfg, B, T, M, P, Q):
+    """One packed step of random rows (chunks, decode rows, idle rows,
+    padding) over ``P`` pages: the engine's host arrays."""
+    qlens = np.zeros(B, np.int32)
+    ctxs = np.zeros(B, np.int32)
+    rows = np.full(T, B, np.int32)
+    slots = np.zeros(T, np.int32)
+    tables = np.zeros((B, M), np.int32)
+    off = 0
+    pages = rng.permutation(P)
+    for b in range(B):
+        q = int(rng.choice([0, 1, rng.randint(1, Q + 1)]))
+        q = min(q, T - off)
+        if q == 0:
+            continue
+        ctx = int(rng.randint(q, M * 4 + 1))
+        qlens[b], ctxs[b] = q, ctx
+        rows[off:off + q] = b
+        slots[off:off + q] = np.arange(q)
+        tables[b] = pages[b * M:(b + 1) * M]
+        off += q
+    tokens = rng.randint(0, cfg.vocab_size, T).astype(np.int32)
+    return tokens, rows, slots, qlens, ctxs, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experts", [0, 4])
+def test_ragged_step_makes_no_host_sync(cuda, experts):
+    """``gpt_ragged_step`` (the MoE branch too) on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation of the step
+    waits for the device."""
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.models.gpt import gpt_ragged_step
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], moe_experts=experts)
+    params = gpt_init(cfg, device=cuda)
+    rng = np.random.RandomState(1)
+    B, T, M, P, Q = 4, 24, 8, 40, 8
+    step = [torch.from_numpy(a).to(cuda)
+            for a in _random_step(rng, cfg, B, T, M, P, Q)]
+    shape = (cfg.num_layers, P + 1, 4, cfg.num_heads, cfg.head_dim)
+    kp = torch.randn(shape, device=cuda).bfloat16()
+    vp = torch.randn(shape, device=cuda).bfloat16()
+    args = (*step[:5], kp, vp, step[5])
+    gpt_ragged_step(cfg, params, *args, max_q=Q)      # build, warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _, _ = gpt_ragged_step(cfg, params, *args, max_q=Q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits[step[3] > 0]).all()
+
+
+@pytest.mark.cuda
+def test_engine_replays_its_captured_step(cuda):
+    """The engine captures its step once (in ``warmup``) and replays it:
+    replayed on other batch contents, each step's logits and pages equal
+    ``gpt_ragged_step`` called eagerly on the same inputs and pool, each
+    replay adds 24 launches (one a layer) to the kernel's count, and the
+    watchdog reports one build of ``serving::unified_step``."""
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.models.gpt import gpt_ragged_step
+    from paddle_tpu_torch.observability import watchdog_enabled
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], num_layers=24,
+                              dtype="float32")
+    params = gpt_init(cfg, device=cuda)
+    with watchdog_enabled() as wd:
+        wd.reset()
+        eng = Engine(cfg, params, page_size=4, num_pages=40,
+                     max_batch_size=4, chunk_len=8, token_budget=24)
+        eng.warmup()
+        assert eng.captures == 1
+        B, T, M = 4, 24, eng.cache.max_pages_per_seq
+        rng = np.random.RandomState(0)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        for _ in range(4):
+            arrays = _random_step(rng, cfg, B, T, 8, 40, 8)
+            tables = np.zeros((B, M), np.int32)
+            tables[:, :8] = arrays[5]
+            for pool in (eng.cache.k_pages, eng.cache.v_pages):
+                pool.normal_(generator=g)
+            k0, v0 = eng.cache.k_pages.clone(), eng.cache.v_pages.clone()
+            before = pa.ragged_paged_attention.launches
+            logits = eng._run_step(*arrays[:5], tables).copy()
+            assert pa.ragged_paged_attention.launches - before == 24
+            dev = [torch.from_numpy(a).to(cuda) for a in arrays[:5]]
+            ref, k0, v0 = gpt_ragged_step(
+                cfg, params, *dev, k0, v0, torch.from_numpy(tables).to(cuda),
+                max_q=eng.chunk_len)
+            live = arrays[3] > 0
+            torch.testing.assert_close(torch.from_numpy(logits[live]),
+                                       ref[torch.from_numpy(live)].float()
+                                       .cpu(), atol=1e-4, rtol=1e-4)
+            P = eng.cache.num_pages
+            torch.testing.assert_close(eng.cache.k_pages[:, :P], k0[:, :P],
+                                       atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(eng.cache.v_pages[:, :P], v0[:, :P],
+                                       atol=1e-5, rtol=1e-5)
+        assert eng.captures == 1
+        rep = wd.report()["serving::unified_step"]
+    assert rep["compiles"] == 1 and rep["recompiles"] == 0
+
+
+@pytest.mark.cuda
+def test_defrag_with_shared_prefix_on_the_card_matches_the_cpu(cuda):
+    """``tests/test_torch_serving.py``'s defrag scenario (a pinned hole
+    below two requests sharing a cached prefix, freed and compacted
+    mid-decode) on the card's captured step: the greedy tokens equal the
+    CPU engine's (which the CPU test holds to the JAX engine's), the
+    defrag moves the same pages, and the engine captures once."""
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32")
+    params = gpt_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(61)
+    system = [int(t) for t in rng.randint(0, 1024, 12)]
+    tails = [[int(t) for t in rng.randint(0, 1024, 6)] for _ in range(2)]
+
+    def drive(eng):
+        eng.cache.allocate("hole", 16)
+        eng.generate([system + [7, 7, 7]], SamplingParams(max_new_tokens=2))
+        sp = SamplingParams(max_new_tokens=10)
+        b = eng.add_request(system + tails[0], sp)
+        c = eng.add_request(system + tails[1], sp)
+        for _ in range(3):
+            eng.step()
+        eng.cache.free("hole")
+        moved = eng.cache.defrag()
+        eng.cache.check_integrity()
+        while eng.has_work():
+            eng.step()
+        return [b.output, c.output], moved
+
+    kw = dict(page_size=4, num_pages=64, max_batch_size=2, chunk_len=16)
+    cpu = drive(Engine(cfg, params, device="cpu", **kw))
+    card_params = {k: (v.to(cuda) if torch.is_tensor(v) else
+                       {kk: vv.to(cuda) for kk, vv in v.items()})
+                   for k, v in params.items()}
+    eng = Engine(cfg, card_params, **kw)
+    assert drive(eng) == cpu and cpu[1] > 0
+    assert eng.captures == 1
+
+
+@pytest.mark.cuda
+def test_engine_recaptures_when_its_tensors_move(cuda):
+    """A replaced parameter tensor moves an address the graph holds: the
+    engine captures its step again (the watchdog reports one rebuild,
+    with the new ``storage`` tag in its diff) and serves the same greedy
+    tokens as before."""
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.observability import watchdog_enabled
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32")
+    params = gpt_init(cfg, device=cuda)
+    sp = SamplingParams(max_new_tokens=6)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7]]
+    with watchdog_enabled() as wd:
+        wd.reset()
+        eng = Engine(cfg, params, page_size=4, num_pages=32,
+                     max_batch_size=2, chunk_len=4)
+        first = eng.generate(prompts, sp)
+        eng.params = dict(params, wte=params["wte"].clone())
+        again = eng.generate(prompts, sp)
+        rep = wd.report()["serving::unified_step"]
+    assert again == first
+    assert eng.captures == 2
+    assert rep["compiles"] == 2 and rep["recompiles"] == 1
 
 
 # ---------------------------------------------------- flash attention

@@ -382,14 +382,18 @@ def test_ragged_step_matches_jax_with_padding_evictions(tiny, monkeypatch):
         jnp.asarray(d["tables"]), max_q=d["max_q"])
     t = {k: torch.from_numpy(np.array(d[k])) for k in
          args + ("kp", "vp", "tables")}
+    # the port's pool has one scratch page after JAX's P pages
+    P = t["kp"].shape[1]
+    kp, vp = (torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+              for x in (t["kp"], t["vp"]))
     logits, kp, vp = gpt_ragged_step(
-        CFG, params, *(t[k] for k in args), t["kp"], t["vp"], t["tables"],
+        CFG, params, *(t[k] for k in args), kp, vp, t["tables"],
         max_q=d["max_q"])
     live = d["qlens"] > 0
     np.testing.assert_allclose(logits.numpy()[live], np.asarray(jl)[live],
                                **TOL)
-    np.testing.assert_allclose(kp.numpy(), np.asarray(jk), **TOL)
-    np.testing.assert_allclose(vp.numpy(), np.asarray(jv), **TOL)
+    np.testing.assert_allclose(kp[:, :P].numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(vp[:, :P].numpy(), np.asarray(jv), **TOL)
 
     assert len(jax_seen) == len(port_seen) == CFG.num_layers
     n, evicted = d["n_valid"], {"jax": 0, "port": 0}

@@ -34,9 +34,15 @@ Phases (any failure exits non-zero):
      1 x 2048): loss and every gradient with the kernels against the
      same step on the plain attention;
   7. training throughput: ``HybridEngine`` on GPT-3 1.3B, batch 8 x
-     2048, remat "dots", fp32 Adam slots with a master: ms/step,
-     tokens/s, MFU, peak memory; the loss falls over 10 steps and the
-     flash launch counts are held to 48 forward / 24 backward per step;
+     2048, remat "dots", fp32 Adam slots with a master, its step
+     captured as one CUDA graph (step 1 eager, then replays): ms/step,
+     tokens/s, MFU, peak memory (the capture's included), the graph's
+     pool; the loss falls over 10 steps, the engine captures once (the
+     compile watchdog: one build of ``hybrid_engine::step``) and the
+     flash launch counts, counted through the replays, are held to 48
+     forward / 24 backward per step; device time by kind from a traced
+     replay, by range (``engine::optimizer``) and aten op from one more
+     step on the eager route (a replay records no ranges);
   8. ring attention's per-pair backward (bf16: one kernel that adds dQ,
      dK and dV into the ring's fp32 sums; fp32: the scalar kernels, then
      the adds; ring-global lse and delta) vs its plain version from
@@ -51,10 +57,10 @@ Phases (any failure exits non-zero):
      training shapes: output and grads, and both times;
  10. ring sequence-parallel training: ``HybridEngine(sep=4)`` with
      ``seq_parallel="ring"`` on GPT-3 1.3B, every rank's shard on this
-     card, as in phase 7: ms/step, tokens/s, MFU, peak memory, busy
-     share; the loss falls, its first step equals phase 7's, and the
-     launches per step are held to the ring's schedule (10 live pairs a
-     layer: 480 forward, 240 pair backward);
+     card, as in phase 7 (graph route): ms/step, tokens/s, MFU, peak
+     memory, busy share; the loss falls, its first step equals phase
+     7's, one capture, and the launches per step are held to the ring's
+     schedule (10 live pairs a layer: 480 forward, 240 pair backward);
  11. the serving fleet: ``FleetRouter`` over three GPT-3 1.3B engines
      (phase 4's pool and batch, one set of params, warmed before
      rotation) with an ``Autoscaler`` (2 to 4 replicas), 28 seeded
@@ -85,12 +91,14 @@ Phases (any failure exits non-zero):
  13. MoE training at those widths on 8 of the 24 layers: one fp32 step
      at batch 1 x 2048 (loss and every gradient, gate_w included, kernels
      vs plain attention, identical routing), then ``HybridEngine`` bf16
-     at batch 8 x 2048 as in phase 7 with flash launches held to 16
-     forward / 8 backward per step, and MFU on the FLOPs the step does
-     and on ``gpt_flops_per_token``'s 6N;
+     at batch 8 x 2048 as in phase 7 (graph route, one capture) with
+     flash launches held to 16 forward / 8 backward per step, MFU on the
+     FLOPs the step does and on ``gpt_flops_per_token``'s 6N, and the
+     MoE split from the eager route's traced step;
  14. BERT-base MLM training (``BertAdapter``, bf16, batch 32 x 512,
-     masking rate 0.15) as in phase 7 with flash launches held to 24
-     forward / 12 backward per step, then the non-causal flash forward
+     masking rate 0.15) as in phase 7 (graph route, one capture) with
+     flash launches held to 24 forward / 12 backward per step, then the
+     non-causal flash forward
      and backward at q/k/v [32, 12, 512, 64] with times, bounds, plain
      and SDPA times;
  15. the eager Paddle API (``import paddle_tpu_torch as paddle``) under
@@ -101,12 +109,15 @@ Phases (any failure exits non-zero):
      from the same weights, on the CPU: loss, logits, every parameter
      after the step and every batch-norm buffer; (b) the
      ``bench_resnet`` protocol (bf16 O1 ``auto_cast``, train-mode batch
-     norm, Momentum 0.1/0.9) at batch 32 and 128: imgs/s, ms/step,
-     device busy time and share, device time by kind, peak memory and
-     MFU on the FLOPs counted from the convolution and linear shapes,
-     and the loss falling over 10 steps on a fixed batch; (c) ``fit``
-     for one epoch over an in-memory seeded dataset, ``evaluate``,
-     ``predict``, and ``save``/``load`` bit-equal on the card; (d)
+     norm, Momentum 0.1/0.9) at batch 32 and 128, ``train_batch`` on
+     its captured graph (one capture, the watchdog's
+     ``hapi::train_step``): imgs/s, ms/step, device busy time and share
+     (a replay), device time by kind (the eager route's step), peak
+     memory, the graph's pool and MFU on the FLOPs counted from the
+     convolution and linear shapes, and the loss falling over 10 steps
+     on a fixed batch; (c) ``fit`` for one epoch over an in-memory
+     seeded dataset, ``evaluate``, ``predict`` (one train and one eval
+     capture), and ``save``/``load`` bit-equal on the card; (d)
      ``nn.TransformerEncoder`` at BERT-base widths (12 layers, batch 32 x
      512, bf16 ``auto_cast``): flash launches 12 forward in eval, 12
      forward and 12 backward a training step, none with attention
@@ -122,7 +133,24 @@ Phases (any failure exits non-zero):
      traced by the ported ``Profiler`` (whose chrome export holds one
      ``serving::unified_step`` span a step), tok/s, beside the card's
      name and power limit; for the MoE model, the eager route's device
-     time by kind with the expert products and the routing apart.
+     time by kind with the expert products and the routing apart;
+ 17. the captured training steps against the eager ones (the step
+     bodies called directly, ``eager_route``): (a)
+     ``HybridEngine`` at GPT-3 1.3B's widths on 4 layers, fp32, batch 2
+     x 2048, remat "dots", 3 steps a route from one ``init(seed=0)``:
+     losses, every parameter and every Adam slot at ``TOL["float32"]``
+     (the largest difference printed), then again with dropout 0.1 and
+     ``accum_steps=2`` (the routes' masks equal, and different from step
+     to step); (b) bf16 phase 7's cell and 15 (b)'s ResNet-50 at batch
+     32, each route: ms/step, device ms/step and busy share from a run
+     traced by the ported ``Profiler`` (one ``hybrid_engine::step`` or
+     ``hapi::train_step`` span a step in its chrome export), peak
+     memory (the 1.3B graph route's held within 10 % of the eager
+     route's) and the graph's pool, beside the card's name and power
+     limit; (c) ``eval_batch`` of ResNet-50 with batch norm in train
+     mode: the graph's loss and logits equal the eager route's, the
+     buffers unchanged; ``fit`` over two epochs with a tail batch
+     captures twice an epoch.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -1224,16 +1252,30 @@ def split_moe_kinds(by_kind, matmul, split, scale=1.0):
                                            + split["route_other"])
 
 
+#: the device-side events of ``record_function`` ranges (the engine's,
+#: hapi's and the MoE layer's), which are not kernels and stay out of the
+#: kernel sums
+RANGES = ("engine::", "moe::", "hybrid_engine::", "hapi::", "serving::")
+
+
 def profile_step(torch, step, experts=0):
     """Device time of one training step by kind (flash kernels, matrix
     products, the rest; with ``experts`` the MoE's expert products and
-    routing/dispatch/combine apart), traced with torch.profiler."""
+    routing/dispatch/combine apart), traced with torch.profiler.  A
+    replayed graph's kernels have no launching op and it records no
+    ranges: its trace gives the kinds, the eager route's the ranges,
+    the aten ops and the MoE split.  ``wall_ms``: the host clock over the
+    same traced step, the busy share's denominator (device time traced
+    over an untraced wall time can pass 1)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=bool(experts)) as prof:
+        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     by_kind = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
     top, spans, ops = [], {}, []
     for e in prof.key_averages():
@@ -1245,7 +1287,7 @@ def profile_step(torch, step, experts=0):
             if e.key.startswith("aten::"):
                 ops.append((us / 1e3, e.key))
             continue
-        if e.key.startswith(("engine::", "moe::")):
+        if e.key.startswith(RANGES):
             # the device-side span of a record_function range, not a
             # kernel: kept apart from the sums
             spans[e.key] = us / 1e3
@@ -1262,8 +1304,59 @@ def profile_step(torch, step, experts=0):
     if experts:
         split_moe_kinds(by_kind, "matmul", moe_split(torch, prof, experts),
                         1e-3)
-    return {"busy_ms": busy, "by_kind": by_kind, "spans": spans,
-            "top": sorted(top)[::-1][:6], "ops": sorted(ops)[::-1][:10]}
+    return {"busy_ms": busy, "wall_ms": wall, "by_kind": by_kind,
+            "spans": spans, "top": sorted(top)[::-1][:6],
+            "ops": sorted(ops)[::-1][:10]}
+
+
+@contextlib.contextmanager
+def eager_route(torch, obj):
+    """``obj`` (a ``HybridEngine`` or a hapi ``Model``) calls its step
+    bodies eagerly for the duration: the graph route's baseline (neither
+    has an eager route on the card, as the JAX package's jitted steps
+    have none).  Its captured graphs are freed first (so an eager step's
+    activations and a graph's pool are not both held); a later step
+    captures again."""
+    for name in ("_step_fn", "_train_fn", "_eval_fn"):
+        if hasattr(obj, name):
+            getattr(obj, name).release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(obj, "_step_body"):
+        obj._run = lambda args: obj._step_body(*args)
+        names = ("_run",)
+    else:
+        obj._run_train = lambda args: obj._train_body(*args)
+        obj._run_eval = lambda x, y: obj._eval_body(x, y)
+        names = ("_run_train", "_run_eval")
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(obj, name)
+
+
+def watchdog():
+    """The default compile watchdog, enabled."""
+    from paddle_tpu_torch.observability import default_watchdog
+
+    return default_watchdog().enable()
+
+
+def check_captured_once(obj, name, what):
+    """``obj`` captured its step once and the watchdog (reset before the
+    step's first call) saw one build of ``name`` and no rebuild; returns
+    the line the phase prints."""
+    rep = watchdog().report().get(name, {})
+    caps = obj.captures
+    caps = caps["train"] if isinstance(caps, dict) else caps
+    check(caps == 1 and rep.get("compiles") == 1
+          and rep.get("recompiles") == 0,
+          f"{what}: {caps} captures, watchdog {name}: {rep}")
+    return (f"captures {caps} (watchdog {name}: {rep['calls']} calls, "
+            f"{rep['compiles']} build, {rep['recompiles']} rebuilds, "
+            f"{rep['compile_time_s']:.2f} s the first call with its "
+            f"capture)")
 
 
 RING_SEP = 4                       # phase 10's ring shards on the card
@@ -1283,10 +1376,14 @@ def train_launches(sep):
 
 
 def train_run(torch, eng, tokens, labels, counts, experts=0):
-    """Ten steps of ``eng`` from ``eng.init(seed=0)`` on one batch: 2
-    warm-up, 5 timed (every launch count in ``counts`` set to 0 just
-    before them and read just after; peak memory over them), 2 more and
-    a profiled one.  Returns the numbers the training phases print."""
+    """Ten steps of ``eng`` from ``eng.init(seed=0)`` on one batch, on the
+    engine's graph route: 2 warm-up (step 1 eager, then the capture; a
+    replay), 5 timed (every launch count in ``counts`` set to 0 just
+    before them and read just after), 2 more and a profiled replay; peak
+    memory from the first step on (the capture's included).  Then one
+    more step on the eager route, profiled for the ranges, the aten ops
+    and the MoE split.  Returns the numbers the training phases print."""
+    watchdog().reset()
     params, opt = eng.init(seed=0)
     losses = []
 
@@ -1295,10 +1392,11 @@ def train_run(torch, eng, tokens, labels, counts, experts=0):
         params, opt, loss = eng.step(params, opt, tokens, labels)
         losses.append(loss)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):                      # warm-up
         step()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for c in counts:
         for n in c:
             c[n] = 0
@@ -1312,29 +1410,40 @@ def train_run(torch, eng, tokens, labels, counts, experts=0):
     peak = torch.cuda.max_memory_allocated()
     for _ in range(2):
         step()
-    breakdown = profile_step(torch, step, experts)
+    breakdown = profile_step(torch, step)
+    captured = check_captured_once(eng, "hybrid_engine::step", "training")
+    pool = eng.graph_pool_bytes
+    with eager_route(torch, eng):
+        eager = profile_step(torch, step, experts)
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return {"timed": timed, "wall": wall, "ms_step": wall / timed * 1e3,
             "launches": launches, "peak": peak, "breakdown": breakdown,
+            "eager": eager, "captured": captured, "pool": pool,
             "losses": [float(x) for x in losses]}
 
 
 def print_breakdown(tag, run):
-    """The profiled step's lines of a training phase."""
-    bd, ms_step = run["breakdown"], run["ms_step"]
-    print(f"[{tag}] one traced step (10th): device busy "
-          f"{bd['busy_ms']:.1f} ms of the untraced {ms_step:.1f} "
-          f"ms/step (busy share {bd['busy_ms'] / ms_step:.3f}); by "
-          f"kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
-                                bd["by_kind"].items()))
+    """The profiled steps' lines of a training phase: the graph route's
+    replay by kind, the eager route's step by range and aten op."""
+    bd, ms_step, ea = run["breakdown"], run["ms_step"], run["eager"]
+    print(f"[{tag}] one traced replay (10th step): device busy "
+          f"{bd['busy_ms']:.1f} ms of its {bd['wall_ms']:.1f} ms on the "
+          f"host clock (busy share {bd['busy_ms'] / bd['wall_ms']:.3f}; "
+          f"untraced {ms_step:.1f} ms/step); by kind: " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in bd["by_kind"].items()))
     print(f"[{tag}] top device kernels, ms/step: " + "; ".join(
         f"{name} {us / 1e3:.2f}" for us, name in bd["top"]))
-    print(f"[{tag}] device spans of the ranges: " + ", ".join(
-        f"{k} {v:.1f} ms" for k, v in bd["spans"].items()))
-    print(f"[{tag}] top aten ops by device ms: " + "; ".join(
-        f"{name} {ms:.1f}" for ms, name in bd["ops"]))
+    print(f"[{tag}] one traced step on the eager route (11th): device "
+          f"busy {ea['busy_ms']:.1f} ms of its {ea['wall_ms']:.1f} ms on "
+          f"the host clock (busy share {ea['busy_ms'] / ea['wall_ms']:.3f}"
+          f"); by kind: " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in ea["by_kind"].items()))
+    print(f"[{tag}] eager route, device spans of the ranges: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in ea["spans"].items()))
+    print(f"[{tag}] eager route, top aten ops by device ms: " + "; ".join(
+        f"{name} {ms:.1f}" for ms, name in ea["ops"]))
 
 
 def report_training(torch, tag, cfg, run, B, S, flops, per_step, name):
@@ -1358,9 +1467,11 @@ def report_training(torch, tag, cfg, run, B, S, flops, per_step, name):
           f"fp32 Adam slots + master: {ms_step:.1f} ms/step, {tok_s:.1f} "
           f"tokens/s, {mfu} (989 TFLOP/s peak; {card_line()}), peak memory "
           f"{run['peak'] / 2**30:.2f} GiB (max_memory_allocated)")
-    print(f"[{tag}] losses over 10 steps: "
-          + " ".join(f"{x:.4f}" for x in losses))
-    print(f"[{tag}] launches over {timed} timed steps: {launches}")
+    print(f"[{tag}] losses over 11 steps (10 on the graph route, the "
+          f"11th eager): " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"[{tag}] launches over {timed} timed steps (replays): "
+          f"{launches}; {run['captured']}; graph pool "
+          f"{run['pool'] / 2**20:.1f} MiB")
     print_breakdown(tag, run)
     check(all(np.isfinite(losses)), f"{tag}: training loss not finite")
     check(losses[-1] < losses[0], f"{tag}: training loss did not fall")
@@ -2616,13 +2727,18 @@ def resnet_card_vs_cpu(torch, paddle):
         else:
             model.network.set_state_dict(start)
         logits = []
+        # the first forward's output only (the card's first call runs the
+        # step eagerly, then captures it, which computes nothing); a
+        # device copy, as a read to the host cannot be captured
         hook = model.network.register_forward_post_hook(
-            lambda m, a, out: logits.append(out.detach().cpu()))
+            lambda m, a, out: None if logits else logits.append(
+                out.detach().clone()))
         t0 = time.perf_counter()
         loss, res = model.train_batch(x, y)
         secs = time.perf_counter() - t0
         hook.remove()
-        runs[dev] = {"loss": loss, "acc": res["acc"], "logits": logits[0],
+        runs[dev] = {"loss": loss, "acc": res["acc"],
+                     "logits": logits[0].cpu(),
                      "s": secs, "state": {
                          k: v.detach().cpu() for k, v in
                          model.network.state_dict().items()}}
@@ -2700,13 +2816,17 @@ def resnet_kind(op):
 def profile_kinds(torch, step, kind_of):
     """Device time of one step: busy ms from the kernels, and the device
     ms of the aten ops ``kind_of`` names a kind (the kernels each op
-    launched itself), the rest under 'elementwise and rest'."""
+    launched itself), the rest under 'elementwise and rest'; and the
+    host clock's ms over the same traced step."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     busy, by_kind, top = 0.0, {}, []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -2715,15 +2835,16 @@ def profile_kinds(torch, step, kind_of):
         if us <= 0:
             continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += us / 1e3
-            top.append((us / 1e3, e.key[:56]))
+            if not e.key.startswith(RANGES):
+                busy += us / 1e3
+                top.append((us / 1e3, e.key[:56]))
             continue
         kind = kind_of(e.key)
         if kind is not None:
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     check(busy > 0, "profiler saw no device time")
     by_kind["elementwise and rest"] = busy - sum(by_kind.values())
-    return busy, by_kind, sorted(top)[::-1][:6]
+    return busy, wall, by_kind, sorted(top)[::-1][:6]
 
 
 def resnet_throughput(torch, paddle, B):
@@ -2745,10 +2866,12 @@ def resnet_throughput(torch, paddle, B):
         with paddle.amp.auto_cast(dtype="bfloat16"):
             losses.append(model.train_batch(x, y)[0])
 
+    watchdog().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     timed = 5
     t0 = time.perf_counter()
     for _ in range(timed):
@@ -2758,20 +2881,32 @@ def resnet_throughput(torch, paddle, B):
     peak = torch.cuda.max_memory_allocated()
     for _ in range(2):
         step()
-    busy, kinds, top = profile_kinds(torch, step, resnet_kind)
+    # busy time from a replay; the kinds, by launching aten op, from one
+    # more step on the eager route
+    busy, traced, _, top = profile_kinds(torch, step, resnet_kind)
+    captured = check_captured_once(model, "hapi::train_step",
+                                   f"15b batch {B}")
+    pool = model._train_fn.pool_bytes
+    with eager_route(torch, model):
+        eager_busy, eager_traced, kinds, _ = profile_kinds(
+            torch, step, resnet_kind)
     mfu = flops / (ms / 1e3) / BF16_FLOPS
     print(f"[phase 15b] ResNet-50 bench_resnet protocol, batch {B}: "
           f"{B / ms * 1e3:.1f} imgs/s, {ms:.1f} ms/step, MFU {mfu:.4f} on "
           f"{flops / 1e12:.3f} TFLOP a step (convolutions and the linear "
           f"layer: 2 x MACs forward, x 3; 989 TFLOP/s peak; {card_line()}), "
           f"peak memory {peak / 2**30:.2f} GiB")
-    print(f"[phase 15b] batch {B}, one traced step (10th): device busy "
-          f"{busy:.1f} ms of the untraced {ms:.1f} ms/step (busy share "
-          f"{busy / ms:.3f}); by kind: " + ", ".join(
+    print(f"[phase 15b] batch {B}, graph route ({captured}; pool "
+          f"{pool / 2**20:.1f} MiB), one traced replay (10th step): device "
+          f"busy {busy:.1f} ms of its {traced:.1f} ms on the host clock "
+          f"(busy share {busy / traced:.3f}; untraced {ms:.1f} ms/step); "
+          f"the eager route's traced step (11th): busy {eager_busy:.1f} ms "
+          f"of {eager_traced:.1f} ms (share {eager_busy / eager_traced:.3f})"
+          f", by kind: " + ", ".join(
               f"{k} {v:.1f} ms" for k, v in kinds.items()))
     print(f"[phase 15b] batch {B}, top kernels ms: " + "; ".join(
         f"{name} {t:.2f}" for t, name in top))
-    print(f"[phase 15b] batch {B}, losses over the 10 steps at lr 0.1: "
+    print(f"[phase 15b] batch {B}, losses over the 11 steps at lr 0.1: "
           + " ".join(f"{v:.4f}" for v in losses))
     check(all(np.isfinite(losses)), f"15b: loss not finite at batch {B}")
     del model
@@ -2798,14 +2933,11 @@ def resnet_loss_falls(torch, paddle, B, lr=0.01):
     del model
 
 
-def hapi_on_card(torch, paddle):
-    """Phase 15 (c): fit one epoch, evaluate, predict; save and load."""
-    import tempfile
-
-    n_batch, bs = HAPI_FIT
-
+def images(paddle, n, seed):
+    """A seeded in-memory dataset of ``n`` 224 x 224 images, 1000
+    classes."""
     class Images(paddle.io.Dataset):
-        def __init__(self, n, seed):
+        def __init__(self):
             rng = np.random.RandomState(seed)
             self.x = rng.rand(n, 3, 224, 224).astype(np.float32)
             self.y = rng.randint(0, 1000, (n,)).astype(np.int64)
@@ -2816,9 +2948,18 @@ def hapi_on_card(torch, paddle):
         def __getitem__(self, i):
             return self.x[i], self.y[i]
 
+    return Images()
+
+
+def hapi_on_card(torch, paddle):
+    """Phase 15 (c): fit one epoch, evaluate, predict; save and load."""
+    import tempfile
+
+    n_batch, bs = HAPI_FIT
     paddle.set_device("gpu")
     model = resnet_model(paddle, 0.01, 1e-4, paddle.metric.Accuracy())
-    train, test = Images(n_batch * bs, 17), Images(2 * bs, 18)
+    train = images(paddle, n_batch * bs, 17)
+    test = images(paddle, 2 * bs, 18)
     np.random.seed(0)
     t0 = time.perf_counter()
     hist = model.fit(train, batch_size=bs, epochs=1, verbose=0)
@@ -2828,7 +2969,10 @@ def hapi_on_card(torch, paddle):
     print(f"[phase 15c] fit: 1 epoch of {n_batch} x {bs} at 224 x 224 "
           f"fp32 in {fit_s:.2f} s, loss {hist[0]['loss']:.4f} acc "
           f"{hist[0]['acc']:.4f}; evaluate loss {logs['loss']:.4f} acc "
-          f"{logs['acc']:.4f}; predict {preds.shape}")
+          f"{logs['acc']:.4f}; predict {preds.shape}; graphs captured "
+          f"{model.captures}")
+    check(model.captures == {"train": 1, "eval": 1},
+          f"15c: captures {model.captures}")
     check(len(hist) == 1 and np.isfinite(hist[0]["loss"]), "15c: fit")
     check(np.isfinite(logs["loss"]) and 0 <= logs["acc"] <= 1, "15c: eval")
     check(preds.shape == (2 * bs, 1000) and np.isfinite(preds).all(),
@@ -2947,6 +3091,305 @@ def phase_eager(torch, fa):
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+# ------------------------------------- the captured training steps (17)
+
+TRAIN_CHECK_LAYERS = 4             # phase 17 (a): GPT-3 1.3B widths, fp32
+TRAIN_CHECK_BATCH = (2, 2048)
+HAPI_TAIL = (3, 8, 4)              # phase 17 (c): fit batches, size, tail
+
+
+def _flat_tensors(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        elif hasattr(v, "shape"):
+            out[prefix + k] = v.detach()
+    return out
+
+
+def train_routes_fp32(torch, distributed, dropout=0.0, accum=1):
+    """Phase 17 (a): ``HybridEngine`` at GPT-3 1.3B's widths on
+    ``TRAIN_CHECK_LAYERS`` layers, fp32, remat "dots", batch
+    ``TRAIN_CHECK_BATCH``: 3 steps on the eager route (``eager_route``)
+    and 3 on the graph route from one ``init(seed=0)`` and one batch; the losses, every
+    parameter and every Adam slot held at ``TOL["float32"]``.  With
+    dropout, the device keys (so the masks) of the routes are equal
+    step for step, and the masks differ from one step to the next."""
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.models.gpt import _dropout, _fold
+
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"], dtype="float32",
+                              num_layers=TRAIN_CHECK_LAYERS, dropout=dropout)
+    check(cfg.remat == "dots", "expected remat 'dots'")
+    B, S = TRAIN_CHECK_BATCH
+    rng = np.random.default_rng(17)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+    runs = {}
+    for route in ("eager", "graph"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = distributed.HybridEngine(
+            cfg, device="cuda",
+            engine_cfg=distributed.EngineConfig(accum_steps=accum))
+        params, opt = eng.init(seed=0)
+        losses, keys = [], []
+        t0 = time.perf_counter()
+        with (eager_route(torch, eng) if route == "eager"
+              else contextlib.nullcontext()):
+            for _ in range(3):
+                params, opt, loss = eng.step(params, opt, tokens, labels,
+                                             dropout_seed=17)
+                losses.append(loss)
+                keys.append(eng._key.clone())
+        torch.cuda.synchronize()
+        runs[route] = dict(eng=eng, params=params, opt=opt, keys=keys,
+                           losses=torch.stack(losses),
+                           s=time.perf_counter() - t0)
+    e, g = runs["eager"], runs["graph"]
+    what = f"17a dropout {dropout}, accum {accum}"
+    check(g["eng"].captures == 1 and e["eng"].captures == 0,
+          f"{what}: captures {g['eng'].captures} / {e['eng'].captures}")
+    pairs = [("loss", g["losses"], e["losses"])]
+    for name, tree in (("param", "params"), ("slot", "opt")):
+        want = _flat_tensors(e[tree] if tree == "params"
+                             else e[tree]["slots"])
+        got = _flat_tensors(g[tree] if tree == "params"
+                            else g[tree]["slots"])
+        check(want.keys() == got.keys(), f"{what}: {name} trees differ")
+        pairs += [(f"{name} {k}", got[k], want[k]) for k in want]
+    errs = [(max_err(torch, a, b), k) for k, a, b in pairs]
+    bad = [k for k, a, b in pairs
+           if not torch.allclose(a.float(), b.float(), **TOL["float32"])]
+    worst = max(errs)
+    n_slots = sum(k.startswith("slot") for k, _, _ in pairs)
+    print(f"[phase 17a] gpt3-1.3b widths x{TRAIN_CHECK_LAYERS} layers fp32, "
+          f"batch {B} x {S}, remat dots, dropout {dropout}, accum_steps "
+          f"{accum}: 3 steps eager ({e['s']:.2f} s) and graph "
+          f"({g['s']:.2f} s, 1 capture); losses eager "
+          + " ".join(f"{float(x):.6f}" for x in e["losses"]) + " graph "
+          + " ".join(f"{float(x):.6f}" for x in g["losses"])
+          + f"; largest difference {worst[0]:.3g} ({worst[1]}) over the "
+          f"losses, {len(pairs) - 1 - n_slots} parameters and {n_slots} "
+          f"Adam slots (atol {TOL['float32']['atol']}, rtol "
+          f"{TOL['float32']['rtol']})")
+    check(not bad, f"{what}: graph != eager at {bad[:4]}")
+    if dropout:
+        same = all(torch.equal(a, b) for a, b in zip(e["keys"], g["keys"]))
+        x = torch.ones(1 << 16, device="cuda")
+        masks = [_dropout(x, dropout, _fold(k, 0)) != 0 for k in g["keys"]]
+        differ = all(not torch.equal(a, b) for a, b in zip(masks,
+                                                           masks[1:]))
+        kept = [float(m.float().mean()) for m in masks]
+        print(f"[phase 17a] dropout keys equal between the routes step for "
+              f"step: {same}; masks differ from step to step: {differ}; "
+              f"kept shares " + " ".join(f"{k:.4f}" for k in kept))
+        check(same and differ, f"{what}: masks (same {same}, differ "
+                               f"{differ})")
+    del runs, e, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def route_times(torch, step, span, tmp, tag, timed=5, traced=3):
+    """One route of a training step: 2 warm-up calls (on the graph route
+    the eager step and the capture, then a replay), ``timed`` on the host
+    clock, peak memory from the first call on (the capture's included);
+    then ``traced`` calls under the ported ``Profiler``: device ms a step
+    (kernels only, the ranges' device events apart), the host clock's ms
+    a step over the same traced calls (the busy share's denominator) and
+    the chrome export's ``span`` spans, one a step."""
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                    emit_counters=False)
+    with prof:
+        t0 = time.perf_counter()
+        for _ in range(traced):
+            step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / traced * 1e3
+    path = os.path.join(tmp, f"{tag}.json")
+    prof.export(path)
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X" and e["name"] == span]
+    check(len(spans) == traced, f"{tag}: chrome export holds {len(spans)} "
+                                f"{span} spans for {traced} steps")
+    us = 0.0
+    for e in prof.device_profile.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith(RANGES):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        us += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    check(us > 0, f"{tag}: the profiler saw no device time")
+    return {"ms": ms, "peak": peak, "busy": us / traced / 1e3,
+            "traced_ms": traced_ms, "spans": len(spans)}
+
+
+def print_routes(tag, res, card):
+    for route, r in res.items():
+        print(f"[phase 17b] {tag} {route}: {r['ms']:.3f} ms/step (host "
+              f"clock, 5 steps), device {r['busy']:.3f} ms/step of "
+              f"{r['traced_ms']:.3f} on the host clock over {r['spans']} "
+              f"traced steps (busy share {r['busy'] / r['traced_ms']:.3f}),"
+              f" peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB (max_memory_allocated), graph "
+              f"pool {r['pool'] / 2**20:.1f} MiB ({card})")
+    e, g = res["eager"], res["graph"]
+    print(f"[phase 17b] {tag}: graph / eager speed {e['ms'] / g['ms']:.3f}x,"
+          f" peak memory graph / eager {g['peak'] / e['peak']:.4f}")
+
+
+def train_routes_times(torch, distributed, paddle, card):
+    """Phase 17 (b): bf16 phase 7's cell (1.3B, 8 x 2048) and 15 (b)'s
+    ResNet-50 at batch 32, each on the eager route and on the graph
+    route (``route_times``); the 1.3B graph route's peak memory held to
+    within 10 % of the eager route's.  The eager 1.3B route's traced
+    step gives the optimizer's range (a replay has none)."""
+    import tempfile
+
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    cfg = GPT_CONFIGS["gpt3-1.3b"]
+    B, S = 8, 2048
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+    gpt, resnet = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route in ("eager", "graph"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = distributed.HybridEngine(cfg, device="cuda")
+            params, opt = eng.init(seed=0)
+
+            def step():
+                nonlocal params, opt
+                params, opt, _ = eng.step(params, opt, tokens, labels)
+
+            with (eager_route(torch, eng) if route == "eager"
+                  else contextlib.nullcontext()):
+                gpt[route] = route_times(torch, step, "hybrid_engine::step",
+                                         tmp, f"gpt_{route}")
+                if route == "eager":
+                    spans = profile_step(torch, step)["spans"]
+                    print("[phase 17b] gpt3-1.3b eager route, device spans "
+                          "of the ranges: " + ", ".join(
+                              f"{k} {v:.1f} ms" for k, v in spans.items()))
+            gpt[route]["pool"] = eng.graph_pool_bytes
+            del eng, params, opt, step
+        print_routes("gpt3-1.3b bf16, batch 8 x 2048", gpt, card)
+        ratio = gpt["graph"]["peak"] / gpt["eager"]["peak"]
+        check(ratio <= 1.10, f"17b: the graph route's peak memory is "
+                             f"{ratio:.3f} x the eager route's")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch_default_tf32(torch):
+            paddle.set_device("gpu")
+            x = torch.from_numpy(np.random.RandomState(0).rand(
+                32, 3, 224, 224).astype(np.float32)).cuda()
+            y = torch.from_numpy(np.random.RandomState(1).randint(
+                0, 1000, (32,))).cuda()
+            for route in ("eager", "graph"):
+                model = resnet_model(paddle, 0.1)
+
+                def step():
+                    with paddle.amp.auto_cast(dtype="bfloat16"):
+                        model.train_batch(x, y)
+
+                with (eager_route(torch, model) if route == "eager"
+                      else contextlib.nullcontext()):
+                    resnet[route] = route_times(
+                        torch, step, "hapi::train_step", tmp,
+                        f"resnet_{route}")
+                resnet[route]["pool"] = model._train_fn.pool_bytes
+                del model, step
+                gc.collect()
+                torch.cuda.empty_cache()
+        print_routes("ResNet-50 bf16 O1, batch 32", resnet, card)
+
+
+def hapi_eval_routes(torch, paddle):
+    """Phase 17 (c): ``eval_batch`` of ResNet-50 (fp32, 8 x 3 x 224 x
+    224, its batch norm in train mode, so the step would update the
+    buffers) on the eager and the graph route from the same weights: the
+    loss and the logits equal at ``TOL["float32"]``, the buffers
+    unchanged on both; then ``fit`` over two epochs of ``HAPI_TAIL``
+    (full batches and a tail): the captures it costs."""
+    rng = np.random.RandomState(17)
+    x = rng.rand(8, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, (8,)).astype(np.int64)
+    out = {}
+    with torch_default_tf32(torch):
+        paddle.set_device("gpu")
+        for route in ("eager", "graph"):
+            model = resnet_model(paddle, 0.01)
+            net = model.network
+            bufs = {k: b.clone() for k, b in net.named_buffers()}
+            with (eager_route(torch, model) if route == "eager"
+                  else contextlib.nullcontext()):
+                losses = [model.eval_batch(x, y)[0] for _ in range(2)]
+                loss, logits = model._run_eval(*model._eval_in(x, y))
+            kept = all(torch.equal(b, bufs[k])
+                       for k, b in net.named_buffers())
+            out[route] = (losses + [float(loss)], logits.clone(), kept,
+                          model.captures["eval"])
+            del model, net
+        e, g = out["eager"], out["graph"]
+        err = max_err(torch, g[1], e[1])
+        print(f"[phase 17c] ResNet-50 eval_batch fp32, batch 8, batch norm "
+              f"in train mode: losses eager {e[0]} graph {g[0]} (captures "
+              f"{g[3]}); logits max abs diff {err:.3g}; buffers unchanged "
+              f"eager {e[2]} graph {g[2]}")
+        check(e[2] and g[2], "17c: eval_batch changed the buffers")
+        check(g[3] == 1, f"17c: eval captures {g[3]}")
+        check(np.allclose(g[0], e[0], **TOL["float32"])
+              and torch.allclose(g[1], e[1], **TOL["float32"]),
+              f"17c: graph eval != eager eval ({err:.3g})")
+        n, bs, tail = HAPI_TAIL
+        model = resnet_model(paddle, 0.01, 1e-4)
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        hist = model.fit(images(paddle, n * bs + tail, 19), batch_size=bs,
+                         epochs=2, verbose=0, shuffle=False)
+        fit_s = time.perf_counter() - t0
+        caps = model.captures["train"]
+        print(f"[phase 17c] fit: 2 epochs of {n} batches of {bs} and a tail "
+              f"of {tail} in {fit_s:.2f} s, losses "
+              + " ".join(f"{h['loss']:.4f}" for h in hist)
+              + f"; train captures {caps} (each epoch's first batch and "
+              f"its tail: {caps // 2} an epoch)")
+        check(caps == 4 and all(np.isfinite(h["loss"]) for h in hist),
+              f"17c: fit with a tail captured {caps} times")
+        del model
+
+
+def phase_train_graph(torch, distributed):
+    """Phase 17: the captured training steps against the eager ones."""
+    import paddle_tpu_torch as paddle
+
+    train_routes_fp32(torch, distributed)
+    train_routes_fp32(torch, distributed, dropout=0.1, accum=2)
+    train_routes_times(torch, distributed, paddle, card_line())
+    hapi_eval_routes(torch, paddle)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3083,6 +3526,10 @@ def main():
     t0 = time.perf_counter()
     eager_flash = phase_eager(torch, fa)
     print(f"[phase 15] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_train_graph(torch, distributed)
+    print(f"[phase 17] {time.perf_counter() - t0:.1f} s")
 
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:

@@ -68,6 +68,14 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 amp_guard = auto_cast
 
 
+def amp_state():
+    """This thread's autocast settings as a hashable tuple (what a
+    captured step's casts were recorded under)."""
+    return (_state.enabled, str(_state.dtype), _state.level,
+            tuple(sorted(_state.custom_white)),
+            tuple(sorted(_state.custom_black)))
+
+
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):

@@ -3,15 +3,20 @@
 One explicit ``torch.Generator`` per device, which the initializers and
 dropout draw from.  ``seed(n)`` re-seeds every device's generator with
 ``n``; until then each is seeded from numpy's global state, as the JAX
-package seeds its streams.  The JAX package's named streams and
-``RNGStatesTracker`` serve tensor parallelism, which this slice does not
-port."""
+package seeds its streams.  A generator keeps its identity for the life
+of the process (``seed`` and ``set_rng_state`` write its state in
+place), so a CUDA graph that registered it (``_captured.CapturedStep``
+registers ``generators(device)`` with every graph) keeps advancing the
+one every eager call draws from.
+The JAX package's named streams and ``RNGStatesTracker`` serve tensor
+parallelism, which this slice does not port."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "get_rng_state", "set_rng_state"]
+__all__ = ["seed", "generator", "generators", "get_rng_state",
+           "set_rng_state"]
 
 _generators: dict[str, torch.Generator] = {}
 _seed = [None]
@@ -27,7 +32,8 @@ def _key(device) -> str:
 def seed(value: int):
     """Seed every device's generator (parity: ``paddle.seed``)."""
     _seed[0] = int(value)
-    _generators.clear()
+    for gen in _generators.values():
+        gen.manual_seed(_seed[0])
     return value
 
 
@@ -42,6 +48,12 @@ def generator(device) -> torch.Generator:
         gen = torch.Generator(device=key).manual_seed(value)
         _generators[key] = gen
     return gen
+
+
+def generators(device):
+    """The generators made so far on ``device`` (none, or its one)."""
+    gen = _generators.get(_key(device))
+    return [] if gen is None else [gen]
 
 
 def get_rng_state():

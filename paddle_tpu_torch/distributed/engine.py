@@ -22,26 +22,47 @@ is per token, so it equals the JAX engine's sharded step.  MoE and
 bidirectional (``BertAdapter``) models train at sep = 1 only: the JAX
 engine gates each sep shard separately, which is a later slice.
 
+The step is the port's ``watch(jax.jit(step), name="hybrid_engine::
+step")``: on CUDA the step's body runs eagerly on the first call (a real
+step), is captured then as one CUDA graph (``_captured.CapturedStep``)
+and replayed on every later call, under ``RecordEvent("hybrid_engine::
+step")``.  What the graph reads lives at fixed addresses: the params and
+the slots (written in place), ``tokens``/``labels`` (copied into static
+device buffers through pinned host buffers), and three 0-d device
+scalars written before each call, all the engine's own — the learning rate
+(fp32), the step (fp32, filled from the Python int ``opt_state["step"]``
++ 1; Adam's bias corrections are computed from it on the device) and
+the dropout key (int64: ``dropout_seed`` folded with the step; every further
+fold and each mask is computed on the device from it, ``models/gpt.py``).
+Passing other params or state tensors, or a batch of another shape,
+captures again, which the compile watchdog reports as a rebuild; a
+failed capture raises.  The loss returned is a copy of the graph's
+output.  On the CPU (``device="cpu"``) the same body runs eagerly
+through the same watched call.
+
 What has no counterpart on one GPU is left out: the mesh and its
 collectives, ZeRO chunking, the ``_SLOT_LANE`` padding of optimizer
-slots (a TPU tiling concern), the pipeline schedules and the compile
-watchdog (the step is eager, not jitted).  Every other parallel axis
-> 1, and Ulysses with ``sep > 1``, raises ``NotImplementedError``: those
-paths are the multi-GPU slice of the port.  Optimizer slots are stored
-param-shaped, which is the JAX package's canonical, topology-neutral
-form (``opt_canonical``).
+slots (a TPU tiling concern) and the pipeline schedules.  Every other
+parallel axis > 1, and Ulysses with ``sep > 1``, raises
+``NotImplementedError``: those paths are the multi-GPU slice of the
+port.  Optimizer slots are stored param-shaped, which is the JAX
+package's canonical, topology-neutral form (``opt_canonical``).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .._captured import CapturedStep, StaticInputs, storage_tag
 from .._device import resolve_device
 from ..models.gpt import (_default_attention, _dropout, _fold, _flat_items,
                           run_blocks)
+from ..observability.compile_watchdog import watch
+from ..optimizer.optimizer import bias_correction, device_scalar
+from ..profiler.profiler import RecordEvent
 from .model_adapter import GPTAdapter, ModelAdapter
 
 __all__ = ["HybridEngine", "EngineConfig"]
@@ -95,12 +116,6 @@ class EngineConfig:
                 f"{self.pipeline_schedule!r}")
 
 
-def _f32(x):
-    """``x`` rounded to fp32, as a Python float: the value JAX's fp32
-    scalar math would use."""
-    return float(np.float32(x))
-
-
 class HybridEngine:
     def __init__(self, cfg, dp=1, pp=1, sharding=1, sep=1, mp=1, ep=1,
                  engine_cfg: EngineConfig = None, device=None):
@@ -128,6 +143,29 @@ class HybridEngine:
                 f"sep > 1 are the multi-GPU slice of the port")
         self.ec = engine_cfg or EngineConfig()
         self.device = resolve_device(device)
+        # the step's static inputs and device scalars, and the watched
+        # step: one capture per engine (CUDA)
+        self._inputs = StaticInputs(self.device, torch.long)
+        self._lr = device_scalar(0.0, self.device)
+        self._step = device_scalar(0, self.device)
+        self._key = torch.zeros((), dtype=torch.long, device=self.device)
+        body = weakref.WeakMethod(self._step_body)
+        self._step_fn = watch(
+            CapturedStep(lambda *a: body()(*a), self.device,
+                         empty_cache=True),
+            name="hybrid_engine::step")
+
+    @property
+    def captures(self):
+        """CUDA graphs this engine has captured (0 on the CPU)."""
+        return self._step_fn.captures
+
+    @property
+    def graph_pool_bytes(self):
+        """Device memory the captured step's private pool holds (its
+        activations and gradients; 0 before the capture and on the
+        CPU)."""
+        return self._step_fn.pool_bytes
 
     # ---------------------------------------------------------------- init
     def _opt_dtype(self):
@@ -183,7 +221,9 @@ class HybridEngine:
 
     def opt_from_canonical(self, canon, step=0):
         """Inverse of ``opt_canonical``: an optimizer state whose slots
-        are copies of the canonical trees (cast to ``opt_dtype``)."""
+        are copies of the canonical trees (cast to ``opt_dtype``), at
+        step ``step`` (so a state carried over from JAX resumes with the
+        bias correction of its next step)."""
         odt = self._opt_dtype()
         has_master = self._has_master()
 
@@ -257,8 +297,10 @@ class HybridEngine:
         s_sum = c_sum = 0.0
         for i in range(nchunk):
             sl = slice(i * sc, (i + 1) * sc)
+            # ce_chunk draws no random numbers (recompute.py)
             s_i, c_i = checkpoint(ce_chunk, x[:, sl], labels[:, sl],
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             s_sum, c_sum = s_sum + s_i, c_sum + c_i
         return s_sum, c_sum
 
@@ -286,11 +328,6 @@ class HybridEngine:
         return loss
 
     # ------------------------------------------------------------- the step
-    def _as_ids(self, a):
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.asarray(a))
-        return a.to(self.device, torch.long)
-
     def _windows(self, n):
         w = max(1, int(self.ec.opt_update_window))
         return [slice(lo, min(n, lo + w)) for lo in range(0, n, w)]
@@ -300,35 +337,56 @@ class HybridEngine:
         """One train step; returns ``(params, opt_state, loss)``.
 
         Where the JAX step donates its inputs and returns new arrays,
-        this one updates ``params`` and ``opt_state`` in place under
-        ``torch.no_grad()`` and returns the same dicts, so the call reads
-        like its counterpart.  Param leaves are made to require grad.
-        ``dropout_seed`` varies the dropout masks per step (ignored when
-        cfg.dropout == 0); the step counter is folded in as in JAX.  The
-        optimizer update is the ``torch.profiler`` range
-        ``engine::optimizer``."""
-        ec, cfg = self.ec, self.cfg
-        tokens, labels = self._as_ids(tokens), self._as_ids(labels)
+        this one updates ``params`` and ``opt_state`` in place and
+        returns the same dicts, so the call reads like its counterpart;
+        ``loss`` is a new 0-d fp32 tensor.  Param leaves are made to
+        require grad.  ``dropout_seed`` varies the dropout masks per step
+        (ignored when cfg.dropout == 0); the step counter is folded in as
+        in JAX.  The optimizer update is the ``torch.profiler`` range
+        ``engine::optimizer`` (visible on the eager route: a replayed
+        graph records no ranges)."""
+        tokens, labels = self._inputs(tokens, labels)
         S = tokens.shape[1]
         if self.sep > 1 and S % (self.sep * 128):
             raise ValueError(
                 f"ring sequence parallelism splits S={S} into sep="
                 f"{self.sep} shards of a multiple of 128 tokens each; "
                 f"S % (sep * 128) must be 0")
+        for _, t in _flat_items(params):
+            if not t.requires_grad:
+                t.requires_grad_(True)
+        step = opt_state["step"] + 1
+        self._step.fill_(step)
+        self._lr.fill_(self.ec.lr if lr is None else lr)
+        if self.cfg.dropout > 0.0:
+            self._key.fill_(_fold(dropout_seed, opt_state["step"]))
+        args = (params, opt_state["slots"], self._step, tokens, labels,
+                self._lr, self._key)
+        with RecordEvent("hybrid_engine::step"):
+            loss = self._run(args)
+        opt_state["step"] = step
+        return params, opt_state, loss
+
+    def _run(self, args):
+        """The watched step (the graph's replay on CUDA); the loss is
+        copied out of the graph's static output."""
+        params, slots, *rest = args
+        tag = storage_tag([t for tree in (params, slots)
+                           for _, t in _flat_items(tree)] + rest)
+        return self._step_fn(*args, storage=tag).clone()
+
+    def _step_body(self, params, slots, step, tokens, labels, lr, key):
+        """Grads, clip and the update: the captured step.  Reads every
+        per-call value from a device tensor (``step``, ``lr``, ``key``)
+        and writes params and slots in place; no host sync."""
         items = list(_flat_items(params))
         paths = [p for p, _ in items]
         leaves = [t for _, t in items]
-        for t in leaves:
-            if not t.requires_grad:
-                t.requires_grad_(True)
-        key = (_fold(dropout_seed, opt_state["step"])
-               if cfg.dropout > 0.0 else None)
-
+        key = key if self.cfg.dropout > 0.0 else None
         loss, grads = self._grads(params, leaves, tokens, labels, key)
         with torch.no_grad(), record_function("engine::optimizer"):
-            self._apply(paths, leaves, grads, opt_state,
-                        ec.lr if lr is None else lr)
-        return params, opt_state, loss
+            self._apply(paths, leaves, grads, slots, step, lr)
+        return loss
 
     def _grads(self, params, leaves, tokens, labels, key):
         """(mean loss, grads): one backward pass, or ``accum_steps``
@@ -359,8 +417,9 @@ class HybridEngine:
             grads = [g / accum for g in grads]
         return loss, grads
 
-    def _apply(self, paths, leaves, grads, opt_state, lr):
-        """Global-norm clip and the Adam update, in place."""
+    def _apply(self, paths, leaves, grads, slots, step, lr):
+        """Global-norm clip and the Adam update, in place; ``step`` and
+        ``lr`` are 0-d fp32 device tensors."""
         ec = self.ec
         # --- global-norm clip: squares summed in fp32, grads keep their
         # dtype ((g * scale) is rounded back to it, as JAX does) ---
@@ -375,22 +434,19 @@ class HybridEngine:
             scale = torch.clamp(ec.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
 
-        step = opt_state["step"] + 1
-        opt_state["step"] = step
         b1, b2 = ec.beta1, ec.beta2
-        bc1 = _f32(1 - np.float32(b1) ** np.float32(step))
-        bc2 = _f32(1 - np.float32(b2) ** np.float32(step))
-        lr, eps, decay = _f32(lr), ec.eps, ec.weight_decay
+        bc1, bc2 = bias_correction(b1, step), bias_correction(b2, step)
+        eps, decay = ec.eps, ec.weight_decay
         has_master = self._has_master()
 
         for path, p, g in zip(paths, leaves, grads):
-            slots = opt_state["slots"]
+            slot = slots
             for k in path.split("/"):
-                slots = slots[k]
+                slot = slot[k]
             decay_on = bool(decay) and self.model.decay_this(path)
             pf, gf = p.detach().view(-1), g.view(-1)
-            m, v = slots["m"].view(-1), slots["v"].view(-1)
-            w_src = slots["master"].view(-1) if has_master else pf
+            m, v = slot["m"].view(-1), slot["v"].view(-1)
+            w_src = slot["master"].view(-1) if has_master else pf
             for sl in self._windows(pf.numel()):
                 gw = gf[sl].float()
                 if scale is not None:
@@ -405,5 +461,5 @@ class HybridEngine:
                 m[sl] = mw
                 v[sl] = vw
                 if has_master:
-                    slots["master"].view(-1)[sl] = w_new
+                    slot["master"].view(-1)[sl] = w_new
                 pf[sl] = w_new

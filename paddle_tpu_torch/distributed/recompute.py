@@ -16,7 +16,12 @@ wrapper on non-reentrant ``torch.utils.checkpoint``:
 - ``"nothing"``: no checkpoint; every activation is kept.
 
 Dropout masks stay identical across the recompute because the port
-derives them from integer seeds inside the block, not from RNG state.
+derives them from integer seeds inside the block (``models/gpt.py``
+``_dropout``: a hash of the seed and the element index), not from RNG
+state.  No op of a block draws from PyTorch's global generator, so the
+checkpoint does not save and restore its state
+(``preserve_rng_state=False``): that would be a host read of the CUDA
+generator's state on every block, for nothing.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ def checkpoint_policy(name: str):
         @functools.wraps(fn)
         def rematted(*args, **kwargs):
             return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False,
                               context_fn=context_fn, **kwargs)
 
         return rematted

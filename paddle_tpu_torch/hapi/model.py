@@ -2,13 +2,32 @@
 ``train_batch``/``eval_batch``/``predict_batch``, ``fit``/``evaluate``/
 ``predict``, ``save``/``load`` and ``summary``.
 
-``train_batch`` is the JAX package's jitted step done eagerly: forward,
-loss, ``torch.autograd.grad`` over every named parameter, then
-``optimizer.apply_gradients`` with the same math (clip, coupled decay,
-the rule; no per-parameter learning rate, as in JAX's jitted path); batch
-norm updates its running statistics in place during the forward.
+``train_batch`` is the JAX package's jitted step: forward, loss,
+``torch.autograd.grad`` over every named parameter, then the optimizer's
+update with the same math (clip, coupled decay, the rule; no
+per-parameter learning rate, as in JAX's jitted path); batch norm
+updates its running statistics in place during the forward.
 ``eval_batch`` and ``predict_batch`` run the network in whatever mode it
 is in and, as JAX's pure eval step does, keep no buffer update.
+
+``train_batch`` and ``eval_batch`` are the port's ``watch(jax.jit(...),
+name="hapi::train_step" / "hapi::eval_step")``, each under
+``RecordEvent`` of its name: on CUDA each runs its body eagerly on the
+first call, captures it then as a CUDA graph (``_captured.CapturedStep``)
+and replays it on later calls.  The batch goes through static device
+buffers (pinned host copies); the learning rate (``opt.get_lr()``, so a
+scheduler keeps working) and the step are written into 0-d device
+scalars before each call (``self._lr``, ``self._step``); the
+port's dropout generator of the device is registered with each graph;
+the grad norm is computed in the graph and read after it; metrics and
+the loss's host read run after the replay, as in JAX.  A batch of
+another shape (``fit``'s tail batch), replaced parameters, slots or
+buffers, another train/eval mode, autocast setting or TF32 flag capture
+again (the old graph's pool freed first); the watchdog reports a new
+batch shape as a rebuild naming the argument.  ``prepare`` drops both
+steps and builds them anew, as JAX drops its jitted steps there, so a new
+loss or optimizer is captured on the next call.  On the CPU the same
+bodies run eagerly through the same watched calls.
 
 ``save``/``load`` use the JAX package's format, so a checkpoint saved by
 either package loads in the other: ``path.pdparams`` is a pickled
@@ -24,13 +43,19 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
+import weakref
 
 import numpy as np
 import torch
 
+from .._captured import CapturedStep, StaticInputs, storage_tag
+from ..amp.auto_cast import amp_state
 from ..core.place import current_device
 from ..io.dataloader import DataLoader
 from ..models.convert import _to_numpy, opt_state_from_jax
+from ..observability.compile_watchdog import watch
+from ..optimizer.optimizer import device_scalar
+from ..profiler.profiler import RecordEvent
 from ..resilience.atomic import atomic_write
 from .callbacks import CallbackList, ModelCheckpoint, ProgBarLogger
 
@@ -61,6 +86,37 @@ class Model:
         self._metrics = []
         self._opt_state = None        # train_batch's optimizer state
         self._watch_grad_norm = False
+        # the static inputs of the watched steps; the learning rate and
+        # the step as device scalars
+        dev = self.device
+        self._train_in, self._eval_in = StaticInputs(dev), StaticInputs(dev)
+        self._lr = device_scalar(0.0, dev)
+        self._step = device_scalar(0, dev)
+        self._train_fn = self._eval_fn = None
+        self._build_steps()
+
+    def _build_steps(self):
+        """The watched steps (one capture per input signature, CUDA),
+        new ones: JAX's ``_jit_step``/``_jit_eval`` set to None.  The old
+        graphs are released first, so their pools are freed."""
+        for fn in (self._train_fn, self._eval_fn):
+            if fn is not None:
+                fn.release()
+        dev = self.device
+        train = weakref.WeakMethod(self._train_body)
+        ev = weakref.WeakMethod(self._eval_body)
+        self._train_fn = watch(
+            CapturedStep(lambda *a: train()(*a), dev, empty_cache=True),
+            name="hapi::train_step")
+        self._eval_fn = watch(
+            CapturedStep(lambda *a: ev()(*a), dev, empty_cache=True),
+            name="hapi::eval_step")
+
+    @property
+    def captures(self):
+        """CUDA graphs captured so far: ``{"train": n, "eval": n}``."""
+        return {"train": self._train_fn.captures,
+                "eval": self._eval_fn.captures}
 
     def enable_grad_norm_logging(self):
         """Make ``train_batch`` report the global gradient norm
@@ -77,6 +133,7 @@ class Model:
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
+        self._build_steps()
         return self
 
     def _tensor(self, x):
@@ -86,14 +143,49 @@ class Model:
         return x.to(self.device, non_blocking=True)
 
     # ------------------------------------------------- train / eval batch
+    def _static(self):
+        """What a captured step depends on beside its tensors' storage:
+        each module's train/eval mode, autocast and the TF32 flags."""
+        return (tuple(m.training for m in self.network.modules()),
+                amp_state(), torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
     def train_batch(self, inputs, labels):
         """One optimization step; returns ``(loss, metric results)``."""
-        x, y = self._tensor(inputs), self._tensor(labels)
         opt, net = self._optimizer, self.network
         params = dict(net.named_parameters())
         if self._opt_state is None:
             self._opt_state = opt.init_state(params)
-        out = net(x)
+        st = self._opt_state
+        x, y = self._train_in(_to_list(inputs)[0], _to_list(labels)[0])
+        self._step.fill_(st["step"] + 1)
+        self._lr.fill_(opt.get_lr())
+        args = (x, y, params, st["slots"], self._lr, self._step,
+                self._watch_grad_norm)
+        with RecordEvent("hapi::train_step"):
+            loss, out, gnorm = self._run_train(args)
+        st["step"] += 1
+        results = self._update_metrics(out, y)
+        if gnorm is not None:
+            results["grad_norm"] = float(gnorm)
+        return float(loss), results
+
+    def _run_train(self, args):
+        """The watched train step (the graph's replay on CUDA)."""
+        x, y, params, slots, lr, step, _ = args
+        tensors = [x, y, lr, step, *params.values(),
+                   *self.network.buffers()]
+        tensors += [t for s in slots.values() for t in s.values()]
+        tag = storage_tag(tensors, self._static(), tuple(
+            p.requires_grad for p in params.values()), args[-1])
+        return self._train_fn(*args, storage=tag)
+
+    def _train_body(self, x, y, params, slots, lr, step, log_gnorm):
+        """Forward, grads and the update (``apply_gradients_``, in
+        place): the captured train step.  Returns the loss, the output
+        and (with ``log_gnorm``) the global gradient norm, all on the
+        device."""
+        out = self.network(x)
         loss = self._loss(out, y)
         live = [k for k, p in params.items() if p.requires_grad]
         got = torch.autograd.grad(loss, [params[k] for k in live],
@@ -103,14 +195,12 @@ class Model:
         # (trainable=False) is left as it is
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(live, got)}
-        results = {}
-        if self._watch_grad_norm:
-            results["grad_norm"] = float(torch.sqrt(sum(
-                torch.sum(torch.square(g.float())) for g in grads.values())))
-        self._opt_state = opt.apply_gradients(params, grads, self._opt_state,
-                                              opt.get_lr())
-        results = {**self._update_metrics(out.detach(), y), **results}
-        return float(loss.detach()), results
+        gnorm = None
+        if log_gnorm:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads.values()))
+        self._optimizer.apply_gradients_(params, grads, slots, lr, step)
+        return loss.detach(), out.detach(), gnorm
 
     @contextlib.contextmanager
     def _buffers_kept(self):
@@ -128,12 +218,26 @@ class Model:
                     b.copy_(saved[k])
 
     def eval_batch(self, inputs, labels):
-        x, y = self._tensor(inputs), self._tensor(labels)
+        x, y = self._eval_in(_to_list(inputs)[0], _to_list(labels)[0])
+        with RecordEvent("hapi::eval_step"):
+            loss, out = self._run_eval(x, y)
+        results = self._update_metrics(out, y)
+        return (float(loss) if loss is not None else 0.0), results
+
+    def _run_eval(self, x, y):
+        """The watched eval step (the graph's replay on CUDA)."""
+        net = self.network
+        tag = storage_tag([x, y, *net.parameters(), *net.buffers()],
+                          self._static(), self._loss is not None)
+        return self._eval_fn(x, y, storage=tag)
+
+    def _eval_body(self, x, y):
+        """The captured eval step: ``(loss or None, output)``, buffers
+        left as they were."""
         with torch.no_grad(), self._buffers_kept():
             out = self.network(x)
             loss = self._loss(out, y) if self._loss else None
-        results = self._update_metrics(out, y)
-        return (float(loss) if loss is not None else 0.0), results
+        return loss, out
 
     def predict_batch(self, inputs):
         x = self._tensor(inputs)

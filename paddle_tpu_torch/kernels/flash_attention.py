@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention", "flash_attention_available",
-           "flash_attention_plain", "launches"]
+           "flash_attention_plain", "launches", "captured"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,8 +59,13 @@ BF16_MAX_HEAD_DIM = 256
 #: kernel launches since the counts were last set to 0 (CUDA path only):
 #: ``fwd`` every forward kernel, ``bwd`` every backward kernel (a bf16
 #: backward is one launch; an fp32 one launches its dK/dV and its dQ
-#: kernel, two, and so does a ring pair with fp32 q/k/v)
+#: kernel, two, and so does a ring pair with fp32 q/k/v).  A call made
+#: while its stream is being captured launches nothing and counts in
+#: ``captured`` instead; whoever replays the graph adds its captured
+#: calls to ``launches`` at each replay (``paddle_tpu_torch/_captured.py``)
 launches = {"fwd": 0, "bwd": 0}
+captured = {"fwd": 0, "bwd": 0}
+_COUNTS = (launches, captured)
 
 
 # --------------------------------------------------------------- reference
@@ -203,7 +208,9 @@ def _check_cuda(q, k, v, *rest):
 def _launch(counts, name, fn, *args):
     """Call the C entry ``fn`` on the current stream with tensors passed
     as device pointers; raise on a non-zero CUDA error, else count the
-    launch in ``counts[name]``."""
+    call in ``counts``, a ``(launches, captured)`` pair: in
+    ``launches[name]``, or in ``captured[name]`` while the stream is
+    being captured (nothing launches then)."""
     q = args[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -211,7 +218,7 @@ def _launch(counts, name, fn, *args):
                   for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    counts[name] += 1
+    counts[torch.cuda.is_current_stream_capturing()][name] += 1
 
 
 def _wide_bf16(q):
@@ -239,10 +246,10 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel():
         if bf16:
-            _launch(launches, "fwd", _lib_sm90().flash_fwd_sm90_launch, q, k,
+            _launch(_COUNTS, "fwd", _lib_sm90().flash_fwd_sm90_launch, q, k,
                     v, out, lse, B * H, S, Dk, float(scale), int(causal))
         else:
-            _launch(launches, "fwd", _lib().flash_fwd_launch, q, k, v, out,
+            _launch(_COUNTS, "fwd", _lib().flash_fwd_launch, q, k, v, out,
                     lse, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, out)[0], lse
 
@@ -255,7 +262,7 @@ def _bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
     B, H, S, Dk = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _launch(launches, "bwd", _lib().flash_bwd_dkdv_launch, q, k, v, do,
+        _launch(_COUNTS, "bwd", _lib().flash_bwd_dkdv_launch, q, k, v, do,
                 lse, delta, dk, dv, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, dk, dv)
 
@@ -268,7 +275,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
     B, H, S, Dk = q.shape
     dq = torch.empty_like(q)
     if q.numel():
-        _launch(launches, "bwd", _lib().flash_bwd_dq_launch, q, k, v, do,
+        _launch(_COUNTS, "bwd", _lib().flash_bwd_dq_launch, q, k, v, do,
                 lse, delta, dq, B * H, S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, dq)[0]
 
@@ -285,7 +292,7 @@ def _bwd_sm90(q, k, v, do, lse, delta, scale, causal):
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
-        _launch(launches, "bwd", _lib_bwd_sm90().flash_bwd_sm90_launch, q,
+        _launch(_COUNTS, "bwd", _lib_bwd_sm90().flash_bwd_sm90_launch, q,
                 k, v, do, lse, delta, dq_acc, dk, dv, B * H, S, Dk,
                 float(scale), int(causal))
     return _unpad_head_dim(D, dq_acc.to(q.dtype), dk, dv)

@@ -59,15 +59,18 @@ import torch
 
 from . import flash_attention as fa
 
-__all__ = ["ring_attention", "launches"]
+__all__ = ["ring_attention", "launches", "captured"]
 
 _NEG_INF = -1e30
 
 #: launches of the bf16 pair backward kernel since the counts were last
 #: set to 0 (CUDA path only); the pair forwards count in
 #: ``flash_attention.launches["fwd"]``, the fp32 pair backwards in its
-#: ``["bwd"]``
+#: ``["bwd"]``.  Calls made under a CUDA-graph capture count in
+#: ``captured``, as the flash wrappers' do
 launches = {"pair_bwd": 0}
+captured = {"pair_bwd": 0}
+_COUNTS = (launches, captured)
 
 
 # --------------------------------------------------------------- per pair
@@ -116,7 +119,7 @@ def _pair_bwd_sm90(q, k, v, do, lse, delta, scale, causal, dq, dk, dv):
                          "dim 64, 128 or 256 and fp32 sums of q's shape")
     B, H, S, D = q.shape
     if q.numel():
-        fa._launch(launches, "pair_bwd",
+        fa._launch(_COUNTS, "pair_bwd",
                    fa._lib_bwd_sm90().ring_pair_bwd_sm90_launch, q, k, v, do,
                    lse, delta, dq, dk, dv, B * H, S, D, float(scale),
                    int(causal))

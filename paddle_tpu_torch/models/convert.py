@@ -56,7 +56,8 @@ def opt_from_jax(canon, device=None, dtype=None):
     ``{"m", "v", "master"}`` trees of param-shaped arrays) → the same
     three trees of tensors, every float leaf cast to ``dtype`` when it is
     given (the slots are kept in one dtype);
-    ``HybridEngine.opt_from_canonical`` turns them into a state."""
+    ``HybridEngine.opt_from_canonical(canon, step)`` turns them into a
+    state at the JAX state's step (the canonical form carries no step)."""
     return {name: _convert(canon[name], device, dtype)
             for name in ("m", "v", "master")}
 

@@ -167,29 +167,102 @@ def _layer_norm(x, g, b, eps=1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
 
 
+_M64 = (1 << 64) - 1
+_GOLDEN, _MIX1, _MIX2 = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
+                         0x94D049BB133111EB)
+
+
+def _s64(c):
+    """The int64 whose bits are those of the unsigned 64-bit ``c``."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lsr(h, k):
+    """Logical right shift of an int64 tensor: the arithmetic shift with
+    the sign's copies masked off."""
+    return (h >> k) & ((1 << (64 - k)) - 1)
+
+
 def _fold(seed, *ints):
     """A 63-bit seed from ``seed`` folded with ``ints`` (splitmix64
-    rounds): the port's ``jax.random.fold_in`` for dropout seeds."""
-    h = int(seed) & 0xFFFFFFFFFFFFFFFF
+    rounds): the port's ``jax.random.fold_in`` for dropout seeds.
+
+    On Python ints it returns an int.  Where ``seed`` or one of ``ints``
+    is an int64 tensor it computes the same bits on the tensor's device,
+    elementwise (int64 products wrap as uint64 ones do; right shifts are
+    masked to act as logical shifts), so a seed held in a device tensor
+    folds inside a captured CUDA graph."""
+    if not any(isinstance(v, torch.Tensor) for v in (seed, *ints)):
+        h = int(seed) & _M64
+        for i in ints:
+            h = (h ^ (int(i) & _M64)) + _GOLDEN
+            h &= _M64
+            h = ((h ^ (h >> 30)) * _MIX1) & _M64
+            h = ((h ^ (h >> 27)) * _MIX2) & _M64
+            h ^= h >> 31
+        return h >> 1
+
+    def s64(v):
+        return v if isinstance(v, torch.Tensor) else _s64(int(v) & _M64)
+
+    h = s64(seed)
     for i in ints:
-        h = (h ^ (int(i) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
-        h &= 0xFFFFFFFFFFFFFFFF
-        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-        h ^= h >> 31
-    return h >> 1
+        h = (s64(i) ^ h) + _s64(_GOLDEN)
+        h = (h ^ _lsr(h, 30)) * _s64(_MIX1)
+        h = (h ^ _lsr(h, 27)) * _s64(_MIX2)
+        h = h ^ _lsr(h, 31)
+    return _lsr(h, 1)
+
+
+#: the 32-bit mixing constants of ``_dropout`` (a Weyl step, then
+#: MurmurHash3's finaliser multipliers), as int32 values
+_W32, _F1, _F2 = (c - (1 << 32) for c in (0x9E3779B9, 0x85EBCA6B,
+                                           0xC2B2AE35))
+
+
+def _i32(v):
+    """The low 32 bits of an int or an int64 tensor as an int32 0-d tensor
+    (an int's on the CPU, which broadcasts onto any device)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.tensor(int(v) & 0xFFFFFFFF, dtype=torch.int64)
+    return (((v & 0xFFFFFFFF) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
 
 
 def _dropout(x, rate, seed):
     """Inverted dropout; identity when ``rate == 0`` or ``seed`` is None
-    (eval).  The mask comes from a generator made here from the integer
-    ``seed``, so a recompute under activation checkpointing draws the
-    same mask; masks differ from ``jax.random``'s for equal seeds."""
+    (eval).  Element ``i`` is kept when the top 24 bits of a counter-based
+    32-bit hash of ``i`` and the seed reach ``rate`` · 2^24: ``h = lo +
+    W·i``, ``h ^= h >>> 16``, ``h = hi + F1·h``, ``h ^= h >>> 13``,
+    ``h = F2·h`` (``lo``/``hi`` the seed's low and high 32 bits; the
+    second key stops two seeds from giving shifted copies of one mask).
+    Eleven int32 elementwise passes, on ``x``'s device, so the mask
+    depends on the seed alone: a recompute under activation
+    checkpointing draws the same mask, the CPU and the card draw the
+    same one, and a seed held in a device tensor (``HybridEngine``'s
+    captured step) gives each replay the masks of the value it holds
+    then.  Masks differ from ``jax.random``'s for equal seeds."""
     if rate <= 0.0 or seed is None:
         return x
-    g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    n = x.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"dropout over {n} elements: the mask's counter "
+                         f"is int32 (at most 2^31 - 1 elements)")
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(x.device)
+        lo, hi = _i32(seed), _i32(_lsr(seed, 32))
+    else:
+        lo, hi = _i32(seed), _i32((int(seed) & _M64) >> 32)
+    h = torch.arange(n, dtype=torch.int32, device=x.device)
+    torch.add(lo, h, alpha=_W32, out=h)
+    h ^= (h >> 16) & 0xFFFF
+    torch.add(hi, h, alpha=_F1, out=h)
+    h ^= (h >> 13) & 0x7FFFF
+    # F2·h, its top bit flipped (+ 2^31): the signed order of the result
+    # is the unsigned order of F2·h
+    torch.add(_i32(1 << 31), h, alpha=_F2, out=h)
+    keep = h >= (round(rate * (1 << 24)) << 8) - (1 << 31)
+    return torch.where(keep.view(x.shape), x / (1.0 - rate),
+                       0.0).to(x.dtype)
 
 
 def _default_attention(cfg, q, k, v, causal=True):
@@ -213,9 +286,10 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
     params.  Returns ``(x, aux)``: aux is the MoE load-balance loss, a
     fp32 0 for a dense block.
 
-    ``dropout_seed`` (an int) enables residual dropout on the attention
-    projection and the FFN output, drawn by ``dropout(x, rate, seed)``
-    (the engine's draws a mask per sequence shard).  ``attention(q, k,
+    ``dropout_seed`` (an int, or an int64 device scalar) enables
+    residual dropout on the attention projection and the FFN output,
+    drawn by ``dropout(x, rate, seed)`` (the engine's draws a mask per
+    sequence shard).  ``attention(q, k,
     v)`` on ``[B, H, S, hd]`` replaces the causal attention call
     (default: flash attention where available, else the naive route) —
     the hook through which a caller runs the block on the plain version

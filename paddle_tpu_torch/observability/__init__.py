@@ -1,7 +1,8 @@
 """Observability of the port (the counterpart of
 ``paddle_tpu/observability``): metrics, request tracing, the compile
 watchdog (``compile_watchdog``: builds of a watched step, here the
-serving engine's CUDA-graph capture) and the sampling profiler
+CUDA-graph captures of the serving and the training steps) and the
+sampling profiler
 (``profiling``: ``StackSampler`` and the ``phase`` markers the serving
 engine sets)."""
 from .compile_watchdog import (CompileWatchdog, WatchedFunction,

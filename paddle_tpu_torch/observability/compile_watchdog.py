@@ -5,8 +5,11 @@ A step that should be built once and run many times can quietly be
 built again: a ragged batch, an un-padded prompt, a dtype drift.  In the
 JAX package the build is an XLA compile of a ``jax.jit`` program; here
 it is whatever the watched callable does on a signature it has not seen
-— for the serving engine's unified step, the capture of its CUDA graph
-(``serving/engine.py``).  The watchdog wraps such entry points and
+— for the serving engine's unified step, ``HybridEngine.step`` and
+hapi's ``train_batch``/``eval_batch``, the capture of a CUDA graph
+(``_captured.py``; names ``serving::unified_step``,
+``hybrid_engine::step``, ``hapi::train_step``, ``hapi::eval_step``).
+The watchdog wraps such entry points and
 
 - counts builds and calls per function (labelled counters
   ``jit_compiles_total{fn=...}`` / ``jit_recompiles_total{fn=...}`` in
@@ -30,7 +33,11 @@ seen, as each ``jax.jit`` object keeps its own executable cache, and
 the statistics add up by name: two engines that each capture their
 step once report ``compiles == 2, recompiles == 0`` under
 ``serving::unified_step``.  The build's wall time is the first call's
-(capture and the run around it).
+(capture and the run around it).  A step that captures again on a
+signature it has seen before (hapi's ``fit`` alternating a full batch
+and a tail keeps one graph) is not counted again: the count is of
+signatures, as a ``jax.jit`` cache's is; the step's own ``captures``
+counts every capture.
 
 What the JAX watchdog reports beside that and this one does not: the
 XLA cost analysis (flops, bytes accessed) of the compiled program.

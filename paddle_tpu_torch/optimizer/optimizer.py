@@ -12,14 +12,37 @@ Two paths apply it, as in JAX:
   ``hapi.Model.train_batch`` (JAX's jitted step): named gradients and a
   ``{"step", "slots": {name: {...}}}`` state, with no per-parameter
   learning rate and no masters.  It writes the parameters and slots in
-  place (nothing here is traced, so nothing needs a pure function) and
-  returns the state with its step advanced.
+  place and returns the state with its step advanced.
+
+The update itself (``apply_gradients_``) is a CUDA-graph-safe body, as
+JAX's traced step is: the learning rate and the step are 0-d fp32
+tensors on the device (the bias corrections are computed there, by
+``bias_correction``), every slot is written in place (``copy_``), so a
+captured graph keeps reading the addresses it was captured on, and
+nothing reads a value back to the host.  ``state["step"]`` stays the
+Python int callers read; the caller fills a step scalar from it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Optimizer"]
+__all__ = ["Optimizer", "bias_correction"]
+
+
+def bias_correction(beta, step):
+    """``1 − β^step`` in fp32 on ``step``'s device (``step``: a 0-d fp32
+    tensor), as JAX's traced step computes it; Adam's, Lamb's, Adamax's
+    and ``HybridEngine``'s."""
+    base = torch.full((), beta, dtype=torch.float32, device=step.device)
+    return 1 - torch.pow(base, step)
+
+
+def device_scalar(value, device):
+    """A 0-d fp32 tensor on ``device`` holding ``value`` (a tensor is
+    returned as it is): written by a fill, with no copy from the host."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 class Optimizer:
@@ -68,6 +91,7 @@ class Optimizer:
             raise ValueError("Optimizer constructed without parameters")
         lr = self.get_lr()
         step = self._step_count + 1
+        steps = {}                  # device -> the step as a device scalar
         grads = [(p, p.grad) for p in params
                  if p.requires_grad and p.grad is not None]
         if self._grad_clip is not None and grads:
@@ -83,15 +107,17 @@ class Optimizer:
                     self._master_weights[pid] = p.detach().float()
             plr = lr * getattr(p, "optimize_attr", {}).get(
                 "learning_rate", 1.0)
+            if p.device not in steps:
+                steps[p.device] = device_scalar(step, p.device)
             if pid in self._master_weights:
                 master, slots = self.update(
                     self._master_weights[pid], g.float(), self._slots[pid],
-                    plr, step)
+                    plr, steps[p.device])
                 self._master_weights[pid] = master
                 p.copy_(master)
             else:
                 new, slots = self.update(p, g.to(p.dtype), self._slots[pid],
-                                         plr, step)
+                                         plr, steps[p.device])
                 p.copy_(new)
             self._slots[pid] = slots
         self._step_count = step
@@ -159,27 +185,42 @@ class Optimizer:
     def apply_gradients(self, params, grads, state, lr=None):
         """One update of every named parameter from ``grads`` (the same
         names; a ``None`` gradient leaves its parameter as it is), in
-        place; returns the new state.  JAX's order: clip, then decay
-        (the gradient cast to the parameter's dtype), then the rule."""
+        place; returns the state with its step advanced.  ``lr``: a
+        number or a 0-d fp32 device tensor (default ``get_lr()``)."""
         lr = self.get_lr() if lr is None else lr
         step = state["step"] + 1
+        device = next(iter(params.values())).device
+        self.apply_gradients_(params, grads, state["slots"],
+                              device_scalar(lr, device),
+                              device_scalar(step, device))
+        return {"step": step, "slots": state["slots"]}
+
+    @torch.no_grad()
+    def apply_gradients_(self, params, grads, slots, lr, step):
+        """The device half of ``apply_gradients``: ``lr`` and ``step`` are
+        0-d fp32 tensors, ``slots`` the state's ``{name: {slot: tensor}}``;
+        parameters and slots are written in place and nothing is read
+        back, so a CUDA graph can capture it.  JAX's order: clip, then
+        decay (the gradient cast to the parameter's dtype), then the
+        rule."""
         names = [k for k in params if grads.get(k) is not None]
         gs = [grads[k] for k in names]
         if self._grad_clip is not None:
             gs = self._grad_clip(gs)
         ps = [params[k] for k in names]
         gs = [self._apply_decay(p, g.to(p.dtype)) for p, g in zip(ps, gs)]
-        slots = dict(state["slots"])
         self._apply_all(ps, gs, [slots[k] for k in names], lr, step)
-        return {"step": step, "slots": slots}
 
     def _apply_all(self, ps, gs, slot_list, lr, step):
-        """Apply the rule to each parameter in place (its slot dict too);
-        an optimizer may override this with one batched update."""
+        """Apply the rule to each parameter in place (its slot tensors
+        too: ``copy_``, never a new tensor); an optimizer may override
+        this with one batched update."""
         for p, g, s in zip(ps, gs, slot_list):
             new, new_slots = self.update(p, g, s, lr, step)
             p.copy_(new)
-            s.update(new_slots)
+            for k, t in new_slots.items():
+                if t is not s[k]:
+                    s[k].copy_(t)
 
     def _apply_decay(self, param, grad):
         """Coupled L2 (the reference's default); AdamW decouples it."""

@@ -1,26 +1,33 @@
 """The optimizers (the port of ``paddle_tpu/optimizer/optimizers.py``),
 each with the JAX package's update rule and slot names.  Momentum, the
 ResNet path's optimizer, also updates a whole list at once with
-``torch._foreach_*`` (the same arithmetic, fewer launches)."""
+``torch._foreach_*`` (the same arithmetic, fewer launches).
+
+``update(param, grad, slots, lr, step)``: ``step`` is a 0-d fp32 tensor
+on the device, ``lr`` a number or such a tensor; no rule reads a value
+back to the host (``optimizer.py``)."""
 from __future__ import annotations
 
 import torch
 
-from .optimizer import Optimizer
+from .optimizer import Optimizer, bias_correction
 
 __all__ = ["SGD", "Momentum", "Adagrad", "RMSProp", "Adam", "AdamW", "Lamb",
            "Adadelta", "Adamax"]
 
 
-def _bias(beta, step):
-    """1 − β^step, in fp32 as JAX's traced step computes it."""
-    return (1 - torch.pow(torch.tensor(beta, dtype=torch.float32),
-                          float(step))).item()
+def _scaled(t, lr):
+    """``lr · t`` in ``t``'s dtype; for a half tensor the product is
+    taken in fp32 and rounded once, as a Python-float ``lr`` is
+    applied."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return (t.float() * lr).to(t.dtype)
+    return t * lr
 
 
 class SGD(Optimizer):
     def update(self, param, grad, slots, lr, step):
-        return param - lr * grad, slots
+        return param - _scaled(grad, lr), slots
 
 
 class Momentum(Optimizer):
@@ -38,9 +45,9 @@ class Momentum(Optimizer):
     def update(self, param, grad, slots, lr, step):
         v = self._momentum * slots["velocity"] + grad
         if self._nesterov:
-            new_param = param - lr * (grad + self._momentum * v)
+            new_param = param - _scaled(grad + self._momentum * v, lr)
         else:
-            new_param = param - lr * v
+            new_param = param - _scaled(v, lr)
         return new_param, {"velocity": v}
 
     def _apply_all(self, ps, gs, slot_list, lr, step):
@@ -69,7 +76,8 @@ class Adagrad(Optimizer):
 
     def update(self, param, grad, slots, lr, step):
         m = slots["moment"] + grad * grad
-        new_param = param - lr * grad / (torch.sqrt(m) + self._epsilon)
+        new_param = param - _scaled(grad, lr) / (torch.sqrt(m)
+                                                 + self._epsilon)
         return new_param, {"moment": m}
 
 
@@ -100,7 +108,7 @@ class RMSProp(Optimizer):
             denom = torch.sqrt(ms - mg * mg + self._epsilon)
         else:
             denom = torch.sqrt(ms + self._epsilon)
-        mom = self._momentum * slots["momentum"] + lr * grad / denom
+        mom = self._momentum * slots["momentum"] + _scaled(grad, lr) / denom
         out["momentum"] = mom
         return param - mom, out
 
@@ -131,8 +139,8 @@ class Adam(Optimizer):
         gf = grad.to(slots["moment1"].dtype)
         m = b1 * slots["moment1"] + (1 - b1) * gf
         v = b2 * slots["moment2"] + (1 - b2) * gf * gf
-        m_hat = m / _bias(b1, step)
-        v_hat = v / _bias(b2, step)
+        m_hat = m / bias_correction(b1, step)
+        v_hat = v / bias_correction(b2, step)
         upd = (lr * m_hat / (torch.sqrt(v_hat) + self._epsilon)).to(
             param.dtype)
         return param - upd, {"moment1": m, "moment2": v}
@@ -154,7 +162,7 @@ class AdamW(Adam):
     def update(self, param, grad, slots, lr, step):
         new_param, new_slots = super().update(param, grad, slots, lr, step)
         if self._decoupled_wd:
-            new_param = new_param - (lr * self._decoupled_wd) * param
+            new_param = new_param - _scaled(param, lr * self._decoupled_wd)
         return new_param, new_slots
 
 
@@ -180,8 +188,8 @@ class Lamb(Optimizer):
         gf, pf = grad.float(), param.float()
         m = b1 * slots["moment1"] + (1 - b1) * gf
         v = b2 * slots["moment2"] + (1 - b2) * gf * gf
-        m_hat = m / _bias(b1, step)
-        v_hat = v / _bias(b2, step)
+        m_hat = m / bias_correction(b1, step)
+        v_hat = v / bias_correction(b2, step)
         r = m_hat / (torch.sqrt(v_hat) + self._epsilon) + self._wd * pf
         p_norm = torch.linalg.vector_norm(pf)
         r_norm = torch.linalg.vector_norm(r)
@@ -210,7 +218,7 @@ class Adadelta(Optimizer):
         upd = grad * torch.sqrt(slots["avg_squared_update"] + eps) / \
             torch.sqrt(asg + eps)
         asu = rho * slots["avg_squared_update"] + (1 - rho) * upd * upd
-        return param - lr * upd, {"avg_squared_grad": asg,
+        return param - _scaled(upd, lr), {"avg_squared_grad": asg,
                                   "avg_squared_update": asu}
 
 
@@ -231,5 +239,6 @@ class Adamax(Optimizer):
         b1, b2 = self._beta1, self._beta2
         m = b1 * slots["moment"] + (1 - b1) * grad
         u = torch.maximum(b2 * slots["inf_norm"], grad.abs())
-        new_param = param - (lr / _bias(b1, step)) * m / (u + self._epsilon)
+        new_param = param - _scaled(m, lr / bias_correction(b1, step)) / (
+            u + self._epsilon)
         return new_param, {"moment": m, "inf_norm": u}

@@ -57,7 +57,8 @@ runs the step eagerly on a side stream (its result is that step's; the
 kernel builds and the libraries set up there), then captures on that
 stream; the graph's private memory pool (``graph_pool_bytes``: the
 step's activations and the kernel's split scratch) stays with the
-engine.  The capture is watched by the compile watchdog under
+engine (the capture is ``_captured.CapturedStep``, which the training
+steps share).  The capture is watched by the compile watchdog under
 ``serving::unified_step`` (``observability/compile_watchdog.py``): one
 build per engine.  The graph holds the addresses of the parameters and
 the page pool; the pool never moves (``PagedKVCache`` writes in place,
@@ -83,12 +84,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import zlib
 from collections import deque
 
 import numpy as np
 import torch
 
+from .._captured import CapturedStep, storage_tag
 from .._device import resolve_device
 from ..models.gpt import GPTConfig, gpt_init, gpt_ragged_step
 from ..observability.compile_watchdog import watch
@@ -170,74 +171,23 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-#: device index -> the side stream every engine warms up and captures on.
-#: cuBLAS keeps a workspace for each stream it has run on, for the life
-#: of the process: a stream of its own per engine would leave one
-#: workspace behind for every engine a fleet ever built
-_CAPTURE_STREAMS = {}
-
-
-def _capture_stream(device):
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
-    return _CAPTURE_STREAMS[index]
-
-
-class _CapturedStep:
-    """The engine's unified step over static buffers: ``gpt_ragged_step``
-    eagerly on the CPU; on CUDA captured once as a CUDA graph (after one
-    eager run on a side stream) and replayed after that.  It holds no
-    reference to its engine, so an engine dropped by its owner frees its
-    pool and graph at once, without waiting for a garbage collection."""
+class _RaggedStep(CapturedStep):
+    """The engine's unified step over its static buffers,
+    ``gpt_ragged_step`` captured once and replayed (logits [B, V] fp32).
+    It holds no reference to its engine, so an engine dropped by its
+    owner frees its pool and graph at once, without waiting for a
+    garbage collection."""
 
     def __init__(self, cfg, max_q, device):
-        self.cfg, self.max_q, self.device = cfg, max_q, device
-        self.graph = None
-        self.out = None           # the graph's logits [B, V] fp32
-        self.storage = None       # the addresses the graph was captured on
-        self.launches = 0         # ragged kernel calls the graph holds
-        self.captures = 0
-        self.pool_bytes = 0       # device memory the graph's pool holds
+        super().__init__(None, device)
+        self.cfg, self.max_q = cfg, max_q
 
-    def _run(self, params, k_pages, v_pages, inputs):
+    def body(self, params, k_pages, v_pages, inputs):
         tokens, rows, slots, qlens, ctxs, tables = inputs
         logits, _, _ = gpt_ragged_step(
             self.cfg, params, tokens, rows, slots, qlens, ctxs, k_pages,
             v_pages, tables, max_q=self.max_q)
         return logits.float()
-
-    def __call__(self, params, k_pages, v_pages, inputs, storage=None):
-        if self.device.type != "cuda":
-            return self._run(params, k_pages, v_pages, inputs)
-        from ..kernels.paged_attention import ragged_paged_attention
-
-        if self.graph is not None and storage == self.storage:
-            self.graph.replay()
-            ragged_paged_attention.launches += self.launches
-            return self.out
-        # warm up on the capture stream: this step's real result, the
-        # kernel build and the libraries' first-use set-up happen here
-        dev = self.device
-        side = _capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            out = self._run(params, k_pages, v_pages, inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = self.out = None
-        graph = torch.cuda.CUDAGraph()
-        captured = ragged_paged_attention.captured
-        with torch.cuda.graph(graph, stream=side):
-            # the graph's private pool takes new segments only: the
-            # reserved bytes grow by what the pool holds
-            reserved = torch.cuda.memory_reserved(dev)
-            static = self._run(params, k_pages, v_pages, inputs)
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = ragged_paged_attention.captured - captured
-        self.graph, self.out, self.storage = graph, static, storage
-        self.captures += 1
-        return out
 
 
 class Engine:
@@ -343,8 +293,8 @@ class Engine:
                                          pin_memory=True) if cuda else None)
         # the watched step: one capture per engine (CUDA), the port's
         # watch(jax.jit(_step), name="serving::unified_step")
-        self._step_fn = watch(_CapturedStep(cfg, self.chunk_len,
-                                            self.device),
+        self._step_fn = watch(_RaggedStep(cfg, self.chunk_len,
+                                          self.device),
                               name="serving::unified_step")
 
     @property
@@ -363,9 +313,8 @@ class Engine:
         """The addresses a captured step reads: the parameters and the
         page pool, as a short tag (a static argument of the watched step,
         so a replaced tensor shows as a recompile)."""
-        ptrs = [t.data_ptr() for t in _leaves(self.params)]
-        ptrs += [self.cache.k_pages.data_ptr(), self.cache.v_pages.data_ptr()]
-        return f"{zlib.crc32(np.asarray(ptrs, np.uint64).tobytes()):08x}"
+        return storage_tag([*_leaves(self.params), self.cache.k_pages,
+                            self.cache.v_pages])
 
     # ------------------------------------------------------------- submit
     def add_request(self, prompt, sampling: SamplingParams = None, *,

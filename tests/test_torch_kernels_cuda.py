@@ -1022,3 +1022,243 @@ def test_fp32_conv2d_on_card_is_exact_under_default_tf32_flags(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
         paddle.set_device("cpu")
+
+
+# ------------------------------------------------ the training graphs
+
+
+def _eager_engine_class():
+    """``HybridEngine`` calling its step body directly each step: the
+    graph route's baseline (the engine has no eager route on the card, as
+    the JAX engine has none beside its jit)."""
+    from paddle_tpu_torch.distributed import HybridEngine
+
+    class EagerEngine(HybridEngine):
+        def _run(self, args):
+            return self._step_body(*args)
+
+    return EagerEngine
+
+
+def _train_counts():
+    import importlib
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+    for counts in (fa.launches, ra.launches):
+        for n in counts:
+            counts[n] = 0
+    return fa.launches, ra.launches
+
+
+@pytest.mark.cuda
+def test_engine_graph_matches_eager_on_card(cuda):
+    """A 2-layer fp32 ``tiny`` GPT ``HybridEngine``, 3 steps from one
+    ``init(seed=0)`` on the eager route and on the graph route (step 1
+    eager, then captured once and replayed): losses, every parameter and
+    every Adam slot at 1e-5 (the same kernels on the same inputs), the
+    graph engine captured once (the watchdog: one build of
+    ``hybrid_engine::step``), and its three losses distinct tensors."""
+    from paddle_tpu_torch.distributed import HybridEngine
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.observability import watchdog_enabled
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32",
+                              num_layers=2)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 128))
+    labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -100)], 1)
+    runs = {}
+    with watchdog_enabled() as wd:
+        wd.reset()
+        for route, cls in (("eager", _eager_engine_class()),
+                           ("graph", HybridEngine)):
+            eng = cls(cfg, device=cuda)
+            params, opt = eng.init(seed=0)
+            losses = [eng.step(params, opt, tokens, labels, lr=1e-3)[2]
+                      for _ in range(3)]
+            runs[route] = (eng, params, opt, losses)
+        rep = wd.report()["hybrid_engine::step"]
+    assert runs["graph"][0].captures == 1 and runs["eager"][0].captures == 0
+    assert rep["compiles"] == 1 and rep["recompiles"] == 0
+    assert runs["graph"][0].graph_pool_bytes > 0
+    (_, pe, oe, le), (_, pg, og, lg) = runs["eager"], runs["graph"]
+    torch.testing.assert_close(torch.stack(lg), torch.stack(le), **TOL[
+        torch.float32])
+    assert len({float(x) for x in lg}) == 3
+    flat = lambda t: {f"{k}/{kk}": vv for k, v in t.items()  # noqa: E731
+                      for kk, vv in (v.items() if isinstance(v, dict)
+                                     else [("", v)])}
+    for k, v in flat(pe).items():
+        torch.testing.assert_close(flat(pg)[k], v, **TOL[torch.float32])
+    for name in ("m", "v"):
+        for k, v in flat(eng.opt_canonical(oe, pe)[name]).items():
+            got = flat(eng.opt_canonical(og, pg)[name])[k]
+            torch.testing.assert_close(got, v, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sep", [1, 2])
+def test_engine_graph_counts_launches_through_replays(cuda, sep):
+    """bf16 ``tiny`` at sep 1 (flash) and sep 2 (the ring): 4 steps (one
+    eager, one capture, replays) launch per step what an eager step
+    launches — flash 2L forward / L backward, or 2·3L forward and 3L
+    ring-pair backward for the ring's three live pairs a layer — and the
+    engine captures once."""
+    from paddle_tpu_torch.distributed import HybridEngine
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], max_seq_len=256,
+                              seq_parallel="ring")
+    L = cfg.num_layers
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 256))
+    labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -100)], 1)
+    eng = HybridEngine(cfg, sep=sep, device=cuda)
+    params, opt = eng.init(seed=0)
+    fl, rl = _train_counts()
+    for _ in range(4):
+        loss = eng.step(params, opt, tokens, labels)[2]
+    torch.cuda.synchronize()
+    live = sep * (sep + 1) // 2
+    per = ({"fwd": 2 * L, "bwd": L, "pair_bwd": 0} if sep == 1 else
+           {"fwd": 2 * live * L, "bwd": 0, "pair_bwd": live * L})
+    assert {**fl, **rl} == {n: 4 * k for n, k in per.items()}
+    assert eng.captures == 1 and bool(torch.isfinite(loss))
+
+
+@pytest.mark.cuda
+def test_hapi_train_batch_graph_matches_eager_on_card(cuda):
+    """ResNet-18 (10 classes) at 4 x 3 x 64 x 64, fp32, Momentum 0.01/0.9
+    with weight decay: 3 ``train_batch`` steps on the graph route against
+    the same steps with the bodies called eagerly, from the same weights:
+    losses, parameters, velocities and batch-norm buffers at 1e-5 of each
+    tensor's largest entry, with cuDNN held to its deterministic
+    algorithms (its default fp32 weight-gradient algorithms sum with
+    atomics, so two runs of one route differ in the last bits, which
+    train-mode batch norm at batch 4 amplifies past 1e-3 within three
+    steps); then ``eval_batch`` twice: one capture, equal losses,
+    buffers unchanged."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi import Model
+
+    class EagerModel(Model):
+        def _run_train(self, args):
+            return self._train_body(*args)
+
+        def _run_eval(self, x, y):
+            return self._eval_body(x, y)
+
+    paddle.set_device("gpu")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        models = []
+        for cls in (EagerModel, Model):
+            paddle.seed(0)
+            net = paddle.vision.resnet18(num_classes=10)
+            model = cls(net)
+            model.prepare(paddle.optimizer.Momentum(
+                learning_rate=0.01, momentum=0.9,
+                parameters=model.parameters(), weight_decay=1e-4),
+                paddle.nn.CrossEntropyLoss())
+            models.append(model)
+        rng = np.random.RandomState(3)
+        losses = ([], [])
+        for step in range(3):
+            x = rng.rand(4, 3, 64, 64).astype(np.float32)
+            y = rng.randint(0, 10, (4,)).astype(np.int64)
+            for m, out in zip(models, losses):
+                out.append(m.train_batch(x, y)[0])
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        eager, graph = models
+        assert graph.captures == {"train": 1, "eval": 0}
+        for (k, a), b in zip(graph.network.state_dict().items(),
+                             eager.network.state_dict().values()):
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            assert err <= 1e-5, (k, err)
+        for k, s in graph._opt_state["slots"].items():
+            b = eager._opt_state["slots"][k]["velocity"]
+            err = float((s["velocity"] - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30))
+            assert err <= 1e-5, (k, err)
+        bufs = {k: b.clone() for k, b in graph.network.named_buffers()}
+        ev = [graph.eval_batch(x, y)[0] for _ in range(2)]
+        assert ev[0] == ev[1] and graph.captures["eval"] == 1
+        assert ev[0] == pytest.approx(eager.eval_batch(x, y)[0], rel=1e-5)
+        for k, b in graph.network.named_buffers():
+            assert torch.equal(b, bufs[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        paddle.set_device("cpu")
+
+
+@pytest.mark.cuda
+def test_hapi_prepare_again_captures_again_on_card(cuda):
+    """A small MLP, fp32: two ``train_batch`` steps under Adam and a mean
+    cross entropy, ``prepare`` with AdamW and a summed cross entropy,
+    two more steps.  The graph route captures once before and once after
+    the second ``prepare`` (the watchdog sees two builds, no rebuild),
+    and its losses, parameters and slots equal those of the bodies called
+    eagerly at 1e-5 of each tensor's largest entry: no replay of the old
+    loss or update rule."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.observability import watchdog_enabled
+
+    class EagerModel(Model):
+        def _run_train(self, args):
+            return self._train_body(*args)
+
+    def prepare(m, second):
+        if second:
+            opt = paddle.optimizer.AdamW(learning_rate=0.02,
+                                         weight_decay=0.1,
+                                         parameters=m.parameters())
+        else:
+            opt = paddle.optimizer.Adam(learning_rate=0.05,
+                                        parameters=m.parameters())
+        m.prepare(opt, paddle.nn.CrossEntropyLoss(
+            reduction="sum" if second else "mean"))
+
+    paddle.set_device("gpu")
+    try:
+        with watchdog_enabled() as wd:
+            wd.reset()
+            models = []
+            for cls in (EagerModel, Model):
+                paddle.seed(0)
+                nn = paddle.nn
+                m = cls(nn.Sequential(nn.Linear(8, 16), nn.ReLU(),
+                                      nn.Linear(16, 4)))
+                prepare(m, False)
+                models.append(m)
+            eager, graph = models
+            rng = np.random.RandomState(4)
+            losses = ([], [])
+            for step in range(4):
+                if step == 2:
+                    assert graph.captures["train"] == 1
+                    for m in models:
+                        prepare(m, True)
+                x = rng.randn(6, 8).astype(np.float32)
+                y = rng.randint(0, 4, (6,)).astype(np.int64)
+                for m, out in zip(models, losses):
+                    out.append(m.train_batch(x, y)[0])
+            rep = wd.report()["hapi::train_step"]
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        assert graph.captures["train"] == 1
+        assert rep["compiles"] == 2 and rep["recompiles"] == 0
+        for (k, a), b in zip(graph.network.state_dict().items(),
+                             eager.network.state_dict().values()):
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            assert err <= 1e-5, (k, err)
+        for k, s in graph._opt_state["slots"].items():
+            for n, t in s.items():
+                b = eager._opt_state["slots"][k][n]
+                err = float((t - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30))
+                assert err <= 1e-5, (k, n, err)
+    finally:
+        paddle.set_device("cpu")

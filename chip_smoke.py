@@ -150,7 +150,28 @@ Phases (any failure exits non-zero):
      limit; (c) ``eval_batch`` of ResNet-50 with batch norm in train
      mode: the graph's loss and logits equal the eager route's, the
      buffers unchanged; ``fit`` over two epochs with a tail batch
-     captures twice an epoch.
+     captures twice an epoch;
+ 18. the deployment path: (a) ``nn.TransformerEncoder`` at BERT-base
+     widths (12 layers, eval, seed 0) through ``jit.to_static`` at
+     [32, 512, 768] and [8, 128, 768] (two builds, then replays equal
+     to the eager forward to the bit), ``jit.save`` from CPU tensors and
+     ``jit.load`` on the card (the CPU-exported program launches the
+     flash kernel), and ``create_predictor`` at fp32 (the saved
+     program), bf16 (``set_model``) and int8 (``PTQ`` scales from 4
+     calibration batches): each replay equal to the same program run
+     eagerly, 12 flash launches a call counted through the replays,
+     fp32 equal to the eager forward and within 1e-4 of the plain
+     attention, bf16 and int8 within the JAX tests' bounds of fp32; ms
+     a batch on the graph and eagerly, busy share, device ms by kind,
+     peak memory, graph pool and captures; (b) a ``static.Program``
+     around the encoder (``src`` [None, 512, 768]) run by the
+     ``Executor`` at batch 32 and 8 (equal to the eager forward, an
+     in-place weight update seen, one capture a feed signature), with
+     ``AmpBf16Pass``, and a program holding ``cond`` on its eager route;
+     (c) ``GenerationPredictor`` over phase 4's 1.3B engine knobs and
+     prompts: tokens identical to ``Engine.generate``, one capture,
+     tok/s and ragged launches; (d) ResNet-50 at 224² through the bf16
+     predictor at batch 32 and 128: imgs/s and busy share.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -3392,6 +3413,424 @@ def phase_train_graph(torch, distributed):
     torch.cuda.empty_cache()
 
 
+DEPLOY_LAYERS = 12                 # phase 18 (a): BERT-base widths, eval
+DEPLOY_BATCHES = ((32, 512), (8, 128))
+DEPLOY_CALIBRATION = 4             # PTQ batches for the int8 predictor
+DEPLOY_RESNET = (32, 128)          # phase 18 (d)
+# bf16 and int8 predictors against fp32: the JAX tests' bounds
+# (tests/test_inference.py: bf16 allclose at 0.05; int8 max error within
+# 0.1 of the output's largest magnitude)
+TOL_BF16_PREDICTOR = dict(atol=0.05, rtol=0.05)
+INT8_MAX_REL = 0.1
+
+
+def zero_counts(fa):
+    for k in fa.launches:
+        fa.launches[k] = 0
+
+
+def device_window(torch, fn, reps=3, kinds=None):
+    """``fn`` ``reps`` times under torch.profiler: device ms a call (the
+    kernels' time; a replay's kernels included) and the host clock's ms
+    a call over the same calls, its denominator.  ``kinds`` (a dict)
+    gets the device ms a call by kind: flash, matrix products, the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith(RANGES):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+        us += t
+        if kinds is not None:
+            key = e.key.lower()
+            kind = ("flash" if "flash_" in key and "_kernel" in key else
+                    "matmul" if is_gemm(key) else "other")
+            kinds[kind] = kinds.get(kind, 0.0) + t / reps / 1e3
+    check(us > 0, "the profiler saw no device time")
+    return us / reps / 1e3, wall
+
+
+def host_ms(torch, fn, iters):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def route_report(torch, tag, graph_fn, eager_fn, iters, card, fa=None):
+    """ms a call on the graph route and eagerly (host clock, ``iters``
+    calls after a warm-up each), each route's device ms and busy share
+    from one traced window of 3 calls; returns the printed numbers and,
+    with ``fa``, the flash forward launches of the graph route's calls
+    (``launches``, ``calls``)."""
+    if fa is not None:
+        zero_counts(fa)
+    graph_fn()
+    g_ms = host_ms(torch, graph_fn, iters)
+    kinds = {}
+    busy, wall = device_window(torch, graph_fn, kinds=kinds)
+    launches = None if fa is None else fa.launches["fwd"]
+    eager_fn()
+    e_ms = host_ms(torch, eager_fn, iters)
+    e_busy, e_wall = device_window(torch, eager_fn)
+    print(f"[phase 18] {tag}: graph {g_ms:.3f} ms a call, eager "
+          f"{e_ms:.3f} ({iters} calls each, host clock); device "
+          f"{busy:.3f} ms of {wall:.3f} traced (busy share "
+          f"{busy / wall:.3f}; eager {e_busy:.3f} of {e_wall:.3f}, "
+          f"{e_busy / e_wall:.3f}); graph device ms by kind "
+          f"{ {k: round(v, 3) for k, v in sorted(kinds.items())} } "
+          f"({card})")
+    return {"ms": g_ms, "eager_ms": e_ms, "busy": busy / wall,
+            "eager_busy": e_busy / e_wall, "launches": launches,
+            "calls": 1 + iters + 3}
+
+
+def one_build(name, builds, what):
+    rep = watchdog().report().get(name, {})
+    check(rep.get("compiles") == builds,
+          f"{what}: watchdog {name}: {rep} (expected {builds} builds)")
+    return f"watchdog {name}: {rep['calls']} calls, {rep['compiles']} builds"
+
+
+def predictor_routes(torch, paddle, fa, enc, x, path, eager, card):
+    """Phase 18 (a), second half: the fp32 (saved program), bf16 and int8
+    predictors at ``x``'s signature.  Returns the flash launches over
+    their timed replays and the fp32 output."""
+    import copy
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.contrib.quant import PTQ
+
+    calib = copy.deepcopy(enc)
+    ptq = PTQ()
+    ptq.quantize(calib)
+    g = torch.Generator(device="cuda").manual_seed(181)
+    with torch.no_grad():
+        for _ in range(DEPLOY_CALIBRATION):
+            calib(torch.randn(8, DEPLOY_BATCHES[0][1], 768, device="cuda",
+                              generator=g))
+    scales = {k: {"activation": s} for k, s in ptq.scales().items()}
+    del calib
+    configs = {
+        "float32": inference.Config(path),
+        "bfloat16": inference.Config(path).set_precision(
+            inference.PrecisionType.Bfloat16).set_model(enc),
+        "int8": inference.Config(path).set_model(enc).enable_int8(scales)}
+    outs, launches = {}, 0
+    L = DEPLOY_LAYERS
+    for precision, cfg in configs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wd = watchdog()
+        wd.reset()
+        pred = inference.create_predictor(cfg)
+        first = pred.run(x)
+        (_, mod, route), = pred._impl._programs.values()
+        check(route == "graph", f"18a {precision}: route {route}")
+        zero_counts(fa)
+        replay = pred.run(x)
+        torch.cuda.synchronize()
+        check(fa.launches["fwd"] == L,
+              f"18a {precision}: a replay launched {fa.launches}")
+        with torch.no_grad():
+            eager_out = mod(x)
+        check(torch.equal(first, replay) and torch.equal(replay, eager_out),
+              f"18a {precision}: graph replay != the same route eagerly")
+        peak = torch.cuda.max_memory_allocated()
+        builds = one_build(f"inference::predictor[{precision}]", 1,
+                           f"18a {precision}")
+
+        def eager_call():
+            with torch.no_grad():
+                mod(x)
+
+        r = route_report(torch, f"(a) {precision} predictor "
+                                f"{tuple(x.shape)}",
+                         lambda: pred.run(x), eager_call, 10, card, fa)
+        check(r["launches"] == L * r["calls"],
+              f"18a {precision}: {r['launches']} flash launches over "
+              f"{r['calls']} replays")
+        launches += r["launches"]
+        print(f"[phase 18] (a) {precision}: flash launches "
+              f"{r['launches']} = {L} x {r['calls']} replays, peak "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated), graph pool "
+              f"{pred.pool_bytes / 2**20:.1f} MiB (one pool shared by the "
+              f"predictor's graphs), captures {pred.captures}, {builds}; "
+              f"replay = eager run of the same program, bit for bit")
+        outs[precision] = replay.float()
+        del pred, mod, first, replay, eager_out
+    f32 = outs["float32"]
+    check(torch.equal(f32, eager), "18a: fp32 predictor != eager forward")
+    real = fa.flash_attention
+    fa.flash_attention = fa.flash_attention_plain
+    try:
+        with torch.no_grad():
+            plain = enc(x)
+    finally:
+        fa.flash_attention = real
+    err_plain = max_err(torch, f32, plain)
+    err_bf16 = max_err(torch, outs["bfloat16"], f32)
+    rel_int8 = _maxrel(torch, outs["int8"], f32)
+    print(f"[phase 18] (a) fp32 predictor = eager forward to the bit; vs "
+          f"flash_attention_plain max abs err {err_plain:.3g} (1e-4); "
+          f"bf16 vs fp32 {err_bf16:.3g} (allclose at "
+          f"{TOL_BF16_PREDICTOR}); int8 vs fp32 max rel err "
+          f"{rel_int8:.4g} ({INT8_MAX_REL})")
+    check(torch.allclose(f32, plain, atol=1e-4, rtol=1e-4),
+          f"18a: fp32 predictor vs plain attention {err_plain:.3g}")
+    check(torch.allclose(outs["bfloat16"], f32, **TOL_BF16_PREDICTOR),
+          f"18a: bf16 predictor vs fp32 {err_bf16:.3g}")
+    check(0 < rel_int8 < INT8_MAX_REL,
+          f"18a: int8 predictor vs fp32 relative {rel_int8:.4g}")
+    return launches
+
+
+def deploy_encoder(torch, paddle, fa, tmp, card):
+    """Phase 18 (a): ``nn.TransformerEncoder`` at BERT-base widths through
+    ``jit.to_static`` (two signatures), ``jit.save`` from CPU tensors,
+    ``jit.load`` on the card and the three predictors.  Returns the
+    encoder, its eager outputs, the (32, 512) input and the flash launches
+    over the predictors' timed replays."""
+    from paddle_tpu_torch import jit
+
+    L = DEPLOY_LAYERS
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    enc = paddle.nn.TransformerEncoder(paddle.nn.TransformerEncoderLayer(
+        768, 12, 3072, dropout=0.0, activation="gelu"), L).eval()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    xs = {sig: torch.randn(*sig, 768, device="cuda", generator=g)
+          for sig in DEPLOY_BATCHES}
+    with torch.no_grad():
+        eager = {sig: enc(x) for sig, x in xs.items()}
+    wd = watchdog()
+    wd.reset()
+    traced = jit.to_static(enc)
+    for rep in range(2):
+        for sig, x in xs.items():
+            zero_counts(fa)
+            out = traced(x)
+            torch.cuda.synchronize()
+            check(torch.equal(out, eager[sig]),
+                  f"18a: to_static {sig} call {rep} != eager")
+            if rep:
+                check(fa.launches["fwd"] == L,
+                      f"18a: to_static replay launched {fa.launches}")
+    check(traced.captures == 2 and set(traced.routes.values()) == {"graph"},
+          f"18a: to_static captures {traced.captures}, {traced.routes}")
+    builds = one_build("jit::TransformerEncoder", 2, "18a to_static")
+    print(f"[phase 18] (a) to_static at {list(DEPLOY_BATCHES)}: equal to the "
+          f"eager forward to the bit, {traced.captures} captures, {builds} "
+          f"(no third on repeat calls), graph pool "
+          f"{traced.pool_bytes / 2**20:.1f} MiB")
+    for sig, x in xs.items():
+        def eager_call(x=x):
+            with torch.no_grad():
+                enc(x)
+
+        route_report(torch, f"(a) to_static {sig}", lambda x=x: traced(x),
+                     eager_call, 10 if sig[0] == 32 else 30, card)
+    traced.release()
+    del traced
+    x = xs[DEPLOY_BATCHES[0]]
+    path = os.path.join(tmp, "encoder")
+    t0 = time.perf_counter()
+    jit.save(enc, path, example_inputs=[x.cpu()])
+    save_s = time.perf_counter() - t0
+    pred = jit.load(path)
+    zero_counts(fa)
+    outs = [pred(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, eager[DEPLOY_BATCHES[0]]) for o in outs),
+          "18a: the CPU-saved program on the card != eager forward")
+    check(fa.launches["fwd"] == 3 * L and pred.captures == 1,
+          f"18a: CPU-saved program: launches {fa.launches}, captures "
+          f"{pred.captures}")
+    print(f"[phase 18] (a) jit.save from CPU tensors ({save_s:.1f} s), "
+          f"jit.load on the card: 3 calls equal the eager forward to the "
+          f"bit, flash launches {fa.launches['fwd']} = {L} x 3 (1 eager "
+          f"warm-up + 2 replays), 1 capture")
+    del pred, outs
+    launches = predictor_routes(torch, paddle, fa, enc, x, path,
+                                eager[DEPLOY_BATCHES[0]], card)
+    return enc, eager, xs, launches
+
+
+def deploy_static(torch, enc, eager, xs):
+    """Phase 18 (b): a ``static.Program`` around the encoder, run by the
+    ``Executor`` at batch 32 and 8, then with ``AmpBf16Pass``."""
+    from paddle_tpu_torch import static
+
+    main = static.Program()
+    with static.program_guard(main):
+        src = static.data("src", [None, DEPLOY_BATCHES[0][1], 768],
+                          "float32")
+        out = enc(src)
+    exe = static.Executor()
+    x32 = xs[DEPLOY_BATCHES[0]]
+    x8 = x32[:8]
+    with torch.no_grad():
+        ref8 = enc(x8).cpu().numpy()
+    ref32 = eager[DEPLOY_BATCHES[0]].cpu().numpy()
+    for x, ref in ((x32, ref32), (x8, ref8), (x32, ref32), (x8, ref8)):
+        (got,) = exe.run(main, feed={"src": x}, fetch_list=[out])
+        check(np.array_equal(got, ref), f"18b: Executor at batch "
+                                        f"{x.shape[0]} != eager forward")
+    check(exe.captures == 2 and exe.last_route == "graph",
+          f"18b: {exe.captures} captures, route {exe.last_route}")
+    norm = enc.layers[0].norm1.weight
+    with torch.no_grad():
+        norm.mul_(2.0)
+        upd = enc(x8).cpu().numpy()
+    (got,) = exe.run(main, feed={"src": x8}, fetch_list=[out])
+    with torch.no_grad():
+        norm.mul_(0.5)
+    check(np.array_equal(got, upd) and not np.array_equal(got, ref8),
+          "18b: an in-place weight update was not seen by the replay")
+    check(exe.captures == 2, f"18b: the update captured again "
+                             f"({exe.captures})")
+    captures = exe.captures
+    (amp,) = exe.run(main, feed={"src": x32}, fetch_list=[out],
+                     use_passes=("dead_code_elimination", "amp_bf16"))
+    err = float(np.abs(amp - ref32).max())
+    check(np.allclose(amp, ref32, atol=0.1) and err > 0,
+          f"18b: AmpBf16Pass vs fp32 max abs err {err:.3g}")
+    prog = static.Program()
+    with static.program_guard(prog):
+        v = static.data("v", [4], "float32")
+        y = static.cond(v.sum() > 0.0, lambda: v * 2.0, lambda: v - 1.0)
+    (r,) = exe.run(prog, feed={"v": np.ones(4, np.float32)}, fetch_list=[y])
+    check(np.array_equal(r, np.full(4, 2.0, np.float32))
+          and exe.last_route == "eager", f"18b: cond program {r}, route "
+                                         f"{exe.last_route}")
+    print(f"[phase 18] (b) Executor over the encoder program ({len(main.ops)}"
+          f" ops, src {[None, *x32.shape[1:]]}) at batch {x32.shape[0]} "
+          f"and {x8.shape[0]}: equal to the "
+          f"eager forward to the bit, an in-place weight update seen, "
+          f"{captures} captures (one a feed signature) before the "
+          f"AmpBf16Pass entry, {exe.captures} after; AmpBf16Pass vs fp32 "
+          f"max abs err {err:.3g} "
+          f"(atol 0.1); a program holding cond took the "
+          f"'{exe.last_route}' route (read on the host; torch.cond is not "
+          f"captured by PyTorch {torch.__version__})")
+    exe.close()
+
+
+def deploy_generation(torch, cfg, pa, serving, gpt_init, card):
+    """Phase 18 (c): ``GenerationPredictor`` over phase 4's 1.3B engine
+    knobs and prompts, against ``Engine.generate`` on the same params."""
+    from paddle_tpu_torch import inference
+
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    knobs = dict(page_size=16, num_pages=2048, max_batch_size=8,
+                 chunk_len=64)
+    _, prompts = serving_prompts(cfg.vocab_size)
+    sp = serving.SamplingParams(max_new_tokens=32)
+    eng = serving.Engine(cfg, params, device="cuda", **knobs)
+    ref = eng.generate(prompts, sp)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    wd = watchdog()
+    wd.reset()
+    pred = inference.create_predictor(
+        inference.Config().enable_generation(cfg, params, **knobs))
+    pred.engine.warmup()
+    torch.cuda.synchronize()
+    pa.ragged_paged_attention.launches = 0
+    steps0 = pred.engine.steps
+    t0 = time.perf_counter()
+    out = pred.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = pred.engine.steps - steps0
+    launches = pa.ragged_paged_attention.launches
+    check(out == ref, "18c: GenerationPredictor tokens != Engine.generate")
+    check(launches == cfg.num_layers * steps,
+          f"18c: ragged launches {launches} != {cfg.num_layers} x {steps}")
+    captures = check_one_capture(wd, [pred.engine], "18c")
+    gen = sum(len(o) for o in out)
+    print(f"[phase 18] (c) GenerationPredictor (gpt3-1.3b, phase 4's knobs "
+          f"and 8 prompts, 32 greedy tokens each): tokens identical to "
+          f"Engine.generate; {gen} tokens in {steps} steps, {wall:.3f} s, "
+          f"{gen / wall:.1f} tok/s, ragged launches {launches} = "
+          f"{cfg.num_layers} x {steps}, {captures} ({card})")
+    del pred, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deploy_resnet(torch, paddle, card):
+    """Phase 18 (d): ResNet-50 at 224² through the bf16 predictor
+    (``set_model``, eval), batch 32 and 128."""
+    from paddle_tpu_torch import inference
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    net = paddle.vision.resnet50(num_classes=1000).eval()
+    pred = inference.create_predictor(inference.Config().set_model(
+        net).set_precision(inference.PrecisionType.Bfloat16))
+    g = torch.Generator(device="cuda").manual_seed(184)
+    for B in DEPLOY_RESNET:
+        x = torch.randn(B, 3, 224, 224, device="cuda", generator=g)
+        torch.cuda.reset_peak_memory_stats()
+        out = pred.run(x)
+        check(out.shape == (B, 1000) and bool(torch.isfinite(
+            out.float()).all()), f"18d: logits {tuple(out.shape)}")
+        (_, mod, _), = [p for k, p in pred._impl._programs.items()
+                        if k[0][0][0][0] == B]
+
+        def eager_call():
+            with torch.no_grad():
+                mod(x)
+
+        r = route_report(torch, f"(d) ResNet-50 bf16 predictor batch {B}",
+                         lambda: pred.run(x), eager_call, 10, card)
+        print(f"[phase 18] (d) ResNet-50 batch {B}: {B / r['ms'] * 1e3:.1f} "
+              f"imgs/s on the graph ({B / r['eager_ms'] * 1e3:.1f} eager), "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(pred.captures == 2, f"18d: {pred.captures} captures")
+    del pred, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_deploy(torch, fa, pa, serving, gpt_init, cfg):
+    """Phase 18: the deployment path at full width."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        enc, eager, xs, launches = deploy_encoder(torch, paddle, fa, tmp,
+                                                  card)
+    deploy_static(torch, enc, eager, xs)
+    del enc, eager, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = deploy_generation(torch, cfg, pa, serving, gpt_init, card)
+    deploy_resnet(torch, paddle, card)
+    return launches, gen
+
+
 def main():
     import torch
 
@@ -3531,6 +3970,11 @@ def main():
     phase_train_graph(torch, distributed)
     print(f"[phase 17] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    predictor_launches, generation_launches = phase_deploy(
+        torch, fa, pa, serving, gpt_init, cfg)
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -3539,7 +3983,8 @@ def main():
         "source": csrc + "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
         "launches": launches, "fleet_launches": fleet_launches,
-        "moe_launches": moe_launches, **rpa}] + [
+        "moe_launches": moe_launches,
+        "generation_launches": generation_launches, **rpa}] + [
         {"name": f"flash_attention_{name}", "route": "cuda",
          "source": csrc + source,
          "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
@@ -3561,7 +4006,9 @@ def main():
          "also_replaces": "paddle_tpu/kernels/ring_attention.py:133",
          "launches": ring_launches["pair_bwd"], **ring}]
     # the forward kernel also runs every ring pair's forward (phase 10)
+    # and the encoder predictors' attention (phase 18)
     kernels[1]["ring_launches"] = ring_launches["fwd"]
+    kernels[1]["predictor_launches"] = predictor_launches
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

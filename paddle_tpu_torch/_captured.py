@@ -30,10 +30,12 @@ import importlib
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .core.random import generators
 
-__all__ = ["CapturedStep", "StaticInputs", "storage_tag", "capture_stream"]
+__all__ = ["CapturedStep", "StaticInputs", "SignatureGraphs", "storage_tag",
+           "capture_stream"]
 
 #: device index -> the side stream every step warms up and captures on.
 #: cuBLAS keeps a workspace for each stream it has run on, for the life
@@ -75,6 +77,10 @@ class CapturedStep:
     """``body(*args)`` eagerly on the CPU; on CUDA captured once per
     ``storage`` tag and replayed (see the module docstring).
 
+    ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
+    steps that never run at the same time (``SignatureGraphs``); None
+    gives the graph a pool of its own.
+
     ``empty_cache``: return the eager run's cached blocks to the device
     before capturing, so that they and the graph's private pool are not
     both held (a training step's activations).  The port's generator of
@@ -87,11 +93,12 @@ class CapturedStep:
     a method instead (no cycle: the bound method is made at each
     call)."""
 
-    def __init__(self, body, device, *, empty_cache=False):
+    def __init__(self, body, device, *, empty_cache=False, pool=None):
         if body is not None:
             self.body = body
         self.device = device
         self.empty_cache = empty_cache
+        self.pool = pool          # a graph pool shared with other steps
         self.graph = None
         self.out = None           # the graph's static outputs
         self.storage = None       # the tag the graph was captured with
@@ -130,7 +137,7 @@ class CapturedStep:
             graph.register_generator_state(gen)
         counters = _counters()
         before = [cm[ck] for _, _, cm, ck in counters]
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, pool=self.pool, stream=side):
             # the graph's private pool takes new segments only: the
             # reserved bytes grow by what the pool holds
             reserved = torch.cuda.memory_reserved(dev)
@@ -191,3 +198,54 @@ class StaticInputs:
         self._copied = torch.cuda.Event()
         self._copied.record(stream)
         return tuple(self._dev)
+
+
+class SignatureGraphs:
+    """One ``CapturedStep`` per input signature, all in one graph pool:
+    the deployment entry points' ``jax.jit`` cache (``jit.TracedLayer``,
+    the ``inference`` predictors, ``static.Executor``), on CUDA only.
+
+    ``run(key, body, arrays, state)``: the first call with ``key`` (the
+    caller's signature: shapes, dtypes, static settings) gives it its own
+    ``StaticInputs`` and ``CapturedStep`` over ``body``; every call copies
+    ``arrays`` into that signature's buffers and runs the step with a
+    storage tag over the buffers and ``state`` (the tensors the body
+    reads besides its inputs: a replaced weight captures again, an
+    update in place is seen by the replay).  The graphs share one pool:
+    the signatures of one entry point never run at the same time, and
+    each call returns copies of the graph's outputs, so a later replay
+    of another graph cannot overwrite what a caller holds.  A failed
+    capture raises, as ``CapturedStep`` does."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = None
+        self._steps = {}          # key -> (StaticInputs, CapturedStep)
+
+    def run(self, key, body, arrays, state=()):
+        entry = self._steps.get(key)
+        if entry is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            entry = (StaticInputs(self.device),
+                     CapturedStep(body, self.device, pool=self.pool))
+            self._steps[key] = entry
+        inputs, step = entry
+        xs = inputs(*arrays)
+        out = step(*xs, storage=storage_tag([*xs, *state]))
+        return pytree.tree_map_only(torch.Tensor, torch.clone, out)
+
+    @property
+    def captures(self):
+        return sum(step.captures for _, step in self._steps.values())
+
+    @property
+    def pool_bytes(self):
+        """Device bytes the shared pool took while capturing."""
+        return sum(step.pool_bytes for _, step in self._steps.values())
+
+    def release(self):
+        for _, step in self._steps.values():
+            step.release()
+        self._steps.clear()
+        self.pool = None

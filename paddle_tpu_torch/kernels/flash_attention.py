@@ -20,7 +20,10 @@ tolerance).  fp32 inputs: the scalar forward, dK/dV and dQ kernels of
 forward and backward as one ``torch.autograd.Function`` (the JAX
 package's ``_flash`` custom VJP): on CPU tensors it runs the plain
 versions, on CUDA tensors the kernels, and there is no fallback from one
-to the other.
+to the other.  The forward it calls is the operator
+``torch.ops.paddle_tpu_torch.flash_fwd`` (``flash_fwd``), so that an
+exported program (``jit``) holds the operator and picks the route by the
+device it runs on.
 
 Layouts: q, k, v, out, dO ``[B, H, S, D]`` in fp32 or bf16; ``lse``
 ``[B, H, S]`` fp32.  Math is fp32 on both paths.  The kernels are
@@ -46,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention", "flash_attention_available",
-           "flash_attention_plain", "launches", "captured"]
+           "flash_attention_plain", "flash_fwd", "launches", "captured"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -315,15 +318,36 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal):
     return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal), dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The forward as a ``torch.library`` operator, ``(out, lse)``: the
+    plain version on CPU tensors, the CUDA kernel on CUDA tensors (the
+    dispatcher picks by device), and a fake version giving the shapes
+    to a trace.  A program exported on the CPU (``jit.save``) holds this
+    operator, not a route, so it launches the kernel when moved to the
+    card: the counterpart of the JAX package's ``jax.export(...,
+    platforms=["cpu", "tpu"])``."""
+    return _flash_fwd_ref(q, k, v, scale, causal)
+
+
+flash_fwd.register_kernel("cuda")(_flash_fwd_cuda)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 def _flash_fwd(q, k, v, scale, causal, plain=False):
-    """(out, lse): the plain version on CPU tensors or when ``plain``,
-    else the CUDA kernel."""
-    if plain or q.device.type == "cpu":
+    """(out, lse): the plain version when ``plain``, else the operator
+    (the plain version on CPU tensors, the CUDA kernel on CUDA ones)."""
+    if plain:
         return _flash_fwd_ref(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
-                         f"got {q.device}")
-    return _flash_fwd_cuda(q, k, v, scale, causal)
+    return flash_fwd(q, k, v, float(scale), bool(causal))
 
 
 def _flash_bwd(q, k, v, out, lse, do, scale, causal, plain=False):

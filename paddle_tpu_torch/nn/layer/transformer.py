@@ -43,9 +43,10 @@ class MultiHeadAttention(Layer):
         self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
 
     def _split_heads(self, x):
-        # [B, S, E] -> [B, H, S, D]
-        b, s, _ = x.shape
-        return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        # [B, S, E] -> [B, H, S, D]; no size is read from x, so a program
+        # recorded at one batch (static.Program) replays at another
+        return x.unflatten(-1, (self.num_heads, self.head_dim)).transpose(
+            1, 2)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -60,8 +61,7 @@ class MultiHeadAttention(Layer):
         out = ops.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training)
-        b, h, s, d = out.shape
-        out = self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        out = self.out_proj(out.transpose(1, 2).flatten(2))
         if cache is not None:
             return out, (k, v)
         return out

@@ -1262,3 +1262,134 @@ def test_hapi_prepare_again_captures_again_on_card(cuda):
                 assert err <= 1e-5, (k, n, err)
     finally:
         paddle.set_device("cpu")
+
+
+def _small_encoder(device):
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device(device)
+    try:
+        paddle.seed(0)
+        enc = paddle.nn.TransformerEncoder(
+            paddle.nn.TransformerEncoderLayer(64, 4, 128, dropout=0.0,
+                                              activation="gelu"), 2)
+    finally:
+        paddle.set_device("cpu")
+    return enc.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_operator_on_card_matches_plain(cuda, causal, dtype):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = [torch.randn(2, 4, 256, 64, generator=g, device="cuda")
+               .to(dtype) for _ in range(3)]
+    before = fa.launches["fwd"]
+    out, lse = fa.flash_fwd(q, k, v, 0.125, causal)
+    ref, ref_lse = fa._flash_fwd_ref(q, k, v, 0.125, causal)
+    torch.cuda.synchronize()
+    assert fa.launches["fwd"] == before + 1
+    tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+           else TOL[torch.bfloat16])
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cpu_exported_program_launches_the_kernel_on_the_card(cuda,
+                                                              tmp_path):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    enc = _small_encoder("cpu")
+    x = torch.randn(2, 128, 64, generator=torch.Generator().manual_seed(2))
+    jit.save(enc, str(tmp_path / "m"), example_inputs=[x])
+    with torch.no_grad():
+        ref = enc(x)
+    pred = jit.load(str(tmp_path / "m"))          # the card by default
+    before = dict(fa.launches)
+    out = pred(x)
+    out2 = pred(x)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda"
+    assert fa.launches["fwd"] - before["fwd"] == 4     # 2 layers x 2 calls
+    assert set(pred.routes.values()) == {"graph"} and pred.captures == 1
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_predictor_replay_equals_its_eager_run(cuda):
+    import copy
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.contrib.quant import PTQ
+
+    enc = _small_encoder("cuda")
+    x = torch.randn(4, 128, 64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    calib = copy.deepcopy(enc)
+    ptq = PTQ()
+    ptq.quantize(calib)
+    with torch.no_grad():
+        calib(x)
+    scales = {k: {"activation": s} for k, s in ptq.scales().items()}
+    for precision in ("float32", "bfloat16", "int8"):
+        cfg = inference.Config().set_model(enc)
+        if precision == "int8":
+            cfg.enable_int8(scales)
+        else:
+            cfg.set_precision(precision)
+        pred = inference.create_predictor(cfg)
+        first, replay = pred.run(x), pred.run(x)
+        (_, mod, route), = pred._impl._programs.values()
+        assert route == "graph" and pred.captures == 1
+        with torch.no_grad():
+            eager = mod(x)
+        torch.cuda.synchronize()
+        assert torch.equal(first, replay), precision
+        assert torch.equal(replay, eager), precision
+
+
+@pytest.mark.cuda
+def test_one_capture_per_signature(cuda):
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.observability.compile_watchdog import (
+        CompileWatchdog, watchdog_enabled)
+
+    enc = _small_encoder("cuda")
+    traced = jit.to_static(enc)
+    wd = CompileWatchdog()
+    traced._compiled = wd.watch(traced._run, name="jit::enc")
+    shapes = [(2, 128, 64), (1, 256, 64)] * 3
+    with watchdog_enabled(wd):
+        for s in shapes:
+            traced(torch.randn(*s, device="cuda"))
+    rep = wd.report()["jit::enc"]
+    assert (rep["compiles"], traced.captures) == (2, 2)
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")             # where static.data places feeds
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            src = static.data("src", [None, 128, 64], "float32")
+            out = enc(src)
+        prog = static.Program()
+        with static.program_guard(prog):
+            x = static.data("x", [4], "float32")
+            y = static.cond(x.sum() > 0.0, lambda: x * 2.0, lambda: x - 1.0)
+    finally:
+        paddle.set_device("cpu")
+    exe = static.Executor("gpu")
+    for b in (2, 3, 2, 3):
+        exe.run(main, feed={"src": np.ones((b, 128, 64), np.float32)},
+                fetch_list=[out])
+    assert exe.last_route == "graph" and exe.captures == 2
+    (r,) = exe.run(prog, feed={"x": np.ones(4, np.float32)}, fetch_list=[y])
+    assert exe.last_route == "eager" and exe.captures == 2
+    np.testing.assert_allclose(r, np.full(4, 2.0))

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """End-to-end A/B of two trees of the port on one GPU, in turns.
 
-    python3 chip_ab.py OTHER_TREE [--phases 7,10] [--dropout 0,0.1]
+    python3 chip_ab.py OTHER_TREE [--phases 7,10,15b] [--dropout 0,0.1]
 
 Runs ``chip_smoke.py``'s training phases (7: ``HybridEngine`` GPT-3 1.3B
-at batch 8 x 2048; 10: the same with sep=4 ring sequence parallelism)
-for this checkout and for OTHER_TREE (for example the parent commit,
+at batch 8 x 2048; 10: the same with sep=4 ring sequence parallelism;
+15b: hapi ResNet-50 bf16 O1 at its batches 32 and 128, under PyTorch's
+default TF32 flags as phase 15 runs it) for this checkout and for
+OTHER_TREE (for example the parent commit,
 unpacked with ``git archive``), each run in a fresh process, in the
 order other, this, this, other, so both are measured on the same card
 in one sitting.  Each tree builds and uses its own kernels and runs its
-own ``chip_smoke.prepare`` and ``chip_smoke.phase_train_throughput``,
-so OTHER_TREE must have both.  ``--dropout`` repeats the four runs at
+own ``chip_smoke.prepare`` and ``chip_smoke.phase_train_throughput``
+(15b: ``resnet_throughput``), so OTHER_TREE must have them.  ``--dropout`` repeats the four runs at
 each residual dropout rate given (GPT-3 1.3B's config with its
 ``dropout`` replaced; default 0, the config's own).  Prints every run's
 ms/step, peak memory, device busy time and launch counts, then one JSON
@@ -53,13 +55,19 @@ def run_tree(root, tag, phases, dropout):
     if "10" in phases:
         cs.phase_train_throughput(torch, sep=cs.RING_SEP,
                                   tag=f"{tag} phase 10")
+    if "15b" in phases:
+        import paddle_tpu_torch as paddle
+
+        with cs.torch_default_tf32(torch):
+            for B in cs.RESNET_BATCHES:
+                cs.resnet_throughput(torch, paddle, B)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other", nargs="?")
     ap.add_argument("--phases", default="7,10",
-                    help="the training phases to run, of 7 and 10")
+                    help="the training phases to run, of 7, 10 and 15b")
     ap.add_argument("--dropout", default="0",
                     help="residual dropout rates, comma-separated")
     ap.add_argument("--run", nargs=2, metavar=("ROOT", "TAG"),
@@ -85,6 +93,8 @@ def main():
                      r"([\d.]+) ms/step.*?peak memory ([\d.]+) GiB")
     busy = re.compile(r"^\[(\w+) (phase \d+)\] one traced step .*?device "
                       r"busy ([\d.]+) ms")
+    resnet = re.compile(r"^\[phase 15b\] ResNet-50 bench_resnet protocol, "
+                        r"batch (\d+): ([\d.]+) imgs/s, ([\d.]+) ms/step")
     runs = []
     for rate, tag in ((r, t) for r in args.dropout.split(",")
                       for t in ORDER):
@@ -98,8 +108,11 @@ def main():
         run = {"tree": tag, "dropout": float(rate)}
         print(f"chip_ab: {tag} tree, dropout {rate}")
         for line in out.stdout.splitlines():
-            if line.startswith(f"[{tag} phase"):
+            if line.startswith((f"[{tag} phase", "[phase 15b]")):
                 print(line[:300])
+            m = resnet.match(line)
+            if m:
+                run[f"15b batch {m.group(1)} ms/step"] = float(m.group(3))
             m = pat.match(line)
             if m:
                 run[f"{m.group(2)} ms/step"] = float(m.group(3))

@@ -139,28 +139,33 @@ def bench_bwd(torch, source):
     os.makedirs(OUT, exist_ok=True)
     shutil.copy(os.path.join(HERE, CSRC, "sm90.cuh"), OUT)
 
-    def variant(name, old, new):
-        if old not in base:
-            raise SystemExit(f"chip_bench: {source} has no {old[:40]!r}")
+    def variant(name, *pairs):
+        src = base
+        for old, new in zip(pairs[::2], pairs[1::2]):
+            if old not in src:
+                raise SystemExit(f"chip_bench: {source} has no {old[:40]!r}")
+            src = src.replace(old, new)
         path = os.path.join(OUT, f"{name}.cu")
-        open(path, "w").write(base.replace(old, new))
+        open(path, "w").write(src)
         return path, ()
 
     path = os.path.join(OUT, "as_is.cu")
     open(path, "w").write(base)
     jobs = {"as_is": (path, ())}
-    reduce_call = "tma_reduce_add(&tm_dq,"
+    reduce_call = "        tma_reduce_add(&tm_dq,"
     if reduce_call in base:      # the dQ reduce-adds skipped
         jobs["no_dq_reduce"] = variant(
-            "no_dq_reduce", "            " + reduce_call,
-            "            if (false) " + reduce_call)
-    jobs["no_dq"] = variant(     # no dQ product and no dQ adds
+            "no_dq_reduce", reduce_call,
+            "        if (false) " + reduce_call.lstrip())
+    jobs["no_dq"] = variant(     # no dQ product, no dQ adds, no writers
         "no_dq", "const bool does_dq = DC >= 128 || w == 0;",
-        "const bool does_dq = false;")
+        "const bool does_dq = false;",
+        "(DC >= 128 || threadIdx.x % 2 == 0)", "false")
     libs = build_all(jobs)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for lib in libs.values():
-        lib.flash_bwd_sm90_launch.argtypes = [ptr] * 9 + [i] * 3 + [f, i, ptr]
+        lib.flash_bwd_sm90_launch.argtypes = [ptr] * 10 + [i] * 3 + [f, i,
+                                                                     ptr]
         lib.flash_bwd_sm90_launch.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -178,8 +183,8 @@ def bench_bwd(torch, source):
             rc = lib.flash_bwd_sm90_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), acc.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B * H, S, D, float(scale),
-                int(causal), stream)
+                dk.data_ptr(), dv.data_ptr(), fa._dq_turns(q).data_ptr(),
+                B * H, S, D, float(scale), int(causal), stream)
             if rc:
                 raise SystemExit(f"chip_bench: launch returned {rc}")
 
@@ -235,7 +240,7 @@ def bench_pairs(torch, other, sources):
         f, i, i, ptr]
     entries = {n: lib.ring_pair_bwd_sm90_launch for n, lib in libs.items()}
     for fn in entries.values():
-        fn.argtypes = [ptr] * 9 + [i] * 3 + [f, i, ptr]
+        fn.argtypes = [ptr] * 10 + [i] * 3 + [f, i, ptr]
     stream = torch.cuda.current_stream().cuda_stream
     B, H, S, D = 8, 16, 512, 128
     c = ring_pair_case(torch, fa, B, H, S, D, torch.bfloat16, seed=5)
@@ -268,7 +273,8 @@ def bench_pairs(torch, other, sources):
 
         def one_kernel(fn, sums):
             check(fn(*ptrs(c["q"], k, v, c["do"]),
-                     *[t.data_ptr() for t in sums], B * H, S, D,
+                     *[t.data_ptr() for t in sums],
+                     fa._dq_turns(c["q"]).data_ptr(), B * H, S, D,
                      float(c["scale"]), int(causal), stream))
 
         calls = {"other (2 kernels + 3 adds)": other_route}

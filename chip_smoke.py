@@ -48,7 +48,7 @@ Phases (any failure exits non-zero):
      the adds; ring-global lse and delta) vs its plain version from
      non-zero starting sums: edge cases (diagonal and full pairs, shard
      lengths 128/256/512, head dims 32, 64, 128, 256 and a zero-padded
-     80, fp32 and bf16; dK and dV bit-equal over two runs), then the
+     80, fp32 and bf16; dQ, dK and dV bit-equal over two runs), then the
      per-rank shapes of the sep=4 training path with the kernel's time,
      bound, plain-version time, the time of PyTorch's flash attention
      backward on the same pair and of the three fp32 adds the route
@@ -171,7 +171,26 @@ Phases (any failure exits non-zero):
      (c) ``GenerationPredictor`` over phase 4's 1.3B engine knobs and
      prompts: tokens identical to ``Engine.generate``, one capture,
      tok/s and ragged launches; (d) ResNet-50 at 224² through the bf16
-     predictor at batch 32 and 128: imgs/s and busy share.
+     predictor at batch 32 and 128: imgs/s and busy share;
+ 19. fault-tolerant training: (a) hapi ResNet-50 (bf16 O1, batch 32, 24
+     seeded batches, ``train_batch`` as a graph) with the async
+     ``CheckpointCallback`` every 4 steps, ``GoodputMonitor``,
+     ``HealthMonitor(rollback)`` and ``IntegrityCallback``: uninterrupted
+     here, then in a child (``chip_smoke.py --child fit LOG``) under
+     ``TrainingSupervisor`` killed at global step 10 through
+     ``PADDLE_TPU_FAULTS``: one restart, the resume from step 8, losses
+     and final params, buffers and slots bitwise equal, 0 divergences,
+     one capture a process; (b) a NaN batch rolled back once, the
+     window recorded, the losses past it those of a run without it; (c)
+     the cross-rank bitflip protocol on the card: rank 1 and
+     ``params/0.bias`` named, repaired bitwise; (d) ``HybridEngine`` at
+     the 1.3B widths on 4 layers: 6 steps against 3 + async save + a
+     new engine + 3, and an in-place rewind of the live engine, bitwise,
+     one capture; the save, stall, restore and D2H figures; (e) (a)'s
+     goodput and MFU; (f) the sentinel's cost against its 3 % bound; (g)
+     the flash backward's dQ (and a ring pair's sums) bitwise over 20
+     repeats at phase 5's and phase 8's shapes; first, the ops torch
+     names nondeterministic in one eager step of each path.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -184,6 +203,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -998,17 +1018,20 @@ def phase_flash_kernels(torch, fa, ra):
     torch.cuda.empty_cache()
 
     # the backward kernel alone: one launch on fixed buffers (dQ keeps
-    # adding into the same fp32 sums, which changes no time)
+    # adding into the same fp32 sums, which changes no time) after a
+    # memset of its turn counters
     lib = fa._lib_bwd_sm90()
     acc = torch.zeros((B, H, S, D), dtype=torch.float32, device="cuda")
     gk, gv = torch.empty_like(q), torch.empty_like(q)
+    turns = fa._dq_turns(q)
     stream = torch.cuda.current_stream().cuda_stream
 
     def kernel_alone():
         rc = lib.flash_bwd_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), acc.data_ptr(), gk.data_ptr(),
-            gv.data_ptr(), B * H, S, D, float(scale), 1, stream)
+            gv.data_ptr(), turns.zero_().data_ptr(), B * H, S, D,
+            float(scale), 1, stream)
         check(rc == 0, f"flash_bwd_sm90_launch returned {rc}")
 
     ms = {"fwd": time_ms(torch, lambda: fa._flash_fwd_cuda(
@@ -1641,9 +1664,8 @@ def phase_ring_pair_kernels(torch, fa, ra):
                            fa.launches["bwd"] - before[1])
                           == ((2, 0) if bf16 else (0, 4)),
                           "ring pair launches not counted")
-                    check(torch.equal(got[1], again[1])
-                          and torch.equal(got[2], again[2]),
-                          f"ring pair dk/dv differ between two runs "
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"ring pair dq/dk/dv differ between two runs "
                           f"({dtype_name}, s={s}, D={D}, causal={causal})")
                     for name, a, s0, b in zip(("dq", "dk", "dv"), got,
                                               c["start"], want):
@@ -1662,7 +1684,7 @@ def phase_ring_pair_kernels(torch, fa, ra):
     print(f"[phase 8] {n} ring-pair edge cases: start + pair == start + "
           f"plain on dq, dk, dv (fp32 atol=rtol=1e-4, worst "
           f"{worst['float32']:.3g}; bf16 q/k/v/dO: atol 1e-2 rtol 1.6e-2, "
-          f"worst {worst['bfloat16']:.3g}); dk, dv bit-equal over two "
+          f"worst {worst['bfloat16']:.3g}); dq, dk, dv bit-equal over two "
           f"runs")
 
     # ---- per-rank shapes of the path: sep=4 over S=2048, bf16
@@ -3831,6 +3853,746 @@ def phase_deploy(torch, fa, pa, serving, gpt_init, cfg):
     return launches, gen
 
 
+# ---------------------------------- fault-tolerant training (19)
+
+
+FT_FIT = (24, 32)                  # phase 19 (a): batches x batch size
+FT_EVERY = 4                       # (a): a checkpoint every 4 steps
+FT_KILL_AT = 10                    # (a): the supervised child's kill
+FT_ROLLBACK = (8, 32, 5)           # (b): batches, batch size, bad batch
+FT_ENGINE_LAYERS = 4               # (d): GPT-3 1.3B widths, 4 layers
+FT_ENGINE_BATCH = (8, 2048)
+FT_SENTINEL = (25, 100)            # (f): bench.py's fingerprint / replay
+SENTINEL_BOUND = 0.03              #      intervals and documented bound
+
+
+class FtLosses:
+    """A fit callback recording each step's loss by global step
+    (``losses``; a replayed step overwrites) and in order (``history``),
+    and in the supervised child appending ``step loss`` lines to
+    ``log``."""
+
+    def __init__(self, log=None):
+        self.model, self.params = None, {}
+        self.log, self.losses, self.history, self.gstep = log, {}, [], 0
+
+    def set_model(self, model):
+        self.model = model
+
+    def set_params(self, params):
+        self.params = params
+
+    def on_train_begin(self, logs=None):
+        info = getattr(self.model, "_resume_info", None) or {}
+        self.gstep = int(info.get("global_step", 0))
+
+    def on_train_batch_end(self, step, logs=None):
+        self.gstep += 1
+        self.losses[self.gstep] = logs["loss"]
+        self.history.append(logs["loss"])
+        if self.log:
+            with open(self.log, "a") as f:
+                f.write(f"{self.gstep} {logs['loss']!r}\n")
+
+    def rewind_to(self, global_step):
+        self.gstep = int(global_step)
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+
+def ft_state_digest(model):
+    """The fit state's per-leaf CRC32 digest: params, buffers, slots."""
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    net = model.network
+    return tree_fingerprint({"params": dict(net.named_parameters()),
+                             "buffers": dict(net.named_buffers()),
+                             "slots": model._opt_state["slots"]})
+
+
+def ft_fit(torch, paddle, ckdir, log=None, resume=None, settle_at=None):
+    """Phase 19 (a)'s run: ResNet-50 from seed 0, bf16 O1, Momentum at lr
+    0.01 (0.1 first blows up, 15(b)), ``FT_FIT`` seeded synthetic
+    batches, train_batch as a graph, with the async CheckpointCallback,
+    GoodputMonitor, HealthMonitor(rollback) and IntegrityCallback.
+    ``settle_at``: at that global step wait for the in-flight save (the
+    supervised child, before its kill)."""
+    from paddle_tpu_torch.hapi import CheckpointCallback, IntegrityCallback
+    from paddle_tpu_torch.observability import GoodputMonitor, HealthMonitor
+
+    n, B = FT_FIT
+    paddle.set_device("gpu")
+    model = resnet_model(paddle, 0.01)
+    flops = resnet_flops(torch, model.network, B)
+    health = HealthMonitor(action="rollback")
+    cbs = {"losses": FtLosses(log),
+           "goodput": GoodputMonitor(flops_per_step=flops),
+           "integrity": IntegrityCallback(fingerprint_every=FT_EVERY,
+                                          replay_every=6, monitor=health),
+           "ckpt": CheckpointCallback(ckdir, every_n_steps=FT_EVERY,
+                                      keep_last_n=2, async_save=True),
+           "health": health}
+    if settle_at:
+        ckpt = cbs["ckpt"]
+
+        class Settle(paddle.hapi.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                if ckpt._global_step == settle_at:
+                    ckpt.manager.wait()
+
+        cbs["settle"] = Settle()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        model.fit(images(paddle, n * B, 19), batch_size=B, epochs=1,
+                  shuffle=False, verbose=0, callbacks=list(cbs.values()),
+                  resume_from=resume)
+    torch.cuda.synchronize()
+    return model, cbs, flops
+
+
+def child_fit(log):
+    """``chip_smoke.py --child fit LOG``: phase 19 (a)'s trainer under
+    the supervisor.  Attempt 0 keeps the kill of ``PADDLE_TPU_FAULTS``
+    (after waiting for the save of the step before it); a relaunch
+    resumes from ``PADDLE_ELASTIC_RESUME_DIR``.  Appends its losses and a
+    JSON line of its captures, resume point and final state digest."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import resilience
+
+    attempt = int(os.environ.get(resilience.ENV_ATTEMPT, "0"))
+    if attempt:
+        resilience.uninstall()          # the kill is attempt 0's alone
+    prepare(torch)
+    resume = os.environ[resilience.ENV_RESUME_DIR]
+    model, cbs, _ = ft_fit(torch, paddle, resume, log=log, resume=resume,
+                           settle_at=FT_KILL_AT - FT_KILL_AT % FT_EVERY
+                           if attempt == 0 else None)
+    with open(log, "a") as f:
+        f.write(json.dumps({
+            "attempt": attempt, "captures": model.captures["train"],
+            "resume": model._resume_info and
+            model._resume_info.get("global_step"),
+            "integrity_events": len(cbs["integrity"].events),
+            "digest": ft_state_digest(model)}) + "\n")
+    return 0
+
+
+def ft_supervised(torch, ref, tmp):
+    """Phase 19 (a), the second half: the same run in a child process
+    under ``TrainingSupervisor``, killed at global step ``FT_KILL_AT`` by
+    ``PADDLE_TPU_FAULTS``; the relaunch resumes and finishes.  Held bit
+    for bit to the uninterrupted run ``ref``."""
+    from paddle_tpu_torch.resilience import TrainingSupervisor
+
+    log = os.path.join(tmp, "losses.log")
+    env = dict(os.environ,
+               PADDLE_TPU_FAULTS=f"hapi.train_step:kill:{FT_KILL_AT}")
+    sup = TrainingSupervisor(
+        [sys.executable, os.path.abspath(__file__), "--child", "fit", log],
+        checkpoint_dir=os.path.join(tmp, "ck_sup"), max_restarts=2,
+        backoff_base=0.05, backoff_cap=0.1, env=env,
+        log_path=os.path.join(tmp, "child.log"))
+    t0 = time.perf_counter()
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    if rc:
+        print(open(os.path.join(tmp, "child.log")).read()[-4000:])
+    check(rc == 0, f"19a: the supervised run exited {rc}")
+    losses, attempts = {}, []
+    with open(log) as f:
+        for line in f:
+            if line.startswith("{"):
+                attempts.append(json.loads(line))
+                continue
+            step, loss = line.split(" ", 1)
+            losses.setdefault(int(step), []).append(float(loss))
+    n = FT_FIT[0]
+    check(sup.restarts == [("crash", 1)], f"19a: restarts {sup.restarts}")
+    check([a["attempt"] for a in attempts] == [1],
+          f"19a: attempts that finished {attempts}")
+    final = attempts[0]
+    resumed = final["resume"]
+    check(resumed == FT_KILL_AT - FT_KILL_AT % FT_EVERY,
+          f"19a: resumed from step {resumed}")
+    check(sorted(losses) == list(range(1, n + 1)),
+          f"19a: steps logged {sorted(losses)}")
+    again = [s for s, v in losses.items() if len(v) > 1]
+    same = all(v == [ref["losses"][s]] * len(v) for s, v in losses.items())
+    check(same, "19a: the supervised losses differ from the uninterrupted "
+                "run's: " + ", ".join(
+                    f"{s}: {v} vs {ref['losses'][s]}"
+                    for s, v in sorted(losses.items())
+                    if v != [ref['losses'][s]] * len(v))[:600])
+    differ = [k for k in ref["digest"]
+              if ref["digest"][k] != final["digest"].get(k)]
+    check(not differ, f"19a: final state differs at {differ[:4]}")
+    check(final["captures"] == 1 and final["integrity_events"] == 0,
+          f"19a: the relaunch captured {final['captures']} graphs, "
+          f"{final['integrity_events']} integrity events")
+    print(f"[phase 19a] supervised: killed at global step {FT_KILL_AT} "
+          f"(PADDLE_TPU_FAULTS), {len(sup.restarts)} restart, the relaunch "
+          f"resumed from step {resumed} and retrained steps {again}; "
+          f"{n} losses and the final {len(ref['digest'])} leaves (params, "
+          f"buffers, Momentum slots) bitwise equal to the uninterrupted "
+          f"run; the relaunch captured train_batch once; supervised wall "
+          f"{wall:.1f} s (two processes, each with its start, build check "
+          f"and capture)")
+
+
+def ft_uninterrupted(torch, paddle, tmp):
+    """Phase 19 (a), the first half (in this process), and (e)."""
+    watchdog().reset()
+    t0 = time.perf_counter()
+    model, cbs, flops = ft_fit(torch, paddle, os.path.join(tmp, "ck_ref"))
+    wall = time.perf_counter() - t0
+    integ = cbs["integrity"]
+    captured = check_captured_once(model, "hapi::train_step", "19a")
+    n = FT_FIT[0]
+    check(len(cbs["losses"].losses) == n and all(
+        np.isfinite(list(cbs["losses"].losses.values()))),
+        "19a: losses missing or not finite")
+    check(integ.events == [] and integ.checks == {
+        "fingerprint": n // FT_EVERY, "replay": n // 6},
+        f"19a: integrity {integ.events[:2]}, checks {integ.checks}")
+    check(cbs["health"].rollbacks == 0, "19a: a rollback in a healthy run")
+    losses = cbs["losses"].losses
+    print(f"[phase 19a] hapi ResNet-50 bf16 O1, batch {FT_FIT[1]}, {n} "
+          f"steps with CheckpointCallback(every {FT_EVERY}, async), "
+          f"GoodputMonitor, HealthMonitor(rollback), IntegrityCallback("
+          f"fingerprint every {FT_EVERY}, replay every 6): {wall:.1f} s; "
+          f"{integ.checks['replay']} replays and "
+          f"{integ.checks['fingerprint']} fingerprints, 0 divergences; "
+          f"{captured}; losses {losses[1]:.4f} .. {losses[n]:.4f}")
+    rep = cbs["goodput"].report()
+    shares = {k: v / rep["total_seconds"]
+              for k, v in rep["phases_seconds"].items()}
+    print(f"[phase 19e] goodput of (a): " + ", ".join(
+        f"{k} {shares[k]:.4f}" for k in ("compute", "data_wait", "compile",
+                                         "checkpoint", "eval"))
+          + f" of {rep['total_seconds']:.2f} s over {rep['steps']} steps; "
+          f"MFU {rep['mfu']:.4f} of the last step ({flops / 1e12:.3f} "
+          f"TFLOP a step against {rep['peak_flops'] / 1e12:.0f} TFLOP/s, "
+          f"the table's entry for {rep['device']!r}); {card_line()}")
+    check(rep["peak_flops"] == BF16_FLOPS and rep["mfu"] > 0,
+          f"19e: peak {rep['peak_flops']} mfu {rep['mfu']}")
+    ref = {"losses": dict(losses), "digest": ft_state_digest(model)}
+    del model, cbs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def ft_rollback(torch, paddle, tmp):
+    """Phase 19 (b): a NaN batch under HealthMonitor(rollback): one
+    rollback, the skipped window in the manifest, and the losses past it
+    bitwise those of a run that never saw the batch."""
+    from paddle_tpu_torch.hapi import CheckpointCallback
+    from paddle_tpu_torch.observability import HealthMonitor
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    n, B, bad = FT_ROLLBACK
+    data = images(paddle, n * B, 23)
+    clean = images(paddle, n * B, 23)
+    keep = np.ones(n * B, bool)
+    keep[bad * B:(bad + 1) * B] = False
+    clean.x, clean.y = clean.x[keep], clean.y[keep]
+    data.x[bad * B:(bad + 1) * B] = np.nan
+    runs = {}
+    for name, ds in (("clean", clean), ("poisoned", data)):
+        paddle.set_device("gpu")
+        model = resnet_model(paddle, 0.01)
+        rec = FtLosses()
+        mon = HealthMonitor(action="gauge" if name == "clean"
+                            else "rollback")
+        ckdir = os.path.join(tmp, f"ck_{name}")
+        cbs = [rec, mon, CheckpointCallback(ckdir, every_n_steps=1,
+                                            keep_last_n=2, async_save=True)]
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            model.fit(ds, batch_size=B, epochs=1, shuffle=False, verbose=0,
+                      callbacks=cbs)
+        torch.cuda.synchronize()
+        runs[name] = (rec.history, mon.rollbacks,
+                      time.perf_counter() - t0, ckdir)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, _, _, _ = runs["clean"]
+    got, rollbacks, wall, ckdir = runs["poisoned"]
+    _, _, manifest = CheckpointManager(ckdir, sweep_orphans=False).restore()
+    windows = manifest["extra"].get("skipped_windows", [])
+    print(f"[phase 19b] ResNet-50 bf16 O1, batch {B}, {n} batches with "
+          f"batch {bad} NaN, HealthMonitor(rollback), a checkpoint every "
+          f"step (async): {rollbacks} rollback, skipped windows "
+          f"{windows}; loss at the bad step {got[bad]}; losses past it "
+          + " ".join(f"{x:.6f}" for x in got[bad + 1:]) + " vs the run "
+          f"without the batch " + " ".join(f"{x:.6f}" for x in ref[bad:])
+          + f" ({wall:.1f} s)")
+    check(rollbacks == 1 and len(windows) == 1
+          and (windows[0]["first_step"], windows[0]["last_step"])
+          == (bad, bad), f"19b: rollbacks {rollbacks}, {windows}")
+    check(not np.isfinite(got[bad]) and got[:bad] == ref[:bad]
+          and got[bad + 1:] == ref[bad:],
+          "19b: the losses around the window differ from the clean run's")
+
+
+def ft_ranks(torch, paddle, tmp, monitored, store):
+    """Phase 19 (c): ``TestCrossRankDivergence``'s protocol on the card:
+    two sequential ranks of the toy model over one TCPStore, rank 1 with
+    a bitflip of ``0.weight`` (bit 17) at its 5th ``hapi.step_params``,
+    fingerprints every 2 steps.  Returns each rank's callback, losses and
+    final parameters."""
+    from paddle_tpu_torch.hapi import CheckpointCallback, IntegrityCallback
+    from paddle_tpu_torch.observability import (HealthMonitor,
+                                                MetricsRegistry, Tracer)
+    from paddle_tpu_torch.resilience import FaultSpec, injected_faults
+
+    rng = np.random.RandomState(7)
+    y = rng.randint(0, 2, (32,)).astype(np.int64)
+    x = (rng.randn(32, 4) * 0.3 + y[:, None] * 2.0).astype(np.float32)
+
+    class Arrays(paddle.io.Dataset):
+        def __len__(self):
+            return 32
+
+        def __getitem__(self, i):
+            return x[i], y[i]
+
+    out = {}
+    for rank in range(2):
+        reg = MetricsRegistry()
+        mon = HealthMonitor(action="rollback", registry=reg,
+                            tracer=Tracer()) if monitored else None
+        cb = IntegrityCallback(store=store, rank=rank, world_size=2,
+                               fingerprint_every=2, history=1000,
+                               monitor=mon, registry=reg, tracer=Tracer(),
+                               key_prefix=f"integrity{int(monitored)}")
+        paddle.set_device("gpu")
+        paddle.seed(11)
+        model = paddle.Model(paddle.nn.Sequential(
+            paddle.nn.Linear(4, 8), paddle.nn.ReLU(),
+            paddle.nn.Linear(8, 2)))
+        model.prepare(paddle.optimizer.Momentum(
+            learning_rate=0.1, parameters=model.parameters()),
+            paddle.nn.CrossEntropyLoss())
+        rec = FtLosses()
+        cbs = [rec, cb, CheckpointCallback(
+            os.path.join(tmp, f"int{int(monitored)}_{rank}"),
+            every_n_steps=1)] + ([mon] if mon else [])
+        with (injected_faults(FaultSpec(
+                "hapi.step_params", "bitflip", occurrence=5,
+                leaf="0.weight", bit=17)) if rank == 1
+              else contextlib.nullcontext()):
+            model.fit(Arrays(), batch_size=4, epochs=1, shuffle=False,
+                      verbose=0, callbacks=cbs)
+        out[rank] = (cb, rec.history,
+                     {k: p.detach().clone()
+                      for k, p in model.network.named_parameters()},
+                     model.captures["train"])
+    return out
+
+
+def ft_integrity(torch, paddle, tmp):
+    from paddle_tpu_torch.distributed.store import TCPStore
+
+    store = TCPStore(is_master=True, world_size=1)
+    det = ft_ranks(torch, paddle, tmp, False, store)
+    ev = det[1][0].events[0] if det[1][0].events else {}
+    print(f"[phase 19c] TestCrossRankDivergence's protocol on the card, "
+          f"detect only: rank 0 events {det[0][0].events}; rank 1 "
+          f"{ev.get('kind')} at global step {ev.get('global_step')}, "
+          f"divergent ranks {ev.get('divergent_ranks')}, first divergent "
+          f"leaf {ev.get('first_divergent_leaf')} (the JAX package's on "
+          f"this protocol: {{1: 'params/0.bias'}})")
+    check(det[0][0].events == [] and ev.get("divergent_ranks") == [1]
+          and ev.get("global_step") == 6
+          and ev.get("first_divergent_leaf") == {1: "params/0.bias"},
+          f"19c: detection {ev}")
+    rep = ft_ranks(torch, paddle, tmp, True, store)
+    cb1, l1, p1, cap1 = rep[1]
+    _, l0, p0, cap0 = rep[0]
+    same = all(torch.equal(p0[k], p1[k]) for k in p0)
+    print(f"[phase 19c] with HealthMonitor(rollback): rank 1 repaired "
+          f"({len(l1)} steps: steps 5 and 6 replayed after the rewind to "
+          f"step 4), divergence active {cb1.divergence_active}, its final "
+          f"parameters bitwise equal to rank 0's: {same}; replayed tail "
+          f"equal {l1[6:] == l0[4:]}; train_batch captures {cap0} / {cap1}")
+    check(same and l1[6:] == l0[4:] and len(l1) == 10
+          and not cb1.divergence_active and cap0 == 1 and cap1 == 1,
+          "19c: the repair did not reconverge bitwise")
+
+
+def ft_engine(torch, distributed, tmp):
+    """Phase 19 (d): HybridEngine at the 1.3B widths on
+    ``FT_ENGINE_LAYERS`` layers, phase 7's EngineConfig, bf16 with the
+    fp32 master and Adam slots: 6 steps uninterrupted; 3, an async save,
+    a new engine, 3 more; and an in-place rewind of the live engine to
+    step 3, 3 more.  Losses and state bitwise; one capture each."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.observability import default_registry
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"],
+                              num_layers=FT_ENGINE_LAYERS)
+    B, S = FT_ENGINE_BATCH
+    rng = np.random.default_rng(19)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100)], 1)
+
+    def engine():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return distributed.HybridEngine(
+            cfg, device="cuda",
+            engine_cfg=distributed.EngineConfig(accum_steps=1))
+
+    def steps(eng, params, opt, n):
+        out, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = eng.step(params, opt, tokens, labels)
+            out.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return params, opt, out, ms
+
+    def state(eng, params, opt):
+        return {k: t.detach().clone() for k, t in ck.tree_items(
+            ck.engine_tree(eng, params, opt))}
+
+    def same(a, b):
+        return [k for k in a if not torch.equal(
+            a[k].view(torch.uint8) if a[k].dtype == torch.bfloat16
+            else a[k], b[k].view(torch.uint8)
+            if b[k].dtype == torch.bfloat16 else b[k])]
+
+    eng = engine()
+    params, opt = eng.init(seed=0)
+    n_params = sum(t.numel() for _, t in ck.tree_items(params))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      ck.tree_items(ck.engine_tree(eng, params, opt)))
+    _, _, ref, _ = steps(eng, params, opt, 6)
+    ref_state = state(eng, params, opt)
+    del eng, params, opt
+
+    # three steps, an async save, three more on a new engine
+    watchdog().reset()
+    eng = engine()
+    params, opt = eng.init(seed=0)
+    params, opt, l03, ms_before = steps(eng, params, opt, 3)
+    sync_dir = os.path.join(tmp, "eng_sync")
+    t0 = time.perf_counter()
+    CheckpointManager(sync_dir).save(ck.engine_tree(eng, params, opt),
+                                     step=3, extra={"kind": "hybrid_engine"})
+    sync_s = time.perf_counter() - t0
+    shutil.rmtree(sync_dir, ignore_errors=True)
+    mgr = CheckpointManager(os.path.join(tmp, "eng"), async_save=True)
+    hist = default_registry().histogram(
+        "checkpoint_save_seconds", labelnames=("mode",))
+    bg_before = hist.labels(mode="background").sum
+    t0 = time.perf_counter()
+    path = mgr.save(ck.engine_tree(eng, params, opt), step=3,
+                    extra={"kind": "hybrid_engine"})
+    stall_s = time.perf_counter() - t0
+    params, opt, l_after, ms_after = steps(eng, params, opt, 1)
+    mgr.wait()
+    bg_s = hist.labels(mode="background").sum - bg_before
+    # a second async save, into the pinned buffers the first allocated
+    t0 = time.perf_counter()
+    mgr.save(ck.engine_tree(eng, params, opt), step=4,
+             extra={"kind": "hybrid_engine"})
+    stall2_s = time.perf_counter() - t0
+    mgr.wait()
+    eng_a, params_a, opt_a = eng, params, opt
+    eng = engine()
+    t0 = time.perf_counter()
+    params, opt = ck.load_engine_state(path, eng)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(opt["step"] == 3, f"19d: restored step {opt['step']}")
+    for k in fa.launches:
+        fa.launches[k] = 0
+    params, opt, l36, _ = steps(eng, params, opt, 3)
+    launches = dict(fa.launches)
+    new_state = state(eng, params, opt)
+    diff = same(ref_state, new_state)
+    print(f"[phase 19d] HybridEngine gpt3-1.3b widths x{FT_ENGINE_LAYERS} "
+          f"layers, bf16 with fp32 master and Adam, batch {B} x {S}, remat "
+          f"dots: {n_params / 1e6:.1f} M parameters, {state_bytes / 1e9:.3f} "
+          f"GB of state; losses uninterrupted " + " ".join(
+              f"{x:.6f}" for x in ref) + "; 3 + save + new engine + 3 "
+          + " ".join(f"{x:.6f}" for x in l03 + l36)
+          + f"; state leaves differing {len(diff)}; flash launches in the 3 "
+          f"resumed steps {launches}")
+    check(l03 + l36 == ref and l_after == ref[3:4] and not diff,
+          f"19d: the resumed engine differs (losses {l03 + l36} vs {ref}, "
+          f"{diff[:4]})")
+    check(launches["fwd"] == 3 * 2 * FT_ENGINE_LAYERS
+          and launches["bwd"] == 3 * FT_ENGINE_LAYERS,
+          f"19d: flash launches {launches}")
+    del eng, params, opt
+    # the live engine (a) rewound in place to step 3, three steps again
+    eng, params, opt = eng_a, params_a, opt_a
+    builds = watchdog().report()["hybrid_engine::step"]["compiles"]
+    t0 = time.perf_counter()
+    ck.load_engine_state(path, eng, into=(params, opt))
+    torch.cuda.synchronize()
+    inplace_s = time.perf_counter() - t0
+    params, opt, l_re, _ = steps(eng, params, opt, 3)
+    diff = same(ref_state, state(eng, params, opt))
+    builds_after = watchdog().report()["hybrid_engine::step"]["compiles"]
+    print(f"[phase 19d] in-place rewind of the live engine to step 3 and 3 "
+          f"steps: losses " + " ".join(f"{x:.6f}" for x in l_re)
+          + f", state leaves differing {len(diff)}, captures "
+          f"{eng.captures}, watchdog builds {builds} -> {builds_after}")
+    check(l_re == ref[3:] and not diff and eng.captures == 1
+          and builds_after == builds,
+          f"19d: the in-place rewind differs ({l_re} vs {ref[3:]}, "
+          f"{diff[:4]}, captures {eng.captures})")
+    gb = state_bytes / 1e9
+    print(f"[phase 19d] checkpoint of {state_bytes} bytes ({gb:.3f} GB): "
+          f"sync save {sync_s:.3f} s; async save's training-thread stall "
+          f"{stall_s:.3f} s the first time (the pinned buffers allocated; "
+          f"{gb / stall_s:.2f} GB/s), {stall2_s:.3f} s the second (the "
+          f"device->host copy into them, {gb / stall2_s:.2f} GB/s); the "
+          f"first one's background write "
+          f"{bg_s:.3f} s; restore into a new engine {restore_s:.3f} s, in "
+          f"place {inplace_s:.3f} s; step ms before the save "
+          + " ".join(f"{x:.1f}" for x in ms_before) + ", the step after "
+          f"it (the write in flight) {ms_after[0]:.1f}; {card_line()}")
+    del eng, params, opt, eng_a, params_a, opt_a, ref_state, new_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": launches["fwd"], "bwd": launches["bwd"]}
+
+
+def ft_sentinel(torch, paddle):
+    """Phase 19 (f): the sentinel's cost against its documented 3 %
+    bound, by bench.py's ``bench_integrity`` protocol (a fingerprint
+    every N = 25 steps and a replay every M = 100, amortized over the
+    median step): the MLP at hidden 1024, batch 128, and ResNet-50 at
+    batch 32 (bf16 O1).  Printed, not checked."""
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    def measure(model, x, y, amp):
+        ctx = (lambda: paddle.amp.auto_cast(dtype="bfloat16")) if amp \
+            else contextlib.nullcontext
+
+        def step():
+            with ctx():
+                return model.train_batch(x, y)
+
+        for _ in range(3):
+            step()
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            step()
+            ts.append(time.perf_counter() - t0)
+        step_s = float(np.median(ts))
+        tree = {"params": dict(model.network.named_parameters())}
+        tree_fingerprint(tree)
+        fp = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tree_fingerprint(tree)
+            fp.append(time.perf_counter() - t0)
+        snap = model.train_state_snapshot()
+        rp = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            with ctx():
+                model.replay_train_batch(snap, (x, y))
+            rp.append(time.perf_counter() - t0)
+        fp_s, rp_s = float(np.median(fp)), float(np.median(rp[1:]))
+        n, m = FT_SENTINEL
+        return step_s, fp_s, rp_s, (fp_s / n + rp_s / m) / step_s
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    h = 1024
+    nn = paddle.nn
+    mlp = paddle.Model(nn.Sequential(nn.Linear(h, h), nn.ReLU(),
+                                     nn.Linear(h, h), nn.ReLU(),
+                                     nn.Linear(h, 10)))
+    mlp.prepare(paddle.optimizer.Momentum(
+        learning_rate=0.01, parameters=mlp.parameters()),
+        nn.CrossEntropyLoss())
+    rng = np.random.RandomState(0)
+    x = rng.randn(128, h).astype(np.float32)
+    y = rng.randint(0, 10, (128,)).astype(np.int64)
+    res = {"MLP hidden 1024, batch 128, fp32": measure(mlp, x, y, False)}
+    del mlp
+    model = resnet_model(paddle, 0.01)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        32, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 1000, (32,))).cuda()
+    n_bytes = sum(p.numel() * 4 for p in model.parameters())
+    res[f"ResNet-50, batch 32, bf16 O1 ({n_bytes / 1e6:.1f} MB of fp32 "
+        f"parameters)"] = measure(model, x, y, True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, (step_s, fp_s, rp_s, ratio) in res.items():
+        print(f"[phase 19f] sentinel on {name}: step {step_s * 1e3:.2f} ms, "
+              f"fingerprint {fp_s * 1e3:.2f} ms, replay {rp_s * 1e3:.2f} ms; "
+              f"amortized over N = {FT_SENTINEL[0]}, M = {FT_SENTINEL[1]}: "
+              f"{ratio:.4f} of step time against the documented bound "
+              f"{SENTINEL_BOUND} (printed, not checked)")
+
+
+def ft_kernels(torch, fa, ra):
+    """Phase 19 (g): dQ of the bf16 backward 20 times at each phase 5
+    shape (causal D = 128 and 256, non-causal [32, 12, 512, 64]) and a
+    ring pair at phase 8's per-rank shape, full and diagonal: every
+    repeat bitwise equal to the first, the first at the plain version's
+    tolerance.  Returns the whole call's ms by case."""
+    out = {}
+    for B, H, S, D, causal in ((8, 16, 2048, 128, True),
+                               (8, 16, 2048, 256, True),
+                               (32, 12, 512, 64, False)):
+        g = torch.Generator(device="cuda").manual_seed(190 + D)
+        q, k, v, do = (torch.randn((B, H, S, D), generator=g,
+                                   device="cuda").bfloat16()
+                       for _ in range(4))
+        scale = 1.0 / np.sqrt(D)
+        ref, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+        delta = fa._delta(ref, do)
+        first = fa._bwd_sm90(q, k, v, do, lse, delta, scale, causal)
+        rq = fa._bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+        err = max_err(torch, first[0], rq)
+        check(torch.allclose(first[0].float(), rq.float(),
+                             **TOL_FLASH["bfloat16"]),
+              f"19g: dq != plain at {[B, H, S, D]}: {err:.3g}")
+        del ref, rq
+        reps = sum(all(torch.equal(a, b) for a, b in zip(first, fa._bwd_sm90(
+            q, k, v, do, lse, delta, scale, causal))) for _ in range(20))
+        ms = time_ms(torch, lambda: fa._bwd_sm90(q, k, v, do, lse, delta,
+                                                 scale, causal), 10)
+        tag = f"{[B, H, S, D]} {'causal' if causal else 'non-causal'}"
+        out[tag] = ms
+        print(f"[phase 19g] flash backward at {tag}: dq, dk, dv bitwise "
+              f"equal over {reps}/20 repeats; dq max abs err {err:.3g} vs "
+              f"plain; whole call {ms:.4f} ms")
+        check(reps == 20, f"19g: {20 - reps} repeats differ at {tag}")
+        del q, k, v, do, lse, delta, first
+        torch.cuda.empty_cache()
+    for causal in (False, True):
+        c = ring_pair_case(torch, fa, 8, 16, 512, 128, torch.bfloat16,
+                           seed=5)
+        first, _, call = ring_pair_run(torch, ra, c, causal)
+        first = [t.clone() for t in first]
+        reps = 0
+        for _ in range(20):
+            got, _, _ = ring_pair_run(torch, ra, c, causal)
+            reps += all(torch.equal(a, b) for a, b in zip(first, got))
+        k, v = c["pairs"][causal]
+        want = [s + d for s, d in zip(c["start"], ra._pair_bwd_ref(
+            c["q"], k, v, c["do"], c["lse"], c["delta"], c["scale"],
+            causal))]
+        err = max(max_err(torch, a, b) for a, b in zip(first, want))
+        ok = all(torch.allclose(a, b, **TOL_FLASH["bfloat16"])
+                 for a, b in zip(first, want))
+        ms = time_ms(torch, call, 10)
+        tag = f"ring pair [8, 16, 512, 128] {'diagonal' if causal else 'full'}"
+        out[tag] = ms
+        print(f"[phase 19g] {tag}: sums bitwise equal over {reps}/20 "
+              f"repeats; max abs err {err:.3g} vs start + plain; {ms:.4f} ms "
+              f"a pair")
+        check(reps == 20 and ok, f"19g: {tag}: {reps}/20, err {err:.3g}")
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def ft_nondeterministic_ops(torch, paddle, distributed):
+    """One eager step of each training path of phase 19 (hapi ResNet-50
+    bf16 O1 at batch 32, ``HybridEngine`` at the 1.3B widths on 4
+    layers) under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the ops torch names as nondeterministic.  Printed;
+    the replays and resumes of phase 19 decide."""
+    import warnings
+
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    named = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            paddle.set_device("gpu")
+            model = resnet_model(paddle, 0.01)
+            x = torch.from_numpy(np.random.RandomState(0).rand(
+                32, 3, 224, 224).astype(np.float32)).cuda()
+            y = torch.from_numpy(np.random.RandomState(1).randint(
+                0, 1000, (32,))).cuda()
+            with eager_route(torch, model), \
+                    paddle.amp.auto_cast(dtype="bfloat16"):
+                model.train_batch(x, y)
+            torch.cuda.synchronize()
+            named["hapi ResNet-50"] = sorted(
+                {str(w.message).split("\n")[0][:160] for w in caught})
+            del model
+            caught.clear()
+            cfg = dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"],
+                                      num_layers=FT_ENGINE_LAYERS)
+            eng = distributed.HybridEngine(cfg, device="cuda")
+            params, opt = eng.init(seed=0)
+            tokens = np.random.default_rng(19).integers(
+                0, cfg.vocab_size, FT_ENGINE_BATCH).astype(np.int64)
+            with eager_route(torch, eng):
+                eng.step(params, opt, tokens, tokens)
+            torch.cuda.synchronize()
+            named["HybridEngine"] = sorted(
+                {str(w.message).split("\n")[0][:160] for w in caught})
+            del eng, params, opt
+    finally:
+        torch.use_deterministic_algorithms(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path, ops in named.items():
+        print(f"[phase 19] one eager step of {path} under "
+              f"use_deterministic_algorithms(warn_only): torch names "
+              f"{len(ops)} op(s){': ' + '; '.join(ops) if ops else ''}")
+
+
+def phase_fault_tolerance(torch, fa, ra, distributed):
+    """Phase 19: fault-tolerant training on the card."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        ft_nondeterministic_ops(torch, paddle, distributed)
+        t0 = time.perf_counter()
+        ref = ft_uninterrupted(torch, paddle, tmp)
+        ft_supervised(torch, ref, tmp)
+        print(f"[phase 19a] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ft_rollback(torch, paddle, tmp)
+        ft_integrity(torch, paddle, tmp)
+        print(f"[phase 19b-c] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches = ft_engine(torch, distributed, tmp)
+        print(f"[phase 19d] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ft_sentinel(torch, paddle)
+        kernels = ft_kernels(torch, fa, ra)
+        print(f"[phase 19f-g] {time.perf_counter() - t0:.1f} s; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, kernels
+
+
 def main():
     import torch
 
@@ -3975,6 +4737,10 @@ def main():
         torch, fa, pa, serving, gpt_init, cfg)
     print(f"[phase 18] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    ft_launches, ft_ms = phase_fault_tolerance(torch, fa, ra, distributed)
+    print(f"[phase 19] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -4008,6 +4774,17 @@ def main():
     # the forward kernel also runs every ring pair's forward (phase 10)
     # and the encoder predictors' attention (phase 18)
     kernels[1]["ring_launches"] = ring_launches["fwd"]
+    # phase 19: the resumed engine's launches, and the backward's whole
+    # call at the determinism check's shapes (every dQ bitwise over 20
+    # repeats)
+    for entry in kernels[1:4]:
+        key = entry["name"].split("_")[2]
+        entry["ft_engine_launches"] = ft_launches[
+            "fwd" if key == "fwd" else "bwd"]
+    for entry in kernels[2:]:
+        entry["deterministic_ms"] = {
+            k: v for k, v in ft_ms.items()
+            if k.startswith("ring") == (entry["name"] == "ring_pair_bwd")}
     kernels[1]["predictor_launches"] = predictor_launches
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -4018,4 +4795,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--child", "fit"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(child_fit(sys.argv[3]))
     sys.exit(main())

@@ -239,6 +239,26 @@ class HybridEngine:
         return {"step": int(step),
                 "slots": build(canon["m"], canon["v"], canon["master"])}
 
+    def state_template(self):
+        """Shape, dtype and device of every leaf of ``(params, canonical
+        optimizer state)`` (``opt_canonical``'s ``m``, ``v``, ``master``),
+        allocating nothing (the params are drawn on the meta device): the
+        restore target of ``checkpoint.load_engine_state``."""
+        import types
+
+        shapes = self.model.init(torch.Generator(), torch.device("meta"))
+        odt = self._opt_dtype()
+
+        def tmpl(node, dtype=None):
+            if isinstance(node, dict):
+                return {k: tmpl(v, dtype) for k, v in node.items()}
+            return types.SimpleNamespace(shape=tuple(node.shape),
+                                         dtype=dtype or node.dtype,
+                                         device=self.device)
+
+        return tmpl(shapes), {name: tmpl(shapes, odt)
+                              for name in ("m", "v", "master")}
+
     # ------------------------------------------------------- forward pieces
     def _attention(self, q, k, v, causal=True):
         """Attention of one block, q/k/v ``[B, H, S, hd]`` over the whole

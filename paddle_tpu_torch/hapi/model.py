@@ -36,8 +36,20 @@ either package loads in the other: ``path.pdparams`` is a pickled
 {slot: array}}}`` tree of ``train_batch``'s optimizer state.  Both writes
 are atomic.
 
-Not ported, raising ``NotImplementedError``: ``prepare(device_mesh=)``,
-``fit(resume_from=)`` and the rollback, health and fault-site paths."""
+``fit(resume_from=dir)`` restores the newest intact checkpoint a
+``CheckpointCallback`` wrote (in place, so the captured step keeps
+replaying) and fast-forwards to its (epoch, step).  A ``HealthMonitor``
+with ``action="rollback"`` makes ``fit`` restore the last good checkpoint
+and skip the poisoned data window (``_execute_rollback``), or, for the
+integrity sentinel's ``param_divergence``, rewind and replay the same
+batches (``_finish_rewind_rollback``).  ``replay_train_batch`` re-runs a
+step from a snapshot through the same captured graph and puts the live
+state back, so nothing on the model changes.  Fault sites:
+``hapi.step_params`` (the post-step parameters, bit-flipped in place)
+and ``hapi.train_step`` (after each step's callbacks).
+
+Not ported, raising ``NotImplementedError``: ``prepare(device_mesh=)``
+(multi-GPU)."""
 from __future__ import annotations
 
 import contextlib
@@ -57,6 +69,7 @@ from ..observability.compile_watchdog import watch
 from ..optimizer.optimizer import device_scalar
 from ..profiler.profiler import RecordEvent
 from ..resilience.atomic import atomic_write
+from ..resilience.faults import current_injector, fault_point
 from .callbacks import CallbackList, ModelCheckpoint, ProgBarLogger
 
 __all__ = ["Model"]
@@ -86,6 +99,10 @@ class Model:
         self._metrics = []
         self._opt_state = None        # train_batch's optimizer state
         self._watch_grad_norm = False
+        self._rollback_request = None   # set by HealthMonitor(rollback)
+        self._stash_batch = False       # IntegrityCallback replay feed
+        self._last_batch = None
+        self._resume_info = None
         # the static inputs of the watched steps; the learning rate and
         # the step as device scalars
         dev = self.device
@@ -150,25 +167,98 @@ class Model:
                 amp_state(), torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
 
-    def train_batch(self, inputs, labels):
-        """One optimization step; returns ``(loss, metric results)``."""
-        opt, net = self._optimizer, self.network
-        params = dict(net.named_parameters())
+    def _train_state(self):
+        """The optimizer state of ``train_batch``, made on first use."""
         if self._opt_state is None:
-            self._opt_state = opt.init_state(params)
-        st = self._opt_state
+            self._opt_state = self._optimizer.init_state(
+                dict(self.network.named_parameters()))
+        return self._opt_state
+
+    def _train_call(self, inputs, labels, lr):
+        """The watched train step on one batch at ``lr``: ``(loss,
+        output, grad norm or None, labels)``; the step count advances."""
+        params = dict(self.network.named_parameters())
+        st = self._train_state()
         x, y = self._train_in(_to_list(inputs)[0], _to_list(labels)[0])
         self._step.fill_(st["step"] + 1)
-        self._lr.fill_(opt.get_lr())
+        self._lr.fill_(lr)
         args = (x, y, params, st["slots"], self._lr, self._step,
                 self._watch_grad_norm)
         with RecordEvent("hapi::train_step"):
             loss, out, gnorm = self._run_train(args)
         st["step"] += 1
+        return loss, out, gnorm, y
+
+    def train_batch(self, inputs, labels):
+        """One optimization step; returns ``(loss, metric results)``."""
+        loss, out, gnorm, y = self._train_call(inputs, labels,
+                                               self._optimizer.get_lr())
+        if current_injector() is not None:
+            self._expose_params_fault_site()
         results = self._update_metrics(out, y)
         if gnorm is not None:
             results["grad_norm"] = float(gnorm)
         return float(loss), results
+
+    def _expose_params_fault_site(self):
+        """The silent-data-corruption injection point: with a fault
+        injector installed, the post-step parameters pass through the
+        ``hapi.step_params`` site as a ``{name: tensor}`` dict, whose
+        ``bitflip`` flips one bit of a live parameter in place."""
+        fault_point("hapi.step_params", tree={
+            k: p.detach() for k, p in self.network.named_parameters()})
+
+    def train_state_snapshot(self):
+        """A deep copy of what a train step reads and writes: params,
+        buffers, the optimizer state, the device generators' states and
+        the learning rate (the integrity sentinel's pre-step snapshot)."""
+        from ..core.random import get_rng_state
+
+        net, st = self.network, self._train_state()
+        clone = {k: t.detach().clone() for k, t in net.named_parameters()}
+        return {"params": clone,
+                "buffers": {k: b.clone() for k, b in net.named_buffers()},
+                "opt_state": {"step": st["step"], "slots": {
+                    k: {n: t.clone() for n, t in s.items()}
+                    for k, s in st["slots"].items()}},
+                "rng": {k: v.clone() for k, v in get_rng_state().items()},
+                "lr": float(self._optimizer.get_lr())}
+
+    @torch.no_grad()
+    def _load_train_state(self, snap):
+        """Copy a :meth:`train_state_snapshot` into the live tensors."""
+        from ..core.random import set_rng_state
+
+        net, st = self.network, self._train_state()
+        for k, t in net.named_parameters():
+            t.copy_(snap["params"][k])
+        for k, b in net.named_buffers():
+            b.copy_(snap["buffers"][k])
+        for k, s in st["slots"].items():
+            for n, t in s.items():
+                t.copy_(snap["opt_state"]["slots"][k][n])
+        st["step"] = snap["opt_state"]["step"]
+        set_rng_state(snap["rng"])
+
+    def replay_train_batch(self, snapshot, batch):
+        """Re-execute one train step from a pre-step ``snapshot`` (see
+        :meth:`train_state_snapshot`) on ``batch``; returns ``(loss,
+        {name: parameter after the step})`` for a bitwise comparison with
+        the live step.  The step writes in place, so the replay keeps a
+        copy of the live state, loads the snapshot into the tensors the
+        captured graph reads, replays the graph, and loads the live state
+        back: nothing on the model changes (the JAX step is pure and
+        mutates nothing).  Metrics are not updated."""
+        live = self.train_state_snapshot()
+        self._load_train_state(snapshot)
+        try:
+            loss, _, _, _ = self._train_call(*batch, snapshot["lr"])
+            loss = float(loss)
+            params = {k: p.detach().clone()
+                      for k, p in self.network.named_parameters()}
+        finally:
+            self._load_train_state(live)
+        return loss, params
 
     def _run_train(self, args):
         """The watched train step (the graph's replay on CUDA)."""
@@ -271,9 +361,21 @@ class Model:
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1,
             verbose=1, shuffle=True, callbacks=None, resume_from=None,
             **kw):
+        """``resume_from``: a directory a ``CheckpointCallback`` wrote (or
+        its ``CheckpointManager``).  The newest intact checkpoint restores
+        params, buffers, optimizer state, generator states and the LR
+        scheduler, and the loop fast-forwards to the saved (epoch, step);
+        an empty directory is a fresh start."""
+        resume_epoch, resume_step = 0, 0
+        self._resume_info = None   # don't let a previous fit's resume leak
         if resume_from is not None:
-            raise NotImplementedError(
-                "fit(resume_from=...) is not ported (see ROADMAP.md)")
+            from .callbacks import restore_fit_state
+
+            info = restore_fit_state(self, resume_from)
+            if info is not None:
+                self._resume_info = info
+                resume_epoch = int(info.get("epoch", 0))
+                resume_step = int(info.get("next_step", 0))
         train_loader = self._loader(train_data, batch_size, shuffle)
         eval_loader = self._loader(eval_data, batch_size, False)
         cbs = _to_list(callbacks)
@@ -290,19 +392,49 @@ class Model:
                                       "verbose": verbose,
                                       "metrics": self._metric_names()})
         self.stop_training = False
+        self._rollback_request = None
         cblist.on_train_begin()
+        from ..observability.tracing import default_tracer
+
+        tracer = default_tracer()
         history, logs = [], {}
-        for epoch in range(epochs):
+        for epoch in range(resume_epoch, epochs):
             cblist.on_epoch_begin(epoch)
             for m in self._metrics:
                 m.reset()
             logs = {}
-            for step, batch in enumerate(train_loader):
-                cblist.on_train_batch_begin(step)
-                loss, res = self.train_batch(batch[0], batch[1])
-                logs = {"loss": loss, **res}
-                cblist.on_train_batch_end(step, logs)
-                if self.stop_training:
+            start_step = resume_step if epoch == resume_epoch else 0
+            while True:     # re-entered only on an integrity rewind
+                rewound = False
+                for step, batch in enumerate(train_loader):
+                    if step < start_step:
+                        continue   # trained before the crash / rewind
+                    cblist.on_train_batch_begin(step)
+                    x, y = batch[0], batch[1]
+                    if self._stash_batch:
+                        self._last_batch = (x, y)
+                    with tracer.start_trace("hapi::step", {
+                            "epoch": epoch, "step": step}) as sp:
+                        loss, res = self.train_batch(x, y)
+                        sp.set_attribute("loss", float(loss))
+                    logs = {"loss": loss, **res}
+                    cblist.on_train_batch_end(step, logs)
+                    if self._rollback_request is not None:
+                        # restore the last good checkpoint, then skip the
+                        # poisoned window or rewind and replay it
+                        req, self._rollback_request = \
+                            self._rollback_request, None
+                        rewind_to = self._execute_rollback(
+                            req, cblist, epoch, step)
+                        if rewind_to is not None:
+                            start_step = int(rewind_to)
+                            rewound = True
+                            break
+                    # simulated preemption: after this step's callbacks
+                    fault_point("hapi.train_step")
+                    if self.stop_training:
+                        break
+                if not rewound:
                     break
             if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                 eval_logs = self.evaluate(eval_loader, callbacks=[],
@@ -314,6 +446,101 @@ class Model:
                 break
         cblist.on_train_end(logs)
         return history
+
+    def _execute_rollback(self, req, cblist, epoch, step):
+        """Health-triggered rollback: restore the newest intact checkpoint
+        older than the anomalous step.  Default (a poisoned batch): the
+        loop goes on with the next batch on the restored state, and the
+        skipped window is committed at once.  ``req["rewind"]`` (the
+        integrity repair: corrupted state, healthy data): restore the
+        newest checkpoint before ``req["restore_before"]``, discard the
+        newer saves and return the loop step to replay from."""
+        from ..observability.health import TrainingHealthError
+        from .callbacks import CheckpointCallback, restore_fit_state
+
+        reason = req.get("reason", "anomaly")
+        cb = next((c for c in cblist.callbacks
+                   if isinstance(c, CheckpointCallback)), None)
+        if cb is None:
+            raise TrainingHealthError(
+                reason, f"rollback requested at step {step} but no "
+                        f"CheckpointCallback is attached — there is "
+                        f"nothing to roll back to")
+        cb.manager.wait()          # join an in-flight poisoned save
+        bad_global_step = cb._global_step
+        before = int(req.get("restore_before", bad_global_step))
+        info = restore_fit_state(self, cb.manager, before_step=before)
+        if info is None:
+            raise TrainingHealthError(
+                reason, f"rollback requested at step {step} but no "
+                        f"intact checkpoint precedes global step "
+                        f"{before}")
+        if req.get("rewind"):
+            return self._finish_rewind_rollback(req, cblist, cb, info,
+                                                epoch, step)
+        window = {
+            "reason": reason,
+            "epoch": int(epoch),
+            # batches first_step..last_step of this epoch were trained
+            # then discarded: a resume never sees them again
+            "first_step": int(info.get("next_step", 0)),
+            "last_step": int(step),
+            "global_step": int(bad_global_step),
+            "restored_global_step": int(info.get("global_step", 0)),
+        }
+        cb.record_rollback(window, next_step=step + 1)
+        self._note_rollback(window, reason, epoch, step)
+
+    def _finish_rewind_rollback(self, req, cblist, cb, info, epoch,
+                                step):
+        """The integrity repair's tail: discard the poisoned newer saves,
+        rewind the step-counting callbacks, and return the loop step to
+        replay from."""
+        reason = req.get("reason", "param_divergence")
+        restored_gs = int(info.get("global_step", 0))
+        rewind_step = int(info.get("next_step", 0))
+        cb.manager.discard_after(restored_gs)
+        for c in cblist.callbacks:
+            rewind = getattr(c, "rewind_to", None)
+            if callable(rewind):
+                rewind(restored_gs)
+        repair = {
+            "reason": reason,
+            "epoch": int(epoch),
+            "detected_step": int(step),
+            "replay_from_step": rewind_step,
+            "global_step": int(req.get("step", step)),
+            "restored_global_step": restored_gs,
+            "rewind": True,
+        }
+        cb.record_repair(repair)
+        self._note_rollback(repair, reason, epoch, step)
+        return rewind_step
+
+    @staticmethod
+    def _note_rollback(window, reason, epoch, step):
+        import logging
+
+        from ..observability.metrics import default_registry
+        from ..observability.tracing import default_tracer
+
+        default_registry().counter(
+            "training_rollbacks_total",
+            "health-triggered restores of the last good checkpoint",
+            labelnames=("reason",)).labels(reason=reason).inc()
+        default_tracer().start_trace("supervisor::rollback",
+                                     attributes=dict(window)).end()
+        log = logging.getLogger("paddle_tpu_torch.hapi")
+        if window.get("rewind"):
+            log.warning("rolled back to checkpoint step %s after %s at "
+                        "epoch %d step %d; replaying from step %d (no data "
+                        "skipped)", window["restored_global_step"], reason,
+                        epoch, step, window["replay_from_step"])
+        else:
+            log.warning("rolled back to checkpoint step %s after %s at "
+                        "epoch %d step %d; skipping data window [%d, %d]",
+                        window["restored_global_step"], reason, epoch, step,
+                        window["first_step"], window["last_step"])
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=1,
                  callbacks=None, **kw):
@@ -353,7 +580,7 @@ class Model:
         net = self.network
         blob = {"params": {k: _numpy(p) for k, p in net.named_parameters()},
                 "buffers": {k: _numpy(b) for k, b in net.named_buffers()}}
-        with atomic_write(path + ".pdparams") as f:
+        with atomic_write(path + ".pdparams", site="hapi.model_save") as f:
             pickle.dump(blob, f, protocol=4)
         if self._opt_state is not None:
             st = self._opt_state
@@ -365,7 +592,7 @@ class Model:
                         for k, v in self._optimizer.state_dict().items()}
         else:
             return
-        with atomic_write(path + ".pdopt") as f:
+        with atomic_write(path + ".pdopt", site="hapi.model_save") as f:
             pickle.dump(opt_blob, f, protocol=4)
 
     def load(self, path):

@@ -26,9 +26,10 @@
 //     of the tile are loaded once and stay in shared memory while the
 //     query tiles stream past; dK and dV accumulate in registers and are
 //     written once;
-//   - blocks are launched in groups of heads whose Q, dO and dQ sums fit
-//     the L2 cache together, key tile 0 (the most causal work) first, as
-//     flash_fwd_sm90.cu does; a causal key tile visits only the query
+//   - blocks take their work in groups of heads whose Q, dO and dQ sums
+//     fit the L2 cache together, the last key tile (the least causal
+//     work) first, so that each key tile's dQ adds wait on blocks that
+//     started before it (below); a causal key tile visits only the query
 //     tiles at or past it;
 //   - three warpgroups: warpgroup 0's first warp is the producer (one
 //     thread issues every TMA copy; its 32 lanes stage lse * log2(e) and
@@ -56,25 +57,39 @@
 //     holds dK and dV (D / 2 registers each at D <= 128), 32 registers of
 //     P^T / dS^T fragments and 32 of dQ after S^T / dP^T are dead;
 //   - at D = 256 a thread would hold 256 fp32 dK/dV registers: the output
-//     columns split over blockIdx.y (two blocks a key tile, 128 columns
+//     columns split over two blocks a key tile (128 columns
 //     each of dK, dV and dQ), each recomputing S^T and dP^T over the full
 //     D, as flash_attention.cu's dK/dV kernel does;
 //   - dQ sums over the key tiles into a zeroed fp32 [B*H, S, D] buffer,
-//     which the wrapper rounds to bf16: each consumer writes its 64 x 64
-//     tile of dQ to shared memory (fp32, 128-byte swizzle, two buffers)
-//     and one thread adds it into the buffer with two TMA reduce-adds
-//     (cp.reduce.async.bulk.tensor), which the L2 applies a line at a
-//     time; a buffer is reused once the reduce of two tiles ago has read
-//     it.  On an H100 80GB HBM3 (700 W) at the shapes above, adding the
-//     same tiles with float2 atomics from registers ran the kernel at
-//     1.01 ms, against 0.65 ms with no dQ adds at all (scalar atomics:
-//     1.40 ms); the atomics stay only at D = 256, where the tiles take
-//     the 227 KB.  The order of those sums
-//     varies between runs, so dQ is not bit-reproducible on the card:
-//     runs differ by fp32 rounding of the sums (about 1e-6 relative),
-//     far inside the bf16 tolerance (atol 1e-2, rtol 1.6e-2) that holds
-//     it against the plain version.  dK and dV are written once by one
-//     thread each and are deterministic.
+//     which the wrapper rounds to bf16, in a fixed order: the last key
+//     tile that reaches a query tile first, then the one before it, down
+//     to key tile 0, so dQ is bit-reproducible from run to run (fp32
+//     addition is not associative; an order that varied with the
+//     scheduling would vary the last bits).  Each (b*h, query tile,
+//     column block, consumer) has a turn counter in `turns` (int32,
+//     zeroed by the caller with the buffer); a block waits until it
+//     reads the number of key tiles after its own that reach the query
+//     tile, adds its tile, and passes the turn on (sm90.cuh turn_wait /
+//     turn_pass).  A waiting block must never hold the SM its
+//     predecessor needs: blocks take their work from a ticket (turns[0],
+//     an atomic add at the start), so a block only ever waits for work
+//     that a block already running holds: key tile j + 1 of a head has
+//     the smaller ticket.  A causal key tile j + 1 starts two query
+//     tiles past key tile j and has two fewer to do, so it is ahead of
+//     j at every query tile they share: the order costs key tile j no
+//     wait, and the light tiles still finish early.
+//     At D <= 128 each consumer writes its 64 x 64 tile of dQ to shared
+//     memory (fp32, 128-byte swizzle, two buffers) and hands it to the
+//     writer thread of that buffer in warpgroup 0 (lanes of warp 1, over
+//     a full and an empty mbarrier a buffer), which waits for the turn,
+//     adds the tile with two TMA reduce-adds (cp.reduce.async.bulk.tensor,
+//     applied in the L2), waits for their writes and passes the turn:
+//     the consumers go on with the next query tile meanwhile, and a
+//     consumer's two buffers are in flight at once.  At
+//     D = 256, where the tiles take the 227 KB, the consumer's thread 0
+//     waits for the turn and the warpgroup adds its tile from registers
+//     with float2 atomics (applied in the turn's order).  dK and dV are
+//     written once by one thread each.
 //
 // P^T and dS^T are rounded to bf16 for their products, where the TPU
 // kernels keep them fp32: one more rounding (2^-9 relative) per term,
@@ -87,10 +102,11 @@
 // ring-global lse and delta; the diagonal pair is causal, a full pair
 // not.  What differs is where the outputs go: dQ, dK and dV are terms of
 // the ring's running fp32 sums, and the kernel adds them in place.  dQ
-// goes by the same TMA reduce-adds (atomics at D = 256) into the
-// caller's sum dq[i], which the ring zeroes once, not per pair; dK and
-// dV are read, added and written back in fp32 by the one thread that
-// owns each element, so they stay deterministic.  dO comes in bf16 (the
+// goes by the same ordered TMA reduce-adds (atomics at D = 256) into the
+// caller's sum dq[i], which the ring zeroes once, not per pair (the turn
+// counters are zeroed for each pair); dK and dV are read, added and
+// written back in fp32 by the one thread that owns each element, so the
+// pair is deterministic.  dO comes in bf16 (the
 // ring rounds its fp32 dO once a call, exact on the training path,
 // where it is the copy of a bf16 gradient).  At the sep = 4 training
 // shapes (B*H = 128, s = 512, D = 128) bytes bound a pair: q, k, v and
@@ -100,7 +116,7 @@
 // Fused, the pair saves the parent route's second recompute of S and dP
 // and its three separate fp32 adds (302 MB a pair).  A pair has only 4
 // key tiles a head, so its 512 blocks are 3.9 waves of one block an SM;
-// the head-grouped, heaviest-first order is the flash backward's.
+// the head-grouped, lightest-first order is the flash backward's.
 #include <math.h>
 
 #include <type_traits>
@@ -134,17 +150,28 @@ struct BwdTiles {
   static constexpr bool DQ_TMA = D <= 128;
   static constexpr int DQ_BOX = kBQ * 128;          // [64][32] fp32
   static constexpr int DQ_BYTES = DQ_TMA ? 2 * 2 * 2 * DQ_BOX : 0;
+  // a full and an empty mbarrier for each of the 2 x 2 dQ buffers
+  static constexpr int DQ_BARS = DQ_TMA ? 8 : 0;
   static constexpr int TILE_BYTES = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
                                     2 * DS_BYTES + DQ_BYTES +
                                     STAGES * ROWS * 4;
-  // tiles, 1 + 2 STAGES barriers, and slack to align the tiles to 1024
-  static constexpr int SMEM = TILE_BYTES + 8 * (1 + 2 * STAGES) + 1024;
+  // tiles, 1 + 2 STAGES (+ the dQ buffers') barriers, and slack to align
+  // the tiles to 1024
+  static constexpr int SMEM =
+      TILE_BYTES + 8 * (1 + 2 * STAGES + DQ_BARS) + 1024;
 };
 
 // dK and dV in device memory: bf16, written once (the flash backward),
 // or fp32 running sums the kernel adds into (a ring pair).
 template <bool RING>
 using DkType = std::conditional_t<RING, float, __nv_bfloat16>;
+
+// The turn of key tile kt at query tile qt (causal: key tile j reaches
+// query tiles from 2 j on): the number of key tiles after kt that reach
+// qt, which add first.
+__device__ __forceinline__ int dq_turn(int qt, int kt, int n_k, int causal) {
+  return (causal ? min(n_k - 1, qt * kBQ / kBK) : n_k - 1) - kt;
+}
 
 // Accumulator layout of wgmma m64nN (fp32), per thread of a warpgroup:
 // warp w owns rows 16w + g and 16w + g + 8 (g = lane / 4); element
@@ -162,8 +189,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ delta,
                           float* __restrict__ dq_acc,
                           DkType<RING>* __restrict__ dk,
-                          DkType<RING>* __restrict__ dv, int S,
-                          float scale, int causal, int BH, int G) {
+                          DkType<RING>* __restrict__ dv,
+                          int* __restrict__ turns, int S, float scale,
+                          int causal, int BH, int G) {
   using T = BwdTiles<D>;
   constexpr int NB = T::NB, DC = T::DC, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -180,29 +208,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* kv_full = bars;
   uint64_t* q_full = bars + 1;                      // [ST]
   uint64_t* q_empty = q_full + ST;                  // [ST]
-
-  // Blocks in launch order: heads in groups of G; within a group, key
-  // tiles from the first (the heaviest of a causal pass) to the last, the
-  // group's heads side by side.
-  const int n_k = (S + kBK - 1) / kBK, n_q = (S + kBQ - 1) / kBQ;
-  const int grp = blockIdx.x / (G * n_k), r = blockIdx.x % (G * n_k);
-  const int gh = min(G, BH - grp * G);
-  const int bh = grp * G + r % gh;
-  const int k0 = (r / gh) * kBK;
-  const int c0 = blockIdx.y * DC;                   // this block's columns
-  // causal: only the query tiles whose last row reaches k0
-  const int qt0 = causal ? k0 / kBQ : 0;
-  const int n_it = n_q - qt0;
-  const int wg = threadIdx.x / 128;
+  uint64_t* dq_full = q_empty + ST;                 // [2 buffers x 2]
+  uint64_t* dq_empty = dq_full + 4;                 // (D <= 128)
+  __shared__ int ticket;
+  __shared__ int* dq_turns;     // this block's turn counters (below)
 
   if (threadIdx.x == 0) {
+    ticket = atomicAdd(turns, 1);
     mbar_init(kv_full, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(&q_full[s], kProducerLanes);
       mbar_init(&q_empty[s], kConsumers);
     }
+    if (T::DQ_TMA)
+      for (int b = 0; b < 4; ++b) {
+        mbar_init(&dq_full[b], 128);                // a consumer's threads
+        mbar_init(&dq_empty[b], 1);                 // its writer
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  // Work in ticket order: heads in groups of G; within a group, key tiles
+  // from the last (the lightest of a causal pass) to the first, the
+  // group's heads side by side; at D = 256 a key tile's two column blocks
+  // one after the other.
+  const int n_k = (S + kBK - 1) / kBK, n_q = (S + kBQ - 1) / kBQ;
+  const int bx = ticket / T::Z, by = ticket % T::Z;
+  const int grp = bx / (G * n_k), r = bx % (G * n_k);
+  const int gh = min(G, BH - grp * G);
+  const int bh = grp * G + r % gh;
+  const int kt = n_k - 1 - r / gh, k0 = kt * kBK;   // key tile kt
+  const int c0 = by * DC;                           // this block's columns
+  // causal: only the query tiles whose last row reaches k0
+  const int qt0 = causal ? k0 / kBQ : 0;
+  const int n_it = n_q - qt0;
+  const int wg = threadIdx.x / 128;
+  // the turn counters of this block's (b*h, column block): query tile
+  // qt, consumer w at dq_turns[2 Z qt + w]; read from shared memory where
+  // used, so no register holds the pointer through the loop
+  if (threadIdx.x == 0)
+    dq_turns = turns + 1 + ((size_t)bh * n_q * T::Z + by) * 2;
   __syncthreads();
 
   if (wg == 0) {
@@ -242,6 +288,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         mbar_arrive(&q_full[st]);        // each lane, after its stores
       }
+    } else if (T::DQ_TMA && threadIdx.x >= 32 && threadIdx.x < 36 &&
+               (DC >= 128 || threadIdx.x % 2 == 0)) {
+      // ---- dQ writers: lane 2 b + w of warp 1 takes consumer w's tiles
+      // of buffer b (every other query tile), so two tiles of a consumer
+      // are in flight at once.  Each goes into the fp32 sums in its turn
+      // (key-tile order) by two TMA reduce-adds (rows past S skipped);
+      // once they are written the turn and the buffer are passed on
+      const int w = threadIdx.x % 2, b = (threadIdx.x - 32) / 2;
+      const int qc0 = c0 + (DC >= 128 ? 64 * w : 0);
+      const uint8_t* dqb = dQs + (b * 2 + w) * 2 * T::DQ_BOX;
+      for (int it = b; it < n_it; it += 2) {
+        const int qt = qt0 + it;
+        int* turn = dq_turns + ((size_t)qt * T::Z) * 2 + w;
+        mbar_wait(&dq_full[b * 2 + w], (it >> 1) & 1);
+        turn_wait(turn, dq_turn(qt, kt, n_k, causal));
+        tma_reduce_add(&tm_dq, dqb, qc0, qt * kBQ, bh);
+        tma_reduce_add(&tm_dq, dqb + T::DQ_BOX, qc0 + 32, qt * kBQ, bh);
+        bulk_commit();
+        bulk_wait_read<0>();             // the buffer is read: free it
+        mbar_arrive(&dq_empty[b * 2 + w]);
+        bulk_wait<0>();                  // the adds are written
+        turn_pass(turn);
+      }
     }
   } else {
     // ---- consumers: 64 keys each
@@ -274,6 +343,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* lse_s = rows + st * T::ROWS;
       const float* delta_s = lse_s + kBQ;
       uint8_t* dSb = dSs + (it & 1) * T::DS_BYTES;
+      if constexpr (!T::DQ_TMA) {
+        // D = 256: the consumer adds dQ itself.  The last tile's turn is
+        // passed here, once its adds have had this tile's wait to
+        // complete, and this tile's turn is taken, while few registers
+        // are live (the next key tile reaches a causal query tile two
+        // tiles after this one)
+        if (does_dq) {
+          if (it > 0) {
+            __threadfence();
+            warpgroup_sync(2 + w);
+          }
+          if (tid == 0) {
+            int* turn = dq_turns + ((size_t)(qt0 + it) * T::Z) * 2 + w;
+            if (it > 0) turn_pass(turn - T::Z * 2);
+            turn_wait(turn, dq_turn(qt0 + it, kt, n_k, causal));
+          }
+          warpgroup_sync(2 + w);
+        }
+      }
       mbar_wait(&q_full[st], ph);
 
       // S^T = K Q^T, dP^T = V dO^T over D / 16 k-steps: box kk / 4, 32
@@ -358,9 +446,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                  sw128_desc(Qb + (c0 / 64) * T::BOX_Q + kk * 2048, T::BOX_Q,
                             1024));
       wgmma_commit();
-      // this tile's dQ buffer was last read by the reduce of two tiles
-      // ago: the barrier below tells every thread it is free
-      if (T::DQ_TMA && does_dq && tid == 0) bulk_wait_read<1>();
       named_sync(1);                    // both consumers' dS^T is stored
       if (does_dq) {
         // dQ (64 queries x 64 columns) = dS K over the 128 keys: A = dS^T
@@ -387,10 +472,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (T::DQ_TMA) {
         if (does_dq) {
           // dQ's tile into shared memory, two [64][32] fp32 boxes in the
-          // 128-byte swizzle (16-byte chunk j of row r at chunk j ^ r % 8);
-          // then one thread adds both into the fp32 sums with TMA (rows
-          // past S skipped)
-          uint8_t* dqb = dQs + ((it & 1) * 2 + w) * 2 * T::DQ_BOX;
+          // 128-byte swizzle (16-byte chunk j of row r at chunk j ^ r % 8),
+          // once the writer has added the tile of two tiles ago from this
+          // buffer; then handed to the writer
+          const int b = (it & 1) * 2 + w;
+          uint8_t* dqb = dQs + b * 2 * T::DQ_BOX;
+          mbar_wait(&dq_empty[b], ((it >> 1) & 1) ^ 1);
 #pragma unroll
           for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -403,15 +490,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                   make_float2(dqa[4 * j + 2 * h], dqa[4 * j + 2 * h + 1]);
             }
           fence_proxy_async();
-          warpgroup_sync(2 + w);
-          if (tid == 0) {
-            tma_reduce_add(&tm_dq, dqb, qc0, q0, bh);
-            tma_reduce_add(&tm_dq, dqb + T::DQ_BOX, qc0 + 32, q0, bh);
-            bulk_commit();
-          }
+          mbar_arrive(&dq_full[b]);
         }
       } else if (does_dq) {
-        // dQ's tile into the fp32 sums, two neighbouring columns an add
+        // dQ's tile into the fp32 sums in its turn (taken at the top of
+        // the iteration), two neighbouring columns an atomic add: no
+        // other block adds there until the turn passes, so the order is
+        // fixed
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q = q0 + 16 * warp + g + 8 * h;
@@ -424,9 +509,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    // the last reduce is done before the block (and its shared memory)
-    // goes
-    if (T::DQ_TMA && does_dq && tid == 0) bulk_wait<0>();
+    if (!T::DQ_TMA && does_dq) {        // the last tile's turn
+      __threadfence();
+      warpgroup_sync(2 + w);
+      if (tid == 0)
+        turn_pass(dq_turns + ((size_t)(n_q - 1) * T::Z) * 2 + w);
+    }
 
     // epilogue: dK and dV, each element by one thread: in bf16, written
     // once, or (a ring pair) added into the fp32 sums, all of a row's
@@ -469,7 +557,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D, bool RING>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
-        int BH, int S, float scale, int causal, cudaStream_t st) {
+        void* turns, int BH, int S, float scale, int causal,
+        cudaStream_t st) {
   using T = BwdTiles<D>;
   CUtensorMap tq, tk, tv, tdo, tdq{};
   int rc = cached_map(&tq, q, BH, S, D, kBQ);
@@ -489,8 +578,8 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_sm90_kernel<D, RING>
       <<<dim3(BH * ((S + kBK - 1) / kBK), T::Z), kThreads, T::SMEM, st>>>(
           tq, tk, tv, tdo, tdq, (const float*)lse, (const float*)delta,
-          (float*)dq_acc, (DkType<RING>*)dk, (DkType<RING>*)dv, S, scale,
-          causal, BH, G);
+          (float*)dq_acc, (DkType<RING>*)dk, (DkType<RING>*)dv,
+          (int*)turns, S, scale, causal, BH, G);
   return (int)cudaGetLastError();
 }
 
@@ -501,21 +590,21 @@ static_assert(BwdTiles<64>::SMEM <= 232448, "227 KB a block");
 template <bool RING>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq_acc, void* dk,
-             void* dv, int BH, int S, int D, float scale, int causal,
-             void* stream) {
+             void* dv, void* turns, int BH, int S, int D, float scale,
+             int causal, void* stream) {
   if (BH <= 0 || S <= 0 ||
       (long long)BH * ((S + kBK - 1) / kBK) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return bwd<64, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
-                         scale, causal, st);
+    return bwd<64, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, turns,
+                         BH, S, scale, causal, st);
   if (D == 128)
-    return bwd<128, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
-                          scale, causal, st);
+    return bwd<128, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, turns,
+                          BH, S, scale, causal, st);
   if (D == 256)
-    return bwd<256, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
-                          scale, causal, st);
+    return bwd<256, RING>(q, k, v, dout, lse, delta, dq_acc, dk, dv, turns,
+                          BH, S, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -523,29 +612,39 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 // The bf16 backward: q, k, v, dout, dk, dv [BH, S, D] bf16 (16-byte
 // aligned, contiguous), lse and delta [BH, S] fp32, dq_acc [BH, S, D]
-// fp32 zeroed by the caller (dQ is added into it); D in {64, 128, 256}.
-// Returns a CUDA error code, 0 on success.
+// fp32 zeroed by the caller (dQ is added into it), turns int32 of
+// flash_bwd_sm90_turns(BH, S, D) elements zeroed by the caller (the
+// ticket and the turn counters that fix the order of dQ's sums);
+// D in {64, 128, 256}.  Returns a CUDA error code, 0 on success.
 extern "C" int flash_bwd_sm90_launch(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dq_acc, void* dk, void* dv,
-                                     int BH, int S, int D, float scale,
-                                     int causal, void* stream) {
-  return dispatch<false>(q, k, v, dout, lse, delta, dq_acc, dk, dv, BH, S,
-                         D, scale, causal, stream);
+                                     void* turns, int BH, int S, int D,
+                                     float scale, int causal, void* stream) {
+  return dispatch<false>(q, k, v, dout, lse, delta, dq_acc, dk, dv, turns,
+                         BH, S, D, scale, causal, stream);
 }
 
 // One ring pair's backward with the ring-global lse and delta: q, k, v,
 // dout [BH, S, D] bf16 as above; dq_sum, dk_sum, dv_sum [BH, S, D] fp32
 // running sums (16-byte aligned, contiguous) that the pair's dQ, dK and
-// dV are added into; D in {64, 128, 256}.  Returns a CUDA error code.
+// dV are added into; turns as above, zeroed for each call; D in {64,
+// 128, 256}.  Returns a CUDA error code.
 extern "C" int ring_pair_bwd_sm90_launch(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
                                          void* dq_sum, void* dk_sum,
-                                         void* dv_sum, int BH, int S, int D,
-                                         float scale, int causal,
-                                         void* stream) {
+                                         void* dv_sum, void* turns, int BH,
+                                         int S, int D, float scale,
+                                         int causal, void* stream) {
   return dispatch<true>(q, k, v, dout, lse, delta, dq_sum, dk_sum, dv_sum,
-                        BH, S, D, scale, causal, stream);
+                        turns, BH, S, D, scale, causal, stream);
+}
+
+// The int32 elements `turns` must hold for a call at (BH, S, D): the
+// ticket, then one turn counter per (b*h, 64-query tile, column block,
+// consumer).
+extern "C" long long flash_bwd_sm90_turns(int BH, int S, int D) {
+  return 1 + (long long)BH * ((S + kBQ - 1) / kBQ) * (D > 128 ? 2 : 1) * 2;
 }

@@ -94,6 +94,34 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Turns between blocks: wait until the counter at `turn` (device memory)
+// reads `mine`, with acquire semantics at the device scope; then, after
+// this block's writes, pass the turn on by adding one with release
+// semantics.  The async proxy is fenced on both sides, so TMA traffic
+// issued after the wait sees what the last holder wrote, and the next
+// holder sees this thread's completed bulk writes.  A turn that never
+// comes (a caller that did not zero the counters) traps after some
+// seconds, rather than hang the device.
+__device__ __forceinline__ void turn_wait(const int* turn, int mine) {
+  int v;
+  for (long long n = 0;; ++n) {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(turn)
+                 : "memory");
+    if (v == mine) break;
+    if (n == (1LL << 28)) __trap();
+    __nanosleep(32);
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void turn_pass(int* turn) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __threadfence();
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(turn)
+               : "memory");
+}
+
 // Arm `bar` for `bytes` more of TMA traffic without arriving on it.
 __device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
                                                     uint32_t bytes) {

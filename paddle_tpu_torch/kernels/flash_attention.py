@@ -13,9 +13,9 @@ kernels are built with ``nvcc`` for ``sm_90a`` at first use and called
 through ctypes.  bf16 inputs: the forward is ``csrc/flash_fwd_sm90.cu``
 and the backward (dQ, dK and dV in one launch) ``csrc/flash_bwd_sm90.cu``,
 both wgmma and TMA, warp specialised; the backward adds dQ into a zeroed
-fp32 buffer across key tiles, so dQ on the card is not bit-reproducible
-from run to run (the order of the fp32 sums varies; well inside the bf16
-tolerance).  fp32 inputs: the scalar forward, dK/dV and dQ kernels of
+fp32 buffer across key tiles in key-tile order, so every run gives the
+same bits (turn counters in device memory fix the order of the fp32
+sums).  fp32 inputs: the scalar forward, dK/dV and dQ kernels of
 ``csrc/flash_attention.cu``.  ``_Flash`` binds the
 forward and backward as one ``torch.autograd.Function`` (the JAX
 package's ``_flash`` custom VJP): on CPU tensors it runs the plain
@@ -176,9 +176,21 @@ def _lib_bwd_sm90():
         # the flash backward and a ring pair's (one signature: the ring's
         # dq, dk and dv are fp32 sums the kernel adds into)
         for fn in (lib.flash_bwd_sm90_launch, lib.ring_pair_bwd_sm90_launch):
-            fn.argtypes = [ptr] * 9 + [i] * 3 + [f, i, ptr]
+            fn.argtypes = [ptr] * 10 + [i] * 3 + [f, i, ptr]
             fn.restype = ctypes.c_int
+        lib.flash_bwd_sm90_turns.argtypes = [i] * 3
+        lib.flash_bwd_sm90_turns.restype = ctypes.c_longlong
     return lib
+
+
+def _dq_turns(q):
+    """The zeroed int32 counters a bf16 backward launch over ``q``
+    ``[B, H, S, D]`` (D padded) orders its dQ sums with: the kernel adds
+    the key tiles into each query tile in key-tile order, so dQ is the
+    same bits on every run."""
+    B, H, S, D = q.shape
+    n = _lib_bwd_sm90().flash_bwd_sm90_turns(B * H, S, D)
+    return torch.zeros(n, dtype=torch.int32, device=q.device)
 
 
 def _pad_head_dim(*ts, least=0):
@@ -286,8 +298,9 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal):
 def _bwd_sm90(q, k, v, do, lse, delta, scale, causal):
     """bf16, D ≤ 256: (dq, dk, dv) from the one wgmma/TMA kernel, which
     takes D ∈ {64, 128, 256} (D = 32 pads to 64).  dQ is summed over the
-    key tiles into a zeroed fp32 buffer and rounded to bf16 here; the
-    zeroing and the rounding are part of the call."""
+    key tiles, in key-tile order, into a zeroed fp32 buffer and rounded
+    to bf16 here; the zeroing (of the buffer and of the turn counters)
+    and the rounding are part of the call."""
     D = q.shape[-1]
     q, k, v, do = _pad_head_dim(q, k, v, do, least=64)
     _check_cuda(q, k, v, do, lse, delta)
@@ -296,8 +309,8 @@ def _bwd_sm90(q, k, v, do, lse, delta, scale, causal):
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if q.numel():
         _launch(_COUNTS, "bwd", _lib_bwd_sm90().flash_bwd_sm90_launch, q,
-                k, v, do, lse, delta, dq_acc, dk, dv, B * H, S, Dk,
-                float(scale), int(causal))
+                k, v, do, lse, delta, dq_acc, dk, dv, _dq_turns(q), B * H,
+                S, Dk, float(scale), int(causal))
     return _unpad_head_dim(D, dq_acc.to(q.dtype), dk, dv)
 
 

@@ -36,10 +36,9 @@ between the two):
   ``ring_pair_bwd_sm90_launch`` (``csrc/flash_bwd_sm90.cu``, the bf16
   flash backward's wgmma + TMA kernel), counted in ``launches["pair_bwd"]``.
   It takes dO in bf16 and adds the pair's dQ, dK and dV into the ring's
-  fp32 sums in place: dQ by TMA reduce-adds (the order of those fp32
-  sums varies from run to run, so dQ is not bit-reproducible on the
-  card), dK and dV by the one thread that owns each element
-  (deterministic).  The ring rounds its fp32 dO to bf16 once a call:
+  fp32 sums in place, each in a fixed order: dQ by TMA reduce-adds in
+  key-tile order (as the flash backward's), dK and dV by the one thread
+  that owns each element, so the pair gives the same bits on every run.  The ring rounds its fp32 dO to bf16 once a call:
   exact on the training path, where dO is the copy of a bf16 gradient,
   and one more 2⁻⁹-relative rounding per term, like P and dS, for an
   fp32 dO with more bits.  fp32 q/k/v take the scalar fp32 dK/dV and dQ
@@ -121,8 +120,8 @@ def _pair_bwd_sm90(q, k, v, do, lse, delta, scale, causal, dq, dk, dv):
     if q.numel():
         fa._launch(_COUNTS, "pair_bwd",
                    fa._lib_bwd_sm90().ring_pair_bwd_sm90_launch, q, k, v, do,
-                   lse, delta, dq, dk, dv, B * H, S, D, float(scale),
-                   int(causal))
+                   lse, delta, dq, dk, dv, fa._dq_turns(q), B * H, S, D,
+                   float(scale), int(causal))
 
 
 def _on_cpu(q):

@@ -4,11 +4,16 @@ watchdog (``compile_watchdog``: builds of a watched step, here the
 CUDA-graph captures of the serving and the training steps) and the
 sampling profiler
 (``profiling``: ``StackSampler`` and the ``phase`` markers the serving
-engine sets)."""
+engine sets), and the training health layer: ``goodput``
+(``GoodputMonitor``, MFU against ``PEAK_FLOPS``) and ``health``
+(``HealthMonitor``, ``TrainingHealthError``)."""
 from .compile_watchdog import (CompileWatchdog, WatchedFunction,
                                default_watchdog, disable_compile_watchdog,
                                enable_compile_watchdog, watch,
                                watchdog_enabled)
+from .goodput import (PEAK_FLOPS, GoodputMonitor, TrainingCallback,
+                      device_peak_flops, last_report, mfu)
+from .health import HealthMonitor, TrainingHealthError
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_registry)
 from .profiling import PROFILING_SERIES, StackSampler, current_phase, \
@@ -25,4 +30,7 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "WatchedFunction", "default_watchdog", "watch",
            "enable_compile_watchdog", "disable_compile_watchdog",
            "watchdog_enabled", "StackSampler", "profiling_phase",
-           "current_phase", "diff_profiles", "PROFILING_SERIES"]
+           "current_phase", "diff_profiles", "PROFILING_SERIES",
+           "GoodputMonitor", "PEAK_FLOPS", "device_peak_flops", "mfu",
+           "last_report", "TrainingCallback", "HealthMonitor",
+           "TrainingHealthError"]

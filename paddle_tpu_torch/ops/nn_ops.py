@@ -86,25 +86,35 @@ def _pad_arg(pads):
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def _cudnn_exact(fp32):
+    """cuDNN's deterministic algorithms for the call (the same bits from
+    run to run, as the TPU gives), and its TF32 off for an fp32 one."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    if fp32:
+        torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 class _ExactConv(torch.autograd.Function):
-    """``aten.convolution`` with cuDNN's TF32 off for the forward and the
-    backward, so an fp32 convolution is fp32 whatever the flag says
-    outside (the backward runs later, in autograd's thread, so a switch
-    around the forward call alone would not cover it)."""
+    """``aten.convolution`` with cuDNN deterministic for the forward and
+    the backward, and its TF32 off when the input is fp32, so a
+    convolution gives the same bits on every run and an fp32 one is fp32
+    whatever the flags say outside (the backward runs later, in
+    autograd's thread, so a switch around the forward call alone would not
+    cover it).  cuDNN's default weight-gradient algorithms sum in an order
+    that varies from run to run."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, padding, dilation, transposed,
                 output_padding, groups):
-        with _no_tf32():
+        ctx.fp32 = x.dtype == torch.float32
+        with _cudnn_exact(ctx.fp32):
             out = torch.ops.aten.convolution(
                 x, w, b, stride, padding, dilation, transposed,
                 output_padding, groups)
@@ -119,7 +129,7 @@ class _ExactConv(torch.autograd.Function):
         x, w = ctx.saved_tensors
         need = ctx.needs_input_grad
         mask = [need[0], need[1], ctx.bias_sizes is not None and need[2]]
-        with _no_tf32():
+        with _cudnn_exact(ctx.fp32):
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 gout, x, w, ctx.bias_sizes, *ctx.conf, mask)
         return gx, gw, gb, None, None, None, None, None, None
@@ -132,11 +142,8 @@ def _convolution(x, w, b, stride, pads, dilation, groups, transposed=False):
     if any(lo != hi for lo, hi in pads):
         x = F.pad(x, _pad_arg(pads))
         pads = [(0, 0)] * nd
-    args = (list(stride), [lo for lo, _ in pads], list(dilation),
-            transposed, [0] * nd, groups)
-    if x.dtype == torch.float32:
-        return _ExactConv.apply(x, w, b, *args)
-    return torch.ops.aten.convolution(x, w, b, *args)
+    return _ExactConv.apply(x, w, b, list(stride), [lo for lo, _ in pads],
+                            list(dilation), transposed, [0] * nd, groups)
 
 
 def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd):

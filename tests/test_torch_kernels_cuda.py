@@ -1393,3 +1393,137 @@ def test_one_capture_per_signature(cuda):
     (r,) = exe.run(prog, feed={"x": np.ones(4, np.float32)}, fetch_list=[y])
     assert exe.last_route == "eager" and exe.captures == 2
     np.testing.assert_allclose(r, np.full(4, 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_is_bitwise_over_repeats(cuda, D, causal):
+    """The bf16 backward sums dQ over the key tiles in a fixed order: ten
+    calls give the same dq, dk and dv bits, each at the plain version's
+    bf16 tolerance (a ragged S with several key and query tiles)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(D)
+    q, k, v, do = (torch.randn((2, 3, 600, D), generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    delta = fa._delta(out, do)
+    first = fa._bwd_sm90(q, k, v, do, lse, delta, scale, causal)
+    want = (fa._bwd_dq_ref(q, k, v, do, lse, delta, scale, causal),
+            *fa._bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal))
+    for a, b in zip(first, want):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **TOL[torch.bfloat16])
+    for _ in range(10):
+        again = fa._bwd_sm90(q, k, v, do, lse, delta, scale, causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_pair_sums_are_bitwise_over_repeats(cuda, causal):
+    """A bf16 ring pair adds dQ, dK and dV into non-zero fp32 sums: ten
+    runs from the same sums give the same bits."""
+    import importlib
+
+    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((2, 4, 384, 128), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    start = [torch.randn((2, 4, 384, 128), generator=g, device="cuda")
+             for _ in range(3)]
+    scale = 1.0 / np.sqrt(128)
+    out, lse = fa._flash_fwd_ref(q, k, v, scale, causal)
+    delta = fa._delta(out, do)
+    runs = []
+    for _ in range(10):
+        sums = [t.clone() for t in start]
+        ra._pair_bwd(q, k, v, do, lse, delta, scale, causal, *sums)
+        runs.append(sums)
+    want = ra._pair_bwd_ref(q, k, v, do, lse, delta, scale, causal)
+    for a, s, b in zip(runs[0], start, want):
+        torch.testing.assert_close(a, s + b, **TOL[torch.bfloat16])
+    assert all(torch.equal(a, b) for r in runs for a, b in zip(runs[0], r))
+
+
+def _card_mlp(paddle):
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = paddle.Model(paddle.nn.Sequential(
+        paddle.nn.Linear(16, 32), paddle.nn.ReLU(),
+        paddle.nn.Linear(32, 4)))
+    model.prepare(paddle.optimizer.Momentum(
+        learning_rate=0.1, parameters=model.parameters()),
+        paddle.nn.CrossEntropyLoss())
+    return model
+
+
+@pytest.mark.cuda
+def test_train_batch_replay_equals_its_live_step(cuda):
+    """``replay_train_batch`` re-runs the captured step from a pre-step
+    snapshot: its parameters equal the live step's bit for bit, and the
+    model's parameters, slots and step count are as the live step left
+    them; still one capture."""
+    import paddle_tpu_torch as paddle
+
+    model = _card_mlp(paddle)
+    rng = np.random.RandomState(0)
+    try:
+        batches = [(rng.randn(8, 16).astype(np.float32),
+                    rng.randint(0, 4, (8,)).astype(np.int64))
+                   for _ in range(3)]
+        for x, y in batches[:2]:
+            model.train_batch(x, y)
+        snap = model.train_state_snapshot()
+        live_loss, _ = model.train_batch(*batches[2])
+        after = model.train_state_snapshot()
+        loss, params = model.replay_train_batch(snap, batches[2])
+        assert loss == live_loss
+        for k, p in model.network.named_parameters():
+            assert torch.equal(params[k], p), k
+            assert torch.equal(after["params"][k], p), k
+        for k, s in model._opt_state["slots"].items():
+            for n, t in s.items():
+                assert torch.equal(after["opt_state"]["slots"][k][n], t)
+        assert model._opt_state["step"] == 3
+        assert model.captures["train"] == 1
+    finally:
+        paddle.set_device("cpu")
+
+
+@pytest.mark.cuda
+def test_in_place_engine_restore_keeps_one_capture(cuda, tmp_path):
+    """``load_engine_state(into=)`` rewinds a live ``HybridEngine`` (a
+    2-layer fp32 ``tiny`` GPT on its graph route) to a checkpoint: the
+    steps after it repeat the first run's losses bit for bit, on the
+    same captured graph (one capture, one watchdog build)."""
+    from paddle_tpu_torch.distributed import HybridEngine
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.observability import watchdog_enabled
+
+    cfg = dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32",
+                              num_layers=2)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 128))
+    labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -100)], 1)
+    with watchdog_enabled() as wd:
+        wd.reset()
+        eng = HybridEngine(cfg, device=cuda)
+        params, opt = eng.init(seed=0)
+        for _ in range(2):
+            eng.step(params, opt, tokens, labels, lr=1e-3)
+        ck.save_engine_state(str(tmp_path / "ck"), eng, params, opt)
+        first = [float(eng.step(params, opt, tokens, labels, lr=1e-3)[2])
+                 for _ in range(2)]
+        ck.load_engine_state(str(tmp_path / "ck"), eng, into=(params, opt))
+        assert opt["step"] == 2
+        again = [float(eng.step(params, opt, tokens, labels, lr=1e-3)[2])
+                 for _ in range(2)]
+        rep = wd.report()["hybrid_engine::step"]
+    assert again == first
+    assert eng.captures == 1 and rep["compiles"] == 1

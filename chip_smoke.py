@@ -187,10 +187,25 @@ Phases (any failure exits non-zero):
      the 1.3B widths on 4 layers: 6 steps against 3 + async save + a
      new engine + 3, and an in-place rewind of the live engine, bitwise,
      one capture; the save, stall, restore and D2H figures; (e) (a)'s
-     goodput and MFU; (f) the sentinel's cost against its 3 % bound; (g)
-     the flash backward's dQ (and a ring pair's sums) bitwise over 20
+     goodput and MFU; (f) the device CRC32's digests equal zlib's (fp32,
+     bf16, int64, 0-d, empty, odd sizes, a strided view, one launch),
+     then the sentinel's cost at the MLP checked against its 3 % bound
+     and ResNet-50's printed, and the crc32 kernel's times; (g) the
+     flash backward's dQ (and a ring pair's sums) bitwise over 20
      repeats at phase 5's and phase 8's shapes; first, the ops torch
-     names nondeterministic in one eager step of each path.
+     names nondeterministic in one eager step of each path;
+ 20. the op corpus and a Paddle program: (a) every op of the port's
+     registry (``paddle.core.list_ops()``, 284) on the card against the
+     port on the CPU, fp32 with TF32 off, from the CPU conformance test's
+     cases (``tests/torch_op_cases.py``), outputs and gradients at 1e-4
+     (linear algebra 1e-3), qr/svd/eigh by reconstruction, the random
+     ops by seeded reproducibility; (b) the Paddle-style GPT of
+     ``paddle_tpu_torch/models/paddle_gpt.py`` (top-level surface only)
+     at GPT-3 1.3B's widths on 2 layers, batch 2 x 2048: its fp32
+     forward and backward against ``gpt_loss`` on the same tree (loss
+     and every gradient at ``TOL["float32"]``), then 3 AdamW steps under
+     bf16 ``auto_cast``, the loss falling, flash launches held to 2
+     forward and 2 backward a step.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -4372,13 +4387,86 @@ def ft_engine(torch, distributed, tmp):
     return {"fwd": launches["fwd"], "bwd": launches["bwd"]}
 
 
+def crc_digests_equal_zlib(torch):
+    """Phase 19 (f), first: the device digests of leaves of every kind
+    the sentinel meets (fp32, bf16 under the '<V2' header, int64, a 0-d
+    leaf, an empty one, odd byte counts, a non-contiguous view, a leaf
+    of several 256 KiB blocks) equal ``zlib``'s of the same bytes and the
+    plain version's, leaf for leaf, from one launch."""
+    import zlib
+
+    from paddle_tpu_torch.kernels import crc32
+    from paddle_tpu_torch.resilience import integrity
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    leaves = [torch.randn(1024, 1024, generator=g, device="cuda"),
+              torch.randn(513, 77, generator=g, device="cuda").bfloat16(),
+              torch.randint(0, 1 << 40, (12345,), generator=g,
+                            device="cuda"),
+              torch.tensor(3.5, device="cuda"),
+              torch.tensor(7, device="cuda"),
+              torch.zeros(0, 4, device="cuda"),
+              torch.randint(0, 255, (1 << 20 | 7,), dtype=torch.uint8,
+                            generator=g, device="cuda"),
+              torch.randn(30, 50, generator=g, device="cuda")[:, 3:41]]
+    heads = [integrity._header_crc(t) for t in leaves]
+    before = crc32.crc32_leaves.launches
+    got = crc32.crc32_leaves(leaves, heads)
+    check(crc32.crc32_leaves.launches == before + 1,
+          "19f: the digests took more than one launch")
+    host = [t.cpu() for t in leaves]
+    want = [integrity._leaf_crc(t) for t in host]
+    plain = crc32.crc32_leaves(host, heads)
+    bad = [i for i, (a, b, c) in enumerate(zip(got, want, plain))
+           if not a == b == c]
+    check(not bad, f"19f: device digests differ from zlib at leaves {bad}")
+    # zlib over the raw bytes, header first, as the JAX package digests
+    b16 = host[1].view(torch.int16).numpy()
+    check(got[1] == zlib.crc32(b16.tobytes(), zlib.crc32(
+        f"<V2:{b16.shape}".encode())), "19f: bf16 digest")
+    print(f"[phase 19f] crc32 kernel: {len(leaves)} leaves (fp32, bf16, "
+          f"int64, 0-d fp32 and int64, empty, 1 MiB + 7 bytes, a strided "
+          f"view) in one launch, every digest equal to zlib's and the plain "
+          f"version's")
+    return 0
+
+
+def crc_row(torch, leaves):
+    """The crc32 kernel's numbers at a leaf set: the kernel alone (both
+    passes, replayed from a CUDA graph, so the host's launch cost is not
+    timed), the whole ``crc32_leaves`` call (CUDA events around calls
+    that each end in their read back), the plain version (host copy +
+    numpy), the bound from the bytes read."""
+    from paddle_tpu_torch.kernels import crc32
+    from paddle_tpu_torch.resilience import integrity
+
+    heads = [integrity._header_crc(t) for t in leaves]
+    launch, keep = crc32._prepare(leaves, heads)
+    n0 = crc32.crc32_leaves.launches
+    ms = graph_ms(torch, launch)          # the device's time, no host's
+    call_ms = time_ms(torch, lambda: crc32.crc32_leaves(leaves, heads), 20)
+    crc32.crc32_leaves.launches = n0      # timing launches do not count
+    t0 = time.perf_counter()
+    crc32.crc32_leaves([t.detach().cpu() for t in leaves], heads)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    del keep
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "bytes": nbytes, "leaves": len(leaves)}
+
+
 def ft_sentinel(torch, paddle):
     """Phase 19 (f): the sentinel's cost against its documented 3 %
     bound, by bench.py's ``bench_integrity`` protocol (a fingerprint
     every N = 25 steps and a replay every M = 100, amortized over the
-    median step): the MLP at hidden 1024, batch 128, and ResNet-50 at
-    batch 32 (bf16 O1).  Printed, not checked."""
+    median step): the MLP at hidden 1024, batch 128 — checked against
+    ``SENTINEL_BOUND`` — and ResNet-50 at batch 32 (bf16 O1), printed.
+    The fingerprint is the device CRC32 (one launch and one sync a tree).
+    Returns the crc32 kernel's row, timed at the MLP's parameters."""
     from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    crc_digests_equal_zlib(torch)
 
     def measure(model, x, y, amp):
         ctx = (lambda: paddle.amp.auto_cast(dtype="bfloat16")) if amp \
@@ -4388,10 +4476,13 @@ def ft_sentinel(torch, paddle):
             with ctx():
                 return model.train_batch(x, y)
 
+        # medians of many calls: each is host-bound and well under a
+        # millisecond on the MLP, so one scheduler hiccup in a short run
+        # of calls can move a median of few
         for _ in range(3):
             step()
         ts = []
-        for _ in range(20):
+        for _ in range(40):
             t0 = time.perf_counter()
             step()
             ts.append(time.perf_counter() - t0)
@@ -4399,13 +4490,13 @@ def ft_sentinel(torch, paddle):
         tree = {"params": dict(model.network.named_parameters())}
         tree_fingerprint(tree)
         fp = []
-        for _ in range(5):
+        for _ in range(25):
             t0 = time.perf_counter()
             tree_fingerprint(tree)
             fp.append(time.perf_counter() - t0)
         snap = model.train_state_snapshot()
         rp = []
-        for _ in range(4):
+        for _ in range(13):
             t0 = time.perf_counter()
             with ctx():
                 model.replay_train_batch(snap, (x, y))
@@ -4427,7 +4518,9 @@ def ft_sentinel(torch, paddle):
     rng = np.random.RandomState(0)
     x = rng.randn(128, h).astype(np.float32)
     y = rng.randint(0, 10, (128,)).astype(np.int64)
-    res = {"MLP hidden 1024, batch 128, fp32": measure(mlp, x, y, False)}
+    mlp_name = "MLP hidden 1024, batch 128, fp32"
+    res = {mlp_name: measure(mlp, x, y, False)}
+    row = crc_row(torch, list(mlp.network.parameters()))
     del mlp
     model = resnet_model(paddle, 0.01)
     x = torch.from_numpy(np.random.RandomState(0).rand(
@@ -4437,15 +4530,28 @@ def ft_sentinel(torch, paddle):
     n_bytes = sum(p.numel() * 4 for p in model.parameters())
     res[f"ResNet-50, batch 32, bf16 O1 ({n_bytes / 1e6:.1f} MB of fp32 "
         f"parameters)"] = measure(model, x, y, True)
+    row["resnet50"] = crc_row(torch, list(model.network.parameters()))
     del model
     gc.collect()
     torch.cuda.empty_cache()
     for name, (step_s, fp_s, rp_s, ratio) in res.items():
-        print(f"[phase 19f] sentinel on {name}: step {step_s * 1e3:.2f} ms, "
-              f"fingerprint {fp_s * 1e3:.2f} ms, replay {rp_s * 1e3:.2f} ms; "
-              f"amortized over N = {FT_SENTINEL[0]}, M = {FT_SENTINEL[1]}: "
-              f"{ratio:.4f} of step time against the documented bound "
-              f"{SENTINEL_BOUND} (printed, not checked)")
+        checked = name == mlp_name
+        print(f"[phase 19f] sentinel on {name}: step {step_s * 1e3:.3f} ms, "
+              f"fingerprint {fp_s * 1e3:.3f} ms, replay {rp_s * 1e3:.3f} "
+              f"ms; amortized over N = {FT_SENTINEL[0]}, M = "
+              f"{FT_SENTINEL[1]}: {ratio:.4f} of step time against the "
+              f"documented bound {SENTINEL_BOUND} "
+              f"({'checked' if checked else 'printed'})")
+        if checked:
+            check(ratio < SENTINEL_BOUND,
+                  f"19f: the sentinel costs {ratio:.4f} of the MLP's step")
+    for tag, r in (("MLP", row), ("ResNet-50", row["resnet50"])):
+        print(f"[phase 19f] crc32 kernel on the {tag}'s parameters "
+              f"({r['leaves']} leaves, {r['bytes'] / 1e6:.1f} MB): "
+              f"{r['ms']:.4f} ms on the device (bound {r['bound_ms']:.4f} "
+              f"ms from bytes), {r['call_ms']:.4f} ms the whole call, plain "
+              f"version {r['plain_ms']:.2f} ms")
+    return row
 
 
 def ft_kernels(torch, fa, ra):
@@ -4568,13 +4674,20 @@ def phase_fault_tolerance(torch, fa, ra, distributed):
     import tempfile
 
     import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import crc32
 
     card = card_line()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
     try:
         ft_nondeterministic_ops(torch, paddle, distributed)
         t0 = time.perf_counter()
+        crc32.crc32_leaves.launches = 0
         ref = ft_uninterrupted(torch, paddle, tmp)
+        crc_launches = crc32.crc32_leaves.launches
+        print(f"[phase 19a] crc32 launches in the uninterrupted fit: "
+              f"{crc_launches} (one a fingerprint or state digest)")
+        check(crc_launches > 0, "19a: the fingerprints did not run the "
+                                "crc32 kernel")
         ft_supervised(torch, ref, tmp)
         print(f"[phase 19a] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4585,12 +4698,213 @@ def phase_fault_tolerance(torch, fa, ra, distributed):
         launches = ft_engine(torch, distributed, tmp)
         print(f"[phase 19d] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        ft_sentinel(torch, paddle)
+        crc = ft_sentinel(torch, paddle)
+        crc["launches"] = crc_launches
         kernels = ft_kernels(torch, fa, ra)
         print(f"[phase 19f-g] {time.perf_counter() - t0:.1f} s; {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, kernels
+    return launches, kernels, crc
+
+
+# ------------------------------ the op corpus and a Paddle program (20)
+
+
+# the port on the card against the port on the CPU, both fp32 with TF32
+# off: CUDA's math library and cuBLAS/cuDNN/cuSOLVER sum and round in
+# other orders than the CPU's (the CPU tests hold the port to JAX at
+# 1e-5, linear algebra at 1e-4)
+CARD_TOL = dict(atol=1e-4, rtol=1e-4)
+CARD_TOL_LINALG = dict(atol=1e-3, rtol=1e-3)
+PROGRAM_LAYERS, PROGRAM_BATCH = 2, 2     # GPT-3 1.3B widths, depth cut
+
+
+def card_decompositions(torch, ops):
+    """qr, svd, eigh on the card: reconstruction and orthogonality."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    a = torch.randn(6, 4, generator=g, device="cuda")
+    spd = a.T @ a + 4 * torch.eye(4, device="cuda")
+    q, r = ops.qr(a)
+    u, sv, vh = ops.svd(a)
+    w, v = ops.eigh(spd)
+    eye = torch.eye(4, device="cuda")
+    ok = (torch.allclose(q @ r, a, **CARD_TOL_LINALG)
+          and torch.allclose(q.T @ q, eye, **CARD_TOL_LINALG)
+          and torch.allclose((u * sv) @ vh, a, **CARD_TOL_LINALG)
+          and torch.allclose(u.T @ u, eye, **CARD_TOL_LINALG)
+          and torch.allclose((v * w) @ v.T, spd, **CARD_TOL_LINALG)
+          and torch.allclose(v.T @ v, eye, **CARD_TOL_LINALG))
+    check(ok, "20a: a decomposition on the card does not reconstruct")
+
+
+def card_random_ops(torch, paddle, names):
+    """Each random op on the card: its draws are on the card, fixed by
+    ``paddle.seed``, changed by another seed."""
+    ops = paddle.ops
+    p = torch.full((64,), 0.5, device="cuda")
+    calls = {
+        "uniform": lambda: ops.uniform([64]), "rand": lambda: ops.rand([64]),
+        "randn": lambda: ops.randn([64]),
+        "standard_normal": lambda: ops.standard_normal([64]),
+        "normal": lambda: ops.normal(1.0, 2.0, [64]),
+        "randint": lambda: ops.randint(0, 1000, [64]),
+        "randperm": lambda: ops.randperm(64),
+        "bernoulli": lambda: ops.bernoulli(p),
+        "poisson": lambda: ops.poisson(p * 8),
+        "exponential": lambda: ops.exponential(p),
+        "multinomial": lambda: ops.multinomial(p, 32),
+        "gumbel_softmax": lambda: ops.gumbel_softmax(p.reshape(8, 8)),
+    }
+    check(set(calls) == set(names), f"20a: random ops {sorted(names)}")
+    for name, call in calls.items():
+        paddle.seed(3)
+        a = call()
+        paddle.seed(3)
+        b = call()
+        paddle.seed(4)
+        c = call()
+        check(a.is_cuda and torch.equal(a, b) and not torch.equal(a, c),
+              f"20a: {name} is not seeded on the card")
+
+
+def phase_ops_on_card(torch, paddle):
+    """Phase 20 (a): every op of the port's registry on the card against
+    the port on the CPU, from ``tests/torch_op_cases.py`` (the CPU
+    conformance test's cases): outputs and, where differentiable,
+    gradients at ``CARD_TOL`` (``CARD_TOL_LINALG`` for the cases the CPU
+    test holds at 1e-4).  The decompositions are held by reconstruction,
+    the random ops to seeded reproducibility on the card."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_op_cases as oc
+
+    from paddle_tpu_torch.core.dispatch import get_op, list_ops
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ran, failed = set(), []
+    try:
+        for case in oc.CASES:
+            paddle.set_device("cpu")
+            want = oc.run_port(case, paddle.ops, get_op, "cpu")
+            paddle.set_device("gpu")
+            got = oc.run_port(case, paddle.ops, get_op, "cuda")
+            tol = CARD_TOL_LINALG if case.tol is oc.LOOSE else CARD_TOL
+            try:
+                oc.close(got[0], want[0], tol, f"{case.id} output")
+                if want[1] is not None:
+                    oc.close(got[1], want[1], tol, f"{case.id} gradient")
+            except AssertionError as e:
+                failed.append(f"{case.id}: {str(e).strip()[:400]}")
+            ran.add(case.name)
+        card_decompositions(torch, paddle.ops)
+        ran |= oc.SPECIAL
+        card_random_ops(torch, paddle, oc.RANDOM)
+        ran |= oc.RANDOM
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    names = set(list_ops())
+    skipped = sorted(names - ran)
+    print(f"[phase 20a] {len(ran & names)} of the {len(names)} registered "
+          f"ops run on the card ({len(oc.CASES)} cases against the CPU at "
+          f"{CARD_TOL}, linear algebra at {CARD_TOL_LINALG}; qr, svd, eigh "
+          f"by reconstruction; the {len(oc.RANDOM)} random ops by seeded "
+          f"reproducibility, their bits being the device's); skipped: "
+          f"{skipped or 'none'}")
+    for line in failed:
+        print(f"[phase 20a] FAILED {line}")
+    check(not failed and not skipped,
+          f"20a: {len(failed)} case(s) differ, {len(skipped)} op(s) not run")
+    return len(ran & names)
+
+
+def phase_paddle_program(torch, paddle, fa, gpt_init, gpt_loss, cfg):
+    """Phase 20 (b): the Paddle-style GPT of ``models/paddle_gpt.py``
+    (the top-level surface only) at GPT-3 1.3B's widths, depth cut to
+    ``PROGRAM_LAYERS``, batch ``PROGRAM_BATCH`` x 2048, from a
+    ``gpt_init`` tree: an fp32 forward and backward against ``gpt_loss``
+    on the same tree (loss and every gradient at ``TOL["float32"]``),
+    then 3 AdamW steps under bf16 ``auto_cast`` with the flash launches
+    counted; the loss falls."""
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    c = dataclasses.replace(cfg, num_layers=PROGRAM_LAYERS, dtype="float32",
+                            remat="nothing")
+    params = gpt_init(c, torch.Generator(device="cuda").manual_seed(20),
+                      device="cuda")
+    tokens = np.random.default_rng(20).integers(
+        0, c.vocab_size, (PROGRAM_BATCH, c.max_seq_len)).astype(np.int64)
+    labels = prog.next_token_labels(tokens)
+    paddle.set_device("gpu")
+    paddle.seed(20)
+    model = prog.build_gpt(paddle, c.vocab_size, c.hidden, c.num_heads,
+                           c.ffn_hidden, c.num_layers, c.max_seq_len)
+    missing, unexpected = model.set_state_dict(
+        prog.gpt_state_from_params(params, c.num_layers))
+    check(not missing and not unexpected, f"20b: {missing} {unexpected}")
+    x, y = paddle.to_tensor(tokens), paddle.to_tensor(labels)
+    zero_counts(fa)
+    loss = prog.loss_fn(paddle, model, x, y)
+    loss.backward()
+    fp32_launches = dict(fa.launches)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in prog.gpt_state_from_params(
+                  params, c.num_layers).items()}
+    tree = {"wte": leaves["wte.weight"], "wpe": leaves["wpe.weight"],
+            "lnf_g": leaves["lnf.weight"], "lnf_b": leaves["lnf.bias"],
+            "blocks": {key: torch.stack([leaves[f"blocks.{i}.{name}"]
+                                         for i in range(c.num_layers)])
+                       for name, key in prog._BLOCK_KEYS.items()}}
+    ref = gpt_loss(c, tree, torch.from_numpy(tokens).cuda())
+    names = list(leaves)
+    grads = torch.autograd.grad(ref, [leaves[k] for k in names])
+    own = dict(model.named_parameters())
+    worst, bad = 0.0, []
+    for k, g in zip(names, grads):
+        got = own[k].grad
+        worst = max(worst, max_err(torch, got, g))
+        if not torch.allclose(got, g, **TOL["float32"]):
+            bad.append(k)
+    loss_err = abs(loss.item() - ref.item())
+    print(f"[phase 20b] Paddle-style GPT ({c.num_layers} layers at GPT-3 "
+          f"1.3B widths, batch {PROGRAM_BATCH} x {c.max_seq_len}), fp32 "
+          f"step 0: loss {loss.item():.6f} vs gpt_loss {ref.item():.6f} "
+          f"(|diff| {loss_err:.3g}); {len(names)} gradients, largest "
+          f"difference {worst:.3g}, outside {TOL['float32']}: {bad or 'none'}"
+          f"; flash launches {fp32_launches}")
+    check(loss_err <= TOL["float32"]["atol"] + TOL["float32"]["rtol"] *
+          abs(ref.item()) and not bad, "20b: the program differs from "
+                                       "gpt_loss")
+    check(fp32_launches["fwd"] > 0 and fp32_launches["bwd"] > 0,
+          "20b: the fp32 step did not run the flash kernels")
+    del tree, leaves, grads, ref, loss
+    for p in model.parameters():
+        p.clear_grad()
+    torch.cuda.synchronize()
+    zero_counts(fa)
+    t0 = time.perf_counter()
+    losses = prog.train(paddle, model, tokens, labels, steps=3,
+                        amp_dtype="bfloat16")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    launches = dict(fa.launches)
+    print(f"[phase 20b] 3 AdamW steps under bf16 auto_cast: losses "
+          f"{[round(v, 5) for v in losses]}, {ms:.1f} ms a step (the first "
+          f"step's allocations included), flash launches {launches} "
+          f"({c.num_layers} forward and {c.num_layers} backward a step); "
+          f"{card_line()}")
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)),
+          "20b: the loss did not fall")
+    check(launches["fwd"] == 3 * c.num_layers and
+          launches["bwd"] == 3 * c.num_layers,
+          f"20b: flash launches {launches}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -4738,8 +5052,17 @@ def main():
     print(f"[phase 18] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    ft_launches, ft_ms = phase_fault_tolerance(torch, fa, ra, distributed)
+    ft_launches, ft_ms, crc = phase_fault_tolerance(torch, fa, ra,
+                                                    distributed)
     print(f"[phase 19] {time.perf_counter() - t0:.1f} s")
+
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    n_ops = phase_ops_on_card(torch, paddle)
+    program_launches = phase_paddle_program(torch, paddle, fa, gpt_init,
+                                            gpt_loss, cfg)
+    print(f"[phase 20] {time.perf_counter() - t0:.1f} s ({n_ops} ops)")
 
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
@@ -4786,6 +5109,18 @@ def main():
             k: v for k, v in ft_ms.items()
             if k.startswith("ring") == (entry["name"] == "ring_pair_bwd")}
     kernels[1]["predictor_launches"] = predictor_launches
+    # phase 20 (b): the Paddle-style program's bf16 steps
+    for entry in kernels[1:4]:
+        key = entry["name"].split("_")[2]
+        entry["program_launches"] = program_launches[
+            "fwd" if key == "fwd" else "bwd"]
+    # the port's own kernel (no Pallas site): the sentinel's digests,
+    # replacing the JAX package's host CRC; launches from phase 19 (a),
+    # times at 19 (f)'s MLP parameters
+    kernels.append({
+        "name": "crc32", "route": "cuda", "source": csrc + "crc32.cu",
+        "replaces": "paddle_tpu/resilience/integrity.py:83",
+        "max_abs_err": 0, **crc})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Autocast (the port of ``paddle_tpu/amp/auto_cast.py``).
 
-A thread-local mode read by the port's functional ops on entry
-(``amp_op``).  It follows the JAX package's lists, not ``torch.autocast``'s:
+A thread-local mode read by the port's op registry on entry to every op
+(``core/dispatch.py`` calls ``_cast_args``).  It follows the JAX package's lists, not ``torch.autocast``'s:
 the positional float tensor arguments of a white-listed op are cast to the
 AMP dtype, those of a black-listed op that are in the AMP dtype are cast
 up to fp32, and every other op runs in the dtypes it is given.  So under
@@ -11,7 +11,6 @@ function).  O2 is ``decorate``: the parameters themselves are cast."""
 from __future__ import annotations
 
 import contextlib
-import functools
 import threading
 
 import torch
@@ -19,7 +18,7 @@ import torch
 from ..core.dtype import convert_dtype
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "white_list", "auto_cast",
-           "amp_guard", "decorate", "amp_op"]
+           "amp_guard", "decorate"]
 
 WHITE_LIST = {
     "matmul", "mm", "bmm", "mv", "conv1d", "conv2d", "conv3d",
@@ -102,20 +101,3 @@ def _cast_args(name, args):
         return tuple(a.float() if isinstance(a, torch.Tensor)
                      and a.dtype == dt else a for a in args)
     return args
-
-
-def amp_op(name):
-    """Mark a function as the op ``name``: under ``auto_cast`` its
-    positional tensor arguments are cast by the lists above on entry (the
-    JAX package casts positional arguments only, and so does this)."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def op(*args, **kwargs):
-            if _state.enabled:
-                args = _cast_args(name, args)
-            return fn(*args, **kwargs)
-
-        op.op_name = name
-        return op
-
-    return deco

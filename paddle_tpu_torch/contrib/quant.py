@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import ops
+from ..core.dispatch import register_op
 from ..nn.layer.common import Linear
 from ..nn.layer.layers import Layer
 
@@ -34,6 +35,7 @@ class _FakeQuant(torch.autograd.Function):
         return g * inside, torch.zeros_like(s), None
 
 
+@register_op("fake_quant")
 def fake_quant(x, scale, bits=8):
     """Symmetric fake quantization with a straight-through gradient
     (reference: fake_quantize_dequantize_moving_average_abs_max)."""

@@ -86,6 +86,12 @@ def _numpy(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _copy_all(dst, src):
+    """``d.copy_(s)`` for each pair, as multi-tensor launches."""
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
 class Model:
     """High-level facade over a ``Layer``.  Batches go to the device of
     ``set_device`` (CUDA unless the caller chose the CPU)."""
@@ -208,36 +214,62 @@ class Model:
         fault_point("hapi.step_params", tree={
             k: p.detach() for k, p in self.network.named_parameters()})
 
-    def train_state_snapshot(self):
+    def _state(self):
+        """``(names, live)``: (parameter names, buffer names, (slot, name)
+        pairs), and the live tensors a train step reads and writes in
+        that order (one module walk)."""
+        net, st = self.network, self._train_state()
+        params, buffers = list(net.named_parameters()), list(
+            net.named_buffers())
+        slots = [((k, n), t) for k, s in st["slots"].items()
+                 for n, t in s.items()]
+        names = ([k for k, _ in params], [k for k, _ in buffers],
+                 [kn for kn, _ in slots])
+        return names, ([p for _, p in params] + [b for _, b in buffers]
+                       + [t for _, t in slots])
+
+    @staticmethod
+    def _snapshot_list(snap, names):
+        """A snapshot's tensors in the order of :meth:`_state`."""
+        pn, bn, sn = names
+        return ([snap["params"][k] for k in pn]
+                + [snap["buffers"][k] for k in bn]
+                + [snap["opt_state"]["slots"][k][n] for k, n in sn])
+
+    def train_state_snapshot(self, into=None, _state=None):
         """A deep copy of what a train step reads and writes: params,
         buffers, the optimizer state, the device generators' states and
-        the learning rate (the integrity sentinel's pre-step snapshot)."""
+        the learning rate (the integrity sentinel's pre-step snapshot).
+        ``into`` (an earlier snapshot of this model) is overwritten and
+        returned instead of allocating a new one.  The copies are a few
+        multi-tensor launches (``torch._foreach_copy_``), not one a
+        tensor."""
         from ..core.random import get_rng_state
 
-        net, st = self.network, self._train_state()
-        clone = {k: t.detach().clone() for k, t in net.named_parameters()}
-        return {"params": clone,
-                "buffers": {k: b.clone() for k, b in net.named_buffers()},
-                "opt_state": {"step": st["step"], "slots": {
-                    k: {n: t.clone() for n, t in s.items()}
-                    for k, s in st["slots"].items()}},
-                "rng": {k: v.clone() for k, v in get_rng_state().items()},
-                "lr": float(self._optimizer.get_lr())}
+        names, live = _state or self._state()
+        if into is None:
+            pn, bn, sn = names
+            it = iter(torch.empty_like(t) for t in live)
+            into = {"params": {k: next(it) for k in pn},
+                    "buffers": {k: next(it) for k in bn},
+                    "opt_state": {"slots": {}}}
+            for k, n in sn:
+                into["opt_state"]["slots"].setdefault(k, {})[n] = next(it)
+        with torch.no_grad():
+            _copy_all(self._snapshot_list(into, names), live)
+        into["opt_state"]["step"] = self._train_state()["step"]
+        into["rng"] = get_rng_state()         # fresh state tensors
+        into["lr"] = float(self._optimizer.get_lr())
+        return into
 
     @torch.no_grad()
-    def _load_train_state(self, snap):
+    def _load_train_state(self, snap, _state=None):
         """Copy a :meth:`train_state_snapshot` into the live tensors."""
         from ..core.random import set_rng_state
 
-        net, st = self.network, self._train_state()
-        for k, t in net.named_parameters():
-            t.copy_(snap["params"][k])
-        for k, b in net.named_buffers():
-            b.copy_(snap["buffers"][k])
-        for k, s in st["slots"].items():
-            for n, t in s.items():
-                t.copy_(snap["opt_state"]["slots"][k][n])
-        st["step"] = snap["opt_state"]["step"]
+        names, live = _state or self._state()
+        _copy_all(live, self._snapshot_list(snap, names))
+        self._train_state()["step"] = snap["opt_state"]["step"]
         set_rng_state(snap["rng"])
 
     def replay_train_batch(self, snapshot, batch):
@@ -248,17 +280,30 @@ class Model:
         copy of the live state, loads the snapshot into the tensors the
         captured graph reads, replays the graph, and loads the live state
         back: nothing on the model changes (the JAX step is pure and
-        mutates nothing).  Metrics are not updated."""
-        live = self.train_state_snapshot()
-        self._load_train_state(snapshot)
+        mutates nothing).  Metrics are not updated.  The live copy and
+        the returned parameters are buffers the model reuses from one
+        replay to the next: the returned dict holds until the next
+        replay.  The state is walked once a call (a module walk costs
+        more than the copies of a small model)."""
+        state = self._state()
+        names, live = state
+        self._replay_live = self.train_state_snapshot(
+            into=getattr(self, "_replay_live", None), _state=state)
+        self._load_train_state(snapshot, state)
         try:
             loss, _, _, _ = self._train_call(*batch, snapshot["lr"])
             loss = float(loss)
-            params = {k: p.detach().clone()
-                      for k, p in self.network.named_parameters()}
+            params = live[:len(names[0])]
+            after = getattr(self, "_replay_params", None)
+            if after is None or list(after) != names[0]:
+                after = {k: torch.empty_like(p)
+                         for k, p in zip(names[0], params)}
+                self._replay_params = after
+            with torch.no_grad():
+                _copy_all(list(after.values()), params)
         finally:
-            self._load_train_state(live)
-        return loss, params
+            self._load_train_state(self._replay_live, state)
+        return loss, after
 
     def _run_train(self, args):
         """The watched train step (the graph's replay on CUDA)."""

@@ -2,7 +2,8 @@
 version (``paged_attention.py``: ragged paged attention;
 ``flash_attention.py``: flash attention forward, dK/dV and dQ;
 ``ring_attention.py``: ring attention's per-pair backward, around the
-flash forward).
+flash forward; ``crc32.py``: zlib's CRC-32 of many tensors in one
+launch, the integrity sentinel's digests).
 
 ``ring_attention`` here is the function; its module is
 ``importlib.import_module("paddle_tpu_torch.kernels.ring_attention")``."""

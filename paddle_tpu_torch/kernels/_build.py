@@ -33,6 +33,7 @@ SOURCES = {
     "flash_attention": os.path.join("csrc", "flash_attention.cu"),
     "flash_fwd_sm90": os.path.join("csrc", "flash_fwd_sm90.cu"),
     "flash_bwd_sm90": os.path.join("csrc", "flash_bwd_sm90.cu"),
+    "crc32": os.path.join("csrc", "crc32.cu"),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

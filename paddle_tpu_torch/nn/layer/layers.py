@@ -19,34 +19,11 @@ import torch
 
 from ...core.dtype import convert_dtype, get_default_dtype
 from ...core.place import current_device
+from ...core.tensor import Parameter
 from ..initializer import Constant, XavierUniform
 
 __all__ = ["Layer", "Parameter", "Sequential", "LayerList", "ParameterList",
            "Identity"]
-
-
-class Parameter(torch.nn.Parameter):
-    """A trainable tensor with Paddle's attributes: ``name`` (the key of
-    its optimizer state; ``None`` gives ``param_{i}``), ``optimize_attr``
-    (its learning-rate multiplier) and ``trainable``."""
-
-    name = None
-
-    def __new__(cls, data, requires_grad=True):
-        p = super().__new__(cls, data, requires_grad)
-        p.optimize_attr = {"learning_rate": 1.0}
-        p.trainable = requires_grad
-        return p
-
-    def __deepcopy__(self, memo):
-        if id(self) in memo:
-            return memo[id(self)]
-        out = type(self)(self.data.clone(memory_format=torch.preserve_format),
-                         self.requires_grad)
-        out.optimize_attr = dict(self.optimize_attr)
-        out.trainable, out.name = self.trainable, self.name
-        memo[id(self)] = out
-        return out
 
 
 class Layer(torch.nn.Module):

@@ -15,7 +15,8 @@ from ..initializer import Constant
 from .layers import Layer
 
 __all__ = ["BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm",
-           "GroupNorm"]
+           "GroupNorm", "InstanceNorm2D", "RMSNorm", "SyncBatchNorm",
+           "SpectralNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -77,6 +78,25 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-replica batch norm.  On one card (the port's training runs
+    one process a card) its batch statistics are the card's batch, so it
+    is ``BatchNorm``, as the JAX package's is outside a mesh."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            new = SyncBatchNorm(layer.num_features, layer.momentum,
+                                layer.epsilon,
+                                data_format=layer.data_format)
+            new.set_state_dict(layer.state_dict())
+            return new
+        return layer
+
+
 class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None):
@@ -122,3 +142,75 @@ class GroupNorm(Layer):
     def forward(self, x):
         return ops.group_norm(x, self.num_groups, self.weight, self.bias,
                               epsilon=self.epsilon)
+
+
+class RMSNorm(Layer):
+    """LLaMA-family RMS norm, weight initialised to ones."""
+
+    def __init__(self, hidden_size, epsilon=1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = self.create_parameter(
+            [hidden_size], default_initializer=Constant(1.0))
+
+    def forward(self, x):
+        return ops.rms_norm(x, self.weight, epsilon=self.epsilon)
+
+
+class InstanceNorm2D(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__()
+        self.epsilon = epsilon
+        if weight_attr is False:
+            self.weight = None
+        else:
+            self.weight = self.create_parameter(
+                [num_features], default_initializer=Constant(1.0))
+        if bias_attr is False:
+            self.bias = None
+        else:
+            self.bias = self.create_parameter([num_features], is_bias=True)
+
+    def forward(self, x):
+        return ops.instance_norm(x, self.weight, self.bias,
+                                 epsilon=self.epsilon)
+
+
+class SpectralNorm(Layer):
+    """``weight / sigma``, sigma from ``power_iters`` power iterations on
+    the weight reshaped to [weight_shape[dim], -1] from the (non-trained)
+    vectors ``weight_u``/``weight_v``, drawn from N(0, 1).  As in the JAX
+    package, the iteration's vectors are not written back."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12):
+        super().__init__()
+        from ..initializer import Normal
+
+        self.dim = dim
+        self.power_iters = power_iters
+        self.eps = eps
+        h = weight_shape[dim]
+        w = 1
+        for i, s in enumerate(weight_shape):
+            if i != dim:
+                w *= s
+        self.weight_u = self.create_parameter(
+            [h], default_initializer=Normal(0, 1))
+        self.weight_v = self.create_parameter(
+            [w], default_initializer=Normal(0, 1))
+        self.weight_u.requires_grad_(False)
+        self.weight_v.requires_grad_(False)
+
+    def forward(self, weight):
+        w = ops.reshape(ops.moveaxis(weight, self.dim, 0),
+                        [weight.shape[self.dim], -1])
+        u, v = self.weight_u, self.weight_v
+        for _ in range(self.power_iters):
+            v_new = ops.matmul(ops.transpose_last2(w), ops.reshape(u, [-1, 1]))
+            v = ops.reshape(v_new, [-1]) / (ops.norm(v_new) + self.eps)
+            u_new = ops.matmul(w, ops.reshape(v, [-1, 1]))
+            u = ops.reshape(u_new, [-1]) / (ops.norm(u_new) + self.eps)
+        sigma = ops.matmul(ops.reshape(u, [1, -1]),
+                           ops.matmul(w, ops.reshape(v, [-1, 1])))
+        return weight / ops.reshape(sigma, [])

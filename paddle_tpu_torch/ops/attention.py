@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..amp.auto_cast import amp_op
+from ..core.dispatch import register_op
 from ..core.random import generator
 
 __all__ = ["_naive_attention", "scaled_dot_product_attention"]
@@ -47,7 +47,7 @@ def _naive_attention(q, k, v, mask=None, dropout_p=0.0, causal=False,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-@amp_op("scaled_dot_product_attention")
+@register_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, scale=None, training=True,
                                  use_flash=True):

@@ -16,7 +16,11 @@ is kept on purpose:
   ``exclusive`` average divides by the count of in-bounds elements;
 - batch norm normalises in fp32 with the biased batch variance, casts to
   the input's dtype and only then applies the weight and bias, and
-  returns the batch mean and variance for the caller's running stats.
+  returns the batch mean and variance for the caller's running stats;
+- ``interpolate`` is ``jax.image.resize``: half-pixel sample points,
+  nearest at ``floor((i + 0.5) · in / out)``, linear and cubic (Keys,
+  a = −0.5) kernels widened by in/out when shrinking (antialiasing), and
+  ``align_corners`` ignored, as there; ``area`` is its linear.
 """
 from __future__ import annotations
 
@@ -26,13 +30,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..amp.auto_cast import amp_op
+from ..core.dispatch import register_op
 from ..core.random import generator
 
 __all__ = ["conv1d", "conv2d", "conv3d", "conv2d_transpose", "max_pool2d",
            "avg_pool2d", "adaptive_avg_pool2d", "adaptive_max_pool2d",
-           "global_avg_pool2d", "layer_norm", "batch_norm_infer",
-           "batch_norm_train", "group_norm", "dropout"]
+           "global_avg_pool2d", "layer_norm", "rms_norm", "batch_norm_infer",
+           "batch_norm_train", "instance_norm", "group_norm",
+           "local_response_norm", "embedding", "dropout", "dropout2d",
+           "interpolate", "pixel_shuffle", "unfold"]
 
 
 def _at_least_fp32(x):
@@ -153,7 +159,7 @@ def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd):
     return _convolution(x, weight, bias, stride, pads, dilation, groups)
 
 
-@amp_op("conv2d")
+@register_op("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """``data_format="NHWC"`` takes an HWIO ``weight``, as in JAX."""
@@ -164,19 +170,19 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2)
 
 
-@amp_op("conv1d")
+@register_op("conv1d")
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL"):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1)
 
 
-@amp_op("conv3d")
+@register_op("conv3d")
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3)
 
 
-@amp_op("conv2d_transpose")
+@register_op("conv2d_transpose")
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCHW"):
@@ -217,7 +223,7 @@ def _pool_pads(x, k, s, padding, ceil_mode):
     return pads
 
 
-@amp_op("max_pool2d")
+@register_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCHW"):
     k = _tuple(kernel_size)
@@ -228,7 +234,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return F.max_pool2d(F.pad(x, _pad_arg(pads), value=fill), k, s)
 
 
-@amp_op("avg_pool2d")
+@register_op("avg_pool2d")
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, data_format="NCHW"):
     """Windows summed over the zero-padded input, divided by the count of
@@ -248,13 +254,13 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return summed / (k[0] * k[1])
 
 
-@amp_op("adaptive_avg_pool2d")
+@register_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     # torch's bins (floor(i·h/oh) to ceil((i+1)·h/oh)) are JAX's
     return F.adaptive_avg_pool2d(x, _tuple(output_size))
 
 
-@amp_op("adaptive_max_pool2d")
+@register_op("adaptive_max_pool2d")
 def adaptive_max_pool2d(x, output_size, data_format="NCHW"):
     oh, ow = _tuple(output_size)
     n, c, h, w = x.shape
@@ -264,7 +270,7 @@ def adaptive_max_pool2d(x, output_size, data_format="NCHW"):
     return x.reshape(n, c, oh, h // oh, ow, w // ow).amax(dim=(3, 5))
 
 
-@amp_op("global_avg_pool2d")
+@register_op("global_avg_pool2d")
 def global_avg_pool2d(x, data_format="NCHW"):
     dims = (2, 3) if data_format == "NCHW" else (1, 2)
     return x.mean(dim=dims, keepdim=True)
@@ -273,7 +279,7 @@ def global_avg_pool2d(x, data_format="NCHW"):
 # ------------------------------------------------------------------- norms
 
 
-@amp_op("layer_norm")
+@register_op("layer_norm")
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5, normalized_ndim=1):
     shape = tuple(x.shape[x.dim() - normalized_ndim:])
     out = F.layer_norm(_at_least_fp32(x), shape, eps=epsilon).to(x.dtype)
@@ -294,7 +300,7 @@ def _fp32(*ts):
     return all(t is None or t.dtype == torch.float32 for t in ts)
 
 
-@amp_op("batch_norm_infer")
+@register_op("batch_norm_infer")
 def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
                      epsilon=1e-5, data_format="NCHW"):
     if data_format.startswith("NC") and x.dim() > 1 and _fp32(
@@ -312,15 +318,15 @@ def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
     return out
 
 
-@amp_op("batch_norm_train")
+@register_op("batch_norm_train")
 def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
                      data_format="NCHW"):
     """Returns ``(out, batch_mean, batch_var)``; the variance is the
-    biased one, which the caller's running stats take (JAX ``jnp.var``)."""
+    biased one, which the caller's running stats take (JAX ``jnp.var``).
+    The mean and variance carry their gradients, as JAX's do."""
     dims, shape = _bn_layout(x, data_format)
     xf = _at_least_fp32(x)
-    with torch.no_grad():
-        var, mean = torch.var_mean(xf, dim=dims, correction=0)
+    var, mean = torch.var_mean(xf, dim=dims, correction=0)
     if data_format.startswith("NC") and _fp32(x, weight, bias):
         # the same function: (x - mean)·rsqrt(var + eps)·w + b in fp32
         out = F.batch_norm(xf, None, None, weight, bias, True, 0.0, epsilon)
@@ -334,7 +340,7 @@ def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
     return out, mean, var
 
 
-@amp_op("group_norm")
+@register_op("group_norm")
 def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
                data_format="NCHW"):
     return F.group_norm(x, num_groups, weight, bias, epsilon)
@@ -343,7 +349,7 @@ def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
 # ----------------------------------------------------------------- dropout
 
 
-@amp_op("dropout")
+@register_op("dropout")
 def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
     """The keep mask is drawn from the port's generator of ``x``'s device
     (``core.random``): uniform draws below 1 − p are kept."""
@@ -358,3 +364,136 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train"):
     if mode == "upscale_in_train":
         return torch.where(mask, x / keep, 0).to(x.dtype)
     return torch.where(mask, x, 0).to(x.dtype)
+
+
+@register_op("dropout2d")
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Drops whole channels: one keep draw per (sample, channel) from the
+    port's generator of ``x``'s device."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    shape = ((x.shape[0], x.shape[1], 1, 1) if data_format == "NCHW"
+             else (x.shape[0], 1, 1, x.shape[3]))
+    mask = torch.rand(shape, generator=generator(x.device),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, 0).to(x.dtype)
+
+
+# ------------------------------------------------------------ norms (more)
+
+
+@register_op("rms_norm")
+def rms_norm(x, weight=None, epsilon=1e-6):
+    xf = _at_least_fp32(x)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    return out
+
+
+@register_op("instance_norm")
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5):
+    dims = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@register_op("local_response_norm")
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0):
+    sq = torch.square(x)
+    half = size // 2
+    c = x.shape[1]
+    pad = [0, 0] * (x.dim() - 2) + [half, size - 1 - half]
+    padded = F.pad(sq, pad)
+    acc = sum(padded[:, i:i + c] for i in range(size))
+    return x / torch.pow(k + alpha * acc / size, beta)
+
+
+@register_op("embedding")
+def embedding(ids, weight, padding_idx=None, sparse=False):
+    out = _take_rows(weight, ids)
+    if padding_idx is not None:
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
+
+
+def _take_rows(weight, ids):
+    return torch.index_select(weight, 0, ids.reshape(-1)).reshape(
+        tuple(ids.shape) + tuple(weight.shape[1:]))
+
+
+# ------------------------------------------------------------- interpolate
+
+
+def _cubic(x):
+    """Keys' cubic kernel, a = -0.5 (``jax.image``'s)."""
+    a = -0.5
+    x = x.abs()
+    return torch.where(
+        x <= 1, ((a + 2) * x - (a + 3)) * x * x + 1,
+        torch.where(x < 2, ((a * x - 5 * a) * x + 8 * a) * x - 4 * a, 0.0))
+
+
+def _resize_weights(n_in, n_out, kind, device):
+    """[n_out, n_in] weights of ``jax.image.resize`` along one axis
+    (``compute_weight_mat`` with antialiasing)."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64, device=device)
+              + 0.5) * inv - 0.5
+    x = (sample[:, None] - torch.arange(
+        n_in, dtype=torch.float64, device=device)[None, :]).abs() / kscale
+    w = torch.clamp(1.0 - x, min=0.0) if kind == "linear" else _cubic(x)
+    total = w.sum(1, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    valid = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(valid[:, None], w, 0.0)
+
+
+@register_op("interpolate")
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    n, c, h, w = x.shape
+    if size is None:
+        sf = _tuple(scale_factor)
+        size = (int(h * sf[0]), int(w * sf[1]))
+    oh, ow = _tuple(size)
+    if mode == "nearest":
+        ih = torch.clamp(((torch.arange(oh, device=x.device) + 0.5)
+                          * (h / oh)).floor().long(), max=h - 1)
+        iw = torch.clamp(((torch.arange(ow, device=x.device) + 0.5)
+                          * (w / ow)).floor().long(), max=w - 1)
+        return x[:, :, ih][:, :, :, iw]
+    kind = {"bilinear": "linear", "linear": "linear", "area": "linear",
+            "bicubic": "cubic"}[mode]
+    wh = _resize_weights(h, oh, kind, x.device)
+    ww = _resize_weights(w, ow, kind, x.device)
+    ct = torch.float32 if x.dtype != torch.float64 else torch.float64
+    out = torch.einsum("oh,nchw,pw->ncop", wh.to(ct), x.to(ct), ww.to(ct))
+    return out.to(x.dtype)
+
+
+@register_op("pixel_shuffle")
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    r = upscale_factor
+    n, c, h, w = x.shape
+    out = x.reshape(n, c // (r * r), r, r, h, w)
+    out = out.permute(0, 1, 4, 2, 5, 3)
+    return out.reshape(n, c // (r * r), h * r, w * r)
+
+
+@register_op("unfold")
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    return F.unfold(x, _tuple(kernel_sizes), dilation=_tuple(dilations),
+                    padding=_tuple(paddings), stride=_tuple(strides))

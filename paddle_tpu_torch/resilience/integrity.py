@@ -12,8 +12,8 @@ since the corruption gets poisoned.  This module makes live training
 state verify itself, three ways:
 
 - **cross-rank fingerprints** — :func:`tree_fingerprint` computes a
-  per-leaf CRC32 digest (leaf-name-keyed, over the exact host bytes of
-  each array).  Every ``fingerprint_every`` steps each dp rank
+  per-leaf CRC32 digest (leaf-name-keyed, over the exact bytes of each
+  array; on the card for CUDA tensors).  Every ``fingerprint_every`` steps each dp rank
   publishes its digest over the TCPStore rendezvous plane (per-step
   keys under ``integrity/fp/rank_<r>``) and compares against its
   peers: replicated state must be *bitwise identical*, so any mismatch
@@ -46,12 +46,14 @@ reproducible on CPU: flip one seed-chosen bit in a named array at the
 ``hapi.step_params`` site and watch the sentinel find it, name it, and
 repair it.
 
-Overhead: fingerprints are one device→host copy and one CRC pass over
-the host bytes every N steps; replay costs one extra step (a replay of
-the captured train step) and the copies of the pre-step state every M
-steps.  The JAX package documents a bound of 3 % of step time at its
-bench config (N=25, M=100); ``chip_smoke.py`` phase 19 (f) prints the
-port's cost on the card beside it.
+Overhead: a fingerprint of CUDA tensors is one launch of the device CRC
+(``kernels/crc32.py``: zlib's CRC-32 over each leaf's bytes where they
+lie, combined across blocks) and one read back of a word a leaf, every N
+steps; a replay costs one extra step (a replay of the captured train
+step) and multi-tensor copies of the state into buffers reused from
+replay to replay, every M steps.  The JAX package documents a bound of
+3 % of step time at its bench config (N=25, M=100); ``chip_smoke.py``
+phase 19 (f) checks the port's cost on the card against it.
 
 The port's digests equal the JAX package's for equal arrays: a leaf's
 CRC covers ``dtype.str:shape`` and then its host bytes, and a bf16 tensor
@@ -72,6 +74,7 @@ import zlib
 
 import torch
 
+from ..kernels.crc32 import crc32_leaves
 # the duck-typed hapi hook surface: resilience sits below hapi in the
 # layer stack, so the sentinel callback does not import hapi
 from ..observability.goodput import TrainingCallback
@@ -98,7 +101,76 @@ def _leaf_crc(arr):
     # array JAX's ml_dtypes.bfloat16 is
     dstr = "<V2" if dtype == "bfloat16" else a.dtype.str
     crc = zlib.crc32(f"{dstr}:{a.shape}".encode())
-    return zlib.crc32(memoryview(a).cast("B"), crc)
+    return zlib.crc32(memoryview(a).cast("B") if a.size else b"", crc)
+
+
+# numpy's dtype.str of each torch dtype (bf16: the '<V2' of ml_dtypes)
+_DTYPE_STR = {
+    torch.float64: "<f8", torch.float32: "<f4", torch.float16: "<f2",
+    torch.bfloat16: "<V2", torch.int64: "<i8", torch.int32: "<i4",
+    torch.int16: "<i2", torch.int8: "|i1", torch.uint8: "|u1",
+    torch.bool: "|b1", torch.complex64: "<c8", torch.complex128: "<c16"}
+_headers = {}      # (dtype, shape) -> CRC of the "dtype:shape" header
+
+
+def _header_crc(t):
+    key = (t.dtype, t.shape)
+    crc = _headers.get(key)
+    if crc is None:
+        crc = zlib.crc32(f"{_DTYPE_STR[t.dtype]}:{tuple(t.shape)}"
+                         .encode())
+        _headers[key] = crc
+    return crc
+
+
+def _digest_leaves(leaves):
+    """CRC32 of each array leaf: the CUDA tensors of one device in one
+    launch of the device kernel (``kernels/crc32.py``, one sync), every
+    other leaf on the host with ``zlib``.  Equal digests either way."""
+    out = [None] * len(leaves)
+    by_device = {}
+    for i, leaf in enumerate(leaves):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            by_device.setdefault(leaf.device, []).append(i)
+        else:
+            out[i] = _leaf_crc(leaf)
+    for idx in by_device.values():
+        tensors = [leaves[i] for i in idx]
+        for i, crc in zip(idx, crc32_leaves(
+                tensors, [_header_crc(t) for t in tensors])):
+            out[i] = crc
+    return out
+
+
+def _visit(tree, prefix, leaf_key):
+    """``{path: crc32}`` over a nested dict/list/array tree, paths
+    ``/``-joined in sorted order; ``leaf_key(path, node)`` names an array
+    leaf (``None`` skips it).  Non-array scalar leaves hash their
+    ``repr``; ``None`` leaves are skipped."""
+    out, names, leaves = {}, [], []
+
+    def visit(path, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(f"{path}/{k}" if path else str(k), node[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(f"{path}/{i}" if path else str(i), v)
+        elif node is None:
+            return
+        elif hasattr(node, "dtype") or hasattr(node, "__array__"):
+            key = leaf_key(path, node)
+            if key is not None:
+                out[key] = None         # keeps the visiting order
+                names.append(key)
+                leaves.append(node)
+        else:
+            out[path] = zlib.crc32(repr(node).encode())
+
+    visit(prefix, tree)
+    for name, crc in zip(names, _digest_leaves(leaves)):
+        out[name] = crc
+    return out
 
 
 def tree_fingerprint(tree, prefix=""):
@@ -108,25 +180,9 @@ def tree_fingerprint(tree, prefix=""):
     sorted order — the cheap, leaf-name-keyed state digest the
     cross-rank compare and the step-replay verifier both speak.
     Non-array scalar leaves hash their ``repr``; ``None`` leaves are
-    skipped."""
-    out = {}
-
-    def visit(path, node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                visit(f"{path}/{k}" if path else str(k), node[k])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                visit(f"{path}/{i}" if path else str(i), v)
-        elif node is None:
-            return
-        elif hasattr(node, "dtype") or hasattr(node, "__array__"):
-            out[path] = _leaf_crc(node)
-        else:
-            out[path] = zlib.crc32(repr(node).encode())
-
-    visit(prefix, tree)
-    return out
+    skipped.  CUDA tensors are digested on the card, one launch and one
+    sync a device."""
+    return _visit(tree, prefix, lambda path, node: path)
 
 
 def shard_fingerprint(tree, prefix="", devices=None):
@@ -136,30 +192,16 @@ def shard_fingerprint(tree, prefix="", devices=None):
     In the port a tensor is one window, its whole index range (a 0-d leaf
     is ``0:1``); ``devices`` keeps only the leaves on those devices.
     Digests compare within a dp replica group only."""
-    out = {}
     devset = None if devices is None else {str(d) for d in devices}
 
-    def visit(path, node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                visit(f"{path}/{k}" if path else str(k), node[k])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                visit(f"{path}/{i}" if path else str(i), v)
-        elif node is None:
-            return
-        elif hasattr(node, "dtype") or hasattr(node, "__array__"):
-            dev = getattr(node, "device", "cpu")
-            if devset is not None and str(dev) not in devset:
-                return
-            shape = tuple(node.shape) or (1,)
-            key = ",".join(f"0:{n}" for n in shape)
-            out[f"{path}@{key}"] = _leaf_crc(node)
-        else:
-            out[path] = zlib.crc32(repr(node).encode())
+    def window(path, node):
+        dev = getattr(node, "device", "cpu")
+        if devset is not None and str(dev) not in devset:
+            return None
+        shape = tuple(node.shape) or (1,)
+        return f"{path}@" + ",".join(f"0:{n}" for n in shape)
 
-    visit(prefix, tree)
-    return out
+    return _visit(tree, prefix, window)
 
 
 def _same_bits(a, b):
@@ -170,6 +212,26 @@ def _same_bits(a, b):
         return False
     return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
                        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _bytes(t):
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _first_different_leaf(mine, other):
+    """First (sorted) name whose tensors differ in their bits between two
+    ``{name: tensor}`` dicts of one device: one concatenated comparison
+    and one host read; the per-leaf search runs only after a mismatch."""
+    names = sorted(mine)
+    for name in names:
+        a, b = mine[name], other[name]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return name
+    if not names or bool(torch.equal(
+            torch.cat([_bytes(mine[n]) for n in names]),
+            torch.cat([_bytes(other[n]) for n in names]))):
+        return None
+    return next(n for n in names if not _same_bits(mine[n], other[n]))
 
 
 def first_divergent_leaf(mine, other):
@@ -287,7 +349,7 @@ class IntegrityCallback(TrainingCallback):
         self._tracer = tracer
         self._clock = clock or time.time
         self._global_step = 0
-        self._snapshot = None
+        self._snapshot = self._snap_buf = None
         self.events = []
         self.divergence_active = False
         self.last_verified_global_step = None
@@ -344,7 +406,7 @@ class IntegrityCallback(TrainingCallback):
     def on_train_begin(self, logs=None):
         info = getattr(self.model, "_resume_info", None) or {}
         self._global_step = int(info.get("global_step", 0))
-        self._snapshot = None
+        self._snapshot = self._snap_buf = None
         self.events = []
         self.checks = {"fingerprint": 0, "replay": 0}
         self.divergence_active = False
@@ -371,8 +433,10 @@ class IntegrityCallback(TrainingCallback):
         upcoming = self._global_step + 1
         if upcoming % self.replay_every:
             return
-        # the step updates in place: the snapshot is a deep copy
-        self._snapshot = self.model.train_state_snapshot()
+        # the step updates in place: the snapshot is a deep copy, into
+        # the buffers of this fit's previous one
+        self._snapshot = self._snap_buf = self.model.train_state_snapshot(
+            into=self._snap_buf)
 
     def on_train_batch_end(self, step, logs=None):
         self._global_step += 1
@@ -391,11 +455,7 @@ class IntegrityCallback(TrainingCallback):
         t0 = time.perf_counter()
         loss2, params2 = self.model.replay_train_batch(snap, batch)
         current = dict(self.model.network.named_parameters())
-        leaf = None
-        for name in sorted(current):
-            if not _same_bits(current[name], params2[name]):
-                leaf = name
-                break
+        leaf = _first_different_leaf(current, params2)
         self.registry().histogram(
             "integrity_replay_seconds",
             "wall time of one sampled step replay").observe(

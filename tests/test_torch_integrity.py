@@ -22,8 +22,11 @@ supervisor's resume evidence, on the port at their sizes.
 Left out, each testing a part of the JAX package the port has not taken
 over: ``TestIntegrityEndpoints`` (the telemetry server),
 ``TestExceptsLint`` (a lint tool), ``TestSentinelOverheadSmoke``
-(``bench.py``'s JAX bench; ``chip_smoke.py`` phase 19 (f) measures the
-port's overhead on the card), and the GSPMD cases of
+(``bench.py``'s JAX bench; its port is the card test
+``test_sentinel_overhead_under_bound_on_the_card`` in
+``tests/test_torch_kernels_cuda.py``, and ``chip_smoke.py`` phase 19 (f)
+checks the amortized share on the card; the device CRC's plain version
+is held to zlib in ``tests/test_torch_crc32.py``), and the GSPMD cases of
 ``TestShardFingerprint`` (a port tensor is one window).  The ``bitflip``
 fault itself is held to the JAX package's in ``tests/test_torch_faults.py``.
 """

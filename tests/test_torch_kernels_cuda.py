@@ -1527,3 +1527,78 @@ def test_in_place_engine_restore_keeps_one_capture(cuda, tmp_path):
         rep = wd.report()["hybrid_engine::step"]
     assert again == first
     assert eng.captures == 1 and rep["compiles"] == 1
+
+
+# --------------------------------------------------- the sentinel's CRC
+
+
+@pytest.mark.cuda
+def test_crc32_kernel_equals_zlib_on_the_card(cuda):
+    """One launch digests leaves of every kind (fp32, bf16 under its '<V2'
+    header, int64, 0-d, empty, odd byte counts, a strided view, several
+    256 KiB blocks), equal to zlib's digest of the same bytes."""
+    from paddle_tpu_torch.kernels import crc32
+    from paddle_tpu_torch.resilience import integrity
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    leaves = [torch.randn(700, 513, generator=g, device="cuda"),
+              torch.randn(33, 17, generator=g, device="cuda").bfloat16(),
+              torch.randint(0, 1 << 40, (999,), generator=g, device="cuda"),
+              torch.tensor(1.5, device="cuda"), torch.zeros(0, device="cuda"),
+              torch.randint(0, 255, (262144 * 3 + 5,), dtype=torch.uint8,
+                            generator=g, device="cuda"),
+              torch.randn(20, 30, generator=g, device="cuda")[::2, 5:]]
+    before = crc32.crc32_leaves.launches
+    got = crc32.crc32_leaves(leaves, [integrity._header_crc(t)
+                                      for t in leaves])
+    assert crc32.crc32_leaves.launches == before + 1
+    assert got == [integrity._leaf_crc(t.cpu()) for t in leaves]
+    assert integrity.tree_fingerprint({"l": leaves}) == \
+        integrity.tree_fingerprint({"l": [t.cpu() for t in leaves]})
+
+
+@pytest.mark.cuda
+def test_sentinel_overhead_under_bound_on_the_card(cuda):
+    """``tests/test_integrity.py``'s overhead smoke on the port: at
+    ``bench.py``'s ``bench_integrity`` config (MLP hidden 1024, batch
+    128, fp32, Momentum), a fingerprint every 25 steps and a replay every
+    100, amortized over the median step, stay under 3 % of step time,
+    and a fingerprint's median stays under 0.2 s."""
+    import time
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    paddle.set_device("gpu")
+    try:
+        paddle.seed(0)
+        nn = paddle.nn
+        model = paddle.Model(nn.Sequential(
+            nn.Linear(1024, 1024), nn.ReLU(), nn.Linear(1024, 1024),
+            nn.ReLU(), nn.Linear(1024, 10)))
+        model.prepare(paddle.optimizer.Momentum(
+            learning_rate=0.01, parameters=model.parameters()),
+            nn.CrossEntropyLoss())
+        rng = np.random.RandomState(0)
+        x = rng.randn(128, 1024).astype(np.float32)
+        y = rng.randint(0, 10, (128,)).astype(np.int64)
+
+        def median(fn, n):
+            fn()
+            ts = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts))
+
+        step = median(lambda: model.train_batch(x, y), 20)
+        tree = {"params": dict(model.network.named_parameters())}
+        fp = median(lambda: tree_fingerprint(tree), 9)
+        snap = model.train_state_snapshot()
+        rp = median(lambda: model.replay_train_batch(snap, (x, y)), 5)
+        ratio = (fp / 25 + rp / 100) / step
+        assert ratio < 0.03, (step, fp, rp, ratio)
+        assert fp < 0.2, fp
+    finally:
+        paddle.set_device("cpu")

@@ -221,6 +221,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4907,6 +4908,639 @@ def phase_paddle_program(torch, paddle, fa, gpt_init, gpt_loss, cfg):
     return launches
 
 
+DATA_FIT = (1280, 128)             # phase 21 (a): FakeImageNet size, batch
+DATA_WORKERS = (0, 8)              # (a): the two loaders compared
+DATA_CHECKED = 5                   # (a): leading batches held bitwise
+DATA_EPOCHS = 2                    # (a): imgs/s over the last epoch
+# (b): PTB "large" (Zaremba et al. 2014; PaddlePaddle's ptb_lm example)
+PTB = dict(vocab=10000, embed=1500, hidden=1500, layers=2, steps=35,
+           batch=20, dropout=0.65)
+PTB_TRAIN_STEPS = 20
+FUSED_BERT = dict(layers=12, d_model=768, nhead=12, ffn=3072,
+                  batch=(32, 512))         # (c): BERT-base widths
+FUSED_STEPS = 3
+CARD_CPU_TOL = dict(atol=1e-4, rtol=1e-4)  # (d), (e): card vs the CPU
+
+
+class SampleSeeded:
+    """A map-style dataset whose item ``i`` is built under numpy's global
+    seed ``seed * 1_000_003 + i``, so a random transform draws the same
+    for a sample whichever process builds it: (a)'s two loaders then
+    deliver the same bits (the loader itself keeps numpy's global state
+    as the JAX package does, one stream a process)."""
+
+    def __init__(self, base, seed):
+        self.base, self.seed = base, seed
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        np.random.seed((self.seed * 1_000_003 + i) % 2 ** 32)
+        return self.base[i]
+
+
+def smi_compute_pids():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return {int(p) for p in out.split() if p.strip().isdigit()}
+
+
+def shm_segments():
+    """The shared-memory segments made for this process's loaders."""
+    from paddle_tpu_torch.io.multiprocess import segment_prefix
+
+    return sorted(f for f in os.listdir("/dev/shm")
+                  if f.startswith(segment_prefix()))
+
+
+class StepClock:
+    """Host time at the end of every training step of a ``fit``."""
+
+    def __init__(self, paddle):
+        outer = self
+
+        class CB(paddle.hapi.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                outer.ends.append(time.perf_counter())
+
+            def on_epoch_begin(self, epoch, logs=None):
+                outer.epoch_starts.append(time.perf_counter())
+
+        self.ends, self.epoch_starts = [], []
+        self.callback = CB()
+
+
+def data_pipeline(torch, paddle):
+    """Phase 21 (a): ResNet-50 (bf16 O1, Momentum) trained by ``fit`` from
+    a DataLoader over ``FakeImageNet`` through Resize(256) -> CenterCrop
+    -> flip -> Normalize, at 0 and at 8 worker processes.  Returns the
+    model of the 8-worker run (for (f))."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.observability import GoodputMonitor
+    from paddle_tpu_torch.vision import datasets, transforms as T
+
+    n, B = DATA_FIT
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    base = datasets.FakeImageNet(size=n, transform=T.Compose([
+        T.Resize(256), T.CenterCrop(224), T.RandomHorizontalFlip(),
+        T.Normalize([0.485, 0.456, 0.406], [0.229, 0.224, 0.225])]))
+    ds = SampleSeeded(base, 21)
+    made = time.perf_counter() - t0
+    shm_before = shm_segments()
+
+    probe_dir = tempfile.mkdtemp(prefix="workers_")
+
+    def probe(worker_id):
+        """In each worker: torch's bad-fork guard is set (it refuses to
+        initialise CUDA in a forked child) and no CUDA state was made."""
+        with open(os.path.join(probe_dir, str(worker_id)), "w") as f:
+            json.dump({"pid": os.getpid(),
+                       "bad_fork": torch.cuda._is_in_bad_fork(),
+                       "cuda_initialized": torch.cuda.is_initialized()}, f)
+
+    def loader(workers):
+        np.random.seed(21)          # the sampler's permutation
+        return DataLoader(ds, batch_size=B, shuffle=True, drop_last=True,
+                          num_workers=workers, timeout=300,
+                          worker_init_fn=probe)
+
+    firsts, runs, model = {}, {}, None
+    for workers in DATA_WORKERS:
+        dl = loader(workers)
+        it = iter(dl)
+        got = []
+        t0 = time.perf_counter()
+        for i in range(DATA_CHECKED):
+            x, y = next(it)
+            if i == 0:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            check(x.is_cuda and y.is_cuda and tuple(x.shape) ==
+                  (B, 3, 224, 224), f"21a: batch {tuple(x.shape)} on "
+                  f"{x.device}")
+            got.append((x.clone(), y.clone()))
+        if workers:
+            pids = dl._workers.worker_pids
+            listed = smi_compute_pids()
+            seen = [json.load(open(os.path.join(probe_dir, f)))
+                    for f in sorted(os.listdir(probe_dir))]
+            check(not set(pids) & listed,
+                  f"21a: a worker holds a CUDA context: {listed & set(pids)}")
+            check(len(seen) == workers and all(
+                w["bad_fork"] and not w["cuda_initialized"] for w in seen),
+                f"21a: workers' CUDA state {seen}")
+            print(f"[phase 21a] {workers} workers (pids {pids}): each "
+                  f"reports torch's bad-fork guard set and no CUDA state "
+                  f"initialised; nvidia-smi lists compute processes "
+                  f"{sorted(listed)} (this process {os.getpid()} "
+                  f"{'listed' if os.getpid() in listed else 'not listed'}"
+                  f"): no worker among them")
+        it.close()
+        firsts[workers] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = resnet_model(paddle, 0.01)
+        clock = StepClock(paddle)
+        goodput = GoodputMonitor(flops_per_step=resnet_flops(
+            torch, model.network, B))
+        watchdog().reset()
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            model.fit(loader(workers), epochs=DATA_EPOCHS, verbose=0,
+                      callbacks=[clock.callback, goodput])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = goodput.report()
+        shares = {k: v / rep["total_seconds"]
+                  for k, v in rep["phases_seconds"].items()}
+        steps = n // B
+        last = clock.ends[-steps:]
+        # the last epoch's steady steps: its first two also wait for the
+        # workers to start and for the first batches
+        ips = ((steps - 2) * B) / (last[-1] - last[1])
+        # the whole fit's rate: every epoch's forks and first batch, and
+        # the capture, included
+        fit_ips = DATA_EPOCHS * steps * B / wall
+        start_s = last[0] - clock.epoch_starts[-1]
+        captured = check_captured_once(model, "hapi::train_step",
+                                       f"21a {workers} workers")
+        runs[workers] = (ips, shares, fit_ips)
+        print(f"[phase 21a] num_workers={workers}: whole fit {fit_ips:.1f} "
+              f"imgs/s ({DATA_EPOCHS} x {steps * B} images over the fit's "
+              f"wall time); steady {ips:.1f} imgs/s over "
+              f"steps 3-{steps} of epoch {DATA_EPOCHS} (batch {B}), leaving "
+              f"out the epoch's start; the "
+              f"epoch's first step ended {start_s:.2f} s after its start; "
+              f"the first batch of a fresh iterator {first_ms:.0f} ms; fit "
+              f"{wall:.1f} s for {DATA_EPOCHS} epochs; goodput shares "
+              + ", ".join(
+                  f"{k} {shares[k]:.4f}" for k in
+                  ("compute", "data_wait", "compile", "checkpoint", "eval"))
+              + f" of {rep['total_seconds']:.2f} s; {captured}; "
+              f"{card_line()}")
+        if workers != DATA_WORKERS[-1]:
+            del model
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(firsts[DATA_WORKERS[0]],
+                               firsts[DATA_WORKERS[-1]]))
+    left = sorted(set(shm_segments()) - set(shm_before))
+    print(f"[phase 21a] FakeImageNet({n}) made in {made:.1f} s; the first "
+          f"{DATA_CHECKED} batches at {DATA_WORKERS[0]} and "
+          f"{DATA_WORKERS[-1]} workers bitwise equal: {same}; shared-memory "
+          f"segments left: {len(left)}; data_wait share "
+          f"{runs[DATA_WORKERS[0]][1]['data_wait']:.4f} -> "
+          f"{runs[DATA_WORKERS[-1]][1]['data_wait']:.4f}, whole-fit imgs/s "
+          f"{runs[DATA_WORKERS[0]][2]:.1f} -> {runs[DATA_WORKERS[-1]][2]:.1f}"
+          f", steady imgs/s "
+          f"{runs[DATA_WORKERS[0]][0]:.1f} -> {runs[DATA_WORKERS[-1]][0]:.1f}")
+    check(same, "21a: batches differ between 0 and 8 workers")
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    check(not left, f"21a: shared-memory segments left: {left}")
+    del firsts
+    return model
+
+
+def ptb_corpus(path, vocab, tokens, seed=21):
+    """A synthetic PTB-layout text file: one line holding every word of a
+    ``vocab - 1``-word vocabulary (so ``Imikolov`` builds ``vocab`` ids
+    with ``<unk>``), then Zipf-distributed lines of 5 to 40 words."""
+    rng = np.random.RandomState(seed)
+    words = np.array([f"w{i}" for i in range(vocab - 1)])
+    p = 1.0 / np.arange(1, vocab)
+    p /= p.sum()
+    lines = [" ".join(rng.permutation(words))]
+    n = vocab - 1
+    while n < tokens:
+        k = int(rng.randint(5, 41))
+        lines.append(" ".join(words[rng.choice(vocab - 1, k, p=p)]))
+        n += k
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def ptb_model(paddle, seed):
+    c = PTB
+
+    class PTBLM(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = paddle.nn.Embedding(c["vocab"], c["embed"])
+            self.lstm = paddle.nn.LSTM(c["embed"], c["hidden"],
+                                       num_layers=c["layers"],
+                                       dropout=c["dropout"])
+            self.drop = paddle.nn.Dropout(c["dropout"])
+            self.fc = paddle.nn.Linear(c["hidden"], c["vocab"])
+
+        def forward(self, x):
+            out, _ = self.lstm(self.drop(self.embedding(x)))
+            return self.fc(self.drop(out))
+
+    class SeqLoss(paddle.nn.Layer):
+        def forward(self, logits, y):
+            return paddle.nn.functional.cross_entropy(
+                logits.reshape(-1, c["vocab"]), y.reshape(-1))
+
+    paddle.seed(seed)
+    model = paddle.Model(PTBLM())
+    model.prepare(paddle.optimizer.SGD(
+        learning_rate=1.0, parameters=model.parameters(),
+        grad_clip=paddle.optimizer.ClipGradByGlobalNorm(5.0)), SeqLoss())
+    return model
+
+
+def ptb_lstm(torch, paddle):
+    """Phase 21 (b): the PTB-large LSTM language model, ``PTB_TRAIN_STEPS``
+    ``train_batch`` steps on the captured graph and the same on the eager
+    route, from one seed and the same batches.  Returns ms/step."""
+    from paddle_tpu_torch.text import Imikolov
+
+    c = PTB
+    B, S = c["batch"], c["steps"]
+    need = PTB_TRAIN_STEPS * S + 1
+    tmp = tempfile.mkdtemp(prefix="ptb_")
+    try:
+        path = os.path.join(tmp, "ptb.train.txt")
+        ptb_corpus(path, c["vocab"], B * need + 2000)
+        ds = Imikolov(data_file=path, data_type="SEQ")
+        check(len(ds.word_idx) == c["vocab"],
+              f"21b: vocabulary {len(ds.word_idx)}")
+        stream = np.concatenate([ds[i] for i in range(len(ds))])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    data = torch.from_numpy(stream[:B * need].reshape(B, need)).cuda()
+    batches = [(data[:, i * S:(i + 1) * S].contiguous(),
+                data[:, i * S + 1:(i + 1) * S + 1].contiguous())
+               for i in range(PTB_TRAIN_STEPS)]
+    paddle.set_device("gpu")
+    res = {}
+    for route in ("graph", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = ptb_model(paddle, 21)
+        watchdog().reset()
+        ctx = (eager_route(torch, model) if route == "eager"
+               else contextlib.nullcontext())
+        losses, times = [], []
+        with ctx:
+            for x, y in batches:
+                t0 = time.perf_counter()
+                losses.append(float(model.train_batch(x, y)[0]))
+                times.append(time.perf_counter() - t0)
+        ms = float(np.mean(times[2:])) * 1e3
+        extra = (check_captured_once(model, "hapi::train_step", "21b")
+                 if route == "graph" else "no capture")
+        res[route] = (losses, ms)
+        print(f"[phase 21b] PTB-large LSTM LM (vocab {c['vocab']}, embed "
+              f"{c['embed']}, {c['layers']} x LSTM {c['hidden']}, {S} steps, "
+              f"batch {B}, dropout {c['dropout']}, fp32), {route} route: "
+              f"{ms:.2f} ms/step over steps 3-{PTB_TRAIN_STEPS} (host clock, "
+              f"float(loss) each step); losses {losses[0]:.4f} .. "
+              f"{losses[-1]:.4f}; {extra}; {card_line()}")
+        del model
+    (gl, gms), (el, ems) = res["graph"], res["eager"]
+    diff = max(abs(a - b) for a, b in zip(gl, el))
+    print(f"[phase 21b] step-1 loss graph {gl[0]:.7f} eager {el[0]:.7f} "
+          f"(|diff| {abs(gl[0] - el[0]):.3g}, checked at 1e-6); largest "
+          f"difference over the {PTB_TRAIN_STEPS} steps {diff:.3g}; "
+          f"graph {gms:.2f} vs eager {ems:.2f} ms/step")
+    check(abs(gl[0] - el[0]) <= 1e-6, "21b: step-1 loss graph != eager")
+    check(all(np.isfinite(gl)) and np.mean(gl[-5:]) < np.mean(gl[:5]),
+          "21b: the loss did not fall")
+    return gms, ems
+
+
+def fused_from_encoder(torch, layer, fused):
+    """Load an ``nn.TransformerEncoderLayer``'s weights into a
+    ``FusedTransformerEncoderLayer`` (q, k, v packed head-major)."""
+    a, f, ffn = layer.self_attn, fused.fused_attn, fused.ffn
+    with torch.no_grad():
+        f.qkv_weight.copy_(torch.cat([a.q_proj.weight, a.k_proj.weight,
+                                      a.v_proj.weight], 1))
+        f.qkv_bias.copy_(torch.cat([a.q_proj.bias, a.k_proj.bias,
+                                    a.v_proj.bias]))
+        f.linear_weight.copy_(a.out_proj.weight)
+        f.linear_bias.copy_(a.out_proj.bias)
+        f.ln_scale.copy_(layer.norm1.weight)
+        f.ln_bias.copy_(layer.norm1.bias)
+        ffn.w1.copy_(layer.linear1.weight)
+        ffn.b1.copy_(layer.linear1.bias)
+        ffn.w2.copy_(layer.linear2.weight)
+        ffn.b2.copy_(layer.linear2.bias)
+        ffn.ln_scale.copy_(layer.norm2.weight)
+        ffn.ln_bias.copy_(layer.norm2.bias)
+    return fused
+
+
+def fused_encoder(torch, paddle, fa):
+    """Phase 21 (c): 12 ``incubate.nn.FusedTransformerEncoderLayer``s at
+    BERT-base widths, bf16 auto_cast, attention dropout 0, trained with
+    AdamW; then one fp32 layer against ``nn.TransformerEncoderLayer`` with
+    the same weights.  Returns the flash launches of the timed steps."""
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    c = FUSED_BERT
+    B, S = c["batch"]
+    E = c["d_model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    paddle.seed(21)
+    layers = paddle.nn.LayerList([FusedTransformerEncoderLayer(
+        E, c["nhead"], c["ffn"], dropout_rate=0.1, activation="gelu",
+        attn_dropout_rate=0.0) for _ in range(c["layers"])])
+    x = torch.randn(B, S, E, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(21))
+    opt = paddle.optimizer.AdamW(1e-4, parameters=layers.parameters())
+
+    def step():
+        with paddle.amp.auto_cast():
+            h = x
+            for layer in layers:
+                h = layer(h)
+            loss = h.float().square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    for _ in range(2):              # warm-up: the allocator, AdamW's slots
+        step()
+    torch.cuda.synchronize()
+    for k in fa.launches:
+        fa.launches[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(FUSED_STEPS):
+        loss = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / FUSED_STEPS * 1e3
+    launches = dict(fa.launches)
+    want = c["layers"] * FUSED_STEPS
+    print(f"[phase 21c] fused encoder {c['layers']} x FusedTransformer"
+          f"EncoderLayer({E}, {c['nhead']} heads, FFN {c['ffn']}) at {B} x "
+          f"{S}, bf16 auto_cast, AdamW: {ms:.1f} ms/step over "
+          f"{FUSED_STEPS} steps (host clock, synchronised), flash launches "
+          f"{launches} (want {want} forward and {want} backward), loss "
+          f"{float(loss):.5f}; {card_line()}")
+    check(launches == {"fwd": want, "bwd": want},
+          f"21c: flash launches {launches}")
+    del layers, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one fp32 layer, eval, against the unfused layer with its weights
+    paddle.seed(22)
+    ref = paddle.nn.TransformerEncoderLayer(
+        E, c["nhead"], c["ffn"], dropout=0.1, activation="gelu",
+        attn_dropout=0.0)
+    fused = fused_from_encoder(torch, ref, FusedTransformerEncoderLayer(
+        E, c["nhead"], c["ffn"], dropout_rate=0.1, activation="gelu",
+        attn_dropout_rate=0.0))
+    ref.eval()
+    fused.eval()
+    xs = x[:4].float()
+    with torch.no_grad():
+        got, want_out = fused(xs), ref(xs)
+    err = max_err(torch, got, want_out)
+    print(f"[phase 21c] one fp32 layer at 4 x {S}, eval: fused vs "
+          f"nn.TransformerEncoderLayer max abs err {err:.3g} (atol "
+          f"{TOL_FLASH['float32']['atol']}, rtol "
+          f"{TOL_FLASH['float32']['rtol']})")
+    check(torch.allclose(got, want_out, **TOL_FLASH["float32"]),
+          f"21c: fused layer != unfused: {err:.3g}")
+    del x, ref, fused
+    return launches
+
+
+def card_vs_cpu(torch, name, fn, args, iters=10, tol=CARD_CPU_TOL,
+                exact=False):
+    """``fn`` on the card's ``args`` and on their CPU copies: equal at
+    ``tol`` (``exact``: equal), and the card's ms a call."""
+    cpu = [a.cpu() if isinstance(a, torch.Tensor)
+           else ("cpu" if a == "cuda" else a) for a in args]
+    got = fn(*args)
+    want = fn(*cpu)
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    errs = []
+    for g, w in zip(gots, wants):
+        check(g.is_cuda, f"21: {name} left the card")
+        g = g.cpu()
+        if exact:
+            check(torch.equal(g, w), f"21: {name} differs from the CPU")
+            errs.append(0.0)
+        else:
+            gd, wd = torch.view_as_real(g) if g.is_complex() else g, \
+                torch.view_as_real(w) if w.is_complex() else w
+            errs.append(max_err(torch, gd, wd))
+            check(torch.allclose(gd.float(), wd.float(), **tol),
+                  f"21: {name} differs from the CPU by {errs[-1]:.3g}")
+    ms = time_ms(torch, lambda: fn(*args), iters, warmup=2)
+    return ms, max(errs)
+
+
+def detection_ops(torch, paddle):
+    """Phase 21 (d): detector-sized vision ops, card vs CPU."""
+    from paddle_tpu_torch.vision import detection_ops as det, ops as vops
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    feat = torch.randn(2, 256, 200, 304, device="cuda", generator=g)
+    xy = torch.rand(1024, 2, device="cuda", generator=g) * \
+        torch.tensor([1200.0, 760.0], device="cuda")
+    wh = torch.rand(1024, 2, device="cuda", generator=g) * 200 + 4
+    rois = torch.cat([xy, xy + wh], 1)
+    bn = torch.tensor([512, 512], device="cuda")
+    out["roi_align [2,256,200,304] x 1024 RoIs, 7x7, sampling 2"] = \
+        card_vs_cpu(torch, "roi_align", lambda f, r, b: det.roi_align(
+            f, r, b, output_size=7, spatial_scale=0.25, sampling_ratio=2),
+            [feat, rois, bn], iters=5)
+    del feat
+    bxy = torch.rand(2000, 2, device="cuda", generator=g) * 600
+    bwh = torch.rand(2000, 2, device="cuda", generator=g) * 120 + 8
+    boxes = torch.cat([bxy, bxy + bwh], 1)
+    scores = torch.rand(2000, device="cuda", generator=g)
+    out["nms 2000 boxes at IoU 0.7"] = card_vs_cpu(
+        torch, "nms", lambda b, s: vops.nms(b, 0.7, scores=s),
+        [boxes, scores], exact=True)
+    kept = vops.nms(boxes, 0.7, scores=scores)
+    yolo = torch.randn(8, 255, 76, 76, device="cuda", generator=g)
+    im = torch.full((8, 2), 608.0, device="cuda")
+    anchors = [10, 13, 16, 30, 33, 23]
+    out["yolo_box [8,255,76,76], 80 classes, 608"] = card_vs_cpu(
+        torch, "yolo_box", lambda x, s: det.yolo_box(
+            x, s, anchors, 80, conf_thresh=0.01, downsample_ratio=8),
+        [yolo, im], tol=dict(atol=1e-3, rtol=1e-5))
+    out["prior_box SSD-300 38x38"] = card_vs_cpu(
+        torch, "prior_box", lambda dev: det.prior_box(
+            (38, 38), (300, 300), [30.0], [60.0], aspect_ratios=(2.0,),
+            flip=True, clip=True, steps=(8.0, 8.0), device=dev),
+        ["cuda"])
+    prior = torch.rand(2000, 4, device="cuda", generator=g).sort(1).values
+    deltas = torch.randn(2000, 4, device="cuda", generator=g) * 0.2
+    out["box_coder decode 2000 x 4"] = card_vs_cpu(
+        torch, "box_coder", lambda p, d: det.box_coder(
+            p, d, [0.1, 0.1, 0.2, 0.2], code_type="decode_center_size"),
+        [prior, deltas])
+    for k, (ms, err) in out.items():
+        print(f"[phase 21d] {k}: {ms:.3f} ms a call on the card, max abs "
+              f"err vs the CPU {err:.3g}")
+    print(f"[phase 21d] nms kept {len(kept)} of 2000, indices equal to the "
+          f"CPU's; {card_line()}")
+    return out
+
+
+def domain_ops(torch, paddle):
+    """Phase 21 (e): signal, fft, sparse and the distributions, card vs
+    CPU."""
+    from paddle_tpu_torch import distribution as D, fft, signal, sparse
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    audio = torch.randn(16, 160000, device="cuda", generator=g)
+    win = torch.hann_window(512, device="cuda")
+    out["stft [16,160000] n_fft 512 hop 160"] = card_vs_cpu(
+        torch, "stft", lambda a, w: signal.stft(a, 512, 160, window=w),
+        [audio, win], iters=5)
+    spec = signal.stft(audio, 512, 160, window=win)
+    out["istft of it"] = card_vs_cpu(
+        torch, "istft", lambda s, w: signal.istft(s, 512, 160, window=w,
+                                                  length=160000),
+        [spec, win], iters=5)
+    back = signal.istft(spec, 512, 160, window=win, length=160000)
+    trip = max_err(torch, back, audio)
+    check(trip <= 1e-4, f"21e: stft round trip off by {trip:.3g}")
+    del spec, back, audio
+    img = torch.randn(64, 512, 512, device="cuda", generator=g)
+    out["fft2 [64,512,512] (ortho)"] = card_vs_cpu(
+        torch, "fft2", lambda a: fft.fft2(a, norm="ortho"), [img], iters=5)
+    del img
+    n, nnz = 4096, int(4096 * 4096 * 0.01)
+    idx = torch.randint(0, n, (2, nnz), device="cuda", generator=g)
+    vals = torch.randn(nnz, device="cuda", generator=g)
+    dense = torch.randn(n, 512, device="cuda", generator=g)
+    out["sparse COO 4096^2 at 1% x [4096,512]"] = card_vs_cpu(
+        torch, "sparse.matmul", lambda i, v, d: sparse.matmul(
+            sparse.sparse_coo_tensor(i, v, (n, n)), d), [idx, vals, dense],
+        iters=5)
+    M = 1 << 20
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, device="cuda", generator=g) * (hi - lo) + lo
+
+    dists = {
+        "Normal": ((torch.randn(M, device="cuda", generator=g),
+                    u(M, lo=0.5, hi=2.0)), torch.randn(M, device="cuda",
+                                                       generator=g)),
+        "Uniform": ((u(M, lo=-2, hi=-1), u(M, lo=1, hi=2)),
+                    u(M, lo=-1.5, hi=1.5)),
+        "Categorical": ((torch.randn(M, 10, device="cuda", generator=g),),
+                        torch.randint(0, 10, (M,), device="cuda",
+                                      generator=g)),
+        "Bernoulli": ((u(M, lo=0.05, hi=0.95),),
+                      (u(M) < 0.5).float()),
+        "Beta": ((u(M, lo=0.5, hi=4), u(M, lo=0.5, hi=12)),
+                 u(M, lo=0.02, hi=0.98)),
+        "Dirichlet": ((u(M, 5, lo=0.3, hi=3),),
+                      torch.softmax(torch.randn(M, 5, device="cuda",
+                                                generator=g), -1)),
+    }
+    for name, (ps, v) in dists.items():
+        cls = getattr(D, name)
+        other = tuple(p.flip(0) for p in ps)
+        fns = {"log_prob": lambda v, *p: cls(*p).log_prob(v)}
+        if name not in ("Beta", "Dirichlet"):
+            fns["entropy"] = lambda v, *p: cls(*p).entropy()
+            fns["kl_divergence"] = lambda v, *p: D.kl_divergence(
+                cls(*p[:len(ps)]), cls(*p[len(ps):]))
+        for what, fn in fns.items():
+            args = [v, *ps] + (list(other) if what == "kl_divergence" else [])
+            if name == "Uniform" and what == "kl_divergence":
+                fn = (lambda f: lambda v, *p: torch.nan_to_num(
+                    f(v, *p), posinf=0.0))(fn)
+            if name == "Uniform" and what == "log_prob":
+                fn = (lambda f: lambda v, *p: torch.nan_to_num(
+                    f(v, *p), neginf=0.0))(fn)
+            out[f"{name}.{what} at batch 1M"] = card_vs_cpu(
+                torch, f"{name}.{what}", fn, args, iters=5)
+    for k, (ms, err) in out.items():
+        print(f"[phase 21e] {k}: {ms:.3f} ms a call on the card, max abs "
+              f"err vs the CPU {err:.3g}")
+    print(f"[phase 21e] stft -> istft round trip max abs err {trip:.3g} "
+          f"(checked at 1e-4); {card_line()}")
+    return out
+
+
+def save_load(torch, paddle, model):
+    """Phase 21 (f): ``paddle.save`` / ``paddle.load`` of (a)'s ResNet-50
+    state dict and its optimizer's state (the Momentum slots the captured
+    train step updates), on the card."""
+    paddle.set_device("gpu")
+    tmp = tempfile.mkdtemp(prefix="save_")
+    try:
+        res = {}
+        for name, tree in (("state dict", model.network.state_dict()),
+                           ("optimizer state", model._opt_state)):
+            path = os.path.join(tmp, name.replace(" ", "_"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paddle.save(tree, path)
+            t1 = time.perf_counter()
+            back = paddle.load(path)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            want = dict(_flat_tensors(tree))
+            got = dict(_flat_tensors(back))
+            check(sorted(got) == sorted(want),
+                  f"21f: {name} keys differ after the round trip")
+            for k, t in want.items():
+                check(got[k].is_cuda, f"21f: {name} {k} not on the card")
+                check(got[k].dtype == t.dtype and torch.equal(got[k], t),
+                      f"21f: {name} {k} not bitwise after the round trip")
+            check(want, f"21f: no tensor in the {name}")
+            res[name] = (len(want), os.path.getsize(path), t1 - t0, t2 - t1)
+            print(f"[phase 21f] paddle.save / paddle.load of ResNet-50's "
+                  f"{name}: {len(want)} tensors, "
+                  f"{os.path.getsize(path) / 2**20:.1f} MiB, save {(t1 - t0) * 1e3:.0f} ms, load to the card "
+                  f"{(t2 - t1) * 1e3:.0f} ms; every tensor bitwise and on "
+                  f"cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def phase_domain(torch, paddle, fa):
+    """Phase 21: the data pipeline and the domain libraries on the card.
+    Returns (c)'s flash launches."""
+    parts = {}
+    t0 = time.perf_counter()
+    model = data_pipeline(torch, paddle)
+    parts["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_load(torch, paddle, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptb_lstm(torch, paddle)
+    parts["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = fused_encoder(torch, paddle, fa)
+    parts["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    detection_ops(torch, paddle)
+    parts["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    domain_ops(torch, paddle)
+    parts["e"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[phase 21] part seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in sorted(parts.items())))
+    return launches
+
+
 def main():
     import torch
 
@@ -5064,6 +5698,10 @@ def main():
                                             gpt_loss, cfg)
     print(f"[phase 20] {time.perf_counter() - t0:.1f} s ({n_ops} ops)")
 
+    t0 = time.perf_counter()
+    incubate_launches = phase_domain(torch, paddle, fa)
+    print(f"[phase 21] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -5113,6 +5751,11 @@ def main():
     for entry in kernels[1:4]:
         key = entry["name"].split("_")[2]
         entry["program_launches"] = program_launches[
+            "fwd" if key == "fwd" else "bwd"]
+    # phase 21 (c): the fused BERT-base encoder's timed steps
+    for entry in kernels[1:4]:
+        key = entry["name"].split("_")[2]
+        entry["incubate_launches"] = incubate_launches[
             "fwd" if key == "fwd" else "bwd"]
     # the port's own kernel (no Pallas site): the sentinel's digests,
     # replacing the JAX package's host CRC; launches from phase 19 (a),

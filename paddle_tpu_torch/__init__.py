@@ -6,7 +6,10 @@ one-GPU training, ``serving/`` with the fleet, ``observability/``,
 ``resilience/``, ``profiler/``, and the eager API: ``core/``, ``nn/``,
 ``amp/``, ``optimizer/``, ``io/``, ``metric/``, ``hapi/``, ``vision/``, and
 the deployment path: ``autograd/``, ``jit/``, ``static/``, ``contrib/``
-(quantization) and ``inference/``) so each module has an obvious
+(quantization, structured sparsity) and ``inference/``, and the domain
+libraries: ``fft``, ``signal``, ``distribution/``, ``sparse/``,
+``text/``, ``incubate/``, ``device/``, ``utils/``, ``onnx/`` and
+``framework_io`` (``save``/``load``)) so each module has an obvious
 counterpart.  The top level exports what the JAX package's does for
 every module the port has — ``Tensor`` (which is ``torch.Tensor``),
 ``Parameter``, ``to_tensor``/``tensor``, the places, the dtypes, the
@@ -44,6 +47,9 @@ from .ops import *  # noqa: F401,F403,E402
 
 from . import (amp, autograd, contrib, inference, io, jit,  # noqa: E402
                metric, nn, optimizer, profiler, static, vision)
+from . import (device, distribution, fft, incubate, onnx,  # noqa: E402
+               signal, sparse, text, utils)
+from .framework_io import load, save  # noqa: E402
 from ._device import resolve_device  # noqa: E402
 from .autograd import enable_grad, grad, is_grad_enabled, no_grad  # noqa
 from .hapi import Model  # noqa: E402

@@ -137,7 +137,11 @@ class CapturedStep:
             graph.register_generator_state(gen)
         counters = _counters()
         before = [cm[ck] for _, _, cm, ck in counters]
-        with torch.cuda.graph(graph, pool=self.pool, stream=side):
+        # thread-local capture: another thread's CUDA calls do not break
+        # it (the DataLoader's prefetch thread allocates pinned host
+        # memory while a training step captures)
+        with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                              capture_error_mode="thread_local"):
             # the graph's private pool takes new segments only: the
             # reserved bytes grow by what the pool holds
             reserved = torch.cuda.memory_reserved(dev)

@@ -254,7 +254,36 @@ class MetricsRegistry:
 
     def __init__(self):
         self._metrics = {}      # guarded-by: self._lock
+        self._collectors = []   # guarded-by: self._lock
         self._lock = threading.RLock()
+
+    # ---- collectors -----------------------------------------------------
+    def add_collector(self, fn):
+        """Register a zero-arg callable run at the top of every
+        ``snapshot()`` to sync an external source into this registry (the
+        bridge of ``utils.monitor.bridge_to_metrics``).  A collector that
+        raises is logged and skipped."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+        return fn
+
+    def remove_collector(self, fn):
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def _run_collectors(self):
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:
+                import logging
+
+                logging.getLogger("paddle_tpu_torch.observability").warning(
+                    "metrics collector %r failed", fn, exc_info=True)
 
     # ---- registration ---------------------------------------------------
     def register(self, metric, replace=False):
@@ -319,6 +348,7 @@ class MetricsRegistry:
 
     def snapshot(self):
         """JSON-able {name: {type, value|series}} of every metric."""
+        self._run_collectors()
         out = {}
         for m in self.metrics():
             entry = {"type": m.kind}

@@ -126,8 +126,20 @@ def test_batches_are_tensors_on_the_set_device():
 
 
 def test_worker_processes_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        tio.DataLoader(_Data.make(tio), num_workers=2)
+    """(Name kept from the slice before worker processes were ported;
+    ``test_torch_dataloader_mp.py`` holds them to the JAX package.)
+    ``num_workers=2`` now yields the batches ``num_workers=0`` yields."""
+    np.random.seed(3)
+    want = [_np(b) for b in tio.DataLoader(_Data.make(tio), batch_size=4,
+                                           shuffle=True)]
+    np.random.seed(3)
+    got = [_np(b) for b in tio.DataLoader(_Data.make(tio), batch_size=4,
+                                          shuffle=True, num_workers=2,
+                                          timeout=30)]
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        for a, b in ((g[0], w[0]), (g[1], w[1]), (g[2]["id"], w[2]["id"])):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_dataset_errors_reach_the_caller():

@@ -1602,3 +1602,51 @@ def test_sentinel_overhead_under_bound_on_the_card(cuda):
         assert fp < 0.2, fp
     finally:
         paddle.set_device("cpu")
+
+
+@pytest.mark.cuda
+def test_capture_survives_pinned_allocations_in_another_thread(cuda):
+    """A captured step captures while another thread allocates pinned
+    host memory (the DataLoader's prefetch thread does, building batches
+    for a training step): the capture is thread-local, so the other
+    thread's CUDA calls do not invalidate it, and the replay equals the
+    eager call."""
+    import threading
+
+    from paddle_tpu_torch._captured import CapturedStep, storage_tag
+
+    w = torch.randn(512, 512, device=cuda) / 512 ** 0.5
+
+    def body(x):
+        for _ in range(300):
+            x = torch.tanh(x @ w)
+        return x
+
+    stop = threading.Event()
+    pinned = []
+
+    def pin():
+        n = 1 << 20
+        while not stop.is_set():
+            # a new size each time: the caching host allocator cannot
+            # serve it from its cache, so each is a cudaHostAlloc
+            pinned.append(torch.empty(n, dtype=torch.uint8,
+                                      pin_memory=True))
+            n += 4096
+            if len(pinned) > 64:
+                pinned.pop(0)
+
+    thread = threading.Thread(target=pin, daemon=True)
+    thread.start()
+    try:
+        x = torch.randn(64, 512, device=cuda)
+        step = CapturedStep(body, cuda)
+        tag = storage_tag([x])
+        eager = step(x, storage=tag)
+        replay = step(x, storage=tag)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    assert step.captures == 1
+    torch.testing.assert_close(replay, eager, atol=1e-6, rtol=1e-6)

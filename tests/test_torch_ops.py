@@ -17,14 +17,17 @@ reproducibility and to their distributions, as the JAX tests hold them.
 Integer outputs compare by value: the JAX package runs in JAX's 32-bit
 mode, where int64 is int32.
 
-Left out of this slice, with the reason:
+Left out of the port, with the reason:
 - ``core/vma.py``: shard_map's varying axes have no torch counterpart;
 - ``core/autograd.py``'s ``TapeNode``/``run_backward*``: torch's autograd
   does that work, with ``paddle_tpu_torch.autograd.backward``;
-- ``fft``, ``distribution``, ``sparse``, ``signal``, ``text``, ``onnx``,
-  ``device``, ``framework_io``: a later slice (ROADMAP item 7);
-- ``nn/layer/rnn.py``: a later slice.
-None of them registers an op in the JAX package's ``ops/``; the registry
+- ``distributed/ps``, ``distributed/fleet_executor.py`` and
+  ``distributed/auto_parallel/``: the multi-GPU slice (ROADMAP item 5).
+``fft``, ``signal``, ``distribution``, ``sparse``, ``text``, ``onnx``,
+``device``, ``framework_io``, ``utils``, ``incubate``, ``nn/layer/rnn.py``
+and the vision data and detection modules are ported (their
+``tests/test_torch_*.py`` hold them to the JAX package).  None of these
+modules registers an op in the JAX package's ``ops/``; the registry
 parity below holds the port to that corpus (``jax_corpus``).
 """
 import numpy as np

@@ -255,23 +255,24 @@ def test_autocast_applies_in_the_dispatch():
 
 
 def test_top_level_exports_the_jax_surface():
-    """Every name the JAX package's top level exports for a module the
-    port has; what is left out is a later slice (ROADMAP item 7)."""
+    """Every name the JAX package's top level exports, ``save`` and
+    ``load`` included, and every module its ``__init__`` imports."""
     import types
 
-    later = {"load", "save"}            # framework_io, ROADMAP item 7
     # what the JAX ops modules' star imports carry along (no __all__)
     helpers = {"annotations", "jax", "jnp", "jax_lax_complex",
                "mxu_precision", "register_op", "split_key"}
     # submodules are attributes once anything imports them, so the
-    # modules compared are those the JAX __init__ imports and the port has
+    # modules compared are those the JAX __init__ imports
     modules = {"core", "ops", "autograd", "nn", "optimizer", "amp", "io",
-               "jit", "metric", "static", "contrib", "vision", "inference",
-               "profiler", "observability", "resilience", "distributed",
-               "hapi", "serving"}
+               "jit", "metric", "fft", "distribution", "sparse", "utils",
+               "incubate", "static", "contrib", "device", "vision",
+               "inference", "signal", "text", "onnx", "profiler",
+               "observability", "resilience", "distributed", "hapi",
+               "serving"}
     names = {n for n in dir(jpaddle) if not n.startswith("_")
              and not isinstance(getattr(jpaddle, n), types.ModuleType)}
-    names = (names - helpers - later) | modules
+    names = (names - helpers) | modules
     missing = sorted(n for n in names if not hasattr(paddle, n))
     assert missing == [], missing
     assert paddle.is_compiled_with_tpu() is False

@@ -205,7 +205,41 @@ Phases (any failure exits non-zero):
      forward and backward against ``gpt_loss`` on the same tree (loss
      and every gradient at ``TOL["float32"]``), then 3 AdamW steps under
      bf16 ``auto_cast``, the loss falling, flash launches held to 2
-     forward and 2 backward a step.
+     forward and 2 backward a step;
+ 21. the data pipeline and the domain libraries (DataLoader workers,
+     the PTB LSTM, the fused encoder, detection and domain ops, save and
+     load);
+ 22. worlds of ranks on the one card, each launched through the port's
+     launcher (``python -m paddle_tpu_torch.distributed.launch
+     --nproc_per_node N --backend gloo chip_smoke.py --child hybrid
+     CASES OUT``, every rank writing its results; a failing rank fails
+     the phase).  (a)-(e) run in one world of 4 ranks, each case on an
+     engine of its grid over the world; their oracles (the one-process
+     engine on the same config and global batch, eager) run in this
+     process while the ranks start, the ranks waiting for them: GPT-3
+     1.3B widths, bf16, remat "dots", 3 steps (2 timed) of (a) dp 2 x mp
+     2 and (b) ZeRO-2 sharding 4 on 24 layers at global batch 4 x 2048,
+     (c) the ring across 4 sep ranks and (d) Ulysses sep 2 x dp 2 on 4
+     layers at 8 x 2048, (e) phase 13's MoE (8 experts, top-2, capacity
+     that drops nothing, drops checked) at ep 4 on 4 layers: every
+     step's loss within ``HYBRID_LOSS_REL`` of the oracle's and every
+     leaf's step-1 gradient norm within ``HYBRID_GRAD_REL`` ((e), at
+     full width without the aux loss: its own limits, with the routes
+     that differ from the oracle's counted), the losses falling, the
+     replicas' params bitwise equal (CRC32 on the card), the flash (and
+     ring-pair) launches of every rank held to the schedule; first each case's tiny fp32 check (TF32 off) against the
+     one-rank engine: losses at 2e-4 / 1e-4 and gathered params at 1e-4
+     ((e): tests/test_moe.py's 2e-3 / 5e-3, its aux statistics being
+     per rank); each rank's ms/step, peak memory, the collectives' share
+     of its step, MB by axis and the transport; (f) phase 13's MoE at
+     sep 4 on the one-card ring in this process, each shard gated on
+     its own: the bf16 loss and grads on the kernels against the plain
+     pair versions with the plain run routed as the kernel run (the
+     routes it would have flipped counted), then bf16 steps with the
+     launches and the drops of each shard; (g) the sentinel's MLP
+     through ``fleet.init(dp_degree=2)``, ``DataParallel`` and
+     ``fleet.distributed_optimizer`` on 2 ranks: params bitwise equal
+     across the ranks and within 1e-5 of one rank on the whole batch.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -219,6 +253,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5541,6 +5576,765 @@ def phase_domain(torch, paddle, fa):
     return launches
 
 
+# ------------------------------------------- worlds of ranks (phase 22)
+
+#: phase 22's cases (a)-(e), each a grid over the one world of
+#: ``HYBRID_RANKS`` ranks: the mesh, the model's depth and its global
+#: batch at GPT-3 1.3B's widths.  (a) and (b) train all 24 layers;
+#: (c)-(e) are cut to 4, since every sep or ep rank holds the whole
+#: dense state (phase 10's and 13's cells)
+HYBRID = {
+    "a": dict(axes=dict(dp=2, mp=2), layers=24, batch=(4, 2048)),
+    "b": dict(axes=dict(sharding=4), layers=24, batch=(4, 2048)),
+    "c": dict(axes=dict(sep=4), layers=4, batch=(8, 2048), ring=True),
+    "d": dict(axes=dict(sep=2, dp=2), layers=4, batch=(8, 2048)),
+    "e": dict(axes=dict(ep=4), layers=4, batch=(8, 2048), moe=True,
+              limits=(2e-3, 2e-2)),
+}
+HYBRID_RANKS = 4
+HYBRID_STEPS = 3                   # a case's steps (1 warm, 2 timed)
+HYBRID_TINY_BATCH = (4, 512)       # the fp32 check at tiny widths
+MOE_NO_DROP = 4.0                  # (e): C = n·4·2/8 = n, nothing drops
+MOE_RING = dict(layers=4, check=(1, 2048), train=(2, 2048), sep=4)  # (f)
+MLP_DP = dict(hidden=1024, batch=128, steps=3)                       # (g)
+#: bf16 at full width, a world against the one-process engine over the
+#: same steps: each step's loss (relative) and each leaf's step-1
+#: gradient norm (relative to the leaf's norm); the largest readings of
+#: (a)-(d) were 9.2e-5 and 9.8e-4.  (e) trains without the aux loss at
+#: full width: over ep the aux is each rank's E·Σ f·p averaged
+#: (_aux_mean, as the JAX engine), a different function from the one
+#: process's whole-batch aux (its tiny check keeps the aux).  Its own
+#: limits (``limits``): the expert matmuls round differently at a
+#: rank's shapes, and a rounding flips near-tied routes (counted), each
+#: changing its token's path wholesale: readings 7.2e-4 and 8.9e-3
+HYBRID_LOSS_REL = 2e-4
+HYBRID_GRAD_REL = 3e-3
+
+
+def hybrid_cfg(case, tiny=False):
+    """Case ``case``'s model config: GPT-3 1.3B at the case's depth
+    (bf16, remat "dots", dropout 0), or ``tiny`` in fp32 at 512
+    positions."""
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    c = HYBRID[case]
+    kw = dict(seq_parallel="ring" if c.get("ring") else "ulysses")
+    if c.get("moe"):
+        kw.update(moe_experts=4 if tiny else MOE_EXPERTS,
+                  moe_capacity_factor=MOE_NO_DROP)
+        if not tiny:
+            kw.update(moe_aux_weight=0.0)
+    if tiny:
+        return dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32",
+                                   max_seq_len=512, **kw)
+    return dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"],
+                               num_layers=c["layers"], **kw)
+
+
+def hybrid_batch(cfg, B, S, seed=22):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    return tokens, np.concatenate([tokens[:, 1:], np.full((B, 1), -100)],
+                                  1)
+
+
+def grad_norms(torch, eng):
+    """Each leaf's gradient norm at ``eng``'s next step, as the step
+    hands its gradients to the update (before the clip), into the dict
+    returned: a leaf's disjoint parts (ZeRO-2 chunks over sharding, mp-
+    and ep-split leaves) summed over the ranks that hold them, as the
+    clip sums them."""
+    from paddle_tpu_torch.distributed import collective
+
+    got, apply = {}, eng._apply
+
+    def spy(paths, leaves, grads, *rest):
+        del eng._apply
+        sq = torch.stack([g.float().square().sum() for g in grads])
+        if eng._zero2():
+            collective.all_reduce(sq, group=eng.group["sharding"])
+        cat = torch.tensor([eng._split_axis(p) for p in paths],
+                           device=sq.device)
+        for k, axis in ((1, "mp"), (2, "ep")):
+            group = eng._live_group(axis)
+            if group is not None:
+                part = torch.where(cat == k, sq, 0.0)
+                collective.all_reduce(part, group=group)
+                sq = torch.where(cat == k, part, sq)
+        got.update(zip(paths, sq.sqrt().tolist()))
+        return apply(paths, leaves, grads, *rest)
+
+    eng._apply = spy
+    return got
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def route_spy(moe, layers):
+    """``moe_route`` watched for the duration: ``seen["drops"]`` counts
+    the dropped (token, choice) pairs and the pairs, ``seen["experts"]``
+    holds the top-2 experts of the first ``layers`` routings (the first
+    step's forward, layer by layer) as lists."""
+    route, seen = moe.moe_route, {"drops": [0, 0], "experts": []}
+
+    def spy(logits, **kw):
+        r = route(logits, **kw)
+        seen["drops"][0] += int((~r.keep).sum())
+        seen["drops"][1] += r.keep.numel()
+        if len(seen["experts"]) < layers:
+            seen["experts"].append(r.expert.tolist())
+        return r
+
+    moe.moe_route = spy
+    try:
+        yield seen
+    finally:
+        moe.moe_route = route
+
+
+#: the one-process engine each case is held to (the one-card ring at
+#: sep 4 for (c), as phase 10's); (a) and (b) share one
+HYBRID_ORACLES = {"ab": "a", "c": "c", "d": "d", "e": "e"}
+
+
+def hybrid_oracle(torch, case):
+    """Case ``case``'s oracle in this process, eager: each step's loss,
+    each leaf's step-1 gradient norm, the peak, and (MoE) the experts of
+    step 1's routings."""
+    import importlib
+
+    from paddle_tpu_torch import distributed
+
+    moe = importlib.import_module("paddle_tpu_torch.distributed.moe")
+    c = HYBRID[case]
+    cfg = hybrid_cfg(case)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = distributed.HybridEngine(cfg, sep=4 if c.get("ring") else 1)
+    params, opt = eng.init(seed=0)
+    norms, losses = grad_norms(torch, eng), []
+    batch = hybrid_batch(cfg, *c["batch"])
+    with eager_route(torch, eng), route_spy(moe, cfg.num_layers) as seen:
+        for _ in range(HYBRID_STEPS):
+            params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    del eng, params, opt
+    free_cuda(torch)
+    return {"losses": losses, "grad_norms": norms, "peak": peak,
+            "experts": seen["experts"]}
+
+
+def _tiny_check(torch, distributed, case, rank):
+    """(a)-(e) at tiny widths in fp32 (TF32 off): the world's engine on
+    the case's mesh against the one-rank engine (rank 0 runs it), 3
+    steps from the same params; the world's gathered params at the end."""
+    from paddle_tpu_torch.models import params_to_numpy
+
+    cfg = hybrid_cfg(case, tiny=True)
+    batch = hybrid_batch(cfg, *HYBRID_TINY_BATCH, seed=5)
+    one = None
+    if rank == 0:
+        eng = distributed.HybridEngine(cfg)
+        p, o = eng.init(seed=0)
+        losses = []
+        for _ in range(3):
+            p, o, loss = eng.step(p, o, *batch, lr=1e-3)
+            losses.append(float(loss))
+        one = (losses, params_to_numpy(p))
+    eng = distributed.HybridEngine(cfg, **HYBRID[case]["axes"])
+    p, o = eng.init(seed=0)
+    losses = []
+    for _ in range(3):
+        p, o, loss = eng.step(p, o, *batch, lr=1e-3)
+        losses.append(float(loss))
+    full = params_to_numpy(eng.gather_params(p))
+    if one is None:
+        return None
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {prefix + k: v})
+        return out
+
+    got = flat(full)
+    err = max(float(np.abs(got[k] - v).max())
+              for k, v in flat(one[1]).items())
+    dl = max(abs(a - b) - 1e-4 * abs(b) for a, b in zip(losses, one[0]))
+    return {"losses": losses, "one_rank": one[0], "loss_excess": dl,
+            "param_err": err}
+
+
+def _world_case(torch, distributed, case, rank):
+    """One rank's share of case ``case`` at full width: ``HYBRID_STEPS``
+    steps, the last ones timed, with the step-1 gradient norms."""
+    import importlib
+
+    from paddle_tpu_torch.distributed import collective, env
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    ra = importlib.import_module("paddle_tpu_torch.kernels.ring_attention")
+    moe = importlib.import_module("paddle_tpu_torch.distributed.moe")
+    c = HYBRID[case]
+    cfg = hybrid_cfg(case)
+    torch.cuda.synchronize()
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = distributed.HybridEngine(cfg, **c["axes"])
+    params, opt = eng.init(seed=0)
+    batch = hybrid_batch(cfg, *c["batch"])
+    norms, losses, times = grad_norms(torch, eng), [], []
+    with route_spy(moe, cfg.num_layers) as seen:
+        for i in range(HYBRID_STEPS):
+            if i == 1:
+                zero_counts(fa)
+                ra.launches["pair_bwd"] = 0
+                collective.reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+    timed = HYBRID_STEPS - 1
+    stats = collective.collective_stats()
+    res = {
+        "rank": rank, "coords": eng.coords, "losses": losses,
+        "grad_norms": norms, "ms": 1e3 * sum(times[1:]) / timed,
+        "peak": torch.cuda.max_memory_allocated(),
+        "launches": {"fwd": fa.launches["fwd"] / timed,
+                     "bwd": fa.launches["bwd"] / timed,
+                     "pair_bwd": ra.launches["pair_bwd"] / timed},
+        "collective_s": sum(stats["seconds"].values()) / timed,
+        "bytes": {k: v / timed for k, v in stats["bytes"].items()},
+        "staged": {k: v / timed for k, v in stats["staged_bytes"].items()},
+        "calls": {k: v / timed for k, v in stats["calls"].items()},
+        "transport": env.transport(), "digest": tree_fingerprint(params),
+        "drops": seen["drops"], "experts": seen["experts"]}
+    del eng, params, opt
+    free_cuda(torch)
+    return res
+
+
+def child_hybrid(cases, out):
+    """``chip_smoke.py --child hybrid CASES OUT``, one rank of phase 22's
+    world (the launcher's contract): once the oracles are done (the file
+    ``PHASE22_GO`` names exists), each case's tiny fp32 check and its
+    full-width steps, each on an engine of the case's grid over this
+    world; writes ``OUT.r<rank>.json``."""
+    import torch
+
+    from paddle_tpu_torch import distributed
+
+    distributed.init_parallel_env()
+    rank = distributed.get_rank()
+    prepare(torch)
+    stamps = {"ready": time.time()}
+    wait_go()
+    stamps["go"] = time.time()
+    res = {}
+    for case in cases:
+        t0 = time.time()
+        tiny = _tiny_check(torch, distributed, case, rank)
+        res[case] = _world_case(torch, distributed, case, rank)
+        res[case].update(tiny=tiny, seconds=time.time() - t0)
+    with open(f"{out}.r{rank}.json", "w") as f:
+        json.dump({"cases": res, "stamps": stamps}, f)
+    return 0
+
+
+def wait_go(limit_s=900):
+    """Wait for the file ``PHASE22_GO`` names: this world's turn."""
+    go, end = os.environ["PHASE22_GO"], time.time() + limit_s
+    while not os.path.exists(go):
+        if time.time() > end:
+            raise TimeoutError(f"no {go} after {limit_s} s")
+        time.sleep(0.05)
+
+
+@contextlib.contextmanager
+def hybrid_world(cases, n, tmp, child="hybrid", env=None):
+    """Launch ``n`` ranks of ``chip_smoke.py --child CHILD CASES`` through
+    the port's launcher (gloo: the ranks share this card); yields a
+    function that waits for them and returns the ranks' JSON results.  A
+    failing rank fails the phase; on the way out the launcher ends any
+    rank still running."""
+    out = os.path.join(tmp, f"{child}_{cases}")
+    logs = os.path.join(tmp, f"logs_{child}_{cases}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(n), "--backend", "gloo", "--log_dir",
+         logs, os.path.abspath(__file__), "--child", child, cases, out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})))
+
+    def join(timeout=900):
+        rc = proc.wait(timeout=timeout)
+        if rc:
+            for i in range(n):
+                path = os.path.join(logs, f"workerlog.{i}")
+                if os.path.exists(path):
+                    print(f"--- rank {i} ---\n" + open(path).read()[-3000:])
+        check(rc == 0, f"22 ({cases}): the world of {n} ranks exited {rc}")
+        return [json.load(open(f"{out}.r{i}.json")) for i in range(n)]
+
+    try:
+        yield join
+    finally:
+        if proc.poll() is None:         # the launcher ends its ranks
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def _replica_key(coords):
+    """Ranks whose params must be bitwise equal share this key: every
+    axis but mp is a replica axis (ZeRO-2 gathers whole params; over ep
+    the leaves but the experts')."""
+    return coords["mp"]
+
+
+def hybrid_readings(ranks, oracle):
+    """A case's readings against its oracle: the worst relative loss
+    difference at each step over the ranks, and the worst leaf's
+    relative step-1 gradient-norm difference (rank 0's norms: every
+    rank sums a leaf's parts to the same norm)."""
+    steps = [max(abs(r["losses"][i] - l) / abs(l) for r in ranks)
+             for i, l in enumerate(oracle["losses"])]
+    got, want = ranks[0]["grad_norms"], oracle["grad_norms"]
+    check(sorted(got) == sorted(want) and got,
+          f"22: the world's gradient leaves {sorted(got)[:4]} are not the "
+          f"oracle's {sorted(want)[:4]}")
+    worst = max(want, key=lambda k: abs(got[k] - want[k]) / want[k])
+    return steps, worst, abs(got[worst] - want[worst]) / want[worst]
+
+
+def route_flips(ranks, oracle, axes):
+    """Tokens whose step-1 top-2 experts differ between the world and
+    the oracle, summed over the layers, and the tokens: a rank routes
+    the rows of its data block (over dp, sharding, ep, in that order)."""
+    zr, ep = axes.get("sharding", 1), axes.get("ep", 1)
+    diff = n = 0
+    for r in ranks:
+        k = r["coords"]
+        d = (k["dp"] * zr + k["sharding"]) * ep + k["ep"]
+        for mine, whole in zip(r["experts"], oracle["experts"]):
+            mine = np.asarray(mine)
+            want = np.asarray(whole)[d * len(mine):(d + 1) * len(mine)]
+            diff += int((mine != want).any(axis=1).sum())
+            n += len(mine)
+    return diff, n
+
+
+def hybrid_case(case, ranks, oracle, wall):
+    c = HYBRID[case]
+    tiny = ranks[0]["tiny"]
+    L = c["layers"]
+    loss_rel, grad_rel = c.get("limits", (HYBRID_LOSS_REL, HYBRID_GRAD_REL))
+    steps, worst, gerr = hybrid_readings(ranks, oracle)
+    flips = (" routes that differ from the one process's at step 1: "
+             "{} of {} tokens;".format(*route_flips(ranks, oracle,
+                                                      c["axes"]))
+             if c.get("moe") else "")
+    r0 = ranks[0]
+    print(f"[phase 22 ({case})] {c['axes']}, {L} layers, global batch "
+          f"{c['batch'][0]} x {c['batch'][1]}: losses "
+          f"{[round(x, 5) for x in r0['losses']]} (one process "
+          f"{[round(x, 5) for x in oracle['losses']]}; relative "
+          f"differences by step {[f'{x:.2e}' for x in steps]}, limit "
+          f"{loss_rel:g}); step-1 gradient norms: worst leaf {worst} "
+          f"{r0['grad_norms'][worst]:.6g} vs {oracle['grad_norms'][worst]:.6g}"
+          f" ({gerr:.2e} relative, limit {grad_rel:g}, "
+          f"{len(oracle['grad_norms'])} leaves);{flips} ms/step "
+          f"{[round(r['ms'], 1) for r in ranks]} (host clock, "
+          f"{HYBRID_STEPS - 1} timed steps); peak GiB a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} (one process "
+          f"{oracle['peak'] / 2**30:.2f}); collective share "
+          f"{[round(r['collective_s'] * 1e3 / r['ms'], 3) for r in ranks]};"
+          f" MB a step by axis (rank 0) "
+          f"{ {k: round(v / 2**20, 1) for k, v in r0['bytes'].items()} },"
+          f" staged {sum(r0['staged'].values()) / 2**20:.1f} MB; launches a "
+          f"rank a step {[r['launches'] for r in ranks]}; tiny fp32: loss "
+          f"excess {tiny['loss_excess']:.2e}, params {tiny['param_err']:.2e};"
+          f" {max(r['seconds'] for r in ranks):.1f} s in the world of "
+          f"{wall:.1f} s; transport: {r0['transport']}")
+    # the JAX tests' tolerances (tests/test_hybrid_engine.py); over ep the
+    # MoE aux loss is each rank's E·Σ f·p averaged (_aux_mean), not the
+    # whole batch's, so (e) takes tests/test_moe.py's ep tolerances
+    loss_tol, param_tol = (2e-3, 5e-3) if c.get("moe") else (2e-4, 1e-4)
+    check(tiny["loss_excess"] <= loss_tol and tiny["param_err"] <= param_tol,
+          f"22 ({case}) tiny fp32: losses {tiny['losses']} vs the one-rank "
+          f"{tiny['one_rank']}, params off by {tiny['param_err']}")
+    check(max(steps) <= loss_rel,
+          f"22 ({case}): losses off the one-process engine's by {steps}")
+    check(gerr <= grad_rel,
+          f"22 ({case}): the step-1 gradient norm of {worst} off the "
+          f"one-process engine's by {gerr:.3g}")
+    for r in ranks:
+        check(r["losses"][-1] < r["losses"][0],
+              f"22 ({case}): losses {r['losses']} do not fall")
+        if c.get("ring"):
+            live = r["coords"]["sep"] + 1
+            want = {"fwd": 2 * live * L, "bwd": 0, "pair_bwd": live * L}
+        else:
+            want = {"fwd": 2 * L, "bwd": L, "pair_bwd": 0}
+        check(r["launches"] == want,
+              f"22 ({case}) rank {r['rank']}: launches a step "
+              f"{r['launches']}, expected {want}")
+    groups = {}
+    for r in ranks:
+        groups.setdefault(_replica_key(r["coords"]), []).append(r)
+    for key, members in groups.items():
+        for m in members[1:]:
+            differ = [k for k in m["digest"]
+                      if m["digest"][k] != members[0]["digest"][k]]
+            if c.get("moe"):
+                differ = [k for k in differ if not any(
+                    w in k for w in ("up_", "down_"))]
+            check(not differ, f"22 ({case}): replicas {members[0]['rank']} "
+                              f"and {m['rank']} differ at {differ[:4]}")
+    if c.get("moe"):
+        dropped = sum(r["drops"][0] for r in ranks)
+        check(dropped == 0, f"22 ({case}): {dropped} choices dropped")
+    summary = {"ms": max(r["ms"] for r in ranks),
+               "peak_gib": [round(r["peak"] / 2**30, 2) for r in ranks],
+               "one_process_gib": round(oracle["peak"] / 2**30, 2)}
+    return {k: sum(r["launches"][k] for r in ranks) * (HYBRID_STEPS - 1)
+            for k in ("fwd", "bwd", "pair_bwd")}, summary
+
+
+def hybrid_cases(torch, cases, tmp):
+    """(a)-(e) in one world of ``HYBRID_RANKS`` ranks; the oracles run
+    in this process while the ranks start (the ranks wait for them)."""
+    go = os.path.join(tmp, "oracles.json")
+    oracles, t0 = {}, time.perf_counter()
+
+    def run_oracles():
+        for key, case in HYBRID_ORACLES.items():
+            if any(k in cases for k in key):
+                res = hybrid_oracle(torch, case)
+                oracles.update({k: res for k in key})
+        with open(go + ".tmp", "w") as f:
+            json.dump(time.perf_counter() - t0, f)
+        os.replace(go + ".tmp", go)
+
+    with hybrid_world(cases, HYBRID_RANKS, tmp,
+                      env={"PHASE22_GO": go}) as join:
+        run_oracles()
+        ranks = join()
+    wall = time.perf_counter() - t0
+    ready = max(r["stamps"]["ready"] for r in ranks)
+    gone = max(r["stamps"]["go"] for r in ranks)
+    print(f"[phase 22 ({cases})] one world of {HYBRID_RANKS} ranks, "
+          f"{wall:.1f} s: the oracles took {json.load(open(go)):.1f} s "
+          f"beside the ranks' start-up, the ranks waited "
+          f"{max(0.0, gone - ready):.1f} s for them")
+    launches, summary = {}, {}
+    for case in cases:
+        launches[case], summary[case] = hybrid_case(
+            case, [r["cases"][case] for r in ranks], oracles[case], wall)
+    return launches, summary
+
+
+#: (f): the bf16 loss and gradients on the kernels against the plain pair
+#: versions with the routes pinned (relative to the loss and to each
+#: leaf's largest gradient); readings 2.3e-5 and 1.7e-2
+MOE_RING_LOSS_REL = 1e-4
+MOE_RING_GRAD_REL = 5e-2
+
+
+def pinned_routes(torch, route, recorded, flips):
+    """A stand-in for ``moe_route`` that routes each call as ``recorded``
+    (the next route of an earlier run, in call order) routed it: the
+    experts, slots and keep masks pinned, the gate weights and the aux
+    loss from this call's own logits.  ``flips`` counts the tokens whose
+    own top-2 choices differ from the pinned ones, and the tokens."""
+    F = torch.nn.functional
+    it = iter(recorded)
+
+    def pinned(logits, **kw):
+        want = next(it)
+        own = route(logits, **kw)
+        flips[0] += int((own.expert != want.expert).any(dim=1).sum())
+        flips[1] += own.expert.shape[0]
+        probs = torch.softmax(logits.float(), dim=-1)
+        gates = probs.gather(1, want.expert)
+        if kw.get("normalize_top_k", True) and gates.shape[1] > 1:
+            gates = gates / gates.sum(dim=1, keepdim=True)
+        E = logits.shape[1]
+        f = F.one_hot(want.expert[:, 0], E).float().mean(dim=0)
+        return dataclasses.replace(
+            want, weight=gates, aux=E * torch.sum(f * probs.mean(dim=0)))
+
+    return pinned
+
+
+def hybrid_moe_ring(torch, fa, ra):
+    """22 (f): phase 13's MoE at 1.3B widths, 4 layers, at sep 4 on the
+    one-card ring in this process (each shard gated on its own): one
+    bf16 loss and every gradient on the kernels against the plain pair
+    versions, the plain run routed as the kernel run routed (a rounding
+    of the attention flips near-tied routes, and a flipped route changes
+    the gradients wholesale; the flips the plain run would have made are
+    counted), then bf16 steps with the drops of each shard."""
+    import importlib
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.models.gpt import _flat_items
+
+    moe = importlib.import_module("paddle_tpu_torch.distributed.moe")
+    cfg = dataclasses.replace(moe_config(GPT_CONFIGS["gpt3-1.3b"]),
+                              num_layers=MOE_RING["layers"],
+                              seq_parallel="ring")
+    free_cuda(torch)
+    eng = distributed.HybridEngine(cfg, sep=MOE_RING["sep"])
+    params, _ = eng.init(seed=0)
+    items = list(_flat_items(params))
+    leaves = [t for _, t in items]
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens, labels = (torch.from_numpy(a).cuda() for a in hybrid_batch(
+        cfg, *MOE_RING["check"]))
+    route, routes, flips = moe.moe_route, [], [0, 0]
+
+    def record(logits, **kw):
+        r = route(logits, **kw)
+        routes.append(r)
+        return r
+
+    def loss_grads(router):
+        moe.moe_route = router
+        try:
+            loss = eng._local_loss(params, tokens, labels)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        finally:
+            moe.moe_route = route
+
+    zero_counts(fa)
+    ra.launches["pair_bwd"] = 0
+    kl, kg = loss_grads(record)
+    kernel_launches = dict(fa.launches, pair_bwd=ra.launches["pair_bwd"])
+    fwd, bwd = ra._pair_fwd, ra._pair_bwd
+
+    def plain_bwd(q, k, v, do, lse, delta, scale, causal, dq, dk, dv):
+        for acc, t in zip((dq, dk, dv), ra._pair_bwd_ref(
+                q, k, v, do, lse, delta, scale, causal)):
+            acc += t
+
+    ra._pair_fwd = lambda q, k, v, s, c: ra._pair_fwd_ref(q, k, v, s, c)
+    ra._pair_bwd = plain_bwd
+    try:
+        pl, pg = loss_grads(pinned_routes(torch, route, routes, flips))
+    finally:
+        ra._pair_fwd, ra._pair_bwd = fwd, bwd
+    rel = abs(float(kl) - float(pl)) / abs(float(pl))
+    errs = {k: float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for (k, _), a, b in zip(items, kg, pg)}
+    worst = max(errs, key=errs.get)
+    gerr = errs[worst]
+    n_routes = len(routes)
+    del kg, pg, eng, params, leaves, items, routes
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = distributed.HybridEngine(cfg, sep=MOE_RING["sep"])
+    params, opt = eng.init(seed=0)
+    B, S = MOE_RING["train"]
+    batch = hybrid_batch(cfg, B, S)
+    per_shard = []
+
+    def spy(logits, **kw):
+        r = route(logits, **kw)
+        per_shard.append(r.keep)
+        return r
+
+    times, losses = [], []
+    moe.moe_route = spy
+    zero_counts(fa)
+    ra.launches["pair_bwd"] = 0
+    try:
+        with eager_route(torch, eng):
+            for i in range(HYBRID_STEPS):
+                per_shard.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+    finally:
+        moe.moe_route = route
+    steps_launches = dict(fa.launches, pair_bwd=ra.launches["pair_bwd"])
+    sep, L = MOE_RING["sep"], cfg.num_layers
+    want = {n: k * L * HYBRID_STEPS for n, k in train_launches(sep).items()}
+    # the first forward of each layer (the remat re-runs it) routes the
+    # four shards in order
+    drops = [[int((~k).sum()) for k in per_shard[l * sep:(l + 1) * sep]]
+             for l in range(L)]
+    ms = 1e3 * sum(times[1:]) / (HYBRID_STEPS - 1)
+    print(f"[phase 22 (f)] MoE {MOE_EXPERTS} experts top-2 at 1.3B widths, "
+          f"{L} layers, sep {sep} on the one-card ring: kernels vs plain at "
+          f"{MOE_RING['check']}, bf16, the plain run routed as the kernel "
+          f"run ({n_routes} routings): loss {float(kl):.5f} vs "
+          f"{float(pl):.5f} ({rel:.2e} relative, limit "
+          f"{MOE_RING_LOSS_REL:g}), grads within {gerr:.2e} of their "
+          f"largest (worst {worst}; limit {MOE_RING_GRAD_REL:g}); the plain "
+          f"run's own routes would differ for {flips[0]} of {flips[1]} "
+          f"tokens; kernel launches of that forward+backward "
+          f"{kernel_launches}; bf16 {B} x {S}: losses "
+          f"{[round(x, 4) for x in losses]}, launches over the "
+          f"{HYBRID_STEPS} steps {steps_launches}, {ms:.1f} ms/step (eager "
+          f"route, host clock), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dropped "
+          f"(token, choice) pairs a layer by shard {drops}")
+    check(kernel_launches["pair_bwd"] > 0,
+          f"22 (f): no ring-pair launch in the check {kernel_launches}")
+    check(rel <= MOE_RING_LOSS_REL and gerr <= MOE_RING_GRAD_REL,
+          f"22 (f): kernels vs plain (bf16, routes pinned): loss "
+          f"{float(kl)} vs {float(pl)}, grads off by {gerr:.3g} of their "
+          f"largest at {worst}")
+    check(steps_launches == want, f"22 (f): launches over the bf16 steps "
+                                  f"{steps_launches}, expected {want}")
+    check(losses[-1] < losses[0], f"22 (f): losses {losses} do not fall")
+    return steps_launches
+
+
+def child_hybrid_mlp(case, out):
+    """22 (g), one rank: the ``bench_integrity`` MLP (hidden 1024, batch
+    128, fp32, Momentum) through ``fleet.init(dp_degree=2)``,
+    ``DataParallel`` and ``fleet.distributed_optimizer``; rank 0 also
+    trains it alone on the whole batch."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective, env, fleet
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    prepare(torch)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["dp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    rank, n = fleet.fleet.worker_index(), fleet.fleet.worker_num()
+    paddle.set_device("gpu")
+    wait_go()
+    H, B = MLP_DP["hidden"], MLP_DP["batch"]
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, H).astype(np.float32)
+    y = rng.randint(0, 10, (B,)).astype(np.int64)
+
+    def mlp():
+        paddle.seed(0)
+        nn = paddle.nn
+        return nn.Sequential(nn.Linear(H, H), nn.ReLU(), nn.Linear(H, H),
+                             nn.ReLU(), nn.Linear(H, 10))
+
+    def train(model, opt, xs, ys, sync=None):
+        xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+        times = []
+        for _ in range(MLP_DP["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = torch.nn.functional.cross_entropy(model(xs), ys)
+            loss.backward()
+            if sync:
+                sync()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    torch.cuda.reset_peak_memory_stats()
+    model = fleet.distributed_model(mlp())
+    opt = fleet.distributed_optimizer(paddle.optimizer.Momentum(
+        learning_rate=0.01, parameters=model.parameters()))
+    b = B // n
+    collective.reset_collective_stats()
+    times = train(model, opt, x[rank * b:(rank + 1) * b],
+                  y[rank * b:(rank + 1) * b], model.apply_collective_grads)
+    params = [p.detach() for p in model.parameters()]
+    res = {"rank": rank, "ms": 1e3 * sum(times[1:]) / (len(times) - 1),
+           "peak": torch.cuda.max_memory_allocated(),
+           "digest": tree_fingerprint({str(i): p for i, p in
+                                       enumerate(params)}),
+           # over every step, the first's gloo set-up included
+           "collective_share": sum(collective.collective_stats()[
+               "seconds"].values()) / sum(times),
+           "transport": env.transport()}
+    if rank == 0:
+        alone = mlp()
+        aopt = paddle.optimizer.Momentum(learning_rate=0.01,
+                                         parameters=alone.parameters())
+        train(alone, aopt, x, y)
+        res["err_vs_one"] = max(float((a - b).abs().max()) for a, b in zip(
+            params, alone.parameters()))
+    with open(f"{out}.r{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def hybrid_mlp(ranks):
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          "22 (g): the two ranks' params differ")
+    check(ranks[0]["err_vs_one"] <= 1e-5,
+          f"22 (g): params off the one-rank run by {ranks[0]['err_vs_one']}")
+    print(f"[phase 22 (g)] MLP hidden {MLP_DP['hidden']}, batch "
+          f"{MLP_DP['batch']}, fp32, Momentum, fleet dp 2 (DataParallel + "
+          f"distributed_optimizer): params bitwise equal across the ranks, "
+          f"within {ranks[0]['err_vs_one']:.2e} of one rank on the whole "
+          f"batch after {MLP_DP['steps']} steps; ms/step "
+          f"{[round(r['ms'], 3) for r in ranks]} (steps 2-3), collective "
+          f"share over the 3 steps "
+          f"{[round(r['collective_share'], 3) for r in ranks]}, "
+          f"peak MiB {[round(r['peak'] / 2**20, 1) for r in ranks]}; "
+          f"transport: {ranks[0]['transport']}")
+
+
+def phase_hybrid(torch, fa, ra, cases="abcdefg"):
+    """Phase 22: worlds of ranks on the one card (see the docstring)."""
+    free_cuda(torch)
+    tmp = tempfile.mkdtemp(prefix="phase22_")
+    launches, summary = {}, {}
+    try:
+        with contextlib.ExitStack() as stack:
+            # (g)'s 2 ranks start beside (a)-(e)'s and wait for their turn
+            mlp_go = os.path.join(tmp, "mlp_go")
+            mlp = stack.enter_context(hybrid_world(
+                "g", 2, tmp, child="hybrid_mlp",
+                env={"PHASE22_GO": mlp_go})) if "g" in cases else None
+            world = "".join(c for c in cases if c in HYBRID)
+            if world:
+                t0 = time.perf_counter()
+                done, summary = hybrid_cases(torch, world, tmp)
+                launches.update(done)
+                print(f"[phase 22 ({world})] {time.perf_counter() - t0:.1f} s")
+            if "f" in cases:
+                t0 = time.perf_counter()
+                launches["f"] = hybrid_moe_ring(torch, fa, ra)
+                print(f"[phase 22 (f)] {time.perf_counter() - t0:.1f} s")
+            if mlp is not None:
+                t0 = time.perf_counter()
+                open(mlp_go, "w").close()
+                hybrid_mlp(mlp())
+                print(f"[phase 22 (g)] {time.perf_counter() - t0:.1f} s "
+                      f"(its start-up beside (a)-(e))")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[phase 22] peak GiB a rank beside the one-process engine's: " +
+          "; ".join(f"({c}) {v['peak_gib']} vs {v['one_process_gib']}"
+                    for c, v in summary.items()))
+    return launches
+
+
 def main():
     import torch
 
@@ -5702,6 +6496,10 @@ def main():
     incubate_launches = phase_domain(torch, paddle, fa)
     print(f"[phase 21] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    hybrid_launches = phase_hybrid(torch, fa, ra)
+    print(f"[phase 22] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -5757,6 +6555,17 @@ def main():
         key = entry["name"].split("_")[2]
         entry["incubate_launches"] = incubate_launches[
             "fwd" if key == "fwd" else "bwd"]
+    # phase 22: every rank's launches over the timed steps of each world
+    # ((a)-(e)) and (f)'s kernel-vs-plain forward and backward
+    for entry in kernels[1:4]:
+        key = entry["name"].split("_")[2]
+        key = "fwd" if key == "fwd" else "bwd"
+        entry["hybrid_launches"] = {c: v[key]
+                                    for c, v in hybrid_launches.items()}
+    kernels[1]["hybrid_ring_launches"] = {
+        c: v["fwd"] for c, v in hybrid_launches.items() if c in "cf"}
+    kernels[4]["hybrid_launches"] = {
+        c: v["pair_bwd"] for c, v in hybrid_launches.items() if c in "cf"}
     # the port's own kernel (no Pallas site): the sentinel's digests,
     # replacing the JAX package's host CRC; launches from phase 19 (a),
     # times at 19 (f)'s MLP parameters
@@ -5773,7 +6582,10 @@ def main():
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:3] == ["--child", "fit"]:
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(child_fit(sys.argv[3]))
+    CHILDREN = {"hybrid": child_hybrid, "hybrid_mlp": child_hybrid_mlp}
+    if sys.argv[1:2] == ["--child"] and sys.argv[2] in CHILDREN:
+        sys.exit(CHILDREN[sys.argv[2]](*sys.argv[3:5]))
     sys.exit(main())

@@ -1,7 +1,21 @@
-"""Training on one GPU (the single-device half of
-``paddle_tpu.distributed``): ``HybridEngine`` and its ``EngineConfig``,
-the model adapters (GPT dense or MoE, BERT), the MoE blocks and the
-remat policies."""
+"""Training on one GPU or a world of ranks (the port of
+``paddle_tpu.distributed``): the environment and the launcher's
+contract, the collectives over process groups, the rank grid, the
+sharding rules, the tensor-parallel layers, ``DataParallel``, Fleet,
+``HybridEngine`` and its ``EngineConfig``, the model adapters (GPT
+dense or MoE, BERT), the MoE blocks and the remat policies."""
+from .env import (ParallelEnv, get_rank, get_world_size,  # noqa: F401
+                  init_parallel_env, is_initialized)
+from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
+                         all_to_all, barrier, broadcast, get_group,
+                         new_group, ppermute, recv, reduce, reduce_scatter,
+                         scatter, send, split)
+from .topology import (CommunicateTopology,  # noqa: F401
+                       HybridCommunicateGroup)
+from . import mesh  # noqa: F401
+from .mesh import build_mesh, replica_peers  # noqa: F401
+from . import fleet  # noqa: F401
+from .parallel import DataParallel  # noqa: F401
 from .engine import EngineConfig, HybridEngine
 from .model_adapter import BertAdapter, GPTAdapter, ModelAdapter
 from .moe import (GShardGate, MoELayer, NaiveGate, SwitchGate, moe_capacity,
@@ -11,4 +25,10 @@ from .recompute import checkpoint_policy
 __all__ = ["HybridEngine", "EngineConfig", "ModelAdapter", "GPTAdapter",
            "BertAdapter", "checkpoint_policy", "moe_capacity", "moe_route",
            "moe_gating", "moe_ffn", "moe_layer", "MoELayer", "NaiveGate",
-           "SwitchGate", "GShardGate"]
+           "SwitchGate", "GShardGate", "init_parallel_env", "get_rank",
+           "get_world_size", "is_initialized", "ParallelEnv", "ReduceOp",
+           "all_gather", "all_reduce", "all_to_all", "barrier", "broadcast",
+           "get_group", "new_group", "ppermute", "recv", "reduce",
+           "reduce_scatter", "scatter", "send", "split",
+           "CommunicateTopology", "HybridCommunicateGroup", "mesh",
+           "build_mesh", "replica_peers", "fleet", "DataParallel"]

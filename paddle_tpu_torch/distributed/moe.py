@@ -21,10 +21,14 @@ function in index form:
 
 ``moe_gating`` keeps the JAX signature and returns the dense tensors
 built from that routing, for tests and small sizes; nothing on the
-model's path calls it.  Expert parallelism (``ep_axis``, the all_to_all
-pair) is the multi-GPU slice of the port and raises
-``NotImplementedError``.  The routing, dispatch, combine and expert
-products are XLA ops in the JAX package and PyTorch ops here; each runs
+model's path calls it.  Expert parallelism (``ep_axis``: the
+expert-parallel ``collective.Group``, or ``"ep"`` for ``fleet``'s)
+keeps E/ep experts a rank: the dispatched ``[E, C, D]`` goes to the
+experts' owners by a balanced all-to-all (``[E/ep, ep·C, D]``), and the
+outputs come back by the inverse one, as the JAX ``all_to_all`` pair
+does; every rank routes its own tokens over all E experts with the
+capacity of its own token count.  The routing, dispatch, combine and
+expert products are XLA ops in the JAX package and PyTorch ops here; each runs
 inside a ``torch.profiler`` range (``moe::route``, ``moe::dispatch``,
 ``moe::experts``, ``moe::combine``).  Every shape follows from ``n``,
 ``E``, ``top_k`` and the capacity, and no op reads a value on the host,
@@ -147,16 +151,15 @@ def moe_layer(params, x, *, top_k=2, capacity_factor=1.25, ep_axis=None,
     ``(y [B, S, D], aux)``.  The gate runs in fp32 from ``x.float() @
     gate_w.float()``; the combine weights are cast to ``x.dtype`` before
     they meet the expert outputs, as JAX's ``combine.astype(x.dtype)``."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is the multi-GPU slice of the "
-            "port; this moe_layer runs every expert on one device")
+    group = _ep_group(ep_axis)
+    ep = group.nranks if group is not None else 1
     B, S, D = x.shape
     n = B * S
     xt = x.reshape(n, D)
     E = params["gate_w"].shape[-1]
-    if params["up_w"].shape[0] != E:
-        raise ValueError(f"experts {E} != local {params['up_w'].shape[0]}")
+    if params["up_w"].shape[0] * ep != E:
+        raise ValueError(f"experts {E} != local {params['up_w'].shape[0]} "
+                         f"x ep {ep}")
 
     with record_function("moe::route"):
         logits = xt.float() @ params["gate_w"].float()
@@ -173,8 +176,15 @@ def moe_layer(params, x, *, top_k=2, capacity_factor=1.25, ep_axis=None,
                      tok.reshape(-1))
         x_pad = torch.cat([xt, xt.new_zeros((1, D))])
         expert_in = x_pad.index_select(0, src[:E * C]).view(E, C, D)
+    if ep > 1:
+        from .collective import AllToAll
+
+        # to the experts' owners: [E/ep, ep·C, D]
+        expert_in = AllToAll.apply(expert_in, group, 0, 1)
     with record_function("moe::experts"):
         out = moe_ffn(params, expert_in)
+    if ep > 1:
+        out = AllToAll.apply(out, group, 1, 0)
     with record_function("moe::combine"):
         # a dropped choice reads slot 0 with weight 0 (and no gradient)
         picked = out.reshape(E * C, D).index_select(
@@ -182,6 +192,23 @@ def moe_layer(params, x, *, top_k=2, capacity_factor=1.25, ep_axis=None,
         w = torch.where(r.keep, r.weight, 0.0).to(x.dtype)
         y = torch.bmm(w[:, None], picked)[:, 0]
     return y.reshape(B, S, D), r.aux
+
+
+def _ep_group(ep_axis):
+    """The expert-parallel group ``ep_axis`` names: a ``collective.Group``
+    as it is, ``"ep"`` the one of ``fleet.init``'s topology; None for
+    none.  A name with no world behind it raises."""
+    if ep_axis is None or not isinstance(ep_axis, str):
+        return ep_axis
+    from .fleet import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        raise ValueError(
+            f"ep_axis={ep_axis!r} names the expert-parallel group of a "
+            f"multi-GPU world: call fleet.init(strategy) in each rank's "
+            f"process, or pass the collective.Group")
+    return hcg.get_expert_parallel_group()
 
 
 # ------------------------------------------------------------ module facade
@@ -233,8 +260,9 @@ class MoELayer(nn.Module):
     ``num_experts`` FFNs of hidden ``d_hidden`` (weights normal, std
     0.02; biases zero; fp32), drawn from ``generator`` on ``device``
     (default CUDA).  ``forward`` returns ``y`` and leaves the load-balance loss
-    in ``aux_loss``.  ``ep_axis`` other than None raises in ``forward``
-    (the multi-GPU slice)."""
+    in ``aux_loss``.  With ``ep_axis`` the layer is one rank's share of
+    the experts: build it with ``num_experts`` = E/ep and pass the gate
+    of all E (``gate=GShardGate(d_model, E)``)."""
 
     def __init__(self, d_model, d_hidden, num_experts, gate="gshard",
                  top_k=None, capacity_factor=1.25, ep_axis=None,

@@ -18,11 +18,15 @@ sums that ride the ring home.  The three sums are zeroed once a call and
 every pair adds its terms into them in place.  Everything is cast to
 q's dtype at the end.
 
-This module runs every rank on one device (the local layout): the shards
-are slices of the whole sequence and the rotation is an index, not a
-send.  The per-pair functions ``_pair_fwd`` and ``_pair_bwd`` are
-rank-local, so a point-to-point ring over several GPUs calls them as
-they are.
+Two layouts share the per-pair functions ``_pair_fwd`` and
+``_pair_bwd``, which are rank-local.  On one device (``sep`` an int)
+the shards are slices of the whole sequence and the rotation is an
+index.  Across ranks (``sep`` the sep ``collective.Group``, one process
+a rank holding its own shard) the rotation is a send: after each ring
+step every rank passes its K/V block to the next rank and takes the
+previous one's (one ``batch_isend_irecv``), and in the backward the
+block's fp32 dK/dV sums travel with it, one more hop at the end to
+bring each home, as the JAX ``ppermute``s do.
 
 Kernels, on CUDA tensors (on CPU tensors each pair takes its plain
 version, ``_pair_fwd_ref`` / ``_pair_bwd_ref``; there is no fallback
@@ -234,17 +238,86 @@ class _Ring(torch.autograd.Function):
                 None)
 
 
+def _shift(tensors, group):
+    """Every rank sends ``tensors`` to the next rank of ``group`` and
+    returns what the previous one sent (new tensors).  The collective
+    layer is imported here: this module loads before it."""
+    from ..distributed.collective import ring_shift
+
+    return ring_shift(tensors, group)
+
+
+class _RingRanks(torch.autograd.Function):
+    """The ring across the ranks of ``group``: this rank's q/k/v shard
+    ``[B, H, s, D]`` (rank order = sequence order).  Forward and backward
+    run the pairs of ``_schedule`` that land on this rank, in the same
+    order; the K/V block at ring step r is rank (my − r)'s."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, scale):
+        n, my = group.nranks, group.rank
+        # the kernels take contiguous operands (q/k/v come as views of
+        # the block's qkv product)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        acc = torch.zeros_like(q, dtype=torch.float32)
+        lse = torch.full(q.shape[:-1], _NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        kv = (k, v)
+        for r in range(n):
+            j = (my - r) % n
+            if j <= my:
+                o, l = _pair_fwd(q, kv[0], kv[1], scale, j == my)
+                lse_new = torch.logaddexp(lse, l)
+                acc.mul_(torch.exp(lse - lse_new)[..., None])
+                acc.addcmul_(o, torch.exp(l - lse_new)[..., None])
+                lse = lse_new
+            if r < n - 1:
+                kv = _shift(kv, group)
+        out = acc.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.group, ctx.scale = group, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, n = ctx.group, ctx.group.nranks
+        my, dtype, D = group.rank, q.dtype, q.shape[-1]
+        do = g.to(dtype).contiguous()
+        delta = fa._delta(out, g.contiguous() if g.dtype == dtype else
+                          g.float().contiguous())
+        q, k, v, do = _pair_operands(q, k, v, do)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        kk, vv = k, v
+        dk = torch.zeros(kk.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for r in range(n):
+            j = (my - r) % n
+            if j <= my:
+                _pair_bwd(q, kk, vv, do, lse, delta, ctx.scale, j == my,
+                          dq, dk, dv)
+            if r < n - 1:
+                kk, vv, dk, dv = _shift((kk, vv, dk, dv), group)
+            else:
+                # one more hop brings each block's sums home
+                dk, dv = _shift((dk, dv), group)
+        return (dq[..., :D].to(dtype), dk[..., :D].to(dtype),
+                dv[..., :D].to(dtype), None, None)
+
+
 def ring_attention(q, k, v, sep, causal=True, scale=None, block_q=512,
                    block_kv=1024):
     """Causal attention over the whole sequence, computed as a ring of
     ``sep`` sequence shards.
 
-    q/k/v: ``[B, H, S, D]``, the whole sequence on one device; rank i's
-    shard is positions ``[i·S/sep, (i+1)·S/sep)``.  As in the JAX
-    wrapper: causal only (``NotImplementedError`` otherwise), and S/sep
-    a multiple of 128 (``ValueError``); S must split into ``sep``
-    shards.  ``block_q``/``block_kv`` (the TPU kernel's tiles) are
-    accepted and ignored.  Differentiable; CPU tensors take the plain
+    ``sep`` an int: q/k/v ``[B, H, S, D]`` hold the whole sequence on one
+    device; rank i's shard is positions ``[i·S/sep, (i+1)·S/sep)``.
+    ``sep`` a ``collective.Group`` (the JAX ``axis_name``): q/k/v are this
+    rank's shard ``[B, H, S_local, D]``, the group's ranks holding the
+    sequence in rank order.  As in the JAX wrapper: causal only
+    (``NotImplementedError`` otherwise), and S_local a multiple of 128
+    (``ValueError``).  ``block_q``/``block_kv`` (the TPU kernel's tiles)
+    are accepted and ignored.  Differentiable; CPU tensors take the plain
     versions, CUDA tensors the kernels."""
     del block_q, block_kv
     if not causal:
@@ -252,6 +325,15 @@ def ring_attention(q, k, v, sep, causal=True, scale=None, block_q=512,
             "ring_attention is causal-only; for non-causal, use "
             "flash_attention over the whole sequence")
     fa._check(q, k, v)
+    if not isinstance(sep, int):
+        if q.shape[2] % 128:
+            raise ValueError(f"ring_attention needs S_local % 128 == 0, "
+                             f"got {q.shape[2]}")
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        if sep.nranks == 1:
+            return _Ring.apply(q, k, v, 1, float(scale))
+        return _RingRanks.apply(q, k, v, sep, float(scale))
     S = q.shape[2]
     if sep < 1 or S % sep:
         raise ValueError(f"ring_attention splits S={S} into sep={sep} "

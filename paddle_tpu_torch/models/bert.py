@@ -112,11 +112,18 @@ def bert_init(cfg: BertConfig, generator=None, device=None, dtype=None):
     }
 
 
-def bert_embed(cfg: BertConfig, aux, tokens, token_type_ids=None):
-    """Token + position + token-type embedding, then the embedding LN."""
+def bert_embed(cfg: BertConfig, aux, tokens, token_type_ids=None,
+               engine=None):
+    """Token + position + token-type embedding, then the embedding LN.
+    With ``engine`` the token and position lookup is the engine's
+    (``_embed_core``: vocab-split over mp and the positions of the sep
+    slice in a world)."""
     tokens = tokens.long()
     S = tokens.shape[1]
-    x = (aux["wte"][tokens] + aux["wpe"][:S]).to(cfg.torch_dtype())
+    if engine is not None:
+        x = engine._embed_core(aux["wte"], aux["wpe"], tokens)
+    else:
+        x = (aux["wte"][tokens] + aux["wpe"][:S]).to(cfg.torch_dtype())
     tt = (torch.zeros_like(tokens) if token_type_ids is None
           else token_type_ids.long())
     # an embedding lookup, not an index: every token hits one of two

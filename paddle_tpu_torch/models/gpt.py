@@ -280,7 +280,7 @@ def _default_attention(cfg, q, k, v, causal=True):
 
 
 def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
-              dropout=_dropout):
+              dropout=_dropout, moe=None):
     """One pre-LN transformer block (attention + dense or MoE FFN) on
     ``x [B, S, D]``; ``bp`` is this layer's slice of the stacked block
     params.  Returns ``(x, aux)``: aux is the MoE load-balance loss, a
@@ -294,7 +294,9 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
     (default: flash attention where available, else the naive route) —
     the hook through which a caller runs the block on the plain version
     for comparison, the engine its sequence-parallel attention and the
-    BERT adapter its bidirectional one."""
+    BERT adapter its bidirectional one.  ``moe(cfg, bp, h) -> (y, aux)``
+    replaces a MoE block's FFN (the engine gates each sequence shard of
+    its one-device ring on its own)."""
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     s_attn = s_ffn = None
@@ -318,7 +320,7 @@ def gpt_block(cfg: GPTConfig, bp, x, dropout_seed=None, attention=None,
 
     h = _layer_norm(x, bp["ln2_g"], bp["ln2_b"])
     if cfg.moe_experts:
-        y, aux = _moe(cfg, bp, h)
+        y, aux = (moe or _moe)(cfg, bp, h)
         return x + dropout(y, cfg.dropout, s_ffn), aux
     h = h @ bp["up_w"] + bp["up_b"]
     h = F.gelu(h, approximate="tanh")

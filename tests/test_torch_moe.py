@@ -190,8 +190,10 @@ def test_index_route_equals_dense_einsum_route():
 
 
 def test_moe_layer_refuses_expert_parallelism():
+    """``ep_axis="ep"`` names the expert-parallel group of a world: in one
+    process without ``fleet.init`` there is none, and the call says so."""
     p, (x, _) = _moe_params(5), _moe_inputs(6)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="multi-GPU"):
         moe.moe_layer({k: torch.from_numpy(v) for k, v in p.items()},
                       torch.from_numpy(x), ep_axis="ep")
 

@@ -23,7 +23,8 @@ def _port_sources():
         dirs[:] = [d for d in dirs if d != "build"]   # kernel build output
         out += [os.path.relpath(os.path.join(root, f), REPO)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", "chip_ab.py", "chip_bench.py"]
+    return sorted(out) + ["chip_smoke.py", "chip_ab.py", "chip_bench.py",
+                          "chip_probe.py"]
 
 
 def _module_names():

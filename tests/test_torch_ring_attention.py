@@ -406,10 +406,10 @@ def test_ring_engine_matches(ring_runs, other):
 
 
 def test_engine_sep_axes_and_checks():
-    """Ring sep > 1 builds; Ulysses sep > 1 and mp > 1 are still the
-    multi-GPU slice; Ulysses with heads not divisible by sep fails the
-    ported ``validate``; a step whose S does not split into sep shards
-    of 128 raises before any work."""
+    """Ring sep > 1 builds on one device; Ulysses sep > 1 and mp > 1 need
+    a world of ranks (the multi-GPU path); Ulysses with heads not
+    divisible by sep fails the ported ``validate``; a step whose S does
+    not split into sep shards of 128 raises before any work."""
     ring = GPTConfig(**KW)
     ulysses = dataclasses.replace(ring, seq_parallel="ulysses")
     assert HybridEngine(ring, sep=4, device="cpu").sep == 4

@@ -181,19 +181,27 @@ def test_counts_and_module_facade(tiny):
 
 
 def test_engine_rejects_parallel_axes_and_moe():
-    """Every multi-GPU axis raises; MoE trains at ep = 1 but not at
-    ep > 1, and MoE or BERT not at sep > 1 (ring or Ulysses)."""
-    for axis in ("dp", "pp", "sharding", "sep", "mp", "ep"):
+    """In one process every axis that needs a world raises (the
+    multi-GPU path runs one process a rank), pp > 1 names the next slice,
+    ep > 1 needs a MoE model; MoE trains at ep = 1 and, on the one-device ring, at sep > 1 (each
+    shard gated on its own); MoE and BERT at Ulysses sep > 1 need the
+    world."""
+    for axis in ("dp", "pp", "sharding", "sep", "mp"):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             HybridEngine(CFG, device="cpu", **{axis: 2})
+    with pytest.raises(ValueError, match="MoE"):
+        HybridEngine(CFG, device="cpu", ep=2)
     moe = dataclasses.replace(CFG, moe_experts=4)
     HybridEngine(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         HybridEngine(moe, device="cpu", ep=2)
+    ring = HybridEngine(dataclasses.replace(moe, seq_parallel="ring"),
+                        device="cpu", sep=2)
+    assert ring.local_sep == 2 and not ring.distributed
     bert = BertAdapter(dataclasses.replace(BERT_CONFIGS["tiny"],
                                            dtype="float32"))
-    for model in (moe, dataclasses.replace(moe, seq_parallel="ring"), bert):
-        with pytest.raises(NotImplementedError, match="sep > 1"):
+    for model in (moe, bert):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
             HybridEngine(model, device="cpu", sep=2)
     with pytest.raises(ValueError):
         EngineConfig(opt_dtype="float16")

@@ -239,7 +239,28 @@ Phases (any failure exits non-zero):
      launches and the drops of each shard; (g) the sentinel's MLP
      through ``fleet.init(dp_degree=2)``, ``DataParallel`` and
      ``fleet.distributed_optimizer`` on 2 ranks: params bitwise equal
-     across the ranks and within 1e-5 of one rank on the whole batch.
+     across the ranks and within 1e-5 of one rank on the whole batch;
+ 23. the rest of the worlds, in one world of 4 ranks on the one card
+     (``--child worlds``), the oracles in this process while the ranks
+     start: (a) pp 4 1F1B and (b) pp 4 GPipe on all 24 layers at 8 x
+     2048 (8 microbatches), (c) ZeRO-3 sharding 4 and (d) pp 2 x
+     sharding 2 at ZeRO-3 on 8 layers at 4 x 2048, each against the
+     one-process engine (every step's loss within ``WORLD_LOSS_REL``,
+     each leaf's step-1 gradient norm within ``WORLD_GRAD_REL``, the
+     flash launches of every rank held to the schedule, the replicated
+     windows bitwise equal, a tiny fp32 check at 2e-4 / 1e-4 first);
+     the peaks of both schedules at 4 and 8 microbatches (1F1B's flat,
+     GPipe's growing) and ZeRO-3's below ZeRO-2's; (e) ``Engine(mesh=)``
+     at mp 2 and mp 4 on phase 4's mix: the ragged launches of every
+     rank, step-1 logits within ``WORLD_LOGITS_REL`` of the one-process
+     engine's, the ranks' tokens equal, tok/s and TTFT; (f) (a)'s world
+     at 8 layers saved after step 2 (each window written once, by one
+     rank), resumed at dp 2 x mp 2 within (a)'s limits and at pp 4
+     bitwise, a bit flipped in one rank's shard named by rank and window
+     and repaired from its replica; (g) hapi ``prepare(device_mesh=
+     "auto")`` on 4 ranks, a 4-stage ``PipelineLayer`` through
+     ``fleet.distributed_model`` and ``PipelineStageExecutor`` on 2
+     processes, each within 1e-5 of its one-process run.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -5641,27 +5662,14 @@ def hybrid_batch(cfg, B, S, seed=22):
 def grad_norms(torch, eng):
     """Each leaf's gradient norm at ``eng``'s next step, as the step
     hands its gradients to the update (before the clip), into the dict
-    returned: a leaf's disjoint parts (ZeRO-2 chunks over sharding, mp-
-    and ep-split leaves) summed over the ranks that hold them, as the
-    clip sums them."""
-    from paddle_tpu_torch.distributed import collective
-
+    returned: a leaf's disjoint parts (ZeRO chunks and slices over
+    sharding, pp-, mp- and ep-split leaves) summed over the ranks that
+    hold them, as the clip sums them (``HybridEngine.leaf_sq``)."""
     got, apply = {}, eng._apply
 
     def spy(paths, leaves, grads, *rest):
         del eng._apply
-        sq = torch.stack([g.float().square().sum() for g in grads])
-        if eng._zero2():
-            collective.all_reduce(sq, group=eng.group["sharding"])
-        cat = torch.tensor([eng._split_axis(p) for p in paths],
-                           device=sq.device)
-        for k, axis in ((1, "mp"), (2, "ep")):
-            group = eng._live_group(axis)
-            if group is not None:
-                part = torch.where(cat == k, sq, 0.0)
-                collective.all_reduce(part, group=group)
-                sq = torch.where(cat == k, part, sq)
-        got.update(zip(paths, sq.sqrt().tolist()))
+        got.update(zip(paths, eng.leaf_sq(paths, grads).sqrt().tolist()))
         return apply(paths, leaves, grads, *rest)
 
     eng._apply = spy
@@ -5881,7 +5889,8 @@ def hybrid_world(cases, n, tmp, child="hybrid", env=None):
                 path = os.path.join(logs, f"workerlog.{i}")
                 if os.path.exists(path):
                     print(f"--- rank {i} ---\n" + open(path).read()[-3000:])
-        check(rc == 0, f"22 ({cases}): the world of {n} ranks exited {rc}")
+        check(rc == 0, f"{child} ({cases}): the world of {n} ranks exited "
+                       f"{rc}")
         return [json.load(open(f"{out}.r{i}.json")) for i in range(n)]
 
     try:
@@ -6335,6 +6344,1024 @@ def phase_hybrid(torch, fa, ra, cases="abcdefg"):
     return launches
 
 
+# ------------------------------------ the rest of the worlds (phase 23)
+
+#: phase 23's training cases, each a grid over the one world of
+#: ``HYBRID_RANKS`` ranks at GPT-3 1.3B's widths: (a) and (b) the
+#: pipeline on all 24 layers, one microbatch a row of the global batch;
+#: (c) and (d) ZeRO-3 cut to 8 layers (the depth keeps gloo's gathers of
+#: whole layers within the phase's time)
+WORLDS = {
+    "a": dict(axes=dict(pp=4), layers=24, batch=(8, 2048),
+              ec=dict(num_microbatches=8, pipeline_schedule="1f1b")),
+    "b": dict(axes=dict(pp=4), layers=24, batch=(8, 2048),
+              ec=dict(num_microbatches=8, pipeline_schedule="gpipe")),
+    "c": dict(axes=dict(sharding=4), layers=8, batch=(4, 2048),
+              ec=dict(zero_stage=3)),
+    "d": dict(axes=dict(pp=2, sharding=2), layers=8, batch=(4, 2048),
+              ec=dict(zero_stage=3, num_microbatches=2)),
+}
+WORLD_STEPS = 2                    # (a)-(d): 1 warm, 1 timed (cut from 3)
+WORLD_TINY = dict(batch=(4, 512), micro={"a": 4, "b": 4, "d": 2})
+#: (b): the peak of each schedule at 4 microbatches (global batch 4 x
+#: 2048, the microbatch unchanged), one step each, beside 8's
+WORLD_MEM_MICRO = 4
+#: (f): (a)'s world cut to (c)'s depth (the save writes each rank's
+#: windows of the params and the fp32 canonical optimizer state)
+WORLD_CKPT = dict(layers=8, batch=(8, 2048),
+                  ec=dict(num_microbatches=8, pipeline_schedule="1f1b"))
+WORLD_SERVE_MP = (2, 4)            # (e)
+#: (e): the logits of an mp world against the one-process engine's on
+#: the rows of the same history (every step), relative to the row's
+#: largest logit: bf16 at 1.3B widths (the row products' partial sums
+#: are rounded to bf16 before the all-reduce), fp32 at ``tiny``; a
+#: control step with one rank's pages wrong must land above it
+WORLD_LOGITS_REL = {"1.3b": 5e-2, "tiny": 1e-4}
+WORLD_MLP = dict(hidden=1024, batch=128, steps=3, micro=4)    # (g)
+#: (a)-(d), (f): every step's loss and each leaf's step-1 gradient norm
+#: against the one-process engine, relative: phase 22's limits (2e-4,
+#: 3e-3) tightened to this phase's first readings (at most 8.8e-6 and
+#: 2.6e-4) with a margin of four to six
+WORLD_LOSS_REL = 5e-5
+WORLD_GRAD_REL = 1e-3
+WORLD_CASES = "abcdefg"
+WORLD_DEVICE = "cuda"              # the oracles' device
+
+
+def world_cfg(layers, tiny=False):
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    if tiny:
+        return dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32",
+                                   max_seq_len=512)
+    return dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"], num_layers=layers)
+
+
+def world_serve_cfgs():
+    """(e)'s two sizes: 1.3B widths at 24 layers in bf16, and ``tiny`` in
+    fp32 (its positions long enough for the mix's 1056 tokens)."""
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    return {"1.3b": world_cfg(24),
+            "tiny": dataclasses.replace(GPT_CONFIGS["tiny"], dtype="float32",
+                                        max_seq_len=2048)}
+
+
+def world_launches(case, coords, L):
+    """Flash launches a step on the rank at ``coords`` by the schedule:
+    remat "dots" re-runs each layer's forward in the backward; a 1F1B
+    stage runs a microbatch's forward twice (its forward tick without a
+    graph, then again at its backward tick) unless it is the last."""
+    c = WORLDS[case]
+    pp = c["axes"].get("pp", 1)
+    Lr = L // pp
+    if pp == 1:
+        return {"fwd": 2 * Lr, "bwd": Lr}
+    M = c["ec"]["num_microbatches"]
+    last = coords["pp"] == pp - 1
+    runs = 2 if (c["ec"].get("pipeline_schedule", "1f1b") == "gpipe"
+                 or last) else 3
+    return {"fwd": M * runs * Lr, "bwd": M * Lr}
+
+
+def world_oracle(torch, layers, batch):
+    """The one-process engine (eager) on ``layers`` of GPT-3 1.3B at the
+    global ``batch``: each step's loss, each leaf's step-1 gradient norm
+    and the peak."""
+    from paddle_tpu_torch import distributed
+
+    cfg = world_cfg(layers)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = distributed.HybridEngine(cfg, device=WORLD_DEVICE)
+    params, opt = eng.init(seed=0)
+    norms, losses = grad_norms(torch, eng), []
+    tokens = hybrid_batch(cfg, *batch)
+    with eager_route(torch, eng):
+        for _ in range(WORLD_STEPS):
+            params, opt, loss = eng.step(params, opt, *tokens, lr=1e-4)
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    del eng, params, opt
+    free_cuda(torch)
+    return {"losses": losses, "grad_norms": norms, "peak": peak}
+
+
+def serve_oracle(torch, serving, cfg, path):
+    """(e)'s one-process engine (its captured step) at ``cfg`` on phase
+    4's mix: the tokens; every step's logits, row by row
+    (``logits_log``), saved to ``path`` for the mp ranks to hold theirs
+    against."""
+    from paddle_tpu_torch.models import gpt_init
+
+    params = gpt_init(cfg, torch.Generator(
+        device=WORLD_DEVICE).manual_seed(0), device=WORLD_DEVICE)
+    eng = serving.Engine(cfg, params, page_size=16, num_pages=2048,
+                         max_batch_size=8, chunk_len=64,
+                         device=WORLD_DEVICE)
+    log = logits_log(eng)
+    _, prompts = serving_prompts(cfg.vocab_size)
+    reqs = serve_requests(eng, serving, prompts)
+    rows = log["rows"]
+    np.savez(path, keys=np.asarray(list(rows), np.int64),
+             logits=np.stack([r[3] for r in rows.values()]))
+    out = {"tokens": [r.output for r in reqs], "rows": len(rows)}
+    del eng, params, log
+    free_cuda(torch)
+    return out
+
+
+def logits_log(eng, control=None):
+    """Every step's logits, row by row, keyed by the row's whole token
+    history (its request's first ``context len`` tokens: their count and
+    CRC32), so that two engines' rows with the same history pair up
+    whatever tokens each sampled before: ``log["rows"]`` ``{key: (step,
+    query len, context len, logits)}``.  ``control(run, args, live,
+    clean)`` runs once, on the first step with a row that reads pages an
+    earlier step wrote; what it returns lands in ``log["control"]``."""
+    import zlib
+
+    run, log = eng._run_step, {"rows": {}}
+
+    def spy(tokens, rows, slots, qlens, ctxs, tables):
+        logits = run(tokens, rows, slots, qlens, ctxs, tables)
+        live = np.nonzero(qlens > 0)[0]
+        clean = np.array(logits[live], copy=True)
+        for n, i in enumerate(live):
+            h = np.asarray(eng._slots[i].tokens[:ctxs[i]], np.int64)
+            key = (len(h), zlib.crc32(h.tobytes()))
+            log["rows"][key] = (eng.steps, int(qlens[i]), int(ctxs[i]),
+                                clean[n])
+        if control is not None and "control" not in log and \
+                np.any(ctxs[live] > qlens[live]):
+            log["control"] = control(
+                run, (tokens, rows, slots, qlens, ctxs, tables), live,
+                clean)
+            logits[live] = clean
+        return logits
+
+    eng._run_step = spy
+    return log
+
+
+def logits_agreement(log, oracle_path):
+    """The rows of ``log`` whose history the oracle's log holds too,
+    each held against the oracle's row relative to that row's largest
+    logit: the worst and the count, over all rows, step 1's, the rows
+    that read pages of earlier steps, and the one-token rows."""
+    z = np.load(oracle_path)
+    idx = {tuple(k): n for n, k in enumerate(z["keys"].tolist())}
+    want_all = z["logits"]
+    worst = dict.fromkeys(("all", "step1", "later", "one_token"), 0.0)
+    count = dict.fromkeys(worst, 0)
+    for key, (step, q, ctx, got) in log["rows"].items():
+        n = idx.get(key)
+        if n is None:
+            continue
+        want = want_all[n]
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        for k, on in (("all", True), ("step1", step == 1),
+                      ("later", ctx > q), ("one_token", q == 1)):
+            if on:
+                count[k] += 1
+                worst[k] = max(worst[k], rel)
+    return {"worst": worst, "count": count, "rows": len(log["rows"])}
+
+
+def _timed_steps(torch, eng, params, opt, batch, steps, fa):
+    """``steps`` engine steps, the launch counts and collectives reset
+    after the first: (params, opt, losses, ms of the timed steps)."""
+    from paddle_tpu_torch.distributed import collective
+
+    losses, times = [], []
+    for i in range(steps):
+        if i == 1:
+            zero_counts(fa)
+            collective.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    return params, opt, losses, 1e3 * sum(times[1:]) / max(1, steps - 1)
+
+
+def _rank_stats(ms, timed=1):
+    from paddle_tpu_torch.distributed import collective, env
+
+    stats = collective.collective_stats()
+    return {"collective_s": sum(stats["seconds"].values()) / timed,
+            "bytes": {str(k): v / timed for k, v in stats["bytes"].items()},
+            "staged": sum(stats["staged_bytes"].values()) / timed,
+            "transport": env.transport(), "ms": ms}
+
+
+def _train_world_case(torch, distributed, case, rank):
+    """One rank's share of (a)-(d) at full width: the tiny fp32 check
+    first, then ``WORLD_STEPS`` steps (the last timed) with the step-1
+    gradient norms, and (b) the peaks at ``WORLD_MEM_MICRO``
+    microbatches on both schedules, (c) the peak of the same grid at
+    ZeRO-2."""
+    from paddle_tpu_torch.distributed import EngineConfig
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.resilience.integrity import shard_fingerprint
+
+    c = WORLDS[case]
+    res = {"tiny": _tiny_world(torch, distributed, case, rank)}
+    cfg = world_cfg(c["layers"])
+    torch.cuda.synchronize()
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = distributed.HybridEngine(cfg, **c["axes"],
+                                   engine_cfg=EngineConfig(**c["ec"]))
+    params, opt = eng.init(seed=0)
+    batch = hybrid_batch(cfg, *c["batch"])
+    norms = grad_norms(torch, eng)
+    params, opt, losses, ms = _timed_steps(torch, eng, params, opt, batch,
+                                           WORLD_STEPS, fa)
+    res.update(_rank_stats(ms), rank=rank, coords=eng.coords,
+               losses=losses, grad_norms=norms,
+               peak=torch.cuda.max_memory_allocated(),
+               launches={"fwd": fa.launches["fwd"],
+                         "bwd": fa.launches["bwd"]},
+               live_peak=getattr(eng, "pipeline_stats", {}).get(
+                   "live_peak"),
+               digest=shard_fingerprint(eng.shard_views(params)))
+    del eng, params, opt
+    free_cuda(torch)
+    extra = []
+    if case == "b":
+        # each schedule's peak at half the microbatches of the same size
+        for sched in ("1f1b", "gpipe"):
+            extra.append((f"peak_{sched}_{WORLD_MEM_MICRO}", dict(
+                c["ec"], num_microbatches=WORLD_MEM_MICRO,
+                pipeline_schedule=sched), (WORLD_MEM_MICRO, c["batch"][1])))
+    if case == "c":
+        extra.append(("peak_zero2", dict(zero_stage=2), c["batch"]))
+    for key, ec, shape in extra:
+        torch.cuda.reset_peak_memory_stats()
+        eng = distributed.HybridEngine(cfg, **c["axes"],
+                                       engine_cfg=EngineConfig(**ec))
+        params, opt = eng.init(seed=0)
+        eng.step(params, opt, *hybrid_batch(cfg, *shape), lr=1e-4)
+        torch.cuda.synchronize()
+        res[key] = torch.cuda.max_memory_allocated()
+        del eng, params, opt
+        free_cuda(torch)
+    return res
+
+
+def _tiny_world(torch, distributed, case, rank):
+    """Case ``case``'s grid at tiny widths in fp32 (TF32 off) against the
+    one-rank engine (rank 0 runs it): 3 steps from the same params, the
+    world's gathered params at the end."""
+    from paddle_tpu_torch.distributed import EngineConfig, env
+    from paddle_tpu_torch.models import params_to_numpy
+
+    cfg = world_cfg(0, tiny=True)
+    batch = hybrid_batch(cfg, *WORLD_TINY["batch"], seed=5)
+    one = None
+    if rank == 0:
+        eng = distributed.HybridEngine(cfg, device=env.current_device())
+        p, o = eng.init(seed=0)
+        losses = []
+        for _ in range(3):
+            p, o, loss = eng.step(p, o, *batch, lr=1e-3)
+            losses.append(float(loss))
+        one = (losses, params_to_numpy(p))
+    ec = dict(WORLDS[case]["ec"])
+    if "num_microbatches" in ec:
+        ec["num_microbatches"] = WORLD_TINY["micro"][case]
+    eng = distributed.HybridEngine(cfg, **WORLDS[case]["axes"],
+                                   engine_cfg=EngineConfig(**ec))
+    p, o = eng.init(seed=0)
+    losses = []
+    for _ in range(3):
+        p, o, loss = eng.step(p, o, *batch, lr=1e-3)
+        losses.append(float(loss))
+    full = params_to_numpy(eng.gather_params(p))
+    if one is None:
+        return None
+    got, want = dict(_flat_np(full)), dict(_flat_np(one[1]))
+    err = max(float(np.abs(got[k] - v).max()) for k, v in want.items())
+    dl = max(abs(a - b) - 1e-4 * abs(b) for a, b in zip(losses, one[0]))
+    return {"losses": losses, "one_rank": one[0], "loss_excess": dl,
+            "param_err": err}
+
+
+def _flat_np(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_np(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _ckpt_world_case(torch, distributed, tmp, rank):
+    """(f): (a)'s pp = 4 1F1B world at ``WORLD_CKPT``'s depth, 2 steps,
+    ``save_engine_state`` (each rank its windows), the uninterrupted
+    step 3; a dp 2 x mp 2 engine loads and takes step 3; a fresh pp = 4
+    engine loads and takes step 3 (bitwise); then one bit flipped in
+    rank 1's shard of the dp 2 x mp 2 engine: with two holders of the
+    window, both are named and nothing is copied."""
+    from paddle_tpu_torch.distributed import EngineConfig, checkpoint
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.resilience import integrity
+
+    cfg = world_cfg(WORLD_CKPT["layers"])
+    batch = hybrid_batch(cfg, *WORLD_CKPT["batch"])
+    path = os.path.join(tmp, "ckpt")
+    res = {}
+
+    def engine(axes, ec):
+        return distributed.HybridEngine(cfg, **axes,
+                                        engine_cfg=EngineConfig(**ec))
+
+    free_cuda(torch)
+    eng = engine(dict(pp=4), WORLD_CKPT["ec"])
+    params, opt = eng.init(seed=0)
+    params, opt, _, _ = _timed_steps(torch, eng, params, opt, batch, 2, fa)
+    collective.barrier()
+    t0 = time.perf_counter()
+    checkpoint.save_engine_state(path, eng, params, opt)
+    collective.barrier()
+    res["save_s"] = time.perf_counter() - t0
+    with open(os.path.join(path, f"manifest.{rank}.json")) as f:
+        res["windows"] = {l["path"]: [s["index"] for s in l["shards"]]
+                          for l in json.load(f)["leaves"]}
+    norms = grad_norms(torch, eng)
+    params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+    res.update(loss=float(loss), grad_norms=norms,
+               digest=integrity.shard_fingerprint(eng.shard_views(params)))
+    del eng, params, opt
+    free_cuda(torch)
+    for key, axes, ec in (("dpmp", dict(dp=2, mp=2), {}),
+                          ("pp4", dict(pp=4), WORLD_CKPT["ec"])):
+        eng = engine(axes, ec)
+        t0 = time.perf_counter()
+        params, opt = checkpoint.load_engine_state(path, eng)
+        collective.barrier()
+        load_s = time.perf_counter() - t0
+        norms = grad_norms(torch, eng)
+        params, opt, loss = eng.step(params, opt, *batch, lr=1e-4)
+        res[key] = {"loss": float(loss), "grad_norms": norms,
+                    "load_s": load_s, "step0": opt["step"] - 1,
+                    "digest": integrity.shard_fingerprint(
+                        eng.shard_views(params))}
+        if key == "dpmp":
+            # ranks 1 and 3 hold the same window: a flip on the lower one
+            # leaves no majority, so both are named and nothing is copied
+            views = eng.shard_views(params)
+            if rank == 1:
+                bits = params["blocks"]["qkv_w"].detach().view(-1).view(
+                    torch.int16)
+                bits[12345] ^= 1 << 9
+            before, _ = integrity.cross_rank_windows(views)
+            repaired = integrity.repair_windows(views, before)
+            after, _ = integrity.cross_rank_windows(views)
+            res[key].update(flip_before=before, repaired=repaired,
+                            flip_after=after,
+                            flip_digest=integrity.shard_fingerprint(views))
+        del eng, params, opt
+        free_cuda(torch)
+    return res
+
+
+def wrong_pages_control(eng, pa, wrong, extra):
+    """``logits_log``'s control: the step again with this rank's
+    attention reading each row's pages through the next row's page table
+    where ``wrong`` (the last mp rank), then clean once more, which
+    rewrites this step's pages as they were.  The two runs' steps and
+    launches add to ``extra`` (they are not the main path's).  Returns
+    the wrong run's and the clean rerun's distance from the step, each
+    relative to the row's largest logit."""
+
+    def control(run, args, live, clean):
+        real = pa.ragged_paged_attention
+        n0 = real.launches
+
+        def wrong_tables(q, kp, vp, tables, *a, **k):
+            return real(q, kp, vp, tables.roll(1, dims=0), *a, **k)
+
+        # the kernel's wrapper counts on the module's name: the count
+        # runs on while the name is the wrong one, and goes back after
+        wrong_tables.launches = real.launches
+        if wrong:
+            pa.ragged_paged_attention = wrong_tables
+        try:
+            bad = np.array(run(*args)[live], copy=True)
+        finally:
+            if wrong:
+                real.launches = wrong_tables.launches
+            pa.ragged_paged_attention = real
+        again = np.array(run(*args)[live], copy=True)
+        extra["steps"] += 2
+        extra["launches"] += real.launches - n0
+        scale = np.abs(clean).max(axis=1)
+        return {"rel": float((np.abs(bad - clean).max(axis=1)
+                              / scale).max()),
+                "restored": float((np.abs(again - clean).max(axis=1)
+                                   / scale).max()),
+                "bitwise": bool(np.array_equal(again, clean)),
+                "step": eng.steps - 2}
+
+    return control
+
+
+def _serve_world_case(torch, rank):
+    """(e): ``Engine(mesh=build_mesh(mp=k))`` for each k of
+    ``WORLD_SERVE_MP`` on phase 4's mix (ranks past k only make the
+    mesh's groups), at 1.3B widths in bf16 and at ``tiny`` in fp32: the
+    tokens, every step's logits held against the oracle's rows of the
+    same history (rank 0), a control step with one rank's pages
+    deliberately wrong, the ragged launches, tok/s, TTFT and the
+    collectives' share."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.distributed import collective, env
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import gpt_init
+
+    out = {}
+    for size, cfg in world_serve_cfgs().items():
+        _, prompts = serving_prompts(cfg.vocab_size)
+        for mp in WORLD_SERVE_MP:
+            mesh = mesh_mod.build_mesh(mp=mp)
+            if rank >= mp:
+                continue
+            free_cuda(torch)
+            torch.cuda.reset_peak_memory_stats()
+            dev = env.current_device()
+            params = gpt_init(cfg, torch.Generator(device=dev).manual_seed(
+                0), device=dev)
+            eng = serving.Engine(cfg, params, page_size=16, num_pages=2048,
+                                 max_batch_size=8, chunk_len=64, mesh=mesh)
+            del params
+            extra = {"steps": 0, "launches": 0}
+            log = logits_log(eng, wrong_pages_control(
+                eng, pa, rank == mp - 1, extra))
+            pa.ragged_paged_attention.launches = 0
+            collective.reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = serve_requests(eng, serving, prompts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            snap = eng.metrics.snapshot()
+            stats = collective.collective_stats()
+            out[f"{size}/{mp}"] = {
+                "tokens": [r.output for r in reqs],
+                "steps": eng.steps - extra["steps"],
+                "launches": pa.ragged_paged_attention.launches
+                - extra["launches"],
+                "pool": list(eng.cache.k_pages.shape),
+                "wall": wall, "ttft": snap["ttft_s"],
+                "gen": sum(len(r.output) for r in reqs),
+                "collective_s": sum(stats["seconds"].values()),
+                "peak": torch.cuda.max_memory_allocated(),
+                "finished": all(r.state == serving.RequestState.FINISHED
+                                for r in reqs),
+                "control": log.get("control"),
+                "logits": logits_agreement(log, os.path.join(
+                    os.environ["PHASE23_TMP"], f"e_oracle_{size}.npz"))
+                if rank == 0 else None}
+            del eng, log
+            free_cuda(torch)
+    return out
+
+
+def _mlp_world_case(torch, rank, store_port):
+    """(g): the sentinel's MLP (hidden 1024, batch 128, fp32) through
+    ``hapi.Model.prepare(device_mesh="auto")`` on the 4 ranks (then a bit
+    flipped on rank 1, named and repaired from the majority), and over
+    dp 2 x mp 2 with a column-row pair of split linears, a 4-stage
+    ``PipelineLayer`` of the same MLP through ``fleet.distributed_model``,
+    and ``PipelineStageExecutor`` on ranks 0 and 1 over a ``TCPStore``;
+    rank 0 runs each one-process reference."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet_executor import (
+        MessageBus, PipelineStageExecutor)
+    from paddle_tpu_torch.distributed.pp_layers import (LayerDesc,
+                                                        PipelineEngine,
+                                                        PipelineLayer)
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.distributed.mesh import P, build_mesh
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.resilience import integrity
+    from paddle_tpu_torch.resilience.integrity import tree_fingerprint
+
+    paddle.set_device("gpu")
+    H, B, steps = WORLD_MLP["hidden"], WORLD_MLP["batch"], WORLD_MLP["steps"]
+    nn = paddle.nn
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, H).astype(np.float32)
+    y = rng.randint(0, 10, (B,)).astype(np.int64)
+
+    def layers():
+        return [nn.Linear(H, H), nn.ReLU(), nn.Linear(H, H), nn.ReLU(),
+                nn.Linear(H, 10)]
+
+    def hapi_fit(mesh, rules=()):
+        paddle.seed(0)
+        net = nn.Sequential(*layers())
+        model = Model(net)
+        model.prepare(paddle.optimizer.Momentum(
+            learning_rate=0.01, parameters=net.parameters()),
+            nn.CrossEntropyLoss(), device_mesh=mesh, sharding_rules=rules)
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.train_batch(x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return [p.detach() for p in net.parameters()], times, model
+
+    res = {"rank": rank}
+    collective.reset_collective_stats()
+    params, times, model = hapi_fit("auto")
+    res["hapi"] = {"digest": tree_fingerprint(
+        {str(i): p for i, p in enumerate(params)}),
+        "ms": 1e3 * sum(times[1:]) / (steps - 1),
+        "collective_share": sum(collective.collective_stats()[
+            "seconds"].values()) / sum(times)}
+    # four replicas of every window: a bit flipped on rank 1 is named
+    # beside the majority {0, 2, 3} and copied back from rank 0
+    views = model.shard_views()
+    if rank == 1:
+        params[0].view(-1).view(torch.int32)[777] ^= 1 << 20
+    before, _ = integrity.cross_rank_windows(views)
+    repaired = integrity.repair_windows(views, before)
+    after, _ = integrity.cross_rank_windows(views)
+    res["hapi"]["flip"] = {
+        "before": before, "repaired": repaired, "after": after,
+        "digest": tree_fingerprint({str(i): p
+                                    for i, p in enumerate(params)})}
+    # dp 2 x mp 2, the first weight split by columns and the second by
+    # rows: the products of both run split over mp
+    pair = [(r"^0\.weight$", P(None, "mp")), (r"^2\.weight$", P("mp", None))]
+    tp, _, tmodel = hapi_fit(build_mesh(dp=2, mp=2), pair)
+    res["hapi_mp"] = {"digest": tree_fingerprint(
+        {str(i): p for i, p in enumerate(tp)}),
+        "split": sorted(kind for kind, _, _ in tmodel._tp.values())}
+    if rank == 0:
+        alone, _, _ = hapi_fit(None)
+        res["hapi"]["err_vs_one"] = max(float((a - b).abs().max())
+                                        for a, b in zip(params, alone))
+        res["hapi_mp"]["err_vs_one"] = max(float((a - b).abs().max())
+                                           for a, b in zip(tp, alone))
+    # the 4-stage pipeline through fleet, from the same weights
+    paddle.seed(1)
+    state = [{k: v.detach().cpu().numpy() for k, v in l.named_parameters()}
+             for l in layers()]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["pp_degree"] = 4
+    s.pipeline_configs["accumulate_steps"] = WORLD_MLP["micro"]
+    fleet.init(is_collective=True, strategy=s)
+    descs = [LayerDesc(nn.Linear, H, H), LayerDesc(nn.ReLU),
+             LayerDesc(nn.Linear, H, H), LayerDesc(nn.ReLU),
+             LayerDesc(nn.Linear, H, 10)]
+    eng = fleet.distributed_model(PipelineLayer(
+        descs, loss_fn=nn.CrossEntropyLoss(),
+        topology=fleet.get_hybrid_communicate_group()))
+    eng.load_state(state)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, l = eng.train_batch(x, y, lr=0.01)
+        losses.append(float(l))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # the sequential layer list in this process, from the same weights
+    one = PipelineEngine(PipelineLayer(descs, num_stages=1,
+                                       loss_fn=nn.CrossEntropyLoss()),
+                         num_microbatches=WORLD_MLP["micro"])
+    one.load_state(state)
+    want = [float(one.train_batch(x, y, lr=0.01)[1]) for _ in range(steps)]
+    ref_state = one.state()
+    res["pipeline"] = {
+        "losses": losses, "one": want, "type": type(eng).__name__,
+        "ms": 1e3 * sum(times[1:]) / (steps - 1),
+        "param_err": max([float((v - ref_state[i][k]).abs().max())
+                          for i, d in enumerate(eng.state())
+                          for k, v in d.items()] or [0.0])}
+    # the host-actor pipeline on ranks 0 and 1 over the store
+    if rank <= 1:
+        store = TCPStore("127.0.0.1", store_port, is_master=rank == 0,
+                         world_size=2)
+        bus = MessageBus(store)
+        g = np.random.RandomState(3)
+        w0 = torch.from_numpy((g.randn(H, H) * 0.02).astype(np.float32))
+        w1 = torch.from_numpy((g.randn(H, 1) * 0.02).astype(np.float32))
+        data = [torch.from_numpy(g.randn(32, H).astype(np.float32))
+                for _ in range(4)]
+        target = [torch.from_numpy(g.randn(32, 1).astype(np.float32))
+                  for _ in range(4)]
+
+        def stage0(p, xx):
+            return torch.tanh(xx @ p[0])
+
+        def loss_fn(p, xx, yy):
+            return ((xx @ p[0] - yy) ** 2).mean()
+
+        if rank == 0:
+            ex = PipelineStageExecutor(stage0, [w0.cuda().clone()], 0, 2,
+                                       bus, lr=0.05)
+            for _ in range(steps):
+                ex.train_batch(data)
+            # the same two stages in this process
+            a = w0.cuda().clone().requires_grad_(True)
+            b = w1.cuda().clone().requires_grad_(True)
+            per = []
+            for _ in range(steps):
+                ga, gb, ls = 0, 0, []
+                for d, t in zip(data, target):
+                    l = loss_fn([b], stage0([a], d.cuda()), t.cuda())
+                    da, db = torch.autograd.grad(l, [a, b])
+                    ga, gb = ga + da / 4, gb + db / 4
+                    ls.append(float(l))
+                with torch.no_grad():
+                    a -= 0.05 * ga
+                    b -= 0.05 * gb
+                per.append(float(np.mean(ls)))
+            res["executor"] = {"one": per, "w0_err": float(
+                (ex.params[0] - a).abs().max())}
+        else:
+            ex = PipelineStageExecutor(None, [w1.cuda().clone()], 1, 2,
+                                       bus, loss_fn=loss_fn, lr=0.05)
+            losses, times = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                losses.append(ex.train_batch(None, labels=target))
+                times.append(time.perf_counter() - t0)
+            res["executor"] = {"losses": losses, "ms": 1e3 * sum(
+                times[1:]) / (steps - 1)}
+    return res
+
+
+def child_worlds(cases, out):
+    """``chip_smoke.py --child worlds CASES OUT``, one rank of phase 23's
+    world: once the oracles are done, each case of CASES in turn;
+    writes ``OUT.r<rank>.json``."""
+    import torch
+
+    from paddle_tpu_torch import distributed
+
+    distributed.init_parallel_env()
+    rank = distributed.get_rank()
+    prepare(torch)
+    stamps = {"ready": time.time()}
+    wait_go()
+    stamps["go"] = time.time()
+    res, seconds = {}, {}
+    tmp = os.environ["PHASE23_TMP"]
+    for case in cases:
+        t0 = time.time()
+        if case in WORLDS:
+            res[case] = _train_world_case(torch, distributed, case, rank)
+        elif case == "e":
+            res[case] = {str(k): v for k, v in
+                         _serve_world_case(torch, rank).items()}
+        elif case == "f":
+            res[case] = _ckpt_world_case(torch, distributed, tmp, rank)
+        elif case == "g":
+            res[case] = _mlp_world_case(
+                torch, rank, int(os.environ["PHASE23_STORE_PORT"]))
+        seconds[case] = time.time() - t0
+    with open(f"{out}.r{rank}.json", "w") as f:
+        json.dump({"cases": res, "stamps": stamps, "seconds": seconds}, f,
+                  default=_jsonable)
+    return 0
+
+
+def _jsonable(x):
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, (np.floating, np.integer)):
+        return x.item()
+    return str(x)
+
+
+def world_train_case(case, ranks, oracle):
+    """The checks and the line of one of (a)-(d)."""
+    from paddle_tpu_torch.resilience.integrity import compare_windows
+
+    c = WORLDS[case]
+    L = c["layers"]
+    r0 = ranks[0]
+    steps, worst, gerr = hybrid_readings(ranks, oracle)
+    tiny = r0["tiny"]
+    print(f"[phase 23 ({case})] {c['axes']} {c['ec']}, {L} layers, global "
+          f"batch {c['batch'][0]} x {c['batch'][1]}: losses "
+          f"{[round(x, 5) for x in r0['losses']]} (one process "
+          f"{[round(x, 5) for x in oracle['losses']]}; relative "
+          f"differences by step {[f'{x:.2e}' for x in steps]}, limit "
+          f"{WORLD_LOSS_REL:g}); step-1 gradient norms: worst leaf {worst}"
+          f" ({gerr:.2e} relative, limit {WORLD_GRAD_REL:g}); ms/step "
+          f"{[round(r['ms'], 1) for r in ranks]} (host clock, "
+          f"{WORLD_STEPS - 1} timed); peak GiB a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} (one process "
+          f"{oracle['peak'] / 2**30:.2f}); saved stage inputs at most "
+          f"{[r['live_peak'] for r in ranks]}; collective share "
+          f"{[round(r['collective_s'] * 1e3 / r['ms'], 3) for r in ranks]};"
+          f" MB a step by axis (rank 0) "
+          f"{ {k: round(v / 2**20, 1) for k, v in r0['bytes'].items()} },"
+          f" staged {r0['staged'] / 2**20:.1f} MB; flash launches a rank a "
+          f"step {[r['launches'] for r in ranks]}; tiny fp32: loss excess "
+          f"{tiny['loss_excess']:.2e}, params {tiny['param_err']:.2e}; "
+          f"transport: {r0['transport']}")
+    check(tiny["loss_excess"] <= 2e-4 and tiny["param_err"] <= 1e-4,
+          f"23 ({case}) tiny fp32: losses {tiny['losses']} vs the one-rank "
+          f"{tiny['one_rank']}, params off by {tiny['param_err']}")
+    check(max(steps) <= WORLD_LOSS_REL,
+          f"23 ({case}): losses off the one-process engine's by {steps}")
+    check(gerr <= WORLD_GRAD_REL,
+          f"23 ({case}): the step-1 gradient norm of {worst} off the "
+          f"one-process engine's by {gerr:.3g}")
+    for r in ranks:
+        check(r["losses"][-1] < r["losses"][0],
+              f"23 ({case}): losses {r['losses']} do not fall")
+        want = world_launches(case, r["coords"], L)
+        check(r["launches"] == want,
+              f"23 ({case}) rank {r['rank']}: flash launches a step "
+              f"{r['launches']}, expected {want}")
+    diverged = compare_windows({r["rank"]: r["digest"] for r in ranks})
+    check(not diverged, f"23 ({case}): replicas differ at {diverged[:3]}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ("fwd", "bwd")}
+
+
+def world_memory(res, oracles):
+    """(b): 1F1B's peak flat in the microbatches and GPipe's growing;
+    (c): ZeRO-3's peak below ZeRO-2's."""
+    a, b = res.get("a"), res.get("b")
+    if a and b:
+        m = WORLD_MEM_MICRO
+        f8 = [r["peak"] for r in a]
+        g8 = [r["peak"] for r in b]
+        f4 = [r[f"peak_1f1b_{m}"] for r in b]
+        g4 = [r[f"peak_gpipe_{m}"] for r in b]
+        print(f"[phase 23 (b)] peak GiB a rank, 1F1B at {m} and 8 "
+              f"microbatches {[round(x / 2**30, 2) for x in f4]} -> "
+              f"{[round(x / 2**30, 2) for x in f8]}; GPipe "
+              f"{[round(x / 2**30, 2) for x in g4]} -> "
+              f"{[round(x / 2**30, 2) for x in g8]}")
+        # stage 0 holds the most in flight on both schedules
+        check(f8[0] < 1.1 * f4[0], f"23 (b): 1F1B's stage-0 peak grew "
+                                   f"from {f4[0]} to {f8[0]}")
+        check(g8[0] > f8[0] and g8[0] - g4[0] > 2 * (f8[0] - f4[0]),
+              f"23 (b): GPipe's peak {g4[0]} -> {g8[0]} does not grow past "
+              f"1F1B's {f4[0]} -> {f8[0]}")
+    c = res.get("c")
+    if c:
+        z3 = [r["peak"] for r in c]
+        z2 = [r["peak_zero2"] for r in c]
+        print(f"[phase 23 (c)] peak GiB a rank at sharding 4: ZeRO-3 "
+              f"{[round(x / 2**30, 2) for x in z3]}, ZeRO-2 "
+              f"{[round(x / 2**30, 2) for x in z2]} (one process "
+              f"{oracles['c']['peak'] / 2**30:.2f})")
+        check(max(z3) < min(z2), f"23 (c): ZeRO-3's peaks {z3} not below "
+                                 f"ZeRO-2's {z2}")
+
+
+def world_ckpt(ranks, tmp):
+    """(f)'s checks and line."""
+    f = ranks
+    union = {}
+    for r in f:
+        for path, wins in r["windows"].items():
+            union.setdefault(path, []).extend(wins)
+    import glob
+
+    manifests = glob.glob(os.path.join(tmp, "ckpt", "manifest.*.json"))
+    shapes = {}
+    for m in manifests:
+        with open(m) as fh:
+            for leaf in json.load(fh)["leaves"]:
+                shapes[leaf["path"]] = leaf["shape"]
+    for path, wins in union.items():
+        cover = np.zeros(shapes[path], np.int8)
+        for w in wins:
+            cover[tuple(slice(a, b) for a, b in w)] += 1
+        check((cover == 1).all(), f"23 (f): {path}'s windows are not each "
+                                  f"written once")
+    base = f[0]
+    dpmp = [r["dpmp"] for r in f]
+    rel = max(abs(d["loss"] - base["loss"]) / abs(base["loss"])
+              for d in dpmp)
+    got, want = dpmp[0]["grad_norms"], base["grad_norms"]
+    worst = max(want, key=lambda k: abs(got[k] - want[k]) / want[k])
+    gerr = abs(got[worst] - want[worst]) / want[worst]
+    bitwise = all(r["pp4"]["loss"] == r["loss"] and r["pp4"]["digest"]
+                  == r["digest"] for r in f)
+    flip = dpmp[0]["flip_before"]
+    print(f"[phase 23 (f)] pp 4 1F1B, {WORLD_CKPT['layers']} layers, saved "
+          f"after step 2 in {max(r['save_s'] for r in f):.1f} s "
+          f"({len(union)} leaves, {sum(len(w) for w in union.values())} "
+          f"windows, each written once); dp 2 x mp 2 loads in "
+          f"{max(d['load_s'] for d in dpmp):.1f} s, step 3 loss "
+          f"{dpmp[0]['loss']:.6f} vs {base['loss']:.6f} uninterrupted "
+          f"({rel:.2e} relative), worst step-3 gradient norm {worst} "
+          f"{gerr:.2e}; pp 4 resume bitwise: {bitwise}; bit flipped on "
+          f"rank 1 (its window's replica on rank 3): named {flip}, "
+          f"copied {[d['repaired'] for d in dpmp]}, after "
+          f"{dpmp[0]['flip_after']}")
+    check(all(d["step0"] == 2 for d in dpmp), "23 (f): not resumed at 2")
+    check(rel <= WORLD_LOSS_REL and gerr <= WORLD_GRAD_REL,
+          f"23 (f): the dp 2 x mp 2 resume off the uninterrupted step 3 by "
+          f"{rel:.3g} (loss), {gerr:.3g} (gradient norm of {worst})")
+    check(bitwise, "23 (f): the pp 4 resume is not bitwise")
+    check([(d["rank"], d["leaf"], d["majority_ranks"]) for d in flip]
+          == [(1, "blocks/qkv_w", []), (3, "blocks/qkv_w", [])],
+          f"23 (f): the flipped bit was named as {flip}")
+    check(all(d["repaired"] == [] and d["flip_after"] == flip
+              for d in dpmp), "23 (f): a window without a majority was "
+                              "copied")
+    check(dpmp[3]["flip_digest"] == dpmp[3]["digest"],
+          "23 (f): the healthy replica on rank 3 changed")
+
+
+def world_serve(ranks, oracles):
+    """(e)'s checks and lines."""
+    launches = {}
+    for size, cfg in world_serve_cfgs().items():
+        oracle, limit = oracles[size], WORLD_LOGITS_REL[size]
+        for mp in WORLD_SERVE_MP:
+            rs = [r["e"][f"{size}/{mp}"] for r in ranks[:mp]]
+            toks = rs[0]["tokens"]
+            check(all(r["tokens"] == toks for r in rs),
+                  f"23 (e) {size} mp {mp}: the ranks returned different "
+                  f"tokens")
+            check(all(r["finished"] for r in rs),
+                  f"23 (e) {size} mp {mp}: a request did not finish")
+            for r in rs:
+                check(r["launches"] == cfg.num_layers * r["steps"],
+                      f"23 (e) {size} mp {mp}: ragged launches "
+                      f"{r['launches']} != {cfg.num_layers} x {r['steps']} "
+                      f"steps")
+                check(r["pool"][3] == cfg.num_heads // mp,
+                      f"23 (e): pool {r['pool']}")
+            agree, ctl = rs[0]["logits"], rs[0]["control"]
+            worst, count = agree["worst"], agree["count"]
+            same = sum(x == y for o, w in zip(toks, oracle["tokens"])
+                       for x, y in zip(o, w))
+            total = sum(len(w) for w in oracle["tokens"])
+            ttft = rs[0]["ttft"]
+            print(f"[phase 23 (e)] Engine(mesh=) {size} ({cfg.dtype}) at mp "
+                  f"{mp}: {len(toks)} requests, {rs[0]['steps']} steps, "
+                  f"{rs[0]['gen'] / rs[0]['wall']:.1f} generated tok/s, "
+                  f"TTFT p50 {ttft['p50'] * 1e3:.1f} ms p95 "
+                  f"{ttft['p95'] * 1e3:.1f} ms; logits of the rows whose "
+                  f"history the one-process engine also ran, relative to "
+                  f"the row's largest (limit {limit:g}): {count['all']} of "
+                  f"{agree['rows']} rows, worst {worst['all']:.2e}; step 1 "
+                  f"{count['step1']} rows {worst['step1']:.2e}; reading "
+                  f"earlier steps' pages {count['later']} rows "
+                  f"{worst['later']:.2e}; one-token rows "
+                  f"{count['one_token']} {worst['one_token']:.2e}; control "
+                  f"(step {ctl['step']}, mp rank {mp - 1} reading the next "
+                  f"row's pages): {ctl['rel']:.2e}, its clean rerun "
+                  f"{ctl['restored']:.2e} (bitwise {ctl['bitwise']}); greedy "
+                  f"tokens equal to its {same}/{total}; tokens equal across "
+                  f"the ranks; collective share "
+                  f"{[round(r['collective_s'] / r['wall'], 3) for r in rs]}"
+                  f"; ragged launches a rank {[r['launches'] for r in rs]}; "
+                  f"pool a rank {rs[0]['pool']}; peak GiB "
+                  f"{[round(r['peak'] / 2**30, 2) for r in rs]}")
+            check(worst["all"] <= limit,
+                  f"23 (e) {size} mp {mp}: logits off by {worst} of the "
+                  f"largest")
+            check(count["later"] > 0 and count["one_token"] > 0,
+                  f"23 (e) {size} mp {mp}: no row past step 1 held "
+                  f"({count})")
+            check(ctl["rel"] > limit,
+                  f"23 (e) {size} mp {mp}: one rank reading wrong pages "
+                  f"moved the logits by only {ctl['rel']:.3g}, inside the "
+                  f"limit")
+            check(ctl["restored"] <= limit / 10,
+                  f"23 (e) {size} mp {mp}: the control step's clean rerun "
+                  f"is {ctl['restored']:.3g} off the step")
+            tag = f"mp{mp}" if size == "1.3b" else f"{size}_mp{mp}"
+            launches[tag] = sum(r["launches"] for r in rs)
+    return launches
+
+
+def world_mlp(ranks):
+    """(g)'s checks and line."""
+    g = [r["g"] for r in ranks]
+    h = [r["hapi"] for r in g]
+    check(all(x["digest"] == h[0]["digest"] for x in h),
+          "23 (g): the hapi ranks' params differ")
+    check(h[0]["err_vs_one"] <= 1e-5,
+          f"23 (g): hapi params off one rank by {h[0]['err_vs_one']}")
+    flip = h[0]["flip"]["before"]
+    check(flip and {d["rank"] for d in flip} == {1} and all(
+        d["majority_ranks"] == [0, 2, 3] for d in flip),
+        f"23 (g): the flipped bit was named as {flip}")
+    check(h[1]["flip"]["repaired"] and all(
+        x["flip"]["after"] == [] and x["flip"]["digest"] == h[0]["digest"]
+        for x in h), "23 (g): the flip was not repaired bitwise")
+    t = [r["hapi_mp"] for r in g]
+    check(all(x["digest"] == t[0]["digest"] for x in t),
+          "23 (g): the dp 2 x mp 2 hapi ranks' params differ")
+    check(t[0]["split"] == ["column", "row"] and
+          t[0]["err_vs_one"] <= 1e-5,
+          f"23 (g): dp 2 x mp 2 hapi: {t[0]['split']}, params off one rank "
+          f"by {t[0]['err_vs_one']}")
+    p = [r["pipeline"] for r in g]
+    err = max(abs(a - b) for r in p for a, b in zip(r["losses"], r["one"]))
+    perr = max(r["param_err"] for r in p)
+    ex = g[1]["executor"]["losses"]
+    eerr = max(abs(a - b) for a, b in zip(ex, g[0]["executor"]["one"]))
+    print(f"[phase 23 (g)] hapi prepare(device_mesh='auto') on 4 ranks: "
+          f"params bitwise equal, {h[0]['err_vs_one']:.2e} off one rank, "
+          f"a bit flipped on rank 1 named {h[0]['flip']['before']} and "
+          f"repaired {h[1]['flip']['repaired']}; dp 2 x mp 2 with "
+          f"{g[0]['hapi_mp']['split']} linears split: params bitwise "
+          f"equal, {g[0]['hapi_mp']['err_vs_one']:.2e} off one rank; "
+          f"ms/step {[round(x['ms'], 2) for x in h]}, collective share "
+          f"{[round(x['collective_share'], 3) for x in h]}; fleet "
+          f"PipelineLayer on 4 stages ({p[0]['type']}): losses "
+          f"{[round(x, 6) for x in p[0]['losses']]}, {err:.2e} off the "
+          f"sequential list, params {perr:.2e}, ms/step "
+          f"{[round(x['ms'], 2) for x in p]}; PipelineStageExecutor on 2 "
+          f"processes: losses {[round(x, 6) for x in ex]}, {eerr:.2e} off "
+          f"one process, stage-0 weight {g[0]['executor']['w0_err']:.2e}, "
+          f"{g[1]['executor']['ms']:.2f} ms/step (host clock, the last "
+          f"stage)")
+    check(err <= 1e-5 and perr <= 1e-5,
+          f"23 (g): the pipeline off the sequential list by {err}, {perr}")
+    check(eerr <= 1e-5 and g[0]["executor"]["w0_err"] <= 1e-5,
+          f"23 (g): the executor off one process by {eerr}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_worlds(torch, serving, cases=WORLD_CASES):
+    """Phase 23: the pipeline, ZeRO-3, mp serving, sharded checkpoint
+    windows, hapi and the pipeline layer API in one world of
+    ``HYBRID_RANKS`` ranks on the one card; the oracles run in this
+    process while the ranks start.  Returns each case's flash (and
+    ragged) launches summed over the ranks."""
+    free_cuda(torch)
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    go = os.path.join(tmp, "oracles.json")
+    oracles, t0 = {}, time.perf_counter()
+    try:
+        env = {"PHASE22_GO": go, "PHASE23_TMP": tmp,
+               "PHASE23_STORE_PORT": str(_free_port())}
+        with hybrid_world(cases, HYBRID_RANKS, tmp, child="worlds",
+                          env=env) as join:
+            if "a" in cases or "b" in cases:
+                oracles["a"] = oracles["b"] = world_oracle(
+                    torch, 24, WORLDS["a"]["batch"])
+            if "c" in cases or "d" in cases:
+                oracles["c"] = oracles["d"] = world_oracle(
+                    torch, 8, WORLDS["c"]["batch"])
+            if "e" in cases:
+                oracles["e"] = {size: serve_oracle(
+                    torch, serving, cfg,
+                    os.path.join(tmp, f"e_oracle_{size}.npz"))
+                    for size, cfg in world_serve_cfgs().items()}
+            with open(go + ".tmp", "w") as f:
+                json.dump(time.perf_counter() - t0, f)
+            os.replace(go + ".tmp", go)
+            ranks = join(timeout=1200)
+        wall = time.perf_counter() - t0
+        ready = max(r["stamps"]["ready"] for r in ranks)
+        gone = max(r["stamps"]["go"] for r in ranks)
+        print(f"[phase 23] one world of {HYBRID_RANKS} ranks, {wall:.1f} s: "
+              f"the oracles took {json.load(open(go)):.1f} s, the ranks "
+              f"waited {max(0.0, gone - ready):.1f} s for them; seconds by "
+              f"case (rank 0) " + ", ".join(
+                  f"({k}) {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+        res = {c: [r["cases"][c] for r in ranks] for c in cases}
+        launches = {}
+        for case in cases:
+            if case in WORLDS:
+                launches[case] = world_train_case(case, res[case],
+                                                  oracles[case])
+        world_memory(res, oracles)
+        if "e" in cases:
+            launches["e"] = world_serve([r["cases"] for r in ranks],
+                                        oracles["e"])
+        if "f" in cases:
+            world_ckpt(res["f"], tmp)
+        if "g" in cases:
+            world_mlp([r["cases"] for r in ranks])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -6500,6 +7527,10 @@ def main():
     hybrid_launches = phase_hybrid(torch, fa, ra)
     print(f"[phase 22] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    world_launches = phase_worlds(torch, serving)
+    print(f"[phase 23] {time.perf_counter() - t0:.1f} s")
+
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
     # both entries carry its launches and times
@@ -6562,6 +7593,14 @@ def main():
         key = "fwd" if key == "fwd" else "bwd"
         entry["hybrid_launches"] = {c: v[key]
                                     for c, v in hybrid_launches.items()}
+    # phase 23: every rank's launches over the timed step of (a)-(d)
+    # and, for the ragged kernel, over (e)'s mp engines
+    for entry in kernels[1:4]:
+        key = "fwd" if entry["name"].endswith("fwd") else "bwd"
+        entry["world_launches"] = {c: v[key] for c, v in
+                                   world_launches.items() if c in WORLDS}
+    kernels[0]["world_launches"] = {
+        f"e_{tag}": n for tag, n in world_launches.get("e", {}).items()}
     kernels[1]["hybrid_ring_launches"] = {
         c: v["fwd"] for c, v in hybrid_launches.items() if c in "cf"}
     kernels[4]["hybrid_launches"] = {
@@ -6585,7 +7624,8 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:3] == ["--child", "fit"]:
         sys.exit(child_fit(sys.argv[3]))
-    CHILDREN = {"hybrid": child_hybrid, "hybrid_mlp": child_hybrid_mlp}
+    CHILDREN = {"hybrid": child_hybrid, "hybrid_mlp": child_hybrid_mlp,
+                "worlds": child_worlds}
     if sys.argv[1:2] == ["--child"] and sys.argv[2] in CHILDREN:
         sys.exit(CHILDREN[sys.argv[2]](*sys.argv[3:5]))
     sys.exit(main())

@@ -3,7 +3,9 @@
 contract, the collectives over process groups, the rank grid, the
 sharding rules, the tensor-parallel layers, ``DataParallel``, Fleet,
 ``HybridEngine`` and its ``EngineConfig``, the model adapters (GPT
-dense or MoE, BERT), the MoE blocks and the remat policies."""
+dense or MoE, BERT), the MoE blocks, the remat policies, the pipeline
+layers (``pp_layers``) and the host-actor pipeline
+(``fleet_executor``)."""
 from .env import (ParallelEnv, get_rank, get_world_size,  # noqa: F401
                   init_parallel_env, is_initialized)
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
@@ -21,6 +23,7 @@ from .model_adapter import BertAdapter, GPTAdapter, ModelAdapter
 from .moe import (GShardGate, MoELayer, NaiveGate, SwitchGate, moe_capacity,
                   moe_ffn, moe_gating, moe_layer, moe_route)
 from .recompute import checkpoint_policy
+from . import fleet_executor, pp_layers  # noqa: F401
 
 __all__ = ["HybridEngine", "EngineConfig", "ModelAdapter", "GPTAdapter",
            "BertAdapter", "checkpoint_policy", "moe_capacity", "moe_route",
@@ -31,4 +34,5 @@ __all__ = ["HybridEngine", "EngineConfig", "ModelAdapter", "GPTAdapter",
            "get_group", "new_group", "ppermute", "recv", "reduce",
            "reduce_scatter", "scatter", "send", "split",
            "CommunicateTopology", "HybridCommunicateGroup", "mesh",
-           "build_mesh", "replica_peers", "fleet", "DataParallel"]
+           "build_mesh", "replica_peers", "fleet", "DataParallel",
+           "pp_layers", "fleet_executor"]

@@ -10,9 +10,15 @@ written by either package loads in the other:
   <path>/<leaf-id>/shard<k>.npy    one ``.npy`` per saved window
 
 On one GPU a tensor is one window (``shardr<rank>_0.npy`` over the whole
-array); :func:`load_sharded` still unions the windows of every rank's
-manifest, so a checkpoint that a multi-device JAX engine wrote (dp, mp,
-ZeRO windows) loads here.  Leaves follow JAX's flattening: dict keys
+array).  In a world each rank writes only its own index windows: a leaf
+given as a ``mesh.Shard`` (``HybridEngine.state_windows``: pp layer
+ranges, mp splits, ZeRO-3 slices and the ZeRO chunks of the canonical
+optimizer state) is written under its window of the global array, and
+only by the one rank whose ``owner`` flag is set, so a window several
+ranks hold is written once.  :func:`load_sharded` unions the windows of
+every rank's manifest, so a checkpoint that a multi-device JAX engine
+wrote loads here and the JAX package reads a world's; a restore reads
+only the windows it needs (memory-mapped).  Leaves follow JAX's flattening: dict keys
 sorted, ``/``-joined paths, ``None`` skipped; a Python int is saved as
 int32 and a float as float32, as ``jnp.asarray`` makes them.
 
@@ -36,7 +42,9 @@ point multi-host over the ``TCPStore``.  Fault sites:
 ``save_engine_state`` / ``load_engine_state`` keep ``HybridEngine``'s
 params and its optimizer state in the JAX engine's canonical form
 (``opt_canonical``: param-shaped ``m``, ``v`` and ``master``), so a state
-crosses between the engines whatever their topology.
+crosses between the engines whatever their topology: a world saves its
+windows (through a ``CommitBarrier`` when one is given), and a world of
+another layout, one process or the JAX engine loads them.
 ``load_engine_state(..., into=(params, opt_state))`` restores in place:
 it copies into the live tensors, so an engine that captured its step as
 a CUDA graph replays it with the restored state, without a new capture.
@@ -282,6 +290,12 @@ def _full_window(shape):
     return [[0, int(n)] for n in shape]
 
 
+def _dtype_name(t):
+    """The manifest's dtype name of a tensor (without reading it)."""
+    return "bfloat16" if t.dtype == torch.bfloat16 else \
+        str(torch.empty((), dtype=t.dtype).numpy().dtype)
+
+
 def save_sharded(path, tree, step=None, extra=None, rank=None,
                  barrier=None):
     """Save a tree of tensors / arrays: one ``.npy`` a leaf (its one
@@ -295,22 +309,32 @@ def save_sharded(path, tree, step=None, extra=None, rank=None,
         rank = barrier.rank if barrier is not None else 0
     rank = int(rank)
     os.makedirs(path, exist_ok=True)
+    from .mesh import Shard
+
     leaves = []
     for pstr, leaf in tree_items(tree):
-        arr, dtype = host_array(leaf)
         lid = _leaf_id(pstr)
-        ldir = os.path.join(path, lid)
-        os.makedirs(ldir, exist_ok=True)
-        fname = f"shardr{rank}_0.npy"
-        fpath = os.path.join(ldir, fname)
-        fault_point("checkpoint.before_shard", path=fpath)
-        with atomic_write(fpath, "wb", site="checkpoint.shard_write") as f:
-            _write_npy(f, arr, dtype)
-            crc = f.crc32
-        leaves.append({"path": pstr, "id": lid, "shape": list(arr.shape),
-                       "dtype": dtype,
-                       "shards": [{"file": fname, "crc32": crc,
-                                   "index": _full_window(arr.shape)}]})
+        if isinstance(leaf, Shard):
+            shape, index = list(leaf.shape), [list(w) for w in leaf.index]
+            arr, dtype = host_array(leaf.data) if leaf.owner else \
+                (None, _dtype_name(leaf.data))
+        else:
+            arr, dtype = host_array(leaf)
+            shape, index = list(arr.shape), _full_window(arr.shape)
+        shards = []
+        if arr is not None:
+            ldir = os.path.join(path, lid)
+            os.makedirs(ldir, exist_ok=True)
+            fname = f"shardr{rank}_0.npy"
+            fpath = os.path.join(ldir, fname)
+            fault_point("checkpoint.before_shard", path=fpath)
+            with atomic_write(fpath, "wb",
+                              site="checkpoint.shard_write") as f:
+                _write_npy(f, arr, dtype)
+                crc = f.crc32
+            shards.append({"file": fname, "crc32": crc, "index": index})
+        leaves.append({"path": pstr, "id": lid, "shape": shape,
+                       "dtype": dtype, "shards": shards})
     manifest = {"format": FORMAT, "leaves": leaves,
                 "step": None if step is None else int(step),
                 "extra": extra or {}}
@@ -368,25 +392,38 @@ def _np_dtype(name):
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
-def _read_leaf(path, leaf):
-    """The whole leaf on the host, assembled from every saved window."""
+def _read_leaf(path, leaf, window=None):
+    """The leaf on the host, assembled from the saved windows: the whole
+    of it, or only ``window`` (``[(start, stop)]`` per dim; each file is
+    memory-mapped and only its overlap with the window read)."""
     shape = leaf["shape"]
+    want = [(0, int(n)) for n in shape] if window is None else \
+        [(int(a), int(b)) for a, b in window]
     want_dt = _np_dtype(leaf["dtype"])
-    out = np.empty(shape, dtype=want_dt)
+    out = np.empty([b - a for a, b in want], dtype=want_dt)
     filled = 0
     for sh in leaf["shards"]:
         win = sh["index"]
-        data = np.load(os.path.join(path, leaf["id"], sh["file"]))
+        lo = [max(a, c) for (a, _), (c, _) in zip(want, win)]
+        hi = [min(b, d) for (_, b), (_, d) in zip(want, win)]
+        if any(l >= h for l, h in zip(lo, hi)):
+            continue
+        data = np.load(os.path.join(path, leaf["id"], sh["file"]),
+                       mmap_mode="r")
         if data.dtype != want_dt:
             # a V2 file (bf16) reads as raw void: its bits, by the
             # manifest's dtype
             data = data.view(want_dt)
-        sel = tuple(slice(a, b) for a, b in win)
-        out[sel] = data
-        filled += int(np.prod([b - a for a, b in win]))
+        src = tuple(slice(l - c, h - c) for l, h, (c, _) in
+                    zip(lo, hi, win))
+        dst = tuple(slice(l - a, h - a) for l, h, (a, _) in
+                    zip(lo, hi, want))
+        out[dst] = data[src]
+        filled += int(np.prod([h - l for l, h in zip(lo, hi)]))
     if filled < out.size:
         raise ValueError(f"checkpoint leaf {leaf['path']}: saved shards "
-                         f"cover only {filled}/{out.size} of it")
+                         f"cover only {filled}/{out.size} of the window "
+                         f"{want}")
     return out
 
 
@@ -449,12 +486,22 @@ def engine_tree(engine, params, opt_state):
             "opt": engine.opt_canonical(opt_state, params)}
 
 
-def save_engine_state(path, engine, params, opt_state):
+def save_engine_state(path, engine, params, opt_state, barrier=None):
     """Save a ``HybridEngine``'s training state topology-neutrally: params
-    as they are, the optimizer in the canonical form."""
-    return save_sharded(path, engine_tree(engine, params, opt_state),
-                        step=int(opt_state["step"]),
-                        extra={"kind": "hybrid_engine"})
+    as they are, the optimizer in the canonical form.  In a world each
+    rank writes its own windows (``engine.state_windows``) and its own
+    manifest; ``barrier`` (a :class:`CommitBarrier` over the world's
+    ranks) makes the commit one for all of them."""
+    if engine.distributed:
+        from .env import get_rank
+
+        tree = engine.state_windows(params, opt_state)
+        rank = barrier.rank if barrier is not None else get_rank()
+    else:
+        tree, rank = engine_tree(engine, params, opt_state), None
+    return save_sharded(path, tree, step=int(opt_state["step"]),
+                        extra={"kind": "hybrid_engine"}, rank=rank,
+                        barrier=barrier)
 
 
 def load_engine_state(path, engine, into=None):
@@ -465,6 +512,8 @@ def load_engine_state(path, engine, into=None):
     copied into the live tensors in place and ``opt_state["step"]`` set,
     so the tensors a captured step reads keep their storage and the graph
     replays without a new capture."""
+    if engine.distributed:
+        return _load_windows(path, engine, into)
     if into is None:
         params_t, canon_t = engine.state_template()
         tree, manifest = load_sharded(
@@ -488,3 +537,44 @@ def load_engine_state(path, engine, into=None):
     opt_state["step"] = step
     engine._step.fill_(step)
     return params, opt_state
+
+
+def _load_windows(path, engine, into=None):
+    """``load_engine_state`` on a rank of a world: each leaf's window of
+    this rank (its param shard under ``param_specs``; the canonical
+    optimizer state takes the same window) read from whatever windows the
+    checkpoint holds, then the optimizer cut to this engine's layout."""
+    manifest = _load_manifest(path)
+    by_path = {l["path"]: l for l in manifest["leaves"]}
+    params_t, _ = engine.state_template()
+    odt = engine._opt_dtype()
+
+    def read(pstr, tmpl, key, dtype):
+        leaf = by_path.get(pstr)
+        if leaf is None:
+            raise KeyError(f"checkpoint has no leaf {pstr!r}")
+        if tuple(leaf["shape"]) != tuple(tmpl.shape):
+            raise ValueError(f"leaf {pstr}: checkpoint shape "
+                             f"{leaf['shape']} != {tuple(tmpl.shape)}")
+        win = engine._window(key, tuple(tmpl.shape))
+        t = leaf_tensor(_read_leaf(path, leaf, win), leaf["dtype"])
+        return t.to(engine.device, dtype)
+
+    params = _map_tree(params_t, lambda t, p: read(
+        f"params/{p}", t, p, t.dtype))
+    canon = {name: _map_tree(params_t, lambda t, p, name=name: read(
+        f"opt/{name}/{p}", t, p, odt)) for name in ("m", "v", "master")}
+    step = int(manifest["step"] or 0)
+    opt_state = engine.opt_from_canonical(canon, step)
+    if into is None:
+        return params, opt_state
+    live_p, live_o = into
+    with torch.no_grad():
+        for (_, dst), (_, src) in zip(tree_items(live_p),
+                                      tree_items(params)):
+            dst.copy_(src)
+        for (_, dst), (_, src) in zip(tree_items(live_o["slots"]),
+                                      tree_items(opt_state["slots"])):
+            dst.copy_(src)
+    live_o["step"] = step
+    return live_p, live_o

@@ -56,15 +56,44 @@ are this rank's shards by ``param_specs`` (``init``, ``shard_params``;
   leaf not split over ep — ep), the global-norm clip sums each disjoint
   shard once (an mp-replicated leaf is not summed over mp), Adam
   updates the rank's chunk and the params are all-gathered over
-  ``sharding``.
+  ``sharding``;
+- pp: each pp rank holds ``L/pp`` layers (the stacked layer axis split
+  over "pp") and runs its stage of the pipeline; activations ``[mb, s,
+  D]`` pass rank to rank over the pp group (``collective`` point-to-point,
+  one ``batch_isend_irecv`` a tick, posted only where the schedule says
+  the sender is live).  ``pipeline_schedule="gpipe"`` runs every
+  microbatch forward (``num_microbatches + pp - 1`` ticks; stage 0 embeds
+  the whole batch once) and then backward in reverse, autograd through
+  each stage's saved graph: activation memory grows with the
+  microbatches.  ``"1f1b"`` (tied dense models; MoE and untied heads take
+  GPipe, as ``_use_1f1b`` says) runs the static tick grid of
+  ``_1f1b_schedule``: a forward tick runs the stage without a graph and
+  keeps its input in a ring of at most ``pp - i`` entries, a backward tick
+  runs it again from the saved input and backpropagates the arrived
+  cotangent; the last stage's forward and backward of a microbatch share
+  one tick.  The CE denominator is summed over the data group before the
+  loop, so the head's seed is ``1/denom``.  Tied and replicated leaves
+  (``wte`` on the first and last stage, ``wpe``, the final norm) have
+  their gradients summed over pp;
+- ZeRO-3 (``zero_stage >= 3`` at sharding > 1): each matrix leaf is
+  held as this rank's ``1/zr`` slice of its free dimension (the JAX
+  specs' ``z``); a block gathers its leaves just in time inside its
+  recompute (``_ZeroGather``: all-gather forward, reduce-scatter of the
+  gradient backward), so the backward gathers again instead of keeping
+  whole weights; Adam updates the slice and nothing is gathered after
+  the step.  Small vectors stay replicated and ZeRO-2-chunked.
 
 The dropout key is folded with the dp, sharding, ep and sep coordinates
-and never with mp.  The step runs eagerly (a host-side transport cannot
-sit inside a CUDA graph), under the same watched name.  ``pp > 1`` and
-ZeRO-3 raise ``NotImplementedError``: they are the next slice.
-Optimizer slots are param-shaped (the JAX engine's canonical,
-topology-neutral form) except at ``sharding > 1``, where each rank keeps
-the flat chunk it updates.
+and never with mp or pp (a block folds its global layer index; in a
+pipeline the microbatch index is folded first).  The step runs eagerly (a
+host-side transport cannot sit inside a CUDA graph), under the same
+watched name.  Optimizer slots are param-shaped (the JAX engine's
+canonical, topology-neutral form) except for the leaves chunked over
+``sharding`` (ZeRO-2, and the replicated vectors at ZeRO-3), where each
+rank keeps the flat chunk it updates.  ``shard_views`` and
+``state_windows`` name each local tensor's window of the global array:
+what ``checkpoint.save_sharded`` writes (each window once) and what
+``integrity.shard_fingerprint`` digests.
 """
 from __future__ import annotations
 
@@ -83,6 +112,7 @@ from ..observability.compile_watchdog import watch
 from ..optimizer.optimizer import bias_correction, device_scalar
 from ..profiler.profiler import RecordEvent
 from . import collective
+from . import mesh as _mesh
 from .env import current_device, get_rank, get_world_size
 from .mesh import _names, local_shard
 from .model_adapter import GPTAdapter, ModelAdapter
@@ -90,10 +120,168 @@ from .topology import HybridCommunicateGroup
 
 __all__ = ["HybridEngine", "EngineConfig"]
 
+#: the six axes of the grid, in the JAX mesh's order
+ALL_AXES = ("dp", "pp", "sharding", "sep", "ep", "mp")
+
 #: the axes that split the batch, in the JAX ``batch_spec``'s order
 DATA_AXES = ("dp", "sharding", "ep")
 #: every axis that holds other tokens: the loss is summed over them
 _LOSS_AXES = ("dp", "sharding", "sep", "ep")
+
+
+def _1f1b_schedule(pp, num_micro):
+    """The static 1F1B tick grid (the JAX engine's, copied): ``(fwd,
+    bwd)``, int32 arrays ``[T, pp]`` where ``fwd[t, i]`` is the
+    microbatch stage i runs forward at tick t (-1 = idle), and the same
+    for the backward.  Stage i never holds more than ``pp - i``
+    microbatches in flight; a dependency is met in a strictly earlier
+    tick, except the last stage, whose backward takes its own same-tick
+    forward (forward runs before backward inside a tick)."""
+    M = num_micro
+    fwd_done = [[False] * M for _ in range(pp)]
+    bwd_done = [[False] * M for _ in range(pp)]
+    fwd_next = [0] * pp
+    bwd_next = [0] * pp
+    fwd_rows, bwd_rows = [], []
+    for _ in range(4 * (M + pp) + 8):
+        if all(b >= M for b in bwd_next):
+            break
+        fwd_t = [-1] * pp
+        bwd_t = [-1] * pp
+        for i in range(pp):
+            m = fwd_next[i]
+            if m < M and (m - bwd_next[i]) < (pp - i) and \
+                    (i == 0 or fwd_done[i - 1][m]):
+                fwd_t[i] = m
+        for i in range(pp):
+            m = bwd_next[i]
+            if m < M:
+                if i == pp - 1:
+                    ok = fwd_done[i][m] or fwd_t[i] == m
+                else:
+                    ok = bwd_done[i + 1][m]
+                if ok:
+                    bwd_t[i] = m
+        for i in range(pp):
+            if fwd_t[i] >= 0:
+                fwd_done[i][fwd_t[i]] = True
+                fwd_next[i] += 1
+            if bwd_t[i] >= 0:
+                bwd_done[i][bwd_t[i]] = True
+                bwd_next[i] += 1
+        fwd_rows.append(fwd_t)
+        bwd_rows.append(bwd_t)
+    else:  # pragma: no cover
+        raise AssertionError(f"1f1b schedule did not converge pp={pp} M={M}")
+    fwd = np.asarray(fwd_rows, np.int32)
+    bwd = np.asarray(bwd_rows, np.int32)
+    _check_mailboxes(pp, fwd, bwd)
+    return fwd, bwd
+
+
+def _check_mailboxes(pp, fwd, bwd):
+    """Each stage has ONE sticky mailbox per direction (a message sent at
+    tick t is held from t+1 until the sender sends again).  Assert the
+    schedule never needs more: a second send must not arrive before the
+    first was consumed."""
+    T = fwd.shape[0]
+    for arr, src_of, dst_of in ((fwd, lambda i: i - 1, lambda i: i + 1),
+                                (bwd, lambda i: i + 1, lambda i: i - 1)):
+        for i in range(pp):
+            j = dst_of(i)
+            if not (0 <= j < pp):
+                continue
+            pending = None   # micro sent by i, not yet consumed by j
+            for t in range(T):
+                if pending is not None and arr[t][j] == pending[0] \
+                        and t > pending[1]:
+                    pending = None
+                if arr[t][i] >= 0:
+                    assert pending is None, (
+                        f"mailbox overflow: stage {i} sends micro "
+                        f"{arr[t][i]} at tick {t} before stage {j} "
+                        f"consumed micro {pending[0]}")
+                    pending = (arr[t][i], t)
+
+
+def pp_hop(group, sends, recvs, device):
+    """One tick's point-to-point messages on the pp ``group``: ``sends``
+    ``[(tensor, member)]``, ``recvs`` ``[(shape, dtype, member)]``;
+    returns the received tensors.  Both directions go in one batch, in
+    one order on every rank."""
+    outs = [torch.empty(shape, dtype=dt, device=device)
+            for shape, dt, _ in recvs]
+    ops = [("send", t.detach().contiguous(), j, f"s{j}") for t, j in sends]
+    ops += [("recv", o, j, f"r{j}") for o, (_, _, j) in zip(outs, recvs)]
+    if ops:
+        collective._p2p(ops, group, [t for t, _ in sends], outs,
+                        "pipeline_p2p")
+    return outs
+
+
+def gpipe(group, stage, pp, num_micro, forward, backward, in_meta,
+          out_meta, device):
+    """The GPipe fill-drain of one stage over the pp ``group``: ``M +
+    pp - 1`` forward ticks (stage i holds microbatch ``t - i`` at tick
+    t), then the same ticks in reverse for the backward.
+    ``forward(m, x)`` runs microbatch m on the activation ``x`` received
+    from the stage before (None on stage 0) and returns ``(saved, y)``,
+    ``y`` sent to the next stage; ``backward(m, saved, ct)`` takes the
+    cotangent ``ct`` received from the next stage (None on the last) and
+    returns the input's gradient, sent to the stage before.  ``in_meta``
+    / ``out_meta``: ``(shape, dtype)`` of the activation entering and
+    leaving this stage.  Returns the most microbatches held at once."""
+    M, i = num_micro, stage
+    first, last = i == 0, i == pp - 1
+    saved, inbox, peak = {}, None, 0
+    for t in range(M + pp - 1):
+        m = t - i
+        y = None
+        if 0 <= m < M:
+            saved[m], y = forward(m, inbox)
+            peak = max(peak, len(saved))
+        sends = [(y, i + 1)] if (y is not None and not last) else []
+        recvs = ([tuple(in_meta) + (i - 1,)]
+                 if not first and 0 <= t - (i - 1) < M else [])
+        got = pp_hop(group, sends, recvs, device)
+        if got:
+            inbox = got[0]
+    ct = None
+    for t in reversed(range(M + pp - 1)):
+        m = t - i
+        dx = None
+        if 0 <= m < M:
+            dx = backward(m, saved.pop(m), ct)
+        sends = [(dx, i - 1)] if (dx is not None and not first) else []
+        recvs = ([tuple(out_meta) + (i + 1,)]
+                 if not last and 0 <= t - (i + 1) < M else [])
+        got = pp_hop(group, sends, recvs, device)
+        if got:
+            ct = got[0]
+    return peak
+
+
+class _ZeroGather(torch.autograd.Function):
+    """ZeRO-3's just-in-time gather of one leaf: all-gather of the
+    sharding group's slices along ``dim`` forward; backward, the
+    gradient reduce-scattered back (summed over the group, this rank's
+    slice kept)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return collective.all_gather(x.contiguous(), group=group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+def _scatter_sum(g, group, dim):
+    """This rank's slice along ``dim`` of the group's sum of ``g``."""
+    red = collective.reduce_scatter(g.movedim(dim, 0).contiguous(),
+                                    group=group)
+    return red.movedim(0, dim).contiguous()
 
 
 @dataclasses.dataclass
@@ -164,14 +352,13 @@ class HybridEngine:
         self.sizes = {"dp": dp, "pp": pp, "sharding": sharding, "sep": sep,
                       "ep": ep, "mp": mp}
         self.ec = engine_cfg or EngineConfig()
-        if pp > 1:
-            raise NotImplementedError(
-                "pipeline parallelism (pp > 1: pp_layers, GPipe and 1F1B) "
-                "is the next multi-GPU slice of the port")
         if self.ec.zero_stage >= 3 and sharding > 1:
-            raise NotImplementedError(
-                "ZeRO-3 (zero_stage >= 3 with sharding > 1) is the next "
-                "multi-GPU slice of the port; ZeRO-2 trains")
+            if self.cfg.hidden % sharding:
+                raise ValueError("ZeRO-3 shards the hidden dim: hidden % "
+                                 "sharding must be 0")
+            if self.cfg.moe_experts and self.cfg.ffn_hidden % sharding:
+                raise ValueError("ZeRO-3 MoE shards ffn_hidden over "
+                                 "'sharding'")
         n = dp * pp * sharding * sep * mp * ep
         one_gpu_ring = (n == sep and self.cfg.seq_parallel == "ring"
                         and get_world_size() == 1)
@@ -186,6 +373,10 @@ class HybridEngine:
                 f"{get_world_size()}: the multi-GPU path runs one process a "
                 f"rank (python -m paddle_tpu_torch.distributed.launch "
                 f"--nproc_per_node {n}, then init_parallel_env())")
+        if pp > 1 and self.ec.num_microbatches < pp:
+            raise ValueError(
+                f"the pipeline needs num_microbatches >= pp ({pp}), got "
+                f"{self.ec.num_microbatches}")
         if self.distributed:
             self.hcg = HybridCommunicateGroup(
                 dp_degree=dp, pp_degree=pp, sharding_degree=sharding,
@@ -195,8 +386,7 @@ class HybridEngine:
                     f"rank {get_rank()} is not on the grid's ranks "
                     f"{self.hcg.ranks}")
             self.coords = self.hcg.coords
-            self.group = {a: self.hcg.group_over((a,)) for a in
-                          ("dp", "sharding", "sep", "ep", "mp")}
+            self.group = {a: self.hcg.group_over((a,)) for a in ALL_AXES}
             self.device = resolve_device(
                 device if device is not None else current_device())
         else:
@@ -224,6 +414,111 @@ class HybridEngine:
         """The model adapter's layout of every leaf over the grid's axes
         (``mesh.PartitionSpec`` per leaf, the JAX engine's specs)."""
         return self.model.param_specs(self)
+
+    def _spec(self, path):
+        """The spec of the leaf at ``path`` (``blocks/qkv_w``)."""
+        if not hasattr(self, "_specs"):
+            self._specs = dict(_mesh._leaf_paths(self.param_specs()))
+        return self._specs[path]
+
+    def _axes_of(self, path):
+        """The live axes that split the leaf at ``path``."""
+        return tuple(a for e in self._spec(path) for a in _names(e)
+                     if self._live_group(a) is not None)
+
+    def _z3(self):
+        return self.distributed and self.ec.zero_stage >= 3 and self.zr > 1
+
+    def _z3_leaf(self, path):
+        """True where the leaf at ``path`` is held as a ZeRO-3 slice."""
+        return self._z3() and "sharding" in self._axes_of(path)
+
+    def _chunked(self, path):
+        """True where the leaf's optimizer state is a flat ZeRO chunk
+        (sharding > 1, the leaf not already a ZeRO-3 slice)."""
+        return self._zero2() and not self._z3_leaf(path)
+
+    def _use_1f1b(self):
+        """The hand-scheduled 1F1B serves pp > 1 tied dense models; MoE
+        and untied heads take the GPipe loop (the JAX ``_use_1f1b``)."""
+        return (self.pp > 1 and self.ec.pipeline_schedule == "1f1b"
+                and not self.cfg.moe_experts
+                and getattr(self.cfg, "tie_embeddings", True))
+
+    def _window(self, path, shape):
+        """``[(start, stop)]`` of this rank's shard of the leaf at
+        ``path`` (global shape ``shape``) in the global array."""
+        return _mesh.window_of(self._spec(path), shape, self.sizes,
+                               self.coords)
+
+    def _writer(self, split):
+        """True on the one rank that writes a window split over the axes
+        ``split``: coordinate 0 on every other axis of the grid."""
+        return not self.distributed or all(
+            self.coords[a] == 0 for a in ALL_AXES if a not in split)
+
+    def shard_views(self, params):
+        """Each leaf of ``params`` (this rank's shards) as a
+        ``mesh.Shard``: the local tensor and its window of the global
+        array (what ``shard_fingerprint`` digests as
+        ``leaf@start:stop,...``)."""
+        full = self._full_shapes()
+        return _mesh._map(params, lambda path, t: _mesh.Shard(
+            t.detach(), full[path], self._window(path, full[path]),
+            self._writer(self._axes_of(path))))
+
+    def _full_shapes(self):
+        if not hasattr(self, "_shapes"):
+            tmpl, _ = self.state_template()
+            self._shapes = {p: tuple(t.shape)
+                            for p, t in _mesh._leaf_paths(tmpl)}
+        return self._shapes
+
+    def state_windows(self, params, opt_state):
+        """``{"params", "opt"}`` as ``save_engine_state`` writes them in a
+        world: every leaf a ``mesh.Shard`` whose ``owner`` flag is set on
+        exactly one rank of the ranks that hold the window (coordinate 0
+        on the axes that do not split it).  The optimizer is the
+        canonical, param-shaped form; where a leaf's state is a flat ZeRO
+        chunk that is also a block of whole rows of the rank's shard
+        (``rows % sharding == 0``), each sharding rank writes its chunk
+        as that block (no gather), else the chunks are gathered and the
+        sharding rank 0 writes the shard."""
+        full = self._full_shapes()
+        views = {"params": self.shard_views(params), "opt": {}}
+        odt = self._opt_dtype()
+        has_master = self._has_master()
+        for name in ("m", "v", "master"):
+            def leaf(path, p, name=name):
+                slot = _mesh._spec_at(opt_state["slots"], path)
+                shape = full[path]
+                win = self._window(path, shape)
+                split = self._axes_of(path)
+                src = slot.get(name) if (name != "master" or has_master) \
+                    else None
+                if src is None:
+                    src = p.detach().to(odt)
+                    if self._chunked(path):
+                        src = self._own_chunk(src)
+                if not self._chunked(path):
+                    return _mesh.Shard(src.detach().view(p.shape), shape,
+                                       win, self._writer(split))
+                rows = p.shape[0] if p.dim() else 0
+                if rows and rows % self.zr == 0:
+                    r = rows // self.zr
+                    i = self.coords["sharding"]
+                    a, _ = win[0]
+                    blk = src.detach().view((r,) + tuple(p.shape[1:]))
+                    win = [(a + i * r, a + (i + 1) * r)] + win[1:]
+                    return _mesh.Shard(blk, shape, win,
+                                       self._writer(split + ("sharding",)))
+                whole = collective.all_gather(
+                    src.detach().contiguous(),
+                    group=self.group["sharding"])[:p.numel()].view(p.shape)
+                return _mesh.Shard(whole, shape, win, self._writer(split))
+
+            views["opt"][name] = _mesh._map(params, leaf)
+        return views
 
     def _live_group(self, axis):
         """This rank's group along ``axis`` where the axis spans more than
@@ -322,17 +617,15 @@ class HybridEngine:
 
     def init_opt(self, params):
         """Zero moments and (when kept) a master copy per leaf, in
-        ``opt_dtype``; ``step`` is a Python int.  At sharding > 1 each
-        slot is this rank's flat chunk of its leaf."""
+        ``opt_dtype``; ``step`` is a Python int.  A leaf chunked over
+        sharding keeps this rank's flat chunk; a ZeRO-3 slice keeps
+        slots of the slice's shape."""
         odt = self._opt_dtype()
         has_master = self._has_master()
-        zero2 = self._zero2()
 
-        def build(node):
-            if isinstance(node, dict):
-                return {k: build(v) for k, v in node.items()}
+        def build(path, node):
             p = node.detach()
-            if zero2:
+            if self._chunked(path):
                 p = self._own_chunk(p)
             slot = {"m": torch.zeros_like(p, dtype=odt),
                     "v": torch.zeros_like(p, dtype=odt)}
@@ -340,56 +633,53 @@ class HybridEngine:
                 slot["master"] = p.to(odt, copy=True)
             return slot
 
-        return {"step": 0, "slots": build(params)}
+        return {"step": 0, "slots": _mesh._map(params, build)}
 
     def opt_canonical(self, opt_state, params):
         """``{"m", "v", "master"}`` trees of param-shaped tensors — the
         JAX engine's ``opt_canonical`` form (this rank's param shards in a
-        world; the chunks of sharding > 1 gathered back).  Without a
+        world; the flat chunks gathered back over sharding).  Without a
         master slot the param is the master and is returned cast to
         ``opt_dtype``."""
         odt = self._opt_dtype()
 
-        def unchunk(x, p):
-            if not self._zero2():
-                return x
-            full = collective.all_gather(x.contiguous(),
-                                         group=self.group["sharding"])
-            return full[:p.numel()].view(p.shape)
+        def pick(name):
+            def leaf(path, p):
+                slots = _mesh._spec_at(opt_state["slots"], path)
+                if name == "master" and "master" not in slots:
+                    return p.detach().to(odt)
+                x = slots[name]
+                if not self._chunked(path):
+                    return x
+                full = collective.all_gather(x.contiguous(),
+                                             group=self.group["sharding"])
+                return full[:p.numel()].view(p.shape)
 
-        def pick(slots, p, name):
-            if isinstance(p, dict):
-                return {k: pick(slots[k], p[k], name) for k in p}
-            if name == "master" and "master" not in slots:
-                return p.detach().to(odt)
-            return unchunk(slots[name], p)
+            return _mesh._map(params, leaf)
 
-        return {name: pick(opt_state["slots"], params, name)
-                for name in ("m", "v", "master")}
+        return {name: pick(name) for name in ("m", "v", "master")}
 
     def opt_from_canonical(self, canon, step=0):
         """Inverse of ``opt_canonical``: an optimizer state whose slots
         are copies of the canonical trees (cast to ``opt_dtype``; this
-        rank's chunks at sharding > 1), at step ``step`` (so a state
-        carried over from JAX resumes with the bias correction of its
-        next step)."""
+        rank's chunks where a leaf is chunked over sharding), at step
+        ``step`` (so a state carried over from JAX resumes with the bias
+        correction of its next step)."""
         odt = self._opt_dtype()
         has_master = self._has_master()
 
-        def conv(t):
-            t = t.to(self.device, odt, copy=True)
-            return self._own_chunk(t) if self._zero2() else t
+        def build(path, m):
+            def conv(t):
+                t = t.to(self.device, odt, copy=True)
+                return self._own_chunk(t) if self._chunked(path) else t
 
-        def build(m, v, master):
-            if isinstance(m, dict):
-                return {k: build(m[k], v[k], master[k]) for k in m}
-            slot = {"m": conv(m), "v": conv(v)}
+            slot = {"m": conv(m), "v": conv(_mesh._spec_at(canon["v"],
+                                                           path))}
             if has_master:
-                slot["master"] = conv(master)
+                slot["master"] = conv(_mesh._spec_at(canon["master"], path))
             return slot
 
-        return {"step": int(step),
-                "slots": build(canon["m"], canon["v"], canon["master"])}
+        return {"step": int(step), "slots": _mesh._map(canon["m"], build)}
 
     def state_template(self):
         """Shape, dtype and device of every leaf of ``(params, canonical
@@ -531,6 +821,42 @@ class HybridEngine:
         dp, sharding, ep and sep (the JAX ``_aux_mean`` denominator)."""
         return self.dp * self.zr * self.ep * self.sep
 
+    # ------------------------------------------------- ZeRO-3 gathering
+    def _z3_gather(self, t, path, skip_leading=0):
+        """The whole leaf (over sharding) of a ZeRO-3 slice ``t``, through
+        ``_ZeroGather``; any other leaf as it is.  ``skip_leading`` drops
+        leading spec entries already consumed (a block's layer axis)."""
+        if not self._z3_leaf(path):
+            return t
+        spec = self._spec(path)[skip_leading:]
+        dim = next(d for d, e in enumerate(spec) if "sharding" in _names(e))
+        return _ZeroGather.apply(t, self.group["sharding"], dim)
+
+    def _z3_gather_block(self, bp):
+        """One block's leaves gathered just in time (inside the block's
+        recompute, so the backward gathers again)."""
+        if not self._z3():
+            return bp
+        return {k: self._z3_gather(v, f"blocks/{k}", skip_leading=1)
+                for k, v in bp.items()}
+
+    def _aux_gathered(self, aux):
+        """The non-block params with their ZeRO-3 slices gathered."""
+        if not self._z3():
+            return aux
+        return {k: self._z3_gather(v, k) for k, v in aux.items()}
+
+    def _block_fn(self, bp, x, s):
+        return self.model.block(self, self._z3_gather_block(bp), x, s)
+
+    def _stage(self, blocks, x, seed):
+        """This rank's blocks (its ``L/pp`` layers) on ``x``: ``(y,
+        aux_sum)``; block l's dropout seed is ``seed`` folded with its
+        GLOBAL layer index."""
+        first = self.coords["pp"] * (self.cfg.num_layers // self.pp)
+        return run_blocks(self._block_fn, blocks, x, self.cfg.remat, seed,
+                          first_layer=first)
+
     def _local_loss(self, params, tokens, labels, seed=None):
         """This rank's share of the global mean CE of one micro-batch:
         its CE sum over the global count of labelled tokens, plus
@@ -540,16 +866,12 @@ class HybridEngine:
         with the step, the micro-batch and the rank's data coordinates
         (None: no dropout)."""
         cfg = self.cfg
-        aux = {k: v for k, v in params.items() if k != "blocks"}
+        aux = self._aux_gathered(
+            {k: v for k, v in params.items() if k != "blocks"})
         x = self.model.embed(self, aux, tokens)
         if seed is not None:
             x = self._dropout(x, cfg.dropout, _fold(seed, 999983))
-
-        def block_fn(bp, x, s):
-            return self.model.block(self, bp, x, s)
-
-        out, moe_aux = run_blocks(block_fn, params["blocks"], x, cfg.remat,
-                                  seed)
+        out, moe_aux = self._stage(params["blocks"], x, seed)
         s, c = self.model.head_loss(self, aux, out, labels)
         if self.distributed:
             c = collective.all_reduce(c.detach().clone(),
@@ -564,7 +886,218 @@ class HybridEngine:
     def _loss_group(self):
         return self.hcg.group_over(_LOSS_AXES)
 
-    # ------------------------------------------------------------- the step
+    # -------------------------------------------------------- the pipeline
+    def _denominator(self, labels):
+        """The global count of labelled tokens (over the data group), at
+        least 1: every pp rank knows it before the loop."""
+        c = (labels != -100).sum().float()
+        return torch.clamp(collective.all_reduce(c, group=self._loss_group()),
+                           min=1.0)
+
+    def _aux_leaves(self, paths, leaves):
+        """The non-block leaves as the stages use them (ZeRO-3 slices
+        gathered, detached): each a leaf whose gradient the loop sums;
+        ``({name: leaf}, [its index into leaves])``."""
+        aux, idx = {}, []
+        for i, (path, t) in enumerate(zip(paths, leaves)):
+            if path.startswith("blocks/"):
+                continue
+            if self._z3_leaf(path):
+                t = self._z3_gather(t.detach(), path).requires_grad_(True)
+            aux[path] = t
+            idx.append(i)
+        return aux, idx
+
+    def _pipeline(self, params, paths, leaves, tokens, labels, key):
+        """``(loss share, grads)`` of one micro-batch group through the
+        pipeline (GPipe or 1F1B); the grads line up with ``leaves`` (in
+        each leaf's dtype; a stage that does not use a leaf gives zeros)
+        and the loss share sums over pp and the data group to the loss."""
+        cfg, M = self.cfg, self.ec.num_microbatches
+        b = tokens.shape[0]
+        if b % M:
+            raise ValueError(f"local batch {b} must divide "
+                             f"num_microbatches {M}")
+        blk = [i for i, p in enumerate(paths) if p.startswith("blocks/")]
+        aux, aux_idx = self._aux_leaves(paths, leaves)
+        run = self._run_1f1b if self._use_1f1b() else self._run_gpipe
+        loss, blk_grads, aux_grads = run(
+            params, aux, [leaves[i] for i in blk], tokens, labels, key,
+            b // M)
+        got = dict(zip(blk, blk_grads))
+        for i, g in zip(aux_idx, aux_grads):
+            if g is not None and self._z3_leaf(paths[i]):
+                dim = next(d for d, e in enumerate(self._spec(paths[i]))
+                           if "sharding" in _names(e))
+                g = _scatter_sum(g.to(leaves[i].dtype),
+                                 self.group["sharding"], dim)
+            got[i] = g
+        return loss, [torch.zeros_like(t) if got[i] is None else
+                      got[i].to(t.dtype) for i, t in enumerate(leaves)]
+
+    def _run_gpipe(self, params, aux, blk_leaves, tokens, labels, key, mb):
+        """The GPipe loop (:func:`gpipe`), each stage's graph kept from
+        its forward tick to its backward tick.  Stage 0 embeds the whole
+        batch once (its dropout folded with 999983) and takes the
+        embedding's gradient at the end."""
+        cfg, pp, M = self.cfg, self.pp, self.ec.num_microbatches
+        i = self.coords["pp"]
+        first, last = i == 0, i == pp - 1
+        S, D, dt = tokens.shape[1], cfg.hidden, cfg.torch_dtype()
+        denom = self._denominator(labels)
+        moe_w = (cfg.moe_aux_weight / (M * cfg.num_layers *
+                                       self._data_shards())
+                 if cfg.moe_experts else 0.0)
+        aux_in = list(aux.values())
+        x_full = None
+        if first:
+            x_full = self.model.embed(self, aux, tokens)
+            if key is not None:
+                x_full = self._dropout(x_full, cfg.dropout,
+                                       _fold(key, 999983))
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        dx_full = torch.zeros_like(x_full) if first else None
+        aux_acc = [None] * len(aux_in)
+        blk_acc = [None] * len(blk_leaves)
+
+        def forward(m, inbox):
+            nonlocal loss
+            rows = slice(m * mb, (m + 1) * mb)
+            x_in = (x_full[rows] if first else inbox).detach()
+            x_in.requires_grad_(True)
+            k = _fold(key, m) if key is not None else None
+            y, a = self._stage(params["blocks"], x_in, k)
+            s = None
+            if last:
+                sm, _ = self.model.head_loss(self, aux, y, labels[rows])
+                s = sm / denom
+                loss = loss + s.detach()
+            if moe_w:
+                loss = loss + moe_w * a.detach()
+            return (x_in, y, s, a), y
+
+        def backward(m, saved, ct):
+            x_in, y, s, a = saved
+            outs, gouts = ([s], [torch.ones_like(s)]) if last else \
+                ([y], [ct])
+            if moe_w:
+                outs.append(a)
+                gouts.append(torch.full_like(a, moe_w))
+            ins = blk_leaves + [x_in] + (aux_in if last else [])
+            gs = torch.autograd.grad(outs, ins, gouts, allow_unused=True)
+            n = len(blk_leaves)
+            _sum_into(blk_acc, gs[:n])
+            if last:
+                _sum_into(aux_acc, gs[n + 1:])
+            if first:
+                dx_full[m * mb:(m + 1) * mb] = gs[n]
+            return gs[n]
+
+        meta = ((mb, S, D), dt)
+        peak = gpipe(self.group["pp"], i, pp, M, forward, backward, meta,
+                     meta, self.device)
+        if first:
+            _sum_into(aux_acc, torch.autograd.grad(
+                [x_full], aux_in, [dx_full], allow_unused=True))
+        self.pipeline_stats = {"live_peak": peak, "ticks": M + pp - 1,
+                               "schedule": "gpipe"}
+        return loss, blk_acc, aux_acc
+
+    def _run_1f1b(self, params, aux, blk_leaves, tokens, labels, key, mb):
+        """The 1F1B loop over ``_1f1b_schedule``'s ticks.  A forward tick
+        runs the stage without a graph and keeps its input in the ring
+        (at most ``pp - i`` entries); a backward tick runs the stage again
+        from the saved input and backpropagates the arrived cotangent
+        (stage 0 also re-runs its embedding, the last stage runs its
+        forward and backward of a microbatch in the one tick, through the
+        head seeded with ``1/denom``).  Sends are posted where this stage
+        is live, receives where the schedule says the sender is: each
+        direction's message waits in its one-slot mailbox until used."""
+        cfg, pp, M = self.cfg, self.pp, self.ec.num_microbatches
+        i = self.coords["pp"]
+        first, last = i == 0, i == pp - 1
+        S, D, dt = tokens.shape[1], cfg.hidden, cfg.torch_dtype()
+        fwd, bwd = _1f1b_schedule(pp, M)
+        denom = self._denominator(labels)
+        aux_in = list(aux.values())
+        aux_acc = [None] * len(aux_in)
+        blk_acc = [None] * len(blk_leaves)
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        ring, x_box, ct_box = {}, None, None
+        peak = 0
+
+        def seeds(m):
+            k = _fold(key, m) if key is not None else None
+            return k, (_fold(k, 999983) if k is not None else None)
+
+        def embed(m, k_emb):
+            x = self.model.embed(self, aux, tokens[m * mb:(m + 1) * mb])
+            if k_emb is not None:
+                x = self._dropout(x, cfg.dropout, k_emb)
+            return x
+
+        for t in range(fwd.shape[0]):
+            mf, mbk = int(fwd[t, i]), int(bwd[t, i])
+            y_send = dx_send = None
+            if mf >= 0:
+                k, k_emb = seeds(mf)
+                if first:
+                    with torch.no_grad():
+                        x0 = embed(mf, k_emb)
+                else:
+                    x0, x_box = x_box, None
+                ring[mf] = x0.detach()
+                peak = max(peak, len(ring))
+                if not (last and mbk == mf):
+                    with torch.no_grad():
+                        y_send, _ = self._stage(params["blocks"], x0, k)
+            if mbk >= 0:
+                k, k_emb = seeds(mbk)
+                rows = slice(mbk * mb, (mbk + 1) * mb)
+                x0 = ring.pop(mbk).requires_grad_(True)
+                y, _ = self._stage(params["blocks"], x0, k)
+                if last:
+                    sm, _ = self.model.head_loss(self, aux, y,
+                                                 labels[rows])
+                    loss = loss + (sm / denom).detach()
+                    outs, gouts = [sm], [1.0 / denom]
+                else:
+                    outs, gouts = [y], [ct_box]
+                    ct_box = None
+                ins = blk_leaves + [x0] + (aux_in if last else [])
+                gs = torch.autograd.grad(outs, ins, gouts,
+                                         allow_unused=True)
+                n = len(blk_leaves)
+                _sum_into(blk_acc, gs[:n])
+                dx = gs[n]
+                if last:
+                    _sum_into(aux_acc, gs[n + 1:])
+                if first:
+                    e = embed(mbk, k_emb)
+                    _sum_into(aux_acc, torch.autograd.grad(
+                        [e], aux_in, [dx], allow_unused=True))
+                else:
+                    dx_send = dx
+            sends = []
+            if y_send is not None and not last:
+                sends.append((y_send, i + 1))
+            if dx_send is not None:
+                sends.append((dx_send, i - 1))
+            recvs = []
+            if not first and fwd[t, i - 1] >= 0:
+                recvs.append(((mb, S, D), dt, i - 1))
+            if not last and bwd[t, i + 1] >= 0:
+                recvs.append(((mb, S, D), dt, i + 1))
+            got = iter(pp_hop(self.group["pp"], sends, recvs,
+                                 self.device))
+            if not first and fwd[t, i - 1] >= 0:
+                x_box = next(got)
+            if not last and bwd[t, i + 1] >= 0:
+                ct_box = next(got)
+        self.pipeline_stats = {"live_peak": peak, "ticks": fwd.shape[0],
+                               "schedule": "1f1b"}
+        return loss, blk_acc, aux_acc
+
     def _windows(self, n):
         w = max(1, int(self.ec.opt_update_window))
         return [slice(lo, min(n, lo + w)) for lo in range(0, n, w)]
@@ -644,97 +1177,115 @@ class HybridEngine:
         """Grads, clip and the update: the captured step.  Reads every
         per-call value from a device tensor (``step``, ``lr``, ``key``)
         and writes params and slots in place; no host sync in one
-        process.  In a world the loss is summed over the data group and
-        the gradients reduced (``_reduce_grads``) first."""
+        process.  In a world the loss is summed over the data group (and
+        over pp) and the gradients reduced (``_reduce_grads``) first."""
         items = list(_flat_items(params))
         paths = [p for p, _ in items]
         leaves = [t for _, t in items]
         key = key if self.cfg.dropout > 0.0 else None
-        loss, grads = self._grads(params, leaves, tokens, labels, key)
+        loss, grads = self._grads(params, paths, leaves, tokens, labels,
+                                  key)
         with torch.no_grad(), record_function("engine::optimizer"):
             if self.distributed:
                 loss = collective.all_reduce(loss.clone(),
                                              group=self._loss_group())
+                if self.pp > 1:
+                    loss = collective.all_reduce(loss, group=self.group["pp"])
                 grads = self._reduce_grads(paths, grads)
             self._apply(paths, leaves, grads, slots, step, lr)
         return loss
 
-    def _grads(self, params, leaves, tokens, labels, key):
-        """(mean loss, grads): one backward pass, or ``accum_steps``
-        micro-batches with the grads summed in fp32 and averaged."""
+    def _loss_grads(self, params, paths, leaves, tokens, labels, key):
+        """(loss share, grads) of one micro-batch: through the pipeline
+        at pp > 1, else one backward pass (grads in their param's
+        dtype)."""
+        if self.pp > 1:
+            return self._pipeline(params, paths, leaves, tokens, labels,
+                                  key)
+        loss = self._local_loss(params, tokens, labels, key)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    def _grads(self, params, paths, leaves, tokens, labels, key):
+        """(mean loss, grads): one pass, or ``accum_steps`` micro-batches
+        with the grads summed in fp32 and averaged."""
         accum = self.ec.accum_steps
         if accum == 1:
-            loss = self._local_loss(params, tokens, labels, key)
-            # grads keep their param's dtype (bf16 stays bf16)
-            grads = list(torch.autograd.grad(loss, leaves))
-            loss = loss.detach()
-        else:
-            b = tokens.shape[0]
-            if b % accum:
-                raise ValueError(f"batch {b} must divide accum_steps "
-                                 f"{accum}")
-            mb = b // accum
-            grads = [torch.zeros_like(t, dtype=torch.float32)
-                     for t in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(accum):
-                rows = slice(i * mb, (i + 1) * mb)
-                k = _fold(key, i) if key is not None else None
-                l = self._local_loss(params, tokens[rows], labels[rows], k)
-                for acc, g in zip(grads, torch.autograd.grad(l, leaves)):
-                    acc.add_(g.float())
-                loss = loss + l.detach()
-            loss = loss / accum
-            grads = [g / accum for g in grads]
-        return loss, grads
-
-    def _split_axis(self, path):
-        """0, or 1 / 2 where the leaf at ``path`` is split over mp / ep
-        (no leaf is split over both)."""
-        if not hasattr(self, "_split_of"):
-            self._split_of = {}
-        if path not in self._split_of:
-            spec = self.param_specs()
-            for k in path.split("/"):
-                spec = spec[k]
-            axes = {a for e in spec for a in _names(e)}
-            self._split_of[path] = 1 if "mp" in axes and self.mp > 1 else \
-                2 if "ep" in axes and self.ep > 1 else 0
-        return self._split_of[path]
+            return self._loss_grads(params, paths, leaves, tokens, labels,
+                                    key)
+        b = tokens.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} must divide accum_steps {accum}")
+        mb = b // accum
+        grads = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            k = _fold(key, i) if key is not None else None
+            l, gs = self._loss_grads(params, paths, leaves, tokens[rows],
+                                     labels[rows], k)
+            for acc, g in zip(grads, gs):
+                acc.add_(g.float())
+            loss = loss + l
+        return loss / accum, [g / accum for g in grads]
 
     def _reduce_grads(self, paths, grads):
         """Each gradient summed over the ranks whose tokens reach it: the
-        axes its leaf is replicated on among dp, sharding, sep and ep (an
-        mp-replicated leaf's gradient is already whole on every mp rank,
-        summed in the tensor-parallel pair's backward).  At sharding > 1
-        a reduce-scatter leaves this rank the sum of its flat chunk of
-        each leaf.  Leaves of one dtype and kind go in buckets of about
-        ``_BUCKET_ELEMS``, one collective (or two) a bucket."""
+        axes its leaf is replicated on among dp, sharding, sep, ep and pp
+        (an mp-replicated leaf's gradient is already whole on every mp
+        rank, summed in the tensor-parallel pair's backward).  A leaf
+        chunked over sharding gets a reduce-scatter (this rank's flat
+        chunk of the sum); a ZeRO-3 slice's gradient arrives summed over
+        sharding already (``_ZeroGather``'s backward).  Leaves of one
+        dtype and kind go in buckets of about ``_BUCKET_ELEMS``, one
+        collective (or two) a bucket."""
         out = list(grads)
-        cats = [self._split_axis(p) == 2 for p in paths]
-        zero2 = self._zero2()
+        axes = [self._axes_of(p) for p in paths]
         for ep_split in (False, True):
             rest = ("dp", "sep") if ep_split else ("dp", "sep", "ep")
-            group = self.hcg.group_over(rest if zero2 else
-                                        rest + ("sharding",))
-            for dtype in sorted({g.dtype for g in grads}, key=str):
-                ids = [i for i, g in enumerate(grads)
-                       if cats[i] == ep_split and g.dtype == dtype]
-                size = (lambda i: self._chunk(grads[i].numel())) if zero2 \
-                    else (lambda i: grads[i].numel())
-                for bucket in _buckets(ids, size):
-                    if zero2:
-                        self._reduce_scatter_bucket(bucket, grads, out,
+            for kind in ("whole", "chunk", "slice"):
+                group = self.hcg.group_over(
+                    rest + ("sharding",) if kind == "whole" else rest)
+                for dtype in sorted({g.dtype for g in grads}, key=str):
+                    ids = [i for i, g in enumerate(grads)
+                           if ("ep" in axes[i]) == ep_split
+                           and g.dtype == dtype
+                           and self._grad_kind(paths[i]) == kind]
+                    size = (lambda i: self._chunk(grads[i].numel())) \
+                        if kind == "chunk" else (lambda i: grads[i].numel())
+                    for bucket in _buckets(ids, size):
+                        if kind == "chunk":
+                            self._reduce_scatter_bucket(bucket, grads, out,
+                                                        group)
+                        else:
+                            self._all_reduce_bucket(bucket, grads, out,
                                                     group)
-                        continue
-                    flat = torch.cat([grads[i].reshape(-1) for i in bucket])
-                    collective.all_reduce(flat, group=group)
-                    off = 0
-                    for i in bucket:
-                        n = grads[i].numel()
-                        out[i] = flat[off:off + n].view(grads[i].shape)
-                        off += n
+        if self.pp > 1:
+            # leaves every stage holds (the tied embedding, the norms):
+            # each stage's part summed over pp
+            for dtype in sorted({g.dtype for g in out}, key=str):
+                ids = [i for i, g in enumerate(out)
+                       if "pp" not in axes[i] and g.dtype == dtype]
+                for bucket in _buckets(ids, lambda i: out[i].numel()):
+                    self._all_reduce_bucket(bucket, out, out,
+                                            self.group["pp"])
         return out
+
+    def _grad_kind(self, path):
+        """How a leaf's gradient is reduced: ``"chunk"`` (reduce-scatter
+        into the ZeRO chunk), ``"slice"`` (a ZeRO-3 slice) or
+        ``"whole"``."""
+        return ("slice" if self._z3_leaf(path) else
+                "chunk" if self._chunked(path) else "whole")
+
+    @staticmethod
+    def _all_reduce_bucket(bucket, grads, out, group):
+        flat = torch.cat([grads[i].reshape(-1) for i in bucket])
+        collective.all_reduce(flat, group=group)
+        off = 0
+        for i in bucket:
+            n = grads[i].numel()
+            out[i] = flat[off:off + n].view(grads[i].shape)
+            off += n
 
     def _reduce_scatter_bucket(self, bucket, grads, out, group):
         """Leaves ``bucket`` laid out as ``[zr, Σc]`` (row i: every leaf's
@@ -757,36 +1308,41 @@ class HybridEngine:
             out[i] = red[off:off + c]
             off += c
 
-    def _grad_sq(self, paths, grads):
-        """The squared global gradient norm in fp32: squares summed window
-        by window; in a world each disjoint shard once (chunks over
-        sharding, mp- and ep-split leaves over their axis)."""
-        sums = torch.zeros(3, dtype=torch.float32, device=self.device)
-        for path, g in zip(paths, grads):
+    def leaf_sq(self, paths, grads):
+        """Each leaf's squared gradient norm in fp32 (``[n]``), its
+        disjoint parts summed over the ranks that hold them: chunks and
+        ZeRO-3 slices over sharding, and each pp-, mp- or ep-split leaf
+        over its axis (a leaf replicated on an axis is counted once).
+        Squares are summed window by window."""
+        sq = torch.zeros(len(grads), dtype=torch.float32, device=self.device)
+        for k, g in enumerate(grads):
             flat = g.reshape(-1)
-            cat = self._split_axis(path)
             for sl in self._windows(flat.numel()):
-                sums[cat] += flat[sl].float().square().sum()
+                sq[k] += flat[sl].float().square().sum()
         if self._zero2():
-            collective.all_reduce(sums, group=self.group["sharding"])
-        for cat, axis in ((1, "mp"), (2, "ep")):
-            if self._live_group(axis) is not None:
-                part = sums[cat:cat + 1].clone()
-                collective.all_reduce(part, group=self._live_group(axis))
-                sums[cat:cat + 1] = part
-        return sums.sum()
+            collective.all_reduce(sq, group=self.group["sharding"])
+        for axis in ("pp", "mp", "ep"):
+            if self._live_group(axis) is None:
+                continue
+            mask = torch.tensor([axis in self._axes_of(p) for p in paths],
+                                device=self.device)
+            part = torch.where(mask, sq, 0.0)
+            collective.all_reduce(part, group=self._live_group(axis))
+            sq = torch.where(mask, part, sq)
+        return sq
 
     def _apply(self, paths, leaves, grads, slots, step, lr):
         """Global-norm clip and the Adam update, in place; ``step`` and
-        ``lr`` are 0-d fp32 device tensors.  At sharding > 1 each rank
-        updates its flat chunk of every leaf and the params are
-        all-gathered over the sharding group after."""
+        ``lr`` are 0-d fp32 device tensors.  A leaf chunked over sharding
+        updates this rank's flat chunk and the chunks are all-gathered
+        over the sharding group after; a ZeRO-3 slice updates in place
+        and stays a slice."""
         ec = self.ec
         # --- global-norm clip: squares summed in fp32, grads keep their
         # dtype ((g * scale) is rounded back to it, as JAX does) ---
         scale = None
         if ec.grad_clip and ec.grad_clip > 0:
-            gnorm = torch.sqrt(self._grad_sq(paths, grads))
+            gnorm = torch.sqrt(self.leaf_sq(paths, grads).sum())
             scale = torch.clamp(ec.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
 
@@ -794,7 +1350,6 @@ class HybridEngine:
         bc1, bc2 = bias_correction(b1, step), bias_correction(b2, step)
         eps, decay = ec.eps, ec.weight_decay
         has_master = self._has_master()
-        zero2 = self._zero2()
         chunks = []
 
         for path, p, g in zip(paths, leaves, grads):
@@ -804,7 +1359,7 @@ class HybridEngine:
             decay_on = bool(decay) and self.model.decay_this(path)
             gf = g.view(-1)
             m, v = slot["m"].view(-1), slot["v"].view(-1)
-            if zero2:
+            if self._chunked(path):
                 w_src = slot["master"] if has_master else \
                     self._own_chunk(p.detach())
                 pf = torch.empty(gf.numel(), dtype=p.dtype,
@@ -829,7 +1384,7 @@ class HybridEngine:
                 if has_master:
                     slot["master"].view(-1)[sl] = w_new
                 pf[sl] = w_new
-        if zero2:
+        if chunks:
             self._gather_chunks(chunks)
 
     def _gather_chunks(self, chunks):
@@ -850,6 +1405,14 @@ class HybridEngine:
                     p.detach().view(-1).copy_(
                         full[:, off:off + n].reshape(-1)[:p.numel()])
                     off += n
+
+
+def _sum_into(acc, gs):
+    """``acc[k] += gs[k]`` in fp32 (a None gradient adds nothing)."""
+    for k, g in enumerate(gs):
+        if g is not None:
+            g = g.float()
+            acc[k] = g if acc[k] is None else acc[k].add_(g)
 
 
 #: elements a gradient or parameter bucket holds at most (a single

@@ -56,17 +56,29 @@ class Fleet:
         return _strategy[0]
 
     def distributed_model(self, model):
-        """Wrap per parallel mode: ``DataParallel`` over the dp group in
-        data-parallel mode; a pipeline raises (the pipeline engine is the
-        next slice of the port); other modes train through layers that
-        hold their own shards (``mp_layers``) and are returned as
-        they are."""
+        """Wrap per parallel mode: in pipeline mode the pipeline trainer
+        (``pp_layers.PipelineEngine``) of a ``PipelineLayer`` built for
+        this rank's stage (``topology=`` the hcg), over the hcg's pp
+        group, with ``pipeline_configs["accumulate_steps"]``
+        microbatches; ``DataParallel`` over the dp group in data-parallel
+        mode; other modes train through layers that hold their own
+        shards (``mp_layers``) and are returned as they are.  (The JAX
+        ``fleet_base`` imports a ``..pipeline`` module that its package
+        does not have, so the same call raises ``ModuleNotFoundError``
+        there.)"""
         hcg = _hcg[0]
         mode = hcg.get_parallel_mode()
         if mode == "pipeline_parallel":
-            raise NotImplementedError(
-                "pipeline parallelism (pp_layers, GPipe / 1F1B) is the next "
-                "slice of the port")
+            from ..pp_layers import PipelineEngine, PipelineLayer
+
+            if not isinstance(model, PipelineLayer):
+                raise TypeError(
+                    "pipeline mode trains a PipelineLayer (build it with "
+                    "topology=fleet.get_hybrid_communicate_group())")
+            cfg = _strategy[0].pipeline_configs
+            return PipelineEngine(
+                model, num_microbatches=int(cfg.get("accumulate_steps", 1)),
+                group=hcg.get_pipe_parallel_group())
         if mode == "data_parallel":
             from ..parallel import DataParallel
 

@@ -34,9 +34,10 @@ from .env import get_rank, get_world_size
 __all__ = ["AXIS_ORDER", "PartitionSpec", "P", "Mesh", "build_mesh",
            "axis_sizes", "mesh_axis", "GPT_RULES", "resolve_spec",
            "param_specs", "shard_tree", "shard_params", "shard_batch",
-           "gather_tree", "local_shard",
+           "gather_tree", "gather_leaf", "local_shard",
            "zero_opt_specs", "assert_placement", "placement_report",
-           "replica_peers", "default_mesh", "set_default_mesh"]
+           "replica_peers", "default_mesh", "set_default_mesh", "Shard",
+           "window_of"]
 
 AXIS_ORDER = ("dp", "mp", "pp", "sharding")
 
@@ -297,6 +298,46 @@ def shard_batch(mesh, *arrays, axis="dp"):
     return out[0] if len(out) == 1 else tuple(out)
 
 
+class Shard:
+    """A rank's window of a global array (the port's form of a JAX
+    ``addressable_shard``): ``data`` the local tensor, ``shape`` the
+    global shape, ``index`` the window as ``[(start, stop)]`` per
+    dimension, and ``owner``: whether this rank is the one that writes
+    the window (several ranks may hold it).  ``checkpoint.save_sharded``
+    writes it under its window, ``integrity.shard_fingerprint`` digests
+    it as ``path@start:stop,...``."""
+
+    def __init__(self, data, shape, index, owner=True):
+        self.data = data
+        self.shape = tuple(int(n) for n in shape)
+        self.index = [(int(a), int(b)) for a, b in index]
+        self.owner = bool(owner)
+        want = tuple(b - a for a, b in self.index)
+        if tuple(data.shape) != want:
+            raise ValueError(f"a shard of shape {tuple(data.shape)} does "
+                             f"not fill its window {self.index}")
+
+    @property
+    def key(self):
+        return ",".join(f"{a}:{b}" for a, b in self.index) or "0:1"
+
+    def __repr__(self):
+        return f"Shard({self.key} of {self.shape})"
+
+
+def window_of(spec, shape, sizes, coords):
+    """``[(start, stop)]`` of the block of a ``shape`` array that the
+    rank at ``coords`` holds under ``spec`` (``local_shard``'s block)."""
+    out = []
+    for d, n in enumerate(shape):
+        names = _names(spec[d]) if d < len(spec) else ()
+        k, idx = 1, 0
+        for a in names:
+            k, idx = k * sizes[a], idx * sizes[a] + coords[a]
+        out.append((idx * (n // k), (idx + 1) * (n // k)))
+    return out
+
+
 def _spec_at(specs, path):
     node = specs
     for k in path.split("/"):
@@ -304,21 +345,23 @@ def _spec_at(specs, path):
     return node
 
 
+def gather_leaf(x, spec, mesh):
+    """The whole array from every rank's block ``x`` under ``spec``
+    (all-gathered along each split dimension over its axis group)."""
+    sizes = axis_sizes(mesh)
+    for dim in reversed(range(len(spec))):
+        for a in reversed(_names(spec[dim])):
+            if sizes[a] > 1:
+                x = collective.all_gather(x.contiguous(),
+                                          group=mesh.group(a), axis=dim)
+    return x
+
+
 def gather_tree(local, mesh, spec_tree):
     """Inverse of ``shard_tree``: the full tree on every rank of the
     mesh, gathered along each sharded dimension over its axis group."""
-    sizes = axis_sizes(mesh)
-
-    def gather(path, x):
-        spec = _spec_at(spec_tree, path)
-        for dim in reversed(range(len(spec))):
-            for a in reversed(_names(spec[dim])):
-                if sizes[a] > 1:
-                    x = collective.all_gather(x.contiguous(),
-                                              group=mesh.group(a), axis=dim)
-        return x
-
-    return _map(local, gather)
+    return _map(local, lambda path, x: gather_leaf(
+        x, _spec_at(spec_tree, path), mesh))
 
 
 # -------------------------------------------------- placement assertions

@@ -51,6 +51,9 @@ class ModelAdapter:
                           ("vocab_size", cfg.vocab_size)):
             if dim % engine.mp:
                 raise ValueError(f"{name} {dim} must divide mp {engine.mp}")
+        if cfg.num_layers % engine.pp:
+            raise ValueError(f"num_layers {cfg.num_layers} must divide pp "
+                             f"{engine.pp}: a pp rank holds L/pp layers")
         if engine.sep > 1 and cfg.seq_parallel == "ring" and \
                 not self.causal:
             raise ValueError(
@@ -155,6 +158,13 @@ class ModelAdapter:
     def param_specs(self, engine):
         raise NotImplementedError
 
+    @staticmethod
+    def _z(engine):
+        """ZeRO-3's split of a matrix leaf's free dim: ``"sharding"`` at
+        ``zero_stage >= 3`` and sharding > 1 (the JAX adapters' ``z``)."""
+        return ("sharding" if engine.ec.zero_stage >= 3 and engine.zr > 1
+                else None)
+
 
 class GPTAdapter(ModelAdapter):
     """The decoder-LM family: vocab-split tied embedding, causal pre-LN
@@ -175,7 +185,8 @@ class GPTAdapter(ModelAdapter):
                              f"{engine.ep}")
 
     def param_specs(self, engine):
-        blocks = self.block_specs()
+        z = self._z(engine)
+        blocks = self.block_specs(z)
         if self.cfg.moe_experts:
             for k in ("up_w", "up_b", "down_w", "down_b"):
                 blocks.pop(k)
@@ -183,11 +194,11 @@ class GPTAdapter(ModelAdapter):
             # FFN whole (ep takes mp's role)
             blocks.update({
                 "gate_w": P("pp", None, None),
-                "up_w": P("pp", "ep", None, None), "up_b": P("pp", "ep", None),
-                "down_w": P("pp", "ep", None, None),
+                "up_w": P("pp", "ep", z, None), "up_b": P("pp", "ep", None),
+                "down_w": P("pp", "ep", z, None),
                 "down_b": P("pp", "ep", None),
             })
-        return {"wte": P("mp", None), "wpe": P(None, None),
+        return {"wte": P("mp", z), "wpe": P(None, None),
                 "blocks": blocks, "lnf_g": P(None), "lnf_b": P(None)}
 
     def init(self, generator, device):
@@ -233,14 +244,15 @@ class BertAdapter(ModelAdapter):
         return bert_init(self.cfg, generator=generator, device=device)
 
     def param_specs(self, engine):
+        z = self._z(engine)
         return {
-            "wte": P("mp", None), "wpe": P(None, None),
+            "wte": P("mp", z), "wpe": P(None, None),
             "wtt": P(None, None),
             "emb_ln_g": P(None), "emb_ln_b": P(None),
-            "blocks": self.block_specs(),
+            "blocks": self.block_specs(z),
             # the MLM transform stays whole on every mp rank (a D x D
             # dense beside the blocks; the tied head needs D whole)
-            "mlm_w": P(None, None), "mlm_b": P(None),
+            "mlm_w": P(z, None), "mlm_b": P(None),
             "mlm_ln_g": P(None), "mlm_ln_b": P(None),
         }
 

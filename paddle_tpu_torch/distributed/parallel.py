@@ -14,7 +14,36 @@ import torch
 from ..nn.layer.layers import Layer
 from .collective import ReduceOp, all_reduce, world_group
 
-__all__ = ["DataParallel"]
+__all__ = ["DataParallel", "reduce_grads"]
+
+
+@torch.no_grad()
+def reduce_grads(grads, group, mean=True, comm_buffer_size=25):
+    """Sum (``mean``: average) the tensors ``grads`` over ``group`` in
+    place: same-dtype tensors packed into buckets of about
+    ``comm_buffer_size`` MB, one all-reduce a bucket."""
+    n = group.nranks
+    if n <= 1:
+        return
+    limit = comm_buffer_size * 1024 * 1024
+    buckets, cur, cur_bytes = [], [], 0
+    for g in grads:
+        if cur and (g.dtype != cur[-1].dtype or cur_bytes >= limit):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(g)
+        cur_bytes += g.numel() * g.element_size()
+    if cur:
+        buckets.append(cur)
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        all_reduce(flat, op=ReduceOp.SUM, group=group)
+        if mean:
+            flat /= n
+        off = 0
+        for g in bucket:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 class DataParallel(Layer):
@@ -47,38 +76,13 @@ class DataParallel(Layer):
         for p in unused:
             p.grad = torch.zeros_like(p)
 
-    def _grad_buckets(self):
-        limit = self.comm_buffer_size * 1024 * 1024
-        buckets, cur, cur_bytes = [], [], 0
-        for p in self._trainable():
-            if p.grad is None:
-                continue
-            g = p.grad
-            if cur and (g.dtype != cur[-1].grad.dtype or cur_bytes >= limit):
-                buckets.append(cur)
-                cur, cur_bytes = [], 0
-            cur.append(p)
-            cur_bytes += g.numel() * g.element_size()
-        if cur:
-            buckets.append(cur)
-        return buckets
-
-    @torch.no_grad()
     def apply_collective_grads(self):
         """Average the gradients over the group (the world by default)."""
-        group = self.group or world_group()
-        n = group.nranks
         self._resolve_unused()
-        for bucket in self._grad_buckets():
-            flat = torch.cat([p.grad.reshape(-1) for p in bucket])
-            all_reduce(flat, op=ReduceOp.SUM, group=group)
-            if n > 1:
-                flat /= n
-            off = 0
-            for p in bucket:
-                size = p.grad.numel()
-                p.grad.copy_(flat[off:off + size].view_as(p.grad))
-                off += size
+        reduce_grads([p.grad for p in self._trainable()
+                      if p.grad is not None],
+                     self.group or world_group(),
+                     comm_buffer_size=self.comm_buffer_size)
 
     def parameters(self, include_sublayers=True):
         return self._layers.parameters(include_sublayers)

@@ -48,8 +48,33 @@ state back, so nothing on the model changes.  Fault sites:
 ``hapi.step_params`` (the post-step parameters, bit-flipped in place)
 and ``hapi.train_step`` (after each step's callbacks).
 
-Not ported, raising ``NotImplementedError``: ``prepare(device_mesh=)``
-(multi-GPU)."""
+``prepare(device_mesh=, sharding_rules=)`` trains over a world of
+ranks, one process a rank (the JAX package's GSPMD ``prepare``):
+``"auto"`` is dp over the whole world; a ``distributed.mesh.Mesh`` may
+hold dp, mp and sharding axes.  Each rank trains on its dp rows of the
+batch (trimmed to a dp multiple, or padded with its last row when
+smaller, as JAX does); the gradients are averaged over dp
+(``parallel.reduce_grads``).  A parameter's spec comes from the rule
+table (``mesh.param_specs``, ``sharding_rules`` first).  The mp axis
+splits the compute of the ``nn.Linear`` layers whose weight the specs
+split, as Megatron's pairs do (``mp_layers``): a column split
+(``P(None, "mp")``) multiplies by this rank's columns and all-gathers
+the output, a row split (``P("mp", None)``) multiplies this rank's slice
+of the input by its rows and all-reduces; any other parameter split over
+mp is refused.  What a rank owns is a window of each parameter: its
+spec plus the ZeRO split of ``mesh.zero_opt_specs``.  Its optimizer
+slots are that window only; the update (clip and decay on the whole
+gradient first) runs on the window and the windows are all-gathered back
+into every rank's whole parameter, so the parameters are bitwise equal
+across ranks and equal to one device's on the whole batch (batch norm
+normalizes over each rank's rows).  The parameters themselves stay whole
+on every rank: mp and sharding divide the optimizer state and the split
+layers' products, not the parameters' memory.  ``eval_batch`` runs the
+whole batch on every rank, unsplit; the metrics of ``train_batch`` read
+the outputs and labels gathered over dp.  The world's steps run eagerly
+(a host-side transport cannot sit inside a CUDA graph).
+``shard_views`` names each rank's window (``integrity.shard_fingerprint``,
+checkpoints)."""
 from __future__ import annotations
 
 import contextlib
@@ -109,6 +134,8 @@ class Model:
         self._stash_batch = False       # IntegrityCallback replay feed
         self._last_batch = None
         self._resume_info = None
+        self._mesh, self._extra_rules, self._plan = None, (), None
+        self._tp = {}
         # the static inputs of the watched steps; the learning rate and
         # the step as device scalars
         dev = self.device
@@ -149,13 +176,22 @@ class Model:
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 device_mesh=None, sharding_rules=()):
-        if device_mesh is not None or sharding_rules:
-            raise NotImplementedError(
-                "prepare(device_mesh=...): multi-GPU hapi is not ported "
-                "(see ROADMAP.md)")
+        """``device_mesh``: None (this device), ``"auto"`` (dp over the
+        world) or a ``distributed.mesh.Mesh`` with dp / mp / sharding
+        axes; ``sharding_rules``: ``(regex, PartitionSpec)`` pairs
+        consulted before the GPT rule table (see the module
+        docstring)."""
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
+        if device_mesh == "auto":
+            from ..distributed import mesh as mesh_mod
+            from ..distributed.env import get_world_size
+
+            device_mesh = mesh_mod.build_mesh(dp=get_world_size())
+        self._mesh = device_mesh
+        self._extra_rules = tuple(sharding_rules)
+        self._plan = None
         self._build_steps()
         return self
 
@@ -183,6 +219,8 @@ class Model:
     def _train_call(self, inputs, labels, lr):
         """The watched train step on one batch at ``lr``: ``(loss,
         output, grad norm or None, labels)``; the step count advances."""
+        if self._mesh is not None:
+            return self._mesh_train(inputs, labels, lr)
         params = dict(self.network.named_parameters())
         st = self._train_state()
         x, y = self._train_in(_to_list(inputs)[0], _to_list(labels)[0])
@@ -352,7 +390,228 @@ class Model:
                 for k, b in net.named_buffers():
                     b.copy_(saved[k])
 
+    # ------------------------------------------------ a world of ranks
+    def _mesh_plan(self):
+        """``{name: (param spec, window spec)}`` for the network's
+        parameters under the mesh: the rule table's spec, and that spec
+        plus the ZeRO split of the optimizer slots (the window this rank
+        updates).  Also finds the ``nn.Linear`` layers the mp axis splits
+        (``self._tp``).  Built at the first step, once."""
+        if self._plan is None:
+            from ..distributed import mesh as mesh_mod
+
+            params = dict(self.network.named_parameters())
+            pspecs = mesh_mod.param_specs(params, self._mesh,
+                                          extra_rules=self._extra_rules)
+            wspecs = mesh_mod.zero_opt_specs(pspecs, params, self._mesh)
+            if type(self._optimizer).__name__ == "Lamb":
+                # a trust ratio a parameter: the rule needs it whole
+                wspecs = {k: mesh_mod.P() for k in params}
+            self._tp = self._tp_linears(pspecs)
+            self._plan = {k: (pspecs[k], wspecs[k]) for k in params}
+        return self._plan
+
+    def _tp_linears(self, pspecs):
+        """``{layer: (kind, lo, hi)}`` for each ``nn.Linear`` whose weight
+        ``pspecs`` split over mp: ``"column"`` (``P(None, "mp")``) or
+        ``"row"`` (``P("mp", None)``), and this rank's ``[lo, hi)`` of
+        the split dim.  Any other parameter split over mp raises."""
+        from ..distributed.mesh import _names, mesh_axis
+        from ..nn.layer.common import Linear
+
+        mp = mesh_axis(self._mesh, "mp")
+        kinds = {(None, "mp"): "column", ("mp", None): "row"}
+        linears = {f"{n}.weight" if n else "weight": m
+                   for n, m in self.network.named_modules()
+                   if isinstance(m, Linear)}
+        tp = {}
+        for k, spec in pspecs.items():
+            names = [_names(e) for e in spec]
+            if not any("mp" in n for n in names):
+                continue
+            entries = tuple(n[0] if n else None for n in names)
+            layer = linears.get(k)
+            if layer is None or entries not in kinds or \
+                    any(len(n) > 1 for n in names):
+                raise ValueError(
+                    f"prepare(device_mesh=): {k} is split over mp by "
+                    f"{spec}; the mp axis splits only an nn.Linear's "
+                    f"weight, by columns P(None, 'mp') or rows "
+                    f"P('mp', None)")
+            kind = kinds[entries]
+            n = layer.weight.shape[1 if kind == "column" else 0] // mp
+            lo = self._mesh.coords["mp"] * n
+            tp[layer] = (kind, lo, lo + n)
+        return tp
+
+    @contextlib.contextmanager
+    def _tp_forward(self):
+        """The split ``nn.Linear`` layers run their mp share for the
+        duration: the column split's input copied to the mp group and
+        its output gathered, the row split's input scattered and its
+        output reduced (each pair's gradients as ``mp_layers`` gives
+        them; the weight's gradient is this rank's columns or rows of
+        the whole one, zero elsewhere)."""
+        from ..distributed.mp_layers import (copy_to_group,
+                                             gather_from_group,
+                                             reduce_from_group,
+                                             scatter_to_group)
+
+        if not self._tp:
+            yield
+            return
+        group = self._mesh.group("mp")
+
+        def split_forward(layer, kind, lo, hi):
+            def forward(x):
+                if kind == "column":
+                    y = gather_from_group(
+                        copy_to_group(x, group) @ layer.weight[:, lo:hi],
+                        group)
+                else:
+                    y = reduce_from_group(
+                        scatter_to_group(x, group) @ layer.weight[lo:hi],
+                        group)
+                return y if layer.bias is None else y + layer.bias
+            return forward
+
+        for layer, (kind, lo, hi) in self._tp.items():
+            layer.forward = split_forward(layer, kind, lo, hi)
+        try:
+            yield
+        finally:
+            for layer in self._tp:
+                del layer.forward
+
+    def _window(self, t, spec):
+        from ..distributed.mesh import axis_sizes, local_shard
+
+        return local_shard(t, spec, axis_sizes(self._mesh),
+                           self._mesh.coords)
+
+    def shard_views(self):
+        """``{"params": {name: mesh.Shard}}``: each parameter's window
+        this rank owns under the rule table, with its place in the whole
+        parameter (``owner`` on dp rank 0)."""
+        from ..distributed.mesh import Shard, axis_sizes, window_of
+
+        sizes = axis_sizes(self._mesh)
+        out = {}
+        for k, p in self.network.named_parameters():
+            spec = self._mesh_plan()[k][0]
+            out[k] = Shard(self._window(p.detach(), spec), p.shape,
+                           window_of(spec, p.shape, sizes,
+                                     self._mesh.coords),
+                           owner=self._mesh.coords.get("dp", 0) == 0)
+        return {"params": out}
+
+    def _mesh_state(self):
+        """The optimizer state of the world's step: each slot the
+        window of this rank (cut from the optimizer's own initial
+        state)."""
+        if self._opt_state is None:
+            params = dict(self.network.named_parameters())
+            full = self._optimizer.init_state(params)
+            plan = self._mesh_plan()
+            self._opt_state = {"step": full["step"], "slots": {
+                k: {n: self._window(t, plan[k][1]).contiguous().clone()
+                    for n, t in s.items()}
+                for k, s in full["slots"].items()}}
+        return self._opt_state
+
+    def _dp_rows(self, x, y):
+        """This rank's dp rows of the batch: trimmed to a dp multiple, or
+        padded by repeating the last row when smaller than dp (the JAX
+        ``_shard_batch``)."""
+        from ..distributed import mesh as mesh_mod
+
+        x, y = (np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+                for t in (x, y))
+        dp = mesh_mod.mesh_axis(self._mesh, "dp")
+        n = x.shape[0]
+        if n % dp:
+            keep = (n // dp) * dp
+            if keep:
+                x, y = x[:keep], y[:keep]
+            else:
+                x = np.concatenate([x] + [x[-1:]] * (dp - n))
+                y = np.concatenate([y] + [y[-1:]] * (dp - n))
+        xs, ys = mesh_mod.shard_batch(self._mesh, x, y)
+        return self._tensor(xs), self._tensor(ys)
+
+    def _mesh_train(self, inputs, labels, lr):
+        """The world's train step (eager): the dp rows' forward and
+        backward (the split linears on their mp share), the split
+        weights' gradients summed over mp, the gradients averaged over
+        dp, clip and decay on the whole gradient, the rule on this
+        rank's windows, the windows gathered back."""
+        from ..distributed import collective
+        from ..distributed.mesh import gather_leaf, mesh_axis
+        from ..distributed.parallel import reduce_grads
+
+        opt, plan = self._optimizer, self._mesh_plan()
+        dp = mesh_axis(self._mesh, "dp")
+        st = self._mesh_state()
+        x, y = self._dp_rows(_to_list(inputs)[0], _to_list(labels)[0])
+        params = dict(self.network.named_parameters())
+        live = [k for k, p in params.items() if p.requires_grad]
+        with RecordEvent("hapi::train_step"):
+            with self._tp_forward():
+                out = self.network(x)
+            loss = self._loss(out, y)
+            got = torch.autograd.grad(loss, [params[k] for k in live],
+                                      allow_unused=True)
+            with torch.no_grad():
+                grads = [torch.zeros_like(params[k]) if g is None else g
+                         for k, g in zip(live, got)]
+                loss = loss.detach().reshape(1).clone()
+                if self._tp:
+                    # a split weight's gradient holds only this rank's
+                    # columns or rows: summed over mp it is the whole one
+                    split = {id(l.weight) for l in self._tp}
+                    reduce_grads([g for k, g in zip(live, grads)
+                                  if id(params[k]) in split],
+                                 self._mesh.group("mp"), mean=False)
+                if dp > 1:
+                    reduce_grads(grads + [loss], self._mesh.group("dp"))
+                loss = loss[0]
+                gnorm = None
+                if self._watch_grad_norm:
+                    gnorm = torch.sqrt(sum(torch.sum(torch.square(
+                        g.float())) for g in grads))
+                if opt._grad_clip is not None:
+                    grads = opt._grad_clip(grads)
+                wins, gwins, slots = [], [], []
+                for k, g in zip(live, grads):
+                    p, spec = params[k], plan[k][1]
+                    g = opt._apply_decay(p.detach(), g.to(p.dtype))
+                    wins.append(self._window(p.detach(), spec))
+                    gwins.append(self._window(g, spec))
+                    slots.append(st["slots"][k])
+                step = self._step.fill_(st["step"] + 1)
+                self._lr.fill_(lr)
+                opt._apply_all(wins, gwins, slots, self._lr, step)
+                for k, w in zip(live, wins):
+                    params[k].detach().copy_(
+                        gather_leaf(w, plan[k][1], self._mesh))
+                if dp > 1:
+                    group = self._mesh.group("dp")
+                    out = collective.all_gather(out.detach().contiguous(),
+                                                group=group, axis=0)
+                    y = collective.all_gather(y.contiguous(), group=group,
+                                              axis=0)
+        st["step"] += 1
+        return loss, out.detach(), gnorm, y
+
     def eval_batch(self, inputs, labels):
+        if self._mesh is not None:
+            # every rank evaluates the whole batch (the same result)
+            x, y = (self._tensor(t) for t in (inputs, labels))
+            with torch.no_grad(), self._buffers_kept():
+                out = self.network(x)
+                loss = self._loss(out, y) if self._loss else None
+            results = self._update_metrics(out, y)
+            return (float(loss) if loss is not None else 0.0), results
         x, y = self._eval_in(_to_list(inputs)[0], _to_list(labels)[0])
         with RecordEvent("hapi::eval_step"):
             loss, out = self._run_eval(x, y)

@@ -348,19 +348,21 @@ def unbind_layers(blocks):
     return [{k: c[l] for k, c in cols.items()} for l in range(L)]
 
 
-def run_blocks(block_fn, blocks, x, remat="nothing", dropout_seed=None):
+def run_blocks(block_fn, blocks, x, remat="nothing", dropout_seed=None,
+               first_layer=0):
     """Apply ``block_fn(bp, x, seed) -> (x, aux)`` over the stacked
     blocks, each under the ``remat`` checkpoint policy, and sum the aux
     losses in fp32: the loop the JAX package runs as a ``lax.scan`` with
     ``(x, aux_sum)`` as its carry.  Layer ``l``'s dropout seed is
-    ``dropout_seed`` folded with ``l``.  Returns ``(x, aux_sum)``."""
+    ``dropout_seed`` folded with ``first_layer + l`` (a pipeline stage
+    folds its layers' global indices).  Returns ``(x, aux_sum)``."""
     from ..distributed.recompute import checkpoint_policy
 
     fn = checkpoint_policy(remat)(block_fn)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, bp in enumerate(unbind_layers(blocks)):
         x, aux = fn(bp, x, None if dropout_seed is None
-                    else _fold(dropout_seed, l))
+                    else _fold(dropout_seed, first_layer + l))
         aux_sum = aux_sum + aux
     return x, aux_sum
 
@@ -423,7 +425,8 @@ def gpt_loss(cfg: GPTConfig, params, tokens, labels=None,
 @torch.no_grad()
 def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
                     slot_of_token, query_lens, context_lens, k_pages,
-                    v_pages, page_tables, *, max_q=None, attention=None):
+                    v_pages, page_tables, *, max_q=None, attention=None,
+                    mp_group=None):
     """Unified ragged step over the paged KV cache — one call advances
     every scheduled row, whether it is a prompt chunk or a decode token.
 
@@ -458,6 +461,14 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     paged-attention kernel's wrapper) — the hook through which a caller
     runs the same step on the plain version for comparison.
 
+    ``mp_group`` (a ``distributed.collective.Group`` of more than one
+    rank): ``params`` are this rank's shards under the GPT rule table
+    (``distributed.mesh.GPT_RULES``: qkv and up split by column, proj and
+    down by row, the embedding by vocabulary) and the pages hold this
+    rank's ``H/mp`` heads; the embedding's lookup and each row product
+    are all-reduced over the group and the logits all-gathered, so every
+    rank returns the whole ``[B, V]``.  Page writes stay local.
+
     A MoE model routes all ``T`` packed tokens, padding slots included,
     in packing order, as the JAX step does, so padding tokens take
     expert capacity like any other token.  Their hidden states match
@@ -472,8 +483,17 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
         attention = ragged_paged_attention
     T = tokens.shape[0]
     B = query_lens.shape[0]
-    H, hd, D = cfg.num_heads, cfg.head_dim, cfg.hidden
+    H, hd, D = k_pages.shape[3], cfg.head_dim, cfg.hidden
     L, P = k_pages.shape[0], k_pages.shape[1] - 1
+    if mp_group is not None:
+        from ..distributed import collective
+        from ..distributed.mp_layers import vocab_parallel_embed
+
+        def reduce(t):
+            return collective.all_reduce(t.contiguous(), group=mp_group)
+    else:
+        def reduce(t):
+            return t
     page_size = k_pages.shape[2]
     Q = max_q or T
 
@@ -487,8 +507,9 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
     valid = (row_of_token < B) & (slot_of_token < qlens[row_c])
     pos = (start[row_c] + slot_of_token).clamp(0, cfg.max_seq_len - 1)
 
-    x = params["wte"][tokens] + params["wpe"][pos]
-    x = x.to(cfg.torch_dtype())                                    # [T, D]
+    emb = (params["wte"][tokens] if mp_group is None else
+           vocab_parallel_embed(tokens, params["wte"], mp_group))
+    x = (emb + params["wpe"][pos]).to(cfg.torch_dtype())           # [T, D]
 
     # scatter targets of all T tokens, computed once per step: a valid
     # token's page slot and query slot, else the scratch page P and the
@@ -517,8 +538,8 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
         q_pad[scat_row, scat_slot] = q
         attn = attention(q_pad[:B], kp, vp, page_tables, query_lens,
                          context_lens)
-        attn = attn[row_c, scat_slot].reshape(T, D).to(x.dtype)
-        x = x + attn @ blocks["proj_w"][l] + blocks["proj_b"][l]
+        attn = attn[row_c, scat_slot].reshape(T, H * hd).to(x.dtype)
+        x = x + reduce(attn @ blocks["proj_w"][l]) + blocks["proj_b"][l]
 
         h = _layer_norm(x, blocks["ln2_g"][l], blocks["ln2_b"][l])
         if cfg.moe_experts:
@@ -527,7 +548,7 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
             continue
         h = h @ blocks["up_w"][l] + blocks["up_b"][l]
         h = F.gelu(h, approximate="tanh")
-        x = x + (h @ blocks["down_w"][l] + blocks["down_b"][l])
+        x = x + (reduce(h @ blocks["down_w"][l]) + blocks["down_b"][l])
 
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     # row b's last packed token sits at cumsum(query_lens)[b] - 1
@@ -537,6 +558,9 @@ def gpt_ragged_step(cfg: GPTConfig, params, tokens, row_of_token,
         logits = x_last @ params["wte"].t()
     else:
         logits = x_last @ params["lm_head"]
+    if mp_group is not None:
+        logits = collective.all_gather(logits.contiguous(), group=mp_group,
+                                       axis=1)
     return logits, k_pages, v_pages
 
 

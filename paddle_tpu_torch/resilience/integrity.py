@@ -58,8 +58,11 @@ phase 19 (f) checks the port's cost on the card against it.
 The port's digests equal the JAX package's for equal arrays: a leaf's
 CRC covers ``dtype.str:shape`` and then its host bytes, and a bf16 tensor
 digests as the ``'<V2'`` array (its uint16 bits) that an
-``ml_dtypes.bfloat16`` array is.  A tensor is one window, so
-:func:`shard_fingerprint` keys each leaf by its whole index range.
+``ml_dtypes.bfloat16`` array is.  :func:`shard_fingerprint` keys a
+plain tensor by its whole index range and a ``mesh.Shard`` by its window
+of the global array; :func:`cross_rank_windows` compares a world's
+windows and :func:`repair_windows` copies a window back only from a
+strict majority of its holders.
 The port's train step writes in place, so the replay's snapshot is a
 deep copy (``Model.replay_train_batch`` restores the live state after
 it), and the in-place bitflip of the fault injector corrupts the live
@@ -74,12 +77,14 @@ import zlib
 
 import torch
 
+from ..distributed.mesh import Shard
 from ..kernels.crc32 import crc32_leaves
 # the duck-typed hapi hook surface: resilience sits below hapi in the
 # layer stack, so the sentinel callback does not import hapi
 from ..observability.goodput import TrainingCallback
 
-__all__ = ["tree_fingerprint", "shard_fingerprint",
+__all__ = ["tree_fingerprint", "shard_fingerprint", "compare_windows",
+           "cross_rank_windows", "repair_windows",
            "first_divergent_leaf", "majority_partition",
            "compare_digests", "IntegrityCallback"]
 
@@ -158,6 +163,12 @@ def _visit(tree, prefix, leaf_key):
                 visit(f"{path}/{i}" if path else str(i), v)
         elif node is None:
             return
+        elif isinstance(node, Shard):
+            key = leaf_key(path, node)
+            if key is not None:
+                out[key] = None
+                names.append(key)
+                leaves.append(node.data.contiguous())
         elif hasattr(node, "dtype") or hasattr(node, "__array__"):
             key = leaf_key(path, node)
             if key is not None:
@@ -189,19 +200,104 @@ def shard_fingerprint(tree, prefix="", devices=None):
     """Per-window CRC32 digest, ``{leaf_path@window: crc32}``, the
     multi-chip view of :func:`tree_fingerprint` (JAX: one entry per
     addressable shard, ``window`` its global index slice, ``0:64,32:64``).
-    In the port a tensor is one window, its whole index range (a 0-d leaf
-    is ``0:1``); ``devices`` keeps only the leaves on those devices.
-    Digests compare within a dp replica group only."""
+    A ``distributed.mesh.Shard`` leaf (``HybridEngine.shard_views``,
+    ``Model.shard_views`` in a world) is keyed by its real window of the
+    global array; any other tensor is one window, its whole index range
+    (a 0-d leaf is ``0:1``).  ``devices`` keeps only the leaves on those
+    devices.  Digests compare within a dp replica group only, or window
+    by window across every rank (:func:`compare_windows`)."""
     devset = None if devices is None else {str(d) for d in devices}
 
     def window(path, node):
-        dev = getattr(node, "device", "cpu")
+        data = node.data if isinstance(node, Shard) else node
+        dev = getattr(data, "device", "cpu")
         if devset is not None and str(dev) not in devset:
             return None
+        if isinstance(node, Shard):
+            return f"{path}@{node.key}"
         shape = tuple(node.shape) or (1,)
         return f"{path}@" + ",".join(f"0:{n}" for n in shape)
 
     return _visit(tree, prefix, window)
+
+
+def compare_windows(digests):
+    """Windows whose digests disagree across the ranks that hold them:
+    ``digests`` ``{rank: {leaf@window: crc32}}`` (each rank's
+    :func:`shard_fingerprint`).  Returns ``[{"rank", "leaf", "window",
+    "majority_ranks"}]`` (empty: every replica of every window agrees).
+    Where one digest is held by strictly more ranks than any other, it
+    is the window's majority and each other holder is named beside it.
+    Without such a majority (two holders that disagree, or a tie) which
+    copy is right is unknown: every holder is named with
+    ``majority_ranks`` empty, and :func:`repair_windows` copies nothing
+    there (recovery is the rollback's, as in :class:`IntegrityCallback`;
+    the JAX ``majority_partition``'s two-rank anchor is a convention for
+    naming, not a source to repair from)."""
+    holders = {}
+    for rank, d in digests.items():
+        for key, crc in d.items():
+            holders.setdefault(key, {}).setdefault(crc, []).append(rank)
+    out = []
+    for key in sorted(holders):
+        groups = sorted(holders[key].values(), key=len, reverse=True)
+        if len(groups) < 2:
+            continue
+        majority = groups[0] if len(groups[0]) > len(groups[1]) else []
+        leaf, _, win = key.partition("@")
+        named = sorted(r for g in groups if g is not majority for r in g)
+        for r in named:
+            out.append({"rank": int(r), "leaf": leaf, "window": win,
+                        "majority_ranks": sorted(majority)})
+    return out
+
+
+def cross_rank_windows(views, prefix=""):
+    """Every rank's :func:`shard_fingerprint` of ``views`` (a tree of
+    ``mesh.Shard``) exchanged over the world (an all-gather of the
+    digests) and compared window by window: ``(divergent, digests)``,
+    ``divergent`` as :func:`compare_windows` gives it, the same on every
+    rank.  A collective: every rank of the world calls it."""
+    import torch.distributed as dist
+
+    mine = shard_fingerprint(views, prefix)
+    if not dist.is_initialized():
+        return compare_windows({0: mine}), {0: mine}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    digests = dict(enumerate(every))
+    return compare_windows(digests), digests
+
+
+def repair_windows(views, divergent, prefix=""):
+    """Copy each divergent window of :func:`cross_rank_windows` that has
+    a majority from the lowest rank of that majority into the rank that
+    holds it wrong, in place (``collective.send`` / ``recv`` over the
+    world); a window without a majority is left as it is.  Returns the
+    windows this rank repaired.  A collective: every rank calls it with
+    the same ``divergent``."""
+    from ..distributed import collective
+    from ..distributed.env import get_rank
+    from ..distributed.mesh import _leaf_paths
+
+    me = get_rank()
+    by_key = {f"{prefix}{p}@{v.key}": v for p, v in _leaf_paths(views)}
+    done = []
+    for d in divergent:
+        if not d["majority_ranks"]:
+            continue
+        key = f"{d['leaf']}@{d['window']}"
+        src, dst = d["majority_ranks"][0], d["rank"]
+        view = by_key.get(key)
+        if me == src:
+            collective.send(view.data, dst)
+        elif me == dst:
+            buf = torch.empty_like(view.data)
+            collective.recv(buf, src)
+            with torch.no_grad():
+                view.data.copy_(buf)
+            done.append(key)
+    return done
 
 
 def _same_bits(a, b):
@@ -484,6 +580,10 @@ class IntegrityCallback(TrainingCallback):
 
     # ---- cross-rank fingerprints ---------------------------------------
     def _fingerprint_tree(self):
+        if self.fingerprint_shards and \
+                getattr(self.model, "_mesh", None) is not None:
+            # a world: each parameter's window this rank owns
+            return self.model.shard_views()
         tree = {"params": dict(self.model.network.named_parameters())}
         if self.include_opt_state and self.model._opt_state is not None:
             tree["opt"] = self.model._opt_state

@@ -76,9 +76,24 @@ Admission runs under ``profiling_phase("admission")`` and the step under
 ``RecordEvent("serving::unified_step")``, as in the JAX engine.  The
 page pool is updated in place where JAX donates buffers.  Admission is
 host-only: ``add_request`` never waits on the device, so a router's
-wall-clock stall detection reads only real admission wedges.  The JAX
-feature this engine still lacks is a later slice: mesh-sharded serving
-(``Engine(mesh=)``).
+wall-clock stall detection reads only real admission wedges.
+
+``Engine(mesh=)`` serves over the mesh's mp group, one process a rank
+(the JAX engine's GSPMD serving): the params follow the GPT rule table
+(``distributed.mesh.shard_params``: qkv and up split by column, proj and
+down by row, the embedding by vocabulary), the page pool ``[L, P + 1,
+ps, H/mp, hd]`` holds this rank's heads, so each rank runs the ragged
+kernel on its own heads' pages and its page writes stay local, an
+all-reduce follows each row product, and the logits are all-gathered
+whole on every rank (``gpt_ragged_step(mp_group=)``).  Every rank of the
+group is handed the same requests and makes the same scheduling
+decisions (the scheduler is deterministic in them); each step checks
+that by broadcasting mp rank 0's packed inputs and raises where a rank's
+differ, and every rank samples the same tokens from the same logits.  A
+dp axis of the mesh replicates the engine: each dp row is an mp group
+serving its own requests.  The mesh step runs eagerly (a host-side
+transport cannot sit inside a CUDA graph); MoE models do not serve over
+mp.
 """
 from __future__ import annotations
 
@@ -190,6 +205,20 @@ class _RaggedStep(CapturedStep):
         return logits.float()
 
 
+def _mesh_step(cfg, max_q, group):
+    """The unified step over an mp group (eager): ``gpt_ragged_step`` on
+    this rank's shards and heads, the logits whole."""
+
+    def step(params, k_pages, v_pages, inputs, storage=None):
+        tokens, rows, slots, qlens, ctxs, tables = inputs
+        logits, _, _ = gpt_ragged_step(
+            cfg, params, tokens, rows, slots, qlens, ctxs, k_pages,
+            v_pages, tables, max_q=max_q, mp_group=group)
+        return logits.float()
+
+    return step
+
+
 class Engine:
     """Continuous-batching generation over a paged KV cache with a
     unified (chunked-prefill) step scheduler.
@@ -210,7 +239,9 @@ class Engine:
     ``drain_floor_s`` (cold-start floor of the drain estimate).
     ``clock`` replaces time.perf_counter; ``tracer`` overrides the
     flight recorder (default: the process-wide tracer, or a private one
-    on an injected clock).
+    on an injected clock).  ``mesh``: a ``distributed.mesh.Mesh`` to
+    serve over its mp group (the module docstring; ``params`` the full
+    tree, cut to this rank's shards; the device defaults to the rank's).
     """
 
     #: assumed decode throughput (tok/s) until the first decode step has
@@ -226,8 +257,13 @@ class Engine:
                  default_ttl_s=None, shed_occupancy_high=None,
                  shed_occupancy_low=None, shed_queue_high=None,
                  shed_queue_low=None, drain_floor_s=None,
-                 prefix_cache=True, clock=None, tracer=None, device=None):
+                 prefix_cache=True, clock=None, tracer=None, device=None,
+                 mesh=None):
         self.cfg = cfg
+        if mesh is not None and device is None:
+            from ..distributed.env import current_device
+
+            device = current_device()
         self.device = resolve_device(device)
         self._clock = clock or time.perf_counter
         if tracer is None:
@@ -252,6 +288,22 @@ class Engine:
         self._shedding = False
         self.params = (params if params is not None
                        else gpt_init(cfg, device=self.device))
+        self.mesh, self._mp = mesh, None
+        heads = cfg.num_heads
+        if mesh is not None:
+            from ..distributed import mesh as mesh_mod
+
+            mp = mesh_mod.mesh_axis(mesh, "mp")
+            if cfg.moe_experts and mp > 1:
+                raise ValueError("Engine(mesh=) splits the dense FFN over "
+                                 "mp: a MoE model serves at mp = 1")
+            if cfg.num_heads % mp:
+                raise ValueError(f"num_heads {cfg.num_heads} must divide "
+                                 f"mp {mp}")
+            self.params = mesh_mod.shard_params(self.params, mesh)
+            heads //= mp
+            if mp > 1:
+                self._mp = mesh.group("mp")
         self.page_size = page_size
         self.max_batch_size = max_batch_size
         self.chunk_len = max(1, min(chunk_len or prefill_len or 64,
@@ -260,7 +312,7 @@ class Engine:
             token_budget or (self.chunk_len + max_batch_size - 1),
             max_batch_size)
         self.cache = PagedKVCache(
-            num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            num_layers=cfg.num_layers, num_heads=heads,
             head_dim=cfg.head_dim, num_pages=num_pages, page_size=page_size,
             max_seq_len=cfg.max_seq_len, dtype=cfg.torch_dtype(),
             device=self.device)
@@ -292,22 +344,27 @@ class Engine:
                                          dtype=torch.float32,
                                          pin_memory=True) if cuda else None)
         # the watched step: one capture per engine (CUDA), the port's
-        # watch(jax.jit(_step), name="serving::unified_step")
-        self._step_fn = watch(_RaggedStep(cfg, self.chunk_len,
-                                          self.device),
-                              name="serving::unified_step")
+        # watch(jax.jit(_step), name="serving::unified_step"); over mp
+        # ranks the same step, eager
+        if self._mp is None:
+            step = _RaggedStep(cfg, self.chunk_len, self.device)
+        else:
+            step = _mesh_step(cfg, self.chunk_len, self._mp)
+        self._step_fn = watch(step, name="serving::unified_step")
 
     @property
     def captures(self):
-        """CUDA graphs this engine has captured (0 on the CPU)."""
-        return self._step_fn.captures
+        """CUDA graphs this engine has captured (0 on the CPU and over mp
+        ranks)."""
+        return getattr(self._step_fn, "captures", 0)
 
     @property
     def graph_pool_bytes(self):
         """Device memory the captured graph's private pool holds: the
         step's activations and the ragged kernel's split scratch, for the
-        engine's life (0 before the capture and on the CPU)."""
-        return self._step_fn.pool_bytes
+        engine's life (0 before the capture, on the CPU and over mp
+        ranks)."""
+        return getattr(self._step_fn, "pool_bytes", 0)
 
     def _storage(self):
         """The addresses a captured step reads: the parameters and the
@@ -610,6 +667,8 @@ class Engine:
         for dst, src in zip(parts, (tables.reshape(-1), qlens, ctxs, tokens,
                                     rows, slots)):
             dst[:] = src
+        if self._mp is not None:
+            self._same_plan()
         kw = {}
         if self._logits_host is not None:
             self._in_dev.copy_(self._in_host, non_blocking=True)
@@ -622,6 +681,19 @@ class Engine:
         self._logits_host.copy_(logits, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return self._logits_host.numpy()
+
+    def _same_plan(self):
+        """Raise unless every mp rank packed the same step: mp rank 0's
+        inputs broadcast and compared with this rank's."""
+        from ..distributed import collective
+
+        ref = self._in_host.clone()
+        collective.broadcast(ref, src=0, group=self._mp)
+        if not torch.equal(ref, self._in_host):
+            raise RuntimeError(
+                f"mp rank {self._mp.rank} planned another step than mp "
+                f"rank 0: the ranks of Engine(mesh=) must be handed the "
+                f"same requests in the same order")
 
     def _unified_step_once(self, plan):
         """Run the step over the planned ragged batch and fold the

@@ -165,16 +165,36 @@ def test_strategy_maps_onto_the_engine_config_as_jax():
 
 
 def test_pipeline_mode_raises_naming_the_next_slice(world):
-    """``distributed_model`` on a pipeline layout is the next slice."""
-    from paddle_tpu_torch.distributed import fleet
+    """``distributed_model`` on a pipeline layout gives the pipeline
+    trainer now (``test_torch_pp_layers.py`` trains through it over a
+    world): a ``PipelineEngine`` over the hcg's pp group with
+    ``accumulate_steps`` microbatches for a ``PipelineLayer``, and a
+    ``TypeError`` naming the ``PipelineLayer`` for any other model."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.pp_layers import (LayerDesc,
+                                                        PipelineEngine,
+                                                        PipelineLayer)
 
-    with pytest.raises(NotImplementedError, match="next slice"):
-        class _HCG:
-            def get_parallel_mode(self):
-                return "pipeline_parallel"
-        saved = fleet.fleet_base._hcg[0]
-        fleet.fleet_base._hcg[0] = _HCG()
-        try:
-            fleet.distributed_model(None)
-        finally:
-            fleet.fleet_base._hcg[0] = saved
+    class _HCG:
+        def get_parallel_mode(self):
+            return "pipeline_parallel"
+
+        def get_pipe_parallel_group(self):
+            return collective.world_group()
+
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline_configs["accumulate_steps"] = 3
+    saved = fleet.fleet_base._hcg[0], fleet.fleet_base._strategy[0]
+    fleet.fleet_base._hcg[0] = _HCG()
+    fleet.fleet_base._strategy[0] = strategy
+    paddle.set_device("cpu")
+    try:
+        eng = fleet.distributed_model(PipelineLayer(
+            [LayerDesc(paddle.nn.Linear, 4, 4)], num_stages=1,
+            loss_fn=paddle.nn.MSELoss()))
+        assert isinstance(eng, PipelineEngine) and eng.num_micro == 3
+        with pytest.raises(TypeError, match="PipelineLayer"):
+            fleet.distributed_model(paddle.nn.Linear(4, 4))
+    finally:
+        fleet.fleet_base._hcg[0], fleet.fleet_base._strategy[0] = saved

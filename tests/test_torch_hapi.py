@@ -284,12 +284,25 @@ def test_grad_norm_logging_and_summary():
 
 
 def test_not_ported_paths_raise(tmp_path):
-    """``prepare(device_mesh=)`` (multi-GPU) still raises; the resume and
-    callback paths that raised before they were ported now run:
-    ``fit(resume_from=)`` of an empty directory is a fresh start."""
+    """``prepare(device_mesh=)`` trains over a world now
+    (``test_torch_hapi_mesh.py``): in one process ``"auto"`` is a world of
+    one rank and steps as the unmeshed model does, and a mesh of more
+    ranks than the world raises naming them.  The resume and callback
+    paths that raised before they were ported run: ``fit(resume_from=)``
+    of an empty directory is a fresh start."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
     _, model = _toy_pair()
-    with pytest.raises(NotImplementedError):
-        model.prepare(device_mesh="auto")
+    _, plain = _toy_pair()
+    model.prepare(model._optimizer, tpaddle.nn.CrossEntropyLoss(),
+                  tpaddle.metric.Accuracy(), device_mesh="auto")
+    ds = ToyDataset.make(tpaddle.io)
+    got, want = (m.train_batch(ds.x[:16], ds.y[:16]) for m in (model, plain))
+    assert got[0] == pytest.approx(want[0], rel=1e-6)
+    assert got[1] == want[1]
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        model.prepare(device_mesh=mesh_mod.build_mesh(dp=2))
+    _, model = _toy_pair()
     hist = model.fit(ToyDataset.make(tpaddle.io), batch_size=16, verbose=0,
                      resume_from=str(tmp_path / "none"))
     assert len(hist) == 1 and model._resume_info is None

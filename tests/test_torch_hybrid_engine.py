@@ -227,11 +227,21 @@ def test_dropout_masks_follow_data_coordinates(world, baseline):
 
 
 def test_pipeline_and_zero3_raise_naming_the_next_slice():
+    """pp > 1 and ZeRO-3 train in a world of ranks now
+    (``test_torch_pipeline.py``, ``test_torch_zero3.py``): in one process
+    they raise as every grid of more than one rank does, naming the ranks
+    they need; layers that do not split over pp are refused."""
     cfg = model_of(MODEL)
-    with pytest.raises(NotImplementedError, match="next multi-GPU slice"):
-        HybridEngine(cfg, pp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ZeRO-3"):
+    with pytest.raises(NotImplementedError, match="needs 2 ranks"):
+        HybridEngine(cfg, pp=2, device="cpu",
+                     engine_cfg=EngineConfig(num_microbatches=2))
+    with pytest.raises(NotImplementedError, match="needs 2 ranks"):
         HybridEngine(cfg, sharding=2, device="cpu",
                      engine_cfg=EngineConfig(zero_stage=3))
+    with pytest.raises(NotImplementedError, match="needs 2 ranks"):
+        HybridEngine(cfg, pp=2, device="cpu")
+    with pytest.raises(ValueError, match="must divide pp"):
+        HybridEngine(cfg, pp=3, device="cpu",
+                     engine_cfg=EngineConfig(num_microbatches=3))
     with pytest.raises(NotImplementedError, match="needs 2 ranks"):
         HybridEngine(cfg, dp=2, device="cpu")

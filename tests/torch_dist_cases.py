@@ -368,3 +368,349 @@ def meta_sync_case(kind, grads):
     if kind == "dgc":
         out["residual"] = [sync._v[id(p)].numpy() for p in ps]
     return out
+
+
+# ------------------------------------------------ pipeline and ZeRO-3
+
+
+def pipeline_stats(model, axes, params, tokens, labels, ec):
+    """One engine step on the grid ``axes``: the pipeline loop's record
+    (``live_peak``: the most microbatch inputs a stage held at once)."""
+    n = int(np.prod(list(axes.values())))
+    if outside(axes):
+        return None
+    eng = HybridEngine(model_of(model), **axes, device="cpu",
+                       engine_cfg=EngineConfig(**ec), ranks=list(range(n)))
+    local = eng.shard_params(params_from_jax(params, device="cpu"))
+    eng.step(local, eng.init_opt(local), tokens, labels, lr=1e-3)
+    return dict(eng.pipeline_stats)
+
+
+def state_bytes(model, axes, params, ec):
+    """Bytes of this rank's params and optimizer state (the persistent
+    per-rank state) and the local shape of ``blocks/qkv_w``."""
+    n = int(np.prod(list(axes.values())))
+    if outside(axes):
+        return None
+    eng = HybridEngine(model_of(model), **axes, device="cpu",
+                       engine_cfg=EngineConfig(**ec), ranks=list(range(n)))
+    local = eng.shard_params(params_from_jax(params, device="cpu"))
+    opt = eng.init_opt(local)
+
+    def size(tree):
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        return tree.numel() * tree.element_size() if isinstance(
+            tree, torch.Tensor) else 0
+
+    return {"bytes": size(local) + size(opt["slots"]),
+            "qkv_w": list(local["blocks"]["qkv_w"].shape)}
+
+
+# ------------------------------------------------- pp_layers and fleet
+
+
+def cnn_descs(nn):
+    """The AlexNet-style conv stack of ``tests/test_pp_layers.py``."""
+    from paddle_tpu_torch.distributed.pp_layers import LayerDesc
+
+    return [LayerDesc(nn.Conv2D, 1, 6, 5, padding=2), LayerDesc(nn.ReLU),
+            LayerDesc(nn.MaxPool2D, kernel_size=2, stride=2),
+            LayerDesc(nn.Conv2D, 6, 16, 5), LayerDesc(nn.ReLU),
+            LayerDesc(nn.MaxPool2D, kernel_size=2, stride=2),
+            LayerDesc(nn.Flatten), LayerDesc(nn.Linear, 16 * 5 * 5, 64),
+            LayerDesc(nn.ReLU), LayerDesc(nn.Linear, 64, 10)]
+
+
+def tied_descs(nn):
+    """A tied layer on the first and the last stage."""
+    from paddle_tpu_torch.distributed.pp_layers import (LayerDesc,
+                                                        SharedLayerDesc)
+
+    return [SharedLayerDesc("tied", nn.Linear, 16, 16), LayerDesc(nn.ReLU),
+            LayerDesc(nn.Linear, 16, 16),
+            SharedLayerDesc("tied", nn.Linear, 16, 16)]
+
+
+def pipeline_layers_case(kind, stages, seg, state, x, y, M, lr, steps=3,
+                         fleet_mode=False):
+    """``steps`` ``PipelineEngine.train_batch`` steps of the ``kind``
+    layer list (``"cnn"`` or ``"tied"``) over ``stages`` ranks from the
+    logical per-layer ``state``: the losses and the engine's final
+    state (this rank's entries).  ``fleet_mode``: built through
+    ``fleet.init(pp_degree=stages)`` and ``fleet.distributed_model``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.pp_layers import (PipelineEngine,
+                                                        PipelineLayer)
+
+    paddle.set_device("cpu")
+    nn = paddle.nn
+    descs = (cnn_descs if kind == "cnn" else tied_descs)(nn)
+    loss = nn.CrossEntropyLoss() if kind == "cnn" else nn.MSELoss()
+    if fleet_mode:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["pp_degree"] = stages
+        s.pipeline_configs["accumulate_steps"] = M
+        fleet.init(is_collective=True, strategy=s)
+        hcg = fleet.get_hybrid_communicate_group()
+        eng = fleet.distributed_model(PipelineLayer(
+            descs, loss_fn=loss, seg_method=seg, topology=hcg))
+    else:
+        axes = {"pp": stages}
+        if outside(axes):
+            return None
+        hcg = HybridCommunicateGroup(pp_degree=stages,
+                                     ranks=list(range(stages)))
+        eng = PipelineEngine(
+            PipelineLayer(descs, num_stages=stages, loss_fn=loss,
+                          seg_method=seg, stage=hcg.get_stage_id()),
+            num_microbatches=M, group=hcg.get_pipe_parallel_group())
+    eng.load_state(state)
+    losses = []
+    collective.reset_collective_stats()
+    for _ in range(steps):
+        _, l = eng.train_batch(x, y, lr=lr)
+        losses.append(float(l))
+    return {"losses": losses, "type": type(eng).__name__,
+            "stage": eng.stage, "bounds": eng.pl.segment_bounds(),
+            "state": [{k: _np(v) for k, v in d.items()}
+                      for d in eng.state()],
+            "bytes": collective.collective_stats()["bytes"]}
+
+
+def stage_executor_case(port, data, target, w0, w1, steps=5, lr=0.05):
+    """``tests/test_fleet_executor.py``'s two-process pipeline on ranks
+    0 and 1 of the world: stage 0 ``tanh(x @ w0)``, stage 1 the MSE of
+    ``h @ w1``, streaming over a ``TCPStore`` message bus; returns the
+    last stage's losses and each stage's final weight."""
+    from paddle_tpu_torch.distributed.fleet_executor import (
+        MessageBus, PipelineStageExecutor)
+    from paddle_tpu_torch.distributed.store import TCPStore
+
+    rank = get_rank()
+    if rank > 1:
+        return None
+    store = TCPStore("127.0.0.1", port, is_master=rank == 0, world_size=2)
+    bus = MessageBus(store)
+    if rank == 0:
+        ex = PipelineStageExecutor(
+            lambda p, x: torch.tanh(x @ p[0]),
+            [torch.from_numpy(np.array(w0))], 0, 2, bus, lr=lr)
+        for _ in range(steps):
+            ex.train_batch([torch.from_numpy(np.array(d)) for d in data])
+        return {"w": _np(ex.params[0])}
+    ex = PipelineStageExecutor(
+        None, [torch.from_numpy(np.array(w1))], 1, 2, bus, lr=lr,
+        loss_fn=lambda p, x, y: ((x @ p[0] - y) ** 2).mean())
+    losses = [ex.train_batch(None, labels=[np.array(t) for t in target])
+              for _ in range(steps)]
+    return {"losses": losses, "w": _np(ex.params[0])}
+
+
+# ------------------------------------------------------- mesh serving
+
+
+def mesh_serving_case(cfg_kw, params, prompts, sp_kw, axes, engine_kw):
+    """``Engine(mesh=build_mesh(**axes))`` on this rank from the full
+    ``params`` tree: the generated tokens, the pool's and ``qkv_w``'s
+    local shapes, the steps and the collective calls by op."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    n = int(np.prod(list(axes.values())))
+    if get_rank() >= n:
+        mesh_mod.build_mesh(**axes)      # every rank makes every group
+        return None
+    mesh = mesh_mod.build_mesh(**axes)
+    eng = Engine(GPTConfig(**cfg_kw), params_from_jax(params, device="cpu"),
+                 device="cpu", mesh=mesh, **engine_kw)
+    collective.reset_collective_stats()
+    out = eng.generate(prompts, SamplingParams(**sp_kw))
+    return {"tokens": out, "coords": dict(mesh.coords),
+            "pool": list(eng.cache.k_pages.shape),
+            "qkv_w": list(eng.params["blocks"]["qkv_w"].shape),
+            "steps": eng.steps,
+            "calls": collective.collective_stats()["calls"]}
+
+
+# ------------------------------------------------------ hapi over a world
+
+
+def hapi_mesh_case(weights, x, y, mesh_axes, rules, epochs=3, lr=0.1,
+                   bs=16, opt="sgd"):
+    """``Model.prepare(device_mesh=...)`` (``"auto"``, or a mesh of
+    ``mesh_axes`` with ``rules``) on the toy 8-16-2 MLP from ``weights``,
+    ``fit`` over ``(x, y)``: the epoch losses, the final params, this
+    rank's slot shapes and its owned windows' keys."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.hapi import Model
+
+    paddle.set_device("cpu")
+    nn = paddle.nn
+    net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 2))
+    net.set_state_dict({k: np.array(v) for k, v in weights.items()})
+    model = Model(net)
+    o = (paddle.optimizer.SGD(learning_rate=lr, parameters=net.parameters())
+         if opt == "sgd" else paddle.optimizer.Adam(
+             learning_rate=lr, parameters=net.parameters()))
+    mesh = "auto" if mesh_axes is None else mesh_mod.build_mesh(**mesh_axes)
+    model.prepare(o, nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  device_mesh=mesh,
+                  sharding_rules=[(pat, mesh_mod.P(*spec))
+                                  for pat, spec in rules])
+
+    class Data(paddle.io.Dataset):
+        def __len__(self):
+            return len(x)
+
+        def __getitem__(self, i):
+            return x[i], y[i]
+
+    from paddle_tpu_torch.distributed import collective
+
+    collective.reset_collective_stats()
+    hist = model.fit(Data(), batch_size=bs, epochs=epochs, shuffle=False,
+                     verbose=0)
+    mp_bytes = collective.collective_stats()["bytes"].get("mp", 0)
+    ev = model.evaluate(Data(), batch_size=bs, verbose=0)
+    from paddle_tpu_torch.resilience.integrity import (IntegrityCallback,
+                                                       shard_fingerprint)
+
+    cb = IntegrityCallback(fingerprint_shards=True)
+    cb.set_model(model)
+    return {"losses": [h["loss"] for h in hist],
+            "fingerprint": shard_fingerprint(cb._fingerprint_tree()),
+            "coords": dict(model._mesh.coords),
+            "acc": [h["acc"] for h in hist], "eval": ev,
+            "params": {k: _np(p) for k, p in net.named_parameters()},
+            "slots": {k: {n: list(t.shape) for n, t in s.items()}
+                      for k, s in model._opt_state["slots"].items()},
+            "windows": {k: v.key for k, v in
+                        model.shard_views()["params"].items()},
+            "tp": {n: list(model._tp[m]) for n, m in net.named_modules()
+                   if m in model._tp},
+            "mp_bytes": mp_bytes}
+
+
+def hapi_mp_refusal_case(rules):
+    """A dp 2 x mp 2 hapi step whose ``rules`` split over mp a parameter
+    that is not an ``nn.Linear`` weight: the error's text."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.hapi import Model
+
+    paddle.set_device("cpu")
+    nn = paddle.nn
+    net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 2))
+    model = Model(net)
+    model.prepare(paddle.optimizer.SGD(learning_rate=0.1,
+                                       parameters=net.parameters()),
+                  nn.CrossEntropyLoss(),
+                  device_mesh=mesh_mod.build_mesh(dp=2, mp=2),
+                  sharding_rules=[(pat, mesh_mod.P(*spec))
+                                  for pat, spec in rules])
+    x = np.zeros((4, 8), np.float32)
+    try:
+        model.train_batch(x, np.zeros((4,), np.int64))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+# ------------------------------------- checkpoint windows and integrity
+
+
+def save_windows_case(model, axes, params, tokens, labels, path, ec,
+                      steps=2, barrier_port=None):
+    """``steps`` engine steps on the grid ``axes``, then
+    ``save_engine_state`` (every rank its windows; with ``barrier_port``
+    through a ``CommitBarrier`` over a ``TCPStore`` there), then one more
+    step (the uninterrupted run's): that step's loss and the gathered
+    params after it, this rank's manifest and the barrier's status."""
+    import json
+    import os
+
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed.store import TCPStore
+
+    n = int(np.prod(list(axes.values())))
+    if outside(axes):
+        return None
+    eng = HybridEngine(model_of(model), **axes, device="cpu",
+                       engine_cfg=EngineConfig(**ec), ranks=list(range(n)))
+    p = eng.shard_params(params_from_jax(params, device="cpu"))
+    o = eng.init_opt(p)
+    for _ in range(steps):
+        p, o, _ = eng.step(p, o, tokens, labels, lr=1e-3)
+    barrier = None
+    if barrier_port is not None:
+        store = TCPStore("127.0.0.1", barrier_port,
+                         is_master=get_rank() == 0, world_size=n)
+        barrier = ck.CommitBarrier(store, get_rank(), n, timeout=60.0)
+    collective.barrier()
+    ck.save_engine_state(path, eng, p, o, barrier=barrier)
+    collective.barrier()
+    p, o, loss = eng.step(p, o, tokens, labels, lr=1e-3)
+    with open(os.path.join(path, f"manifest.{get_rank()}.json")) as f:
+        manifest = json.load(f)
+    return {"loss": float(loss), "params": params_to_numpy(
+        eng.gather_params(p)), "manifest": manifest,
+        "barrier": barrier.status() if barrier is not None else None}
+
+
+def load_windows_case(model, axes, tokens, labels, path, ec):
+    """A fresh engine on the grid ``axes`` restores the checkpoint at
+    ``path`` (``load_engine_state``: each rank reads its windows) and
+    takes one step: its loss, the gathered params after it, the step."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    n = int(np.prod(list(axes.values())))
+    if outside(axes):
+        return None
+    eng = HybridEngine(model_of(model), **axes, device="cpu",
+                       engine_cfg=EngineConfig(**ec), ranks=list(range(n)))
+    p, o = ck.load_engine_state(path, eng)
+    step0 = o["step"]
+    p, o, loss = eng.step(p, o, tokens, labels, lr=1e-3)
+    return {"loss": float(loss), "step0": step0,
+            "params": params_to_numpy(eng.gather_params(p))}
+
+
+def fingerprint_case(model, axes, params, flip=None):
+    """This rank's ``shard_fingerprint`` of its engine shards
+    (``shard_views``) on the grid ``axes``; with ``flip`` ``(rank, leaf,
+    flat index)`` that rank flips one bit of its shard first, then every
+    rank runs ``cross_rank_windows`` and ``repair_windows``: the report
+    before and after the repair, and this rank's digest after it."""
+    import paddle_tpu_torch.resilience.integrity as I
+
+    n = int(np.prod(list(axes.values())))
+    if outside(axes):
+        return None
+    eng = HybridEngine(model_of(model), **axes, device="cpu",
+                       ranks=list(range(n)))
+    p = eng.shard_params(params_from_jax(params, device="cpu"))
+    views = eng.shard_views(p)
+    out = {"digest": I.shard_fingerprint(views), "coords": eng.coords}
+    if flip is not None:
+        rank, leaf, i = flip
+        if get_rank() == rank:
+            t = dict(_items(p))[leaf]
+            bits = t.detach().view(-1).view(torch.int32)
+            bits[i] ^= 1 << 20
+        out["before"], _ = I.cross_rank_windows(views)
+        out["repaired"] = I.repair_windows(views, out["before"])
+        out["after"], _ = I.cross_rank_windows(eng.shard_views(p))
+        out["digest_after"] = I.shard_fingerprint(eng.shard_views(p))
+    return out
+
+
+def _items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _items(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v

@@ -4,8 +4,9 @@ contract, the collectives over process groups, the rank grid, the
 sharding rules, the tensor-parallel layers, ``DataParallel``, Fleet,
 ``HybridEngine`` and its ``EngineConfig``, the model adapters (GPT
 dense or MoE, BERT), the MoE blocks, the remat policies, the pipeline
-layers (``pp_layers``) and the host-actor pipeline
-(``fleet_executor``)."""
+layers (``pp_layers``), the host-actor pipeline (``fleet_executor``),
+semi-automatic SPMD (``auto_parallel``: ``shard_tensor``, ``reshard``,
+``parallelize``) and the sparse parameter server (``ps``)."""
 from .env import (ParallelEnv, get_rank, get_world_size,  # noqa: F401
                   init_parallel_env, is_initialized)
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
@@ -24,6 +25,8 @@ from .moe import (GShardGate, MoELayer, NaiveGate, SwitchGate, moe_capacity,
                   moe_ffn, moe_gating, moe_layer, moe_route)
 from .recompute import checkpoint_policy
 from . import fleet_executor, pp_layers  # noqa: F401
+from . import auto_parallel, ps  # noqa: F401
+from .auto_parallel import reshard, shard_tensor  # noqa: F401
 
 __all__ = ["HybridEngine", "EngineConfig", "ModelAdapter", "GPTAdapter",
            "BertAdapter", "checkpoint_policy", "moe_capacity", "moe_route",
@@ -35,4 +38,5 @@ __all__ = ["HybridEngine", "EngineConfig", "ModelAdapter", "GPTAdapter",
            "reduce_scatter", "scatter", "send", "split",
            "CommunicateTopology", "HybridCommunicateGroup", "mesh",
            "build_mesh", "replica_peers", "fleet", "DataParallel",
-           "pp_layers", "fleet_executor"]
+           "pp_layers", "fleet_executor", "auto_parallel", "ps",
+           "shard_tensor", "reshard"]

@@ -33,6 +33,16 @@ the card.  Every call runs inside ``RecordEvent("collective::<op>")``
 and adds to ``collective_stats()``: calls per op, and bytes, staged
 bytes and host seconds per axis.
 
+Every public op also routes through the distributed flight recorder
+(:func:`~paddle_tpu_torch.observability.flight.record_collective`;
+``tests/test_torch_flight.py`` lints it), as does ``AllToAll``'s
+forward and backward: each call gets a monotonic sequence number,
+byte/shape accounting, a ``collective::<op>`` tracer span and the
+``collective_*`` registry series.  The ``collective.all_reduce`` /
+``collective.barrier`` fault sites make cross-rank hangs reproducible
+(``kind="stall"`` freezes a rank mid-collective with its record in
+flight — what the ``HangWatchdog`` must localize).
+
 Differentiable forms for the training step: ``AllToAll`` (Ulysses and
 the expert dispatch; its backward is the inverse all-to-all) here, and
 the tensor-parallel pair in ``mp_layers``.
@@ -45,7 +55,10 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from ..observability.flight import default_flight_recorder, \
+    record_collective
 from ..profiler.profiler import RecordEvent
+from ..resilience.faults import fault_point
 
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_gather", "reduce", "broadcast", "scatter", "reduce_scatter",
@@ -238,6 +251,7 @@ class _Call:
         self._copies = []
 
     def __enter__(self):
+        default_flight_recorder().mark_wire()
         self._ev = RecordEvent(f"collective::{self.op}")
         self._ev.begin()
         self._t0 = time.perf_counter()
@@ -272,9 +286,11 @@ class _Call:
 # ----------------------------------------------------------- collectives
 
 
+@record_collective("all_reduce")
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """Reduce ``tensor`` over the group in place and return it.  ``AVG``
     is the sum divided by the group size; ``PROD`` an exact product."""
+    fault_point("collective.all_reduce")
     group = _resolve(group)
     if _single(group):
         return tensor
@@ -303,6 +319,7 @@ def _gather_blocks(x, group):
     return out.view(group.nranks, *x.shape)
 
 
+@record_collective("all_gather")
 def all_gather(tensor_or_list, tensor=None, group=None, sync_op=True,
                axis=0):
     """``all_gather(out_list, x)`` appends every member's ``x`` to the
@@ -324,12 +341,14 @@ def all_gather(tensor_or_list, tensor=None, group=None, sync_op=True,
     return torch.cat(list(g.unbind(0)), dim=axis)
 
 
+@record_collective("reduce")
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     """Every member gets the reduction (the SPMD ``psum``, whose value is
     ``dst``'s)."""
-    return all_reduce(tensor, op=op, group=group)
+    return all_reduce.__wrapped__(tensor, op=op, group=group)
 
 
+@record_collective("broadcast")
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """``tensor`` takes the value of the member at index ``src``, in
     place."""
@@ -343,6 +362,7 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     return tensor
 
 
+@record_collective("scatter")
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     """Member i gets block i of member ``src``'s ``tensor_list`` (or of
     its ``tensor`` split into equal blocks along dim 0)."""
@@ -351,10 +371,11 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
         return tensor
     x = torch.stack(list(tensor_list)) if tensor_list is not None else \
         tensor.unflatten(0, (group.nranks, -1))
-    x = broadcast(x.contiguous(), src=src, group=group)
+    x = broadcast.__wrapped__(x.contiguous(), src=src, group=group)
     return x[group.rank]
 
 
+@record_collective("reduce_scatter")
 def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
                    sync_op=True):
     """This member's block (along dim 0) of the group's sum of ``tensor``
@@ -396,6 +417,7 @@ def _a2a(x, group, split_axis, concat_axis):
     return out.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
 
 
+@record_collective("all_to_all")
 def all_to_all(in_tensor_or_list, out_tensor_list=None, group=None,
                sync_op=True, split_axis=0, concat_axis=0):
     """Tiled all-to-all: ``x`` split along ``split_axis`` into one block
@@ -436,6 +458,7 @@ def _p2p(ops, group, inputs, outputs, name):
         c.back(*staged)
 
 
+@record_collective("ring_shift")
 def ring_shift(tensors, group):
     """Each member sends ``tensors`` to the next member of the group (in
     group order, the last to the first) and returns what the previous
@@ -449,6 +472,7 @@ def ring_shift(tensors, group):
     return tuple(outs)
 
 
+@record_collective("ppermute")
 def ppermute(tensor, perm, group=None):
     """Send ``tensor`` along each ``(src, dst)`` pair of member indices;
     returns what arrived here, zeros where no pair ends here."""
@@ -468,6 +492,7 @@ def ppermute(tensor, perm, group=None):
     return out
 
 
+@record_collective("send")
 def send(tensor, dst=0, group=None, sync_op=True):
     """Send ``tensor`` to the member at index ``dst`` (which calls
     ``recv``)."""
@@ -476,6 +501,7 @@ def send(tensor, dst=0, group=None, sync_op=True):
          "send")
 
 
+@record_collective("recv")
 def recv(tensor, src=0, group=None, sync_op=True):
     """Receive into ``tensor`` from the member at index ``src``."""
     group = _resolve(group)
@@ -483,7 +509,9 @@ def recv(tensor, src=0, group=None, sync_op=True):
     return tensor
 
 
+@record_collective("barrier")
 def barrier(group=None):
+    fault_point("collective.barrier")
     group = _resolve(group)
     if _single(group):
         return
@@ -491,6 +519,7 @@ def barrier(group=None):
         dist.barrier(group=group.pg)
 
 
+@record_collective("split")
 def split(x, num_or_sections, axis=0, group=None):
     """This member's slice of ``x`` along ``axis``, in ``num_or_sections``
     equal parts."""
@@ -514,9 +543,11 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, split_axis, concat_axis):
         ctx.args = (group, split_axis, concat_axis)
-        return _a2a(x, group, split_axis, concat_axis)
+        with default_flight_recorder().record("all_to_all", group, (x,)):
+            return _a2a(x, group, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, g):
         group, split_axis, concat_axis = ctx.args
-        return _a2a(g, group, concat_axis, split_axis), None, None, None
+        with default_flight_recorder().record("all_to_all", group, (g,)):
+            return _a2a(g, group, concat_axis, split_axis), None, None, None

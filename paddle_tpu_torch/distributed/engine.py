@@ -109,6 +109,7 @@ from .._device import resolve_device
 from ..models.gpt import (_default_attention, _dropout, _fold, _flat_items,
                           run_blocks)
 from ..observability.compile_watchdog import watch
+from ..observability.flight import default_flight_recorder
 from ..optimizer.optimizer import bias_correction, device_scalar
 from ..profiler.profiler import RecordEvent
 from . import collective
@@ -214,8 +215,10 @@ def pp_hop(group, sends, recvs, device):
     ops = [("send", t.detach().contiguous(), j, f"s{j}") for t, j in sends]
     ops += [("recv", o, j, f"r{j}") for o, (_, _, j) in zip(outs, recvs)]
     if ops:
-        collective._p2p(ops, group, [t for t, _ in sends], outs,
-                        "pipeline_p2p")
+        with default_flight_recorder().record(
+                "pipeline_p2p", group, [t for t, _ in sends]):
+            collective._p2p(ops, group, [t for t, _ in sends], outs,
+                            "pipeline_p2p")
     return outs
 
 

@@ -9,10 +9,9 @@ import subprocess
 import sys
 import time
 
-__all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
+from ..fleet.elastic import ELASTIC_EXIT_CODE
 
-#: a rank asks for its world to be relaunched by exiting with this code
-ELASTIC_EXIT_CODE = 101
+__all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
 
 
 def _free_port():
@@ -104,6 +103,12 @@ def launch(argv=None):
                 pr.kill()
                 pr.wait()
 
+    def on_term(signum, frame):
+        # a supervisor ends the launcher with SIGTERM: take the ranks
+        # down with it instead of leaving them orphaned in a collective
+        raise KeyboardInterrupt
+
+    prev_term = signal.signal(signal.SIGTERM, on_term)
     attempt = 0
     procs, logs = spawn_world(attempt)
     rc = 0
@@ -131,6 +136,7 @@ def launch(argv=None):
         teardown(procs)
         rc = 130
     finally:
+        signal.signal(signal.SIGTERM, prev_term)
         for f in logs:
             f.close()
     return rc

@@ -240,14 +240,16 @@ def _pack_fit_state(model):
     """The tree a killed ``fit`` needs to continue: params, buffers, the
     optimizer state of ``train_batch`` and each device generator's state
     (``torch_rng``); with the manifest's ``rng_counters`` (the JAX
-    package's stream counters; none here)."""
+    package's stream counters; none here).  In a world the parameters
+    and slots are whole, gathered from the ranks' windows, so every rank
+    packs the same tree."""
     from ..core.random import get_rng_state
 
     net = model.network
-    tree = {"params": dict(net.named_parameters()),
-            "buffers": dict(net.named_buffers())}
-    if model._opt_state is not None:
-        tree["opt"] = model._opt_state
+    params, st = model._whole_state()
+    tree = {"params": params, "buffers": dict(net.named_buffers())}
+    if st is not None:
+        tree["opt"] = st
     tree["torch_rng"] = dict(get_rng_state())
     return tree, {}
 
@@ -295,10 +297,17 @@ def _apply_fit_state(model, tree, extra):
     from ..core.random import set_rng_state
 
     net = model.network
+    model._unhold()     # a world's next step cuts the windows anew
     _copy_tree(dict(net.named_parameters()), tree.get("params"))
     _copy_tree(dict(net.named_buffers()), tree.get("buffers"))
     opt = model._optimizer
-    if "opt" in tree and opt is not None:
+    if "opt" in tree and opt is not None and model._mesh is not None:
+        # the tree's slots are whole: this rank keeps its windows
+        whole = opt.init_state(dict(net.named_parameters()))
+        _copy_tree(whole["slots"], tree["opt"].get("slots"))
+        whole["step"] = int(np.asarray(tree["opt"]["step"]))
+        model._opt_state = model._window_state(whole)
+    elif "opt" in tree and opt is not None:
         if model._opt_state is None:
             model._opt_state = opt.init_state(dict(net.named_parameters()))
         _copy_tree(model._opt_state["slots"], tree["opt"].get("slots"))

@@ -64,16 +64,26 @@ of the input by its rows and all-reduces; any other parameter split over
 mp is refused.  What a rank owns is a window of each parameter: its
 spec plus the ZeRO split of ``mesh.zero_opt_specs``.  Its optimizer
 slots are that window only; the update (clip and decay on the whole
-gradient first) runs on the window and the windows are all-gathered back
-into every rank's whole parameter, so the parameters are bitwise equal
-across ranks and equal to one device's on the whole batch (batch norm
-normalizes over each rank's rows).  The parameters themselves stay whole
-on every rank: mp and sharding divide the optimizer state and the split
-layers' products, not the parameters' memory.  ``eval_batch`` runs the
-whole batch on every rank, unsplit; the metrics of ``train_batch`` read
-the outputs and labels gathered over dp.  The world's steps run eagerly
-(a host-side transport cannot sit inside a CUDA graph).
-``shard_views`` names each rank's window (``integrity.shard_fingerprint``,
+gradient first) runs on the window and each rank keeps its updated
+window, so the parameters are bitwise equal across ranks and equal to
+one device's on the whole batch (batch norm normalizes over each rank's
+rows).  Between steps each parameter holds its window only (its
+``.data`` is the window, the same storage from one step to the next):
+mp and sharding divide the parameters' memory between steps as they
+divide the optimizer state (``param_bytes()`` is what a rank holds).  A
+step, an ``eval_batch`` and a ``predict_batch`` all-gather the windows
+into whole parameters for their duration and put the windows back
+after, so a rank's peak parameter memory during a step is still the
+whole model's.  ``whole_parameters()`` does the same for a reader (a
+``state_dict``, a comparison); ``save``, ``load``, the fit checkpoints
+and the integrity sentinel's unsharded fingerprint read and write the
+whole parameters and optimizer slots, gathered (a collective: every
+rank of the world calls them, as ``fit``'s callbacks do, and every rank
+writes the same bytes).  ``eval_batch`` runs the whole batch
+on every rank, unsplit; the metrics of ``train_batch`` read the outputs
+and labels gathered over dp.  The world's steps run eagerly (a
+host-side transport cannot sit inside a CUDA graph).  ``shard_views``
+names each rank's window (``integrity.shard_fingerprint``,
 checkpoints)."""
 from __future__ import annotations
 
@@ -135,6 +145,7 @@ class Model:
         self._last_batch = None
         self._resume_info = None
         self._mesh, self._extra_rules, self._plan = None, (), None
+        self._held, self._shapes = False, {}
         self._tp = {}
         # the static inputs of the watched steps; the learning rate and
         # the step as device scalars
@@ -181,6 +192,7 @@ class Model:
         axes; ``sharding_rules``: ``(regex, PartitionSpec)`` pairs
         consulted before the GPT rule table (see the module
         docstring)."""
+        self._unhold()      # whole again before a new plan
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -498,25 +510,103 @@ class Model:
         sizes = axis_sizes(self._mesh)
         out = {}
         for k, p in self.network.named_parameters():
-            spec = self._mesh_plan()[k][0]
-            out[k] = Shard(self._window(p.detach(), spec), p.shape,
-                           window_of(spec, p.shape, sizes,
-                                     self._mesh.coords),
+            spec, held = self._mesh_plan()[k][0], self._held_spec(k)
+            shape = self._whole_shape(k, p)
+            if held == tuple(spec) + (None,) * (len(shape) - len(spec)):
+                data = p.detach()       # held as this window: a live view
+            else:
+                data = self._window(self._whole(k, p), spec)
+            out[k] = Shard(data, shape,
+                           window_of(spec, shape, sizes, self._mesh.coords),
                            owner=self._mesh.coords.get("dp", 0) == 0)
         return {"params": out}
+
+    # ---- parameters held as windows --------------------------------------
+    def _held_spec(self, k):
+        """The layout parameter ``k`` is held in: its window spec once a
+        world's step has run, whole before."""
+        spec = self._plan[k][1] if self._held else ()
+        n = len(self._shapes[k]) if self._held else len(spec)
+        return tuple(spec) + (None,) * (n - len(spec))
+
+    def _whole_shape(self, k, p):
+        return self._shapes[k] if self._held else tuple(p.shape)
+
+    def _whole(self, k, p):
+        from ..distributed.mesh import gather_leaf
+
+        if not self._held:
+            return p.detach()
+        return gather_leaf(p.detach(), self._plan[k][1], self._mesh)
+
+    def _unhold(self):
+        """Every parameter whole again (gathered in a world whose steps
+        hold windows); the next step cuts the windows anew."""
+        if self._held:
+            with torch.no_grad():
+                for k, p in self.network.named_parameters():
+                    p.data = self._whole(k, p)
+            self._held = False
+
+    def _whole_state(self):
+        """``(params, optimizer state)`` whole, for a writer or a
+        fingerprint: in a world the parameters' and the optimizer slots'
+        windows are all-gathered (every rank then holds the same bytes);
+        the live tensors otherwise."""
+        from ..distributed.mesh import gather_leaf
+
+        params = {k: self._whole(k, p)
+                  for k, p in self.network.named_parameters()}
+        st = self._opt_state
+        if st is not None and self._mesh is not None:
+            plan = self._mesh_plan()
+            st = {"step": st["step"], "slots": {
+                k: {n: gather_leaf(t, plan[k][1], self._mesh)
+                    for n, t in s.items()}
+                for k, s in st["slots"].items()}}
+        return params, st
+
+    def _window_state(self, st):
+        """A whole optimizer state cut to this rank's slot windows (the
+        inverse of :meth:`_whole_state`'s gather)."""
+        plan = self._mesh_plan()
+        return {"step": st["step"], "slots": {
+            k: {n: self._window(t, plan[k][1]).contiguous().clone()
+                for n, t in s.items()}
+            for k, s in st["slots"].items()}}
+
+    def param_bytes(self):
+        """Bytes of parameter this rank holds (its windows in a world,
+        the whole parameters otherwise)."""
+        return sum(p.numel() * p.element_size()
+                   for p in self.network.parameters())
+
+    @contextlib.contextmanager
+    def whole_parameters(self):
+        """Every parameter whole for the block (gathered from the ranks'
+        windows in a world whose steps hold windows), the windows put
+        back after; a no-op otherwise."""
+        if self._mesh is None or not self._held:
+            yield
+            return
+        params = dict(self.network.named_parameters())
+        windows = {k: p.data for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data = self._whole(k, p)
+        try:
+            yield
+        finally:
+            for k, p in params.items():
+                p.data = windows[k]
 
     def _mesh_state(self):
         """The optimizer state of the world's step: each slot the
         window of this rank (cut from the optimizer's own initial
         state)."""
         if self._opt_state is None:
-            params = dict(self.network.named_parameters())
-            full = self._optimizer.init_state(params)
-            plan = self._mesh_plan()
-            self._opt_state = {"step": full["step"], "slots": {
-                k: {n: self._window(t, plan[k][1]).contiguous().clone()
-                    for n, t in s.items()}
-                for k, s in full["slots"].items()}}
+            self._opt_state = self._window_state(self._optimizer.init_state(
+                dict(self.network.named_parameters())))
         return self._opt_state
 
     def _dp_rows(self, x, y):
@@ -546,7 +636,7 @@ class Model:
         dp, clip and decay on the whole gradient, the rule on this
         rank's windows, the windows gathered back."""
         from ..distributed import collective
-        from ..distributed.mesh import gather_leaf, mesh_axis
+        from ..distributed.mesh import mesh_axis
         from ..distributed.parallel import reduce_grads
 
         opt, plan = self._optimizer, self._mesh_plan()
@@ -554,6 +644,12 @@ class Model:
         st = self._mesh_state()
         x, y = self._dp_rows(_to_list(inputs)[0], _to_list(labels)[0])
         params = dict(self.network.named_parameters())
+        windows = {}
+        if self._held:      # the windows, gathered whole for the step
+            with torch.no_grad():
+                for k, p in params.items():
+                    windows[k] = p.data
+                    p.data = self._whole(k, p)
         live = [k for k, p in params.items() if p.requires_grad]
         with RecordEvent("hapi::train_step"):
             with self._tp_forward():
@@ -591,9 +687,20 @@ class Model:
                 step = self._step.fill_(st["step"] + 1)
                 self._lr.fill_(lr)
                 opt._apply_all(wins, gwins, slots, self._lr, step)
-                for k, w in zip(live, wins):
-                    params[k].detach().copy_(
-                        gather_leaf(w, plan[k][1], self._mesh))
+                # each parameter keeps its updated window only, in the
+                # storage it held before the step (a replay's snapshot
+                # and the integrity sentinel read these tensors)
+                held = dict(zip(live, wins))
+                self._shapes = {k: tuple(p.shape) for k, p in params.items()}
+                for k, p in params.items():
+                    w = held.get(k)
+                    if w is None:
+                        w = self._window(p.detach(), plan[k][1])
+                    if k in windows:
+                        p.data = windows[k].copy_(w)
+                    else:
+                        p.data = w.contiguous().clone()
+                self._held = True
                 if dp > 1:
                     group = self._mesh.group("dp")
                     out = collective.all_gather(out.detach().contiguous(),
@@ -607,7 +714,8 @@ class Model:
         if self._mesh is not None:
             # every rank evaluates the whole batch (the same result)
             x, y = (self._tensor(t) for t in (inputs, labels))
-            with torch.no_grad(), self._buffers_kept():
+            with torch.no_grad(), self._buffers_kept(), \
+                    self.whole_parameters():
                 out = self.network(x)
                 loss = self._loss(out, y) if self._loss else None
             results = self._update_metrics(out, y)
@@ -635,7 +743,8 @@ class Model:
 
     def predict_batch(self, inputs):
         x = self._tensor(inputs)
-        with torch.no_grad(), self._buffers_kept():
+        with torch.no_grad(), self._buffers_kept(), \
+                self.whole_parameters():
             out = self.network(x)
         return _numpy(out)
 
@@ -698,9 +807,14 @@ class Model:
         self.stop_training = False
         self._rollback_request = None
         cblist.on_train_begin()
+        from ..observability.flight import default_flight_recorder
         from ..observability.tracing import default_tracer
 
         tracer = default_tracer()
+        # step-progress heartbeat for the hang watchdog: stamping the
+        # flight recorder each batch lets cross-rank heartbeats and
+        # debug bundles say WHERE in training every rank was
+        flight = default_flight_recorder()
         history, logs = [], {}
         for epoch in range(resume_epoch, epochs):
             cblist.on_epoch_begin(epoch)
@@ -714,6 +828,7 @@ class Model:
                     if step < start_step:
                         continue   # trained before the crash / rewind
                     cblist.on_train_batch_begin(step)
+                    flight.note_step(step, epoch=epoch)
                     x, y = batch[0], batch[1]
                     if self._stash_batch:
                         self._last_batch = (x, y)
@@ -882,12 +997,12 @@ class Model:
         """``path.pdparams`` (+ ``path.pdopt`` when prepared), each
         written atomically."""
         net = self.network
-        blob = {"params": {k: _numpy(p) for k, p in net.named_parameters()},
+        params, st = self._whole_state()
+        blob = {"params": {k: _numpy(p) for k, p in params.items()},
                 "buffers": {k: _numpy(b) for k, b in net.named_buffers()}}
         with atomic_write(path + ".pdparams", site="hapi.model_save") as f:
             pickle.dump(blob, f, protocol=4)
-        if self._opt_state is not None:
-            st = self._opt_state
+        if st is not None:
             opt_blob = {"step": np.asarray(st["step"], np.int32),
                         "slots": {k: {n: _numpy(t) for n, t in s.items()}
                                   for k, s in st["slots"].items()}}
@@ -906,6 +1021,7 @@ class Model:
         with open(path + ".pdparams", "rb") as f:
             blob = pickle.load(f)
         net = self.network
+        self._unhold()      # a world's step cuts the windows anew
         own = {**dict(net.named_parameters()), **dict(net.named_buffers())}
         with torch.no_grad():
             for k, v in {**blob["params"], **blob.get("buffers", {})}.items():
@@ -922,6 +1038,8 @@ class Model:
                         net.named_parameters()))["slots"]
                 self._opt_state = opt_state_from_jax(blob_opt, self.device,
                                                      templates)
+                if self._mesh is not None and self._optimizer is not None:
+                    self._opt_state = self._window_state(self._opt_state)
             elif self._optimizer is not None:
                 self._optimizer.set_state_dict(blob_opt)
         return self
@@ -930,5 +1048,6 @@ class Model:
         return self.network.parameters()
 
     def summary(self, input_size=None):
-        total = sum(p.numel() for p in self.network.parameters())
+        total = sum(int(np.prod(self._whole_shape(k, p)))
+                    for k, p in self.network.named_parameters())
         return f"{type(self.network).__name__}: {total:,} parameters"

@@ -49,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["flash_attention", "flash_attention_available",
-           "flash_attention_plain", "flash_fwd", "launches", "captured"]
+           "flash_attention_plain", "flash_fwd", "flash_bwd", "launches",
+           "captured"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -363,10 +364,32 @@ def _flash_fwd(q, k, v, scale, causal, plain=False):
     return flash_fwd(q, k, v, float(scale), bool(causal))
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=(),
+                         device_types="cpu")
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              scale: float, causal: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """The backward as a ``torch.library`` operator, ``(dq, dk, dv)``:
+    the plain version on CPU tensors, the CUDA kernel(s) on CUDA tensors,
+    and a fake version for traces — so a ``make_fx`` trace of a training
+    step (``distributed.auto_parallel``) holds the backward as one node,
+    as it holds ``flash_fwd``."""
+    return _flash_bwd_ref(q, k, v, out, lse, do, scale, causal)
+
+
+flash_bwd.register_kernel("cuda")(_flash_bwd_cuda)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, do, scale, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _flash_bwd(q, k, v, out, lse, do, scale, causal, plain=False):
-    if plain or q.device.type == "cpu":
+    if plain:
         return _flash_bwd_ref(q, k, v, out, lse, do, scale, causal)
-    return _flash_bwd_cuda(q, k, v, out, lse, do, scale, causal)
+    return flash_bwd(q, k, v, out, lse, do, float(scale), bool(causal))
 
 
 class _Flash(torch.autograd.Function):

@@ -6,11 +6,19 @@ sampling profiler
 (``profiling``: ``StackSampler`` and the ``phase`` markers the serving
 engine sets), and the training health layer: ``goodput``
 (``GoodputMonitor``, MFU against ``PEAK_FLOPS``) and ``health``
-(``HealthMonitor``, ``TrainingHealthError``)."""
+(``HealthMonitor``, ``TrainingHealthError``); across ranks, ``aggregate``
+(``RankMetricsPublisher`` / ``ClusterAggregator`` over the world's
+``TCPStore``) and ``flight``, the distributed flight recorder
+(``FlightRecorder``, ``record_collective``, ``HangWatchdog``)."""
+from .aggregate import (ClusterAggregator, RankMetricsPublisher,
+                        StorePublisher)
 from .compile_watchdog import (CompileWatchdog, WatchedFunction,
                                default_watchdog, disable_compile_watchdog,
                                enable_compile_watchdog, watch,
                                watchdog_enabled)
+from .flight import (CollectiveRecord, FlightRecorder, HangWatchdog,
+                     default_flight_recorder, record_collective,
+                     thread_stacks, use_flight_recorder)
 from .goodput import (PEAK_FLOPS, GoodputMonitor, TrainingCallback,
                       device_peak_flops, last_report, mfu)
 from .health import HealthMonitor, TrainingHealthError
@@ -21,7 +29,8 @@ from .profiling import PROFILING_SERIES, StackSampler, current_phase, \
 from .profiling import phase as profiling_phase
 from .tracing import (Span, TailRetention, TraceContext, Tracer, activate,
                       active_span, active_span_for_thread, default_tracer,
-                      merge_traces)
+                      export_traces_chrome, merge_traces,
+                      traces_to_chrome_events)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry", "Span", "TailRetention", "TraceContext",
@@ -33,4 +42,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "current_phase", "diff_profiles", "PROFILING_SERIES",
            "GoodputMonitor", "PEAK_FLOPS", "device_peak_flops", "mfu",
            "last_report", "TrainingCallback", "HealthMonitor",
-           "TrainingHealthError"]
+           "TrainingHealthError", "StorePublisher",
+           "RankMetricsPublisher", "ClusterAggregator", "CollectiveRecord",
+           "FlightRecorder", "HangWatchdog", "default_flight_recorder",
+           "use_flight_recorder", "record_collective", "thread_stacks",
+           "traces_to_chrome_events", "export_traces_chrome"]

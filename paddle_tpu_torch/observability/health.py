@@ -58,9 +58,10 @@ each event the monitor
   rolling back every few steps is sick in a way rollback can't fix.
   Kinds outside ``rollback_kinds`` degrade to ``"warn"`` behaviour.
 
-The JAX package's ``StorePublisher`` cross-rank aggregation of these
-metrics lives in its ``observability/aggregate.py``, which the port has
-not taken over yet.
+Across ranks these metrics reach one scrape through
+``observability/aggregate.py``: each rank's ``RankMetricsPublisher``
+(a ``StorePublisher``) writes its snapshot into the world's
+``TCPStore`` and rank 0's ``ClusterAggregator`` merges them.
 """
 from __future__ import annotations
 

@@ -1,6 +1,5 @@
 """Framework-wide metrics: Counter / Gauge / Histogram + MetricsRegistry
-(the port of ``paddle_tpu/observability/metrics.py``, less its scrape
-collectors and the Prometheus exposition).
+(the port of ``paddle_tpu/observability/metrics.py``).
 
 - **thread-safe**: the serving engine and the fleet router mutate
   metrics on the driving thread while an operator thread reads them;
@@ -15,16 +14,25 @@ collectors and the Prometheus exposition).
   swaps the old series out of the snapshot.
 - ``snapshot()`` → a JSON-able dict of every series; ``gauges()`` →
   every gauge series by name, which the profiler samples into its
-  chrome-trace counter tracks.
+  chrome-trace counter tracks; ``expose_prometheus()`` → the Prometheus
+  text format (cumulative ``_bucket{le=...}`` + ``_sum``/``_count`` for
+  histograms, OpenMetrics exemplars), the JAX package's text byte for
+  byte for the same registry contents.  Scrape collectors run at the
+  top of both expositions.
 """
 from __future__ import annotations
 
 import bisect
 import math
+import re
 import threading
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "default_registry"]
+
+
+def _fmt_labels(labelnames, labelvalues):
+    return ",".join(f'{k}="{v}"' for k, v in zip(labelnames, labelvalues))
 
 
 class _Metric:
@@ -340,8 +348,7 @@ class MetricsRegistry:
             if m.kind != "gauge":
                 continue
             for lv, child in m._series():
-                suffix = "{%s}" % ",".join(
-                    f'{k}="{v}"' for k, v in zip(m.labelnames, lv)) \
+                suffix = "{%s}" % _fmt_labels(m.labelnames, lv) \
                     if lv else ""
                 out.append((m.name + suffix, child.value))
         return out
@@ -362,6 +369,63 @@ class MetricsRegistry:
                 entry["value"] = m.snapshot_value()
             out[m.name] = entry
         return out
+
+    def expose_prometheus(self):
+        """Prometheus text exposition format 0.0.4."""
+        self._run_collectors()
+        lines = []
+        for m in self.metrics():
+            name = _prom_name(m.name)
+            lines.append(f"# HELP {name} {m.help or m.name}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            for lv, child in m._series():
+                labels = _fmt_labels(m.labelnames, lv)
+                if m.kind == "counter":
+                    lines.append(_prom_line(name, labels, child.value))
+                elif m.kind == "gauge":
+                    lines.append(_prom_line(name, labels, child.value))
+                    lines.append(_prom_line(
+                        name + "_peak", labels, child.peak))
+                elif m.kind == "histogram":
+                    with child._lock:
+                        counts = list(child.counts)
+                        total, total_sum = child.total, child.sum
+                        exemplars = dict(child._exemplars)
+                    cum = 0
+                    for i, (ub, c) in enumerate(zip(child.buckets, counts)):
+                        cum += c
+                        le = (labels + "," if labels else "") + \
+                            f'le="{ub:g}"'
+                        lines.append(_prom_line(name + "_bucket", le, cum)
+                                     + _prom_exemplar(exemplars.get(i)))
+                    le = (labels + "," if labels else "") + 'le="+Inf"'
+                    lines.append(_prom_line(name + "_bucket", le, total)
+                                 + _prom_exemplar(
+                                     exemplars.get(len(child.buckets))))
+                    lines.append(_prom_line(name + "_sum", labels,
+                                            total_sum))
+                    lines.append(_prom_line(name + "_count", labels, total))
+        return "\n".join(lines) + "\n"
+
+
+def _prom_name(name):
+    return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+
+def _prom_line(name, labels, value):
+    lbl = "{%s}" % labels if labels else ""
+    if isinstance(value, float):
+        return f"{name}{lbl} {value:.9g}"
+    return f"{name}{lbl} {value}"
+
+
+def _prom_exemplar(ex):
+    """OpenMetrics exemplar suffix for a ``_bucket`` line (empty string
+    when the bucket never saw an exemplar-carrying observation)."""
+    if ex is None:
+        return ""
+    tid, v = ex
+    return f' # {{trace_id="{tid}"}} {v:.9g}'
 
 
 _DEFAULT = MetricsRegistry()

@@ -1,5 +1,5 @@
 """Request-level tracing — the flight recorder's span model (the port of
-``paddle_tpu/observability/tracing.py``, less its chrome-trace export).
+``paddle_tpu/observability/tracing.py``).
 
 Metrics (histograms, counters) answer "how slow is the p95"; they cannot
 answer "why was *this* request slow".  A :class:`Tracer` records one
@@ -38,6 +38,13 @@ sharing a ``trace_id``.  Design points:
 - **zero-cost disable**: ``Tracer(enabled=False)`` returns a shared
   no-op span from every ``start_*`` call — no lock, no allocation —
   the "tracing off" baseline.
+- **chrome-trace export**: :meth:`Tracer.export_chrome` renders every
+  completed trace as one track (labelled with the root span's name) of
+  ``"X"`` events through the profiler's exporter — the same
+  perf_counter timebase as ``ProfilerStep#N`` instants, so request
+  timelines, collective spans and profiler step marks correlate in one
+  Perfetto view; :func:`export_traces_chrome` does the same for any
+  trace list (a merged fleet view).
 - **JSON export**: :meth:`Tracer.traces` returns completed traces as
   JSON-able dicts; :func:`merge_traces` folds several rings (the
   router's and each replica engine's) into one fleet view by trace_id.
@@ -58,7 +65,8 @@ import time
 
 __all__ = ["Span", "TraceContext", "TailRetention", "Tracer",
            "default_tracer", "active_span", "active_span_for_thread",
-           "activate", "merge_traces"]
+           "activate", "merge_traces", "traces_to_chrome_events",
+           "export_traces_chrome"]
 
 
 class TraceContext:
@@ -367,6 +375,28 @@ class Tracer:
                 spans.append(span)
         return span
 
+    @contextlib.contextmanager
+    def trace(self, name, attributes=None, context=None):
+        """``with tracer.trace("hapi::step", {...}) as span:`` — a whole
+        root-span trace scoped to the block."""
+        span = self.start_trace(name, attributes, context=context)
+        try:
+            yield span
+        except BaseException as e:
+            span.attributes.setdefault("error", repr(e))
+            raise
+        finally:
+            span.end()
+
+    @contextlib.contextmanager
+    def span(self, name, parent, attributes=None):
+        """Child-span context manager."""
+        span = self.start_span(name, parent, attributes)
+        try:
+            yield span
+        finally:
+            span.end()
+
     def _end_span(self, span, end_s=None):
         with self._lock:
             if span.ended:
@@ -460,6 +490,14 @@ class Tracer:
             self._completed.clear()
             self._n_completed = 0
             self._n_dropped = 0
+
+    # ---- chrome export --------------------------------------------------
+    def export_chrome(self, path, extra_events=()):
+        """Write completed traces as chrome-trace JSON, one labelled
+        track per trace.  ``extra_events`` (profiler recorder tuples,
+        e.g. a drained Profiler's ``_events``) are merged in, so request
+        tracks and ``ProfilerStep#N`` instants share the file."""
+        return export_traces_chrome(self.traces(), path, extra_events)
 
 
 # ---- active-span ambient context ---------------------------------------
@@ -576,6 +614,42 @@ def merge_traces(rings):
         out.append(m)
     out.sort(key=lambda m: (m["start_s"] or 0.0, str(m["trace_id"])))
     return out
+
+
+def traces_to_chrome_events(traces):
+    """Lower trace dicts to profiler recorder tuples.
+
+    Returns ``(events, thread_names)``: ``("X", name, start_ns, end_ns,
+    tid)`` spans with one integer track per trace (trace ids are
+    strings; the chrome exporter sorts tids, so they are enumerated)
+    and a ``{tid: label}`` map naming each track after its root span.
+    Spans carrying a ``source`` (merged fleet traces) keep it in the
+    event name, so a failed-over request reads ``router: dispatch →
+    replica0: decode → replica1: decode`` on one track."""
+    events, names, tids = [], {}, {}
+    for tr in traces:
+        tid = tids.setdefault(tr["trace_id"], len(tids) + 1)
+        names[tid] = tr["name"]
+        for s in tr["spans"]:
+            end_s = s["end_s"] if s["end_s"] is not None else s["start_s"]
+            label = s["name"]
+            if s.get("source") is not None:
+                label = f"{s['source']}: {label}"
+            events.append(("X", label, int(s["start_s"] * 1e9),
+                           int(end_s * 1e9), tid))
+    return events, names
+
+
+def export_traces_chrome(traces, path, extra_events=()):
+    """Write an arbitrary trace list (e.g. a merged fleet view) as
+    chrome-trace JSON — the function behind the fleet collector's
+    one-track-per-request timeline."""
+    from ..profiler.profiler import export_events_chrome
+
+    events, names = traces_to_chrome_events(traces)
+    export_events_chrome(list(extra_events) + events, path,
+                         thread_names=names)
+    return path
 
 
 _DEFAULT = Tracer()

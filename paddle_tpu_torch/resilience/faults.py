@@ -82,6 +82,13 @@ control loop hiccuping: scaling is delayed, never wrong) and
 jittered backoff — the supervisor's spawn discipline).  The port's
 chaos soak harness is a later slice; ``chip_smoke.py`` phase 11 fires
 a step io_error, a hard kill and a drain at a fleet on the card.
+
+Collective sites: ``collective.all_reduce`` fires at the top of every
+``distributed.collective.all_reduce`` and ``collective.barrier`` at the
+top of every ``barrier``, after the flight recorder opened the call's
+record — a ``stall`` there freezes one rank mid-collective with its
+record in flight, the cross-rank hang the ``HangWatchdog``
+(``observability/flight.py``) must name by rank and sequence number.
 """
 from __future__ import annotations
 

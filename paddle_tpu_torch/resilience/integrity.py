@@ -584,9 +584,12 @@ class IntegrityCallback(TrainingCallback):
                 getattr(self.model, "_mesh", None) is not None:
             # a world: each parameter's window this rank owns
             return self.model.shard_views()
-        tree = {"params": dict(self.model.network.named_parameters())}
-        if self.include_opt_state and self.model._opt_state is not None:
-            tree["opt"] = self.model._opt_state
+        # whole (gathered in a world whose steps hold windows), so the
+        # ranks of a healthy world digest the same bytes
+        params, st = self.model._whole_state()
+        tree = {"params": params}
+        if self.include_opt_state and st is not None:
+            tree["opt"] = st
         return tree
 
     def _run_fingerprint(self, step):

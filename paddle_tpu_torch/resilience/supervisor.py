@@ -1,32 +1,53 @@
 """Training supervisor — preemption-to-resume with zero operator action
 (the port of ``paddle_tpu/resilience/supervisor.py``).
 
-:class:`TrainingSupervisor` runs the trainer as a **child process** and
-watches it: a clean exit (0) ends the job; ``ELASTIC_EXIT_CODE`` (a
-worker *requesting* relaunch) or any crash triggers a **relaunch with
-jittered backoff**, up to ``max_restarts``.  Every launch exports the
-resume contract to the child: ``PADDLE_ELASTIC_RESUME_DIR`` (the
-checkpoint directory the trainer passes to ``Model.fit(resume_from=...)``)
-and ``PADDLE_RESTART_ATTEMPT``.  ``fit(resume_from=...)`` treats an empty
-directory as a fresh start, so the first launch and the Nth relaunch are
-one code path.
+:class:`TrainingSupervisor` is the per-node daemon that closes the loop:
 
-Between attempts the supervisor opens the checkpoint directory (no child
-is alive then, so the manager's orphan-``.tmp`` sweep is safe) and logs
-the step the relaunch will resume from, with the recovery history the
-newest manifest carries (skipped data windows, integrity repairs).
+- it runs the trainer as a **child process** and watches it;
+- a clean exit (0) ends the job; ``ELASTIC_EXIT_CODE`` (a worker
+  *requesting* relaunch, the reference fleet-elastic contract) or any
+  crash triggers a **relaunch with jittered backoff**, up to
+  ``max_restarts``;
+- with an :class:`~paddle_tpu_torch.distributed.fleet.elastic.ElasticManager`
+  attached it **rendezvouses** (waits for the expected membership,
+  retrying over transient store outages) before every launch and keeps
+  probing membership while the child runs — a lost peer terminates the
+  local child and re-enters the relaunch path (reason ``lost_node``);
+- every launch exports the resume contract to the child:
+  ``PADDLE_ELASTIC_RESUME_DIR`` (the checkpoint directory the trainer
+  passes to ``Model.fit(resume_from=...)``) and
+  ``PADDLE_RESTART_ATTEMPT``.  ``fit(resume_from=...)`` treats an empty
+  directory as a fresh start, so the first launch and the Nth relaunch
+  are one code path.
 
-The JAX supervisor's fleet membership (``elastic=``, over its
-``fleet/elastic.py``) and its cross-rank hang escalation
-(``hang_watchdog=``, over its ``observability/flight.py``) wait for those
-modules to be ported: passing either raises ``NotImplementedError``.
+Between attempts the supervisor opens the checkpoint directory (no
+child is alive then, so the manager's orphan-``.tmp`` sweep is safe)
+and logs the step the relaunch will resume from, with the recovery
+history the newest manifest carries (skipped data windows, integrity
+repairs).
+
+With a ``hang_watchdog`` attached (a
+:class:`~paddle_tpu_torch.observability.flight.HangWatchdog` in observer
+mode, or any object with ``check()``/``write_bundle()``/``reset()``),
+the supervisor also escalates on **cross-rank collective hangs**: a
+wedged child never exits, so exit-code watching alone would wait
+forever.  ``on_hang="bundle+restart"`` (the default) dumps a
+supervisor-side debug bundle, terminates the hung child and re-enters
+the relaunch path (reason ``hang``); ``on_hang="restart"`` skips the
+bundle.  The watchdog is ``reset()`` whenever a world ends (a hang, a
+crash, a lost node), so the relaunched world re-baselines instead of
+re-firing on the dead run's stale heartbeats.
 
 Telemetry: ``supervisor_restarts_total{reason=elastic_exit|crash|
-spawn_failed}``, the ``supervisor_child_up`` gauge, and
-``supervisor::launch`` / ``supervisor::relaunch`` trace spans.  Fault
-site: ``supervisor.spawn`` fires before every child spawn (an
-``io_error`` there is a relaunch that itself dies, retried out of the
-same restart budget).
+lost_node|spawn_failed|hang}``, the ``supervisor_child_up`` gauge, and
+``supervisor::launch`` / ``supervisor::relaunch`` trace spans.
+
+Fault sites (see :mod:`.faults`): ``supervisor.spawn`` fires before
+every child spawn (an ``io_error`` there is a relaunch that itself
+dies — retried out of the same restart budget);
+``supervisor.rendezvous`` fires before every membership wait (an
+``io_error`` is a store outage mid-rendezvous — retried with backoff
+under the rendezvous deadline, never read as "the fleet died").
 """
 from __future__ import annotations
 
@@ -37,7 +58,9 @@ import sys
 import time
 
 from .faults import fault_point
-from .retry import backoff_delays
+from .retry import Deadline, backoff_delays
+
+from ..distributed.fleet.elastic import ELASTIC_EXIT_CODE
 
 __all__ = ["TrainingSupervisor", "ENV_RESUME_DIR", "ENV_ATTEMPT",
            "ELASTIC_EXIT_CODE"]
@@ -49,9 +72,6 @@ ENV_RESUME_DIR = "PADDLE_ELASTIC_RESUME_DIR"
 #: env var carrying the 0-based launch attempt (same name the launcher
 #: uses, so scripts written for either supervisor read one contract)
 ENV_ATTEMPT = "PADDLE_RESTART_ATTEMPT"
-#: a worker's exit code asking for a relaunch (the JAX package's
-#: ``fleet/elastic.py`` value, the reference fleet-elastic contract)
-ELASTIC_EXIT_CODE = 101
 
 
 class TrainingSupervisor:
@@ -64,12 +84,11 @@ class TrainingSupervisor:
     same directory), which makes every relaunch resume from the newest
     intact checkpoint with no supervisor-side state transfer.
 
-    ``env`` (default: this process's environment) is the child's base
-    environment; the resume contract is overlaid on top.  ``elastic``,
-    ``hosts`` and ``hang_watchdog`` (with their ``membership_interval``,
-    ``rendezvous_timeout``, ``term_grace_s`` and ``on_hang``) are the
-    JAX signature's: the first three raise when given, the others are
-    unused.
+    ``elastic``/``hosts`` attach fleet membership: the supervisor
+    registers the manager, rendezvouses before each launch and watches
+    peers while the child runs.  ``env`` (default: this process's
+    environment) is the child's base environment; the resume contract
+    is overlaid on top.
     """
 
     def __init__(self, cmd, checkpoint_dir=None, max_restarts=3,
@@ -79,28 +98,27 @@ class TrainingSupervisor:
                  term_grace_s=10.0, env=None, log_path=None, rng=None,
                  registry=None, tracer=None, hang_watchdog=None,
                  on_hang="bundle+restart"):
-        if elastic is not None or hosts:
-            raise NotImplementedError(
-                "TrainingSupervisor(elastic=...): fleet membership needs "
-                "fleet/elastic.py, which the port has not taken over yet "
-                "(see ROADMAP.md)")
-        if hang_watchdog is not None:
-            raise NotImplementedError(
-                "TrainingSupervisor(hang_watchdog=...): the hang watchdog "
-                "is observability/flight.py, which the port has not taken "
-                "over yet (see ROADMAP.md)")
         self.cmd = list(cmd)
         self.checkpoint_dir = checkpoint_dir
         self.max_restarts = int(max_restarts)
         self.backoff_base = float(backoff_base)
         self.backoff_cap = float(backoff_cap)
         self.jitter = bool(jitter)
+        self.elastic = elastic
+        self.hosts = list(hosts)
         self.poll_interval = float(poll_interval)
+        self.membership_interval = float(membership_interval)
+        self.rendezvous_timeout = float(rendezvous_timeout)
+        self.term_grace_s = float(term_grace_s)
         self.env = env
         self.log_path = log_path
         self._rng = rng
         self._registry = registry
         self._tracer = tracer
+        self.hang_watchdog = hang_watchdog
+        if on_hang not in ("bundle+restart", "restart"):
+            raise ValueError(f"unknown on_hang policy {on_hang!r}")
+        self.on_hang = on_hang
         self.attempt = 0            # current launch attempt (0 = first)
         self.restarts = []          # [(reason, attempt)] audit log
 
@@ -166,6 +184,15 @@ class TrainingSupervisor:
         self._child_up(True)
         return child
 
+    def _terminate(self, child):
+        if child.poll() is None:
+            child.terminate()
+            try:
+                child.wait(timeout=self.term_grace_s)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+
     def _resume_step(self):
         """The committed step a relaunch will resume from (None when no
         checkpoint directory or no intact checkpoint exists yet).  Also
@@ -211,10 +238,84 @@ class TrainingSupervisor:
             out["last_repair_reason"] = repairs[-1].get("reason")
         return out
 
+    # ---- membership -----------------------------------------------------
+    def _rendezvous(self):
+        """Wait until fleet membership matches, retrying transient store
+        failures with backoff (a blipping TCPStore during rendezvous
+        must not read as a dead fleet)."""
+        if self.elastic is None or not self.hosts:
+            return
+        dl = Deadline(self.rendezvous_timeout)
+        delays = backoff_delays(base=self.backoff_base, cap=1.0,
+                                jitter=self.jitter, rng=self._rng)
+        while True:
+            try:
+                fault_point("supervisor.rendezvous")
+                if self.elastic.wait_for_np(
+                        self.hosts, timeout=max(1.0, dl.remaining())):
+                    return
+            except (OSError, RuntimeError) as e:
+                logger.warning("supervisor: rendezvous store error "
+                               "(retrying): %s", e)
+            if dl.expired():
+                raise TimeoutError(
+                    f"rendezvous: membership never reached "
+                    f"np={self.elastic.np} within "
+                    f"{self.rendezvous_timeout}s")
+            dl.sleep(next(delays))
+
+    def _membership_lost(self):
+        """Dead peer list, or [] — including on transient store errors
+        (a blip is not a death; the next probe round decides)."""
+        try:
+            return [h for h in self.hosts if not self.elastic.probe(h)]
+        except (OSError, RuntimeError):
+            return []
+
     # ---- the loop -------------------------------------------------------
+    def _hang_detected(self):
+        """Probe the attached hang watchdog (False without one, and on
+        probe errors — a broken watchdog must not kill a healthy
+        child)."""
+        if self.hang_watchdog is None:
+            return False
+        try:
+            return bool(self.hang_watchdog.check())
+        except Exception:
+            return False
+
+    def _escalate_hang(self, child):
+        """The ``on_hang`` escalation: dump (policy permitting), kill
+        the wedged child, reset the watchdog for the relaunch."""
+        logger.error("supervisor: cross-rank hang detected — "
+                     "escalating with policy %r", self.on_hang)
+        if "bundle" in self.on_hang:
+            try:
+                self.hang_watchdog.write_bundle(reason="supervisor_hang")
+            except Exception:
+                logger.exception("supervisor: hang bundle write failed")
+        self._terminate(child)
+        self._child_up(False)
+        self._forget_world()
+
+    def _forget_world(self):
+        """Reset the attached watchdog once a world has ended, whatever
+        ended it: the relaunched world re-baselines, and the observer
+        stops reading the dead world's last heartbeats."""
+        if self.hang_watchdog is None:
+            return
+        try:
+            self.hang_watchdog.reset()
+        except Exception:
+            pass    # silent-ok: advisory reset — a stale beat is read
+                    # until the relaunched rank overwrites it
+
     def _watch(self, child):
-        """Block until the child exits; returns ``("ok"|"elastic_exit"|
-        "crash", exit_code)``."""
+        """Block until the child exits, membership breaks, or the hang
+        watchdog fires.  Returns ``("ok"|"elastic_exit"|"crash"|
+        "lost_node"|"hang", exit_code)``."""
+        elastic_code = ELASTIC_EXIT_CODE
+        next_probe = time.monotonic() + self.membership_interval
         # lint-ok: bounded-retries the watch loop is bounded by the
         # child's lifetime (poll() returning), not by a deadline
         while True:
@@ -223,9 +324,23 @@ class TrainingSupervisor:
                 self._child_up(False)
                 if code == 0:
                     return ("ok", 0)
-                if code == ELASTIC_EXIT_CODE:
+                if code == elastic_code:
                     return ("elastic_exit", code)
                 return ("crash", code)
+            if time.monotonic() >= next_probe:
+                if self.elastic is not None and self.hosts:
+                    dead = self._membership_lost()
+                    if dead:
+                        logger.warning("supervisor: lost node(s) %s — "
+                                       "terminating local trainer for "
+                                       "relaunch", dead)
+                        self._terminate(child)
+                        self._child_up(False)
+                        return ("lost_node", elastic_code)
+                if self._hang_detected():
+                    self._escalate_hang(child)
+                    return ("hang", elastic_code)
+                next_probe = time.monotonic() + self.membership_interval
             time.sleep(self.poll_interval)
 
     def run(self):
@@ -234,9 +349,14 @@ class TrainingSupervisor:
         delays = backoff_delays(base=self.backoff_base,
                                 cap=self.backoff_cap, jitter=self.jitter,
                                 rng=self._rng)
+        registered = False
+        if self.elastic is not None:
+            self.elastic.register()
+            registered = True
         try:
             self.attempt = 0
             while True:
+                self._rendezvous()
                 try:
                     child = self._spawn(self.attempt)
                 except OSError as e:
@@ -247,6 +367,8 @@ class TrainingSupervisor:
                     reason, code = self._watch(child)
                 if reason == "ok":
                     return 0
+                if reason != "hang":       # _escalate_hang reset it
+                    self._forget_world()
                 if self.attempt >= self.max_restarts:
                     logger.error(
                         "supervisor: %s (exit %s) with restart budget "
@@ -271,6 +393,11 @@ class TrainingSupervisor:
                 time.sleep(backoff)
         finally:
             self._child_up(False)
+            if registered:
+                try:
+                    self.elastic.deregister()
+                except (OSError, RuntimeError):
+                    pass
 
 
 def main(argv=None):  # pragma: no cover - thin CLI shim over the class

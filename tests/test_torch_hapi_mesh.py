@@ -176,3 +176,59 @@ def test_sharding_axis_windows_the_slots(world):
         assert r["slots"]["0.weight"]["moment1"] == [8, 8]
         assert r["slots"]["2.weight"]["moment1"] == [8, 2]
     _bitwise_equal_across(res)
+
+
+@pytest.mark.parametrize("axes,rules", [
+    (dict(dp=2, mp=2), [(r"^0\.weight$", (None, "mp")),
+                        (r"^2\.weight$", ("mp", None))]),
+    (dict(dp=2, sharding=2), [])])
+def test_split_parameters_are_held_split(world, axes, rules):
+    """Between steps each parameter holds only this rank's window (the
+    rule table's split plus the ZeRO split: the optimizer slots'
+    window), so a rank's parameter bytes are the windows' and fall below
+    one process's; the fit still equals one device's losses."""
+    one, w0, _ = _jax_fit(13, opt="adam")
+    x, y = _data()
+    res = world.run("torch_dist_cases", "hapi_mesh_case", w0, x, y, axes,
+                    rules, 3, 0.1, 16, "adam")
+    whole = sum(np.asarray(v).size for v in w0.values()) * 4
+    for r in res:
+        np.testing.assert_allclose(r["losses"], one, **TOL)
+        windows = sum(int(np.prod(s["moment1"]))
+                      for s in r["slots"].values()) * 4
+        assert r["param_bytes"] == windows < whole
+    _bitwise_equal_across(res)
+
+
+def test_whole_state_readers_under_held_windows(world, tmp_path):
+    """dp 2 × mp 2 with Adam and a column split, each rank holding its
+    windows between steps: the files ``fit(save_dir=)`` writes and the
+    default (unsharded) ``IntegrityCallback`` digest hold the whole
+    parameters, the same on every rank (no false cross-rank
+    divergence); a model that ``load``s ``Model.save``'s files and one
+    restored from a ``CheckpointCallback`` checkpoint train on exactly
+    as the fitted model does (their optimizer slots whole in the files,
+    windows again on the ranks)."""
+    rules = [(r"^0\.weight$", (None, "mp"))]
+    jrules = [(pat, jax_mesh.P(*spec)) for pat, spec in rules]
+    mesh_losses, w0, _ = _jax_fit(17, jax_mesh.build_mesh(dp=2, mp=2),
+                                  jrules, opt="adam")
+    x, y = _data()
+    res = world.run("torch_dist_cases", "hapi_mesh_io_case", w0, x, y,
+                    dict(dp=2, mp=2), rules, str(tmp_path))
+    whole = sum(np.asarray(v).size for v in w0.values()) * 4
+    for r in res:
+        np.testing.assert_allclose(r["losses"], mesh_losses[:2], **TOL)
+        assert r["param_bytes"] < whole
+        assert r["digest"] == res[0]["digest"]
+        assert r["resumed_step"] == 8
+        for k, v in w0.items():
+            assert r["saved"][k].shape == np.asarray(v).shape, k
+            np.testing.assert_array_equal(r["saved"][k], r["params"][k],
+                                          err_msg=k)
+        for n in ("b", "c"):
+            assert r["more"][n] == r["more"]["a"], n
+            for k, v in r["after"]["a"].items():
+                np.testing.assert_array_equal(r["after"][n][k], v,
+                                              err_msg=f"{n} {k}")
+    _bitwise_equal_across(res)

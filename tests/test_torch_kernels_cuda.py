@@ -1596,7 +1596,10 @@ def test_sentinel_overhead_under_bound_on_the_card(cuda):
         tree = {"params": dict(model.network.named_parameters())}
         fp = median(lambda: tree_fingerprint(tree), 9)
         snap = model.train_state_snapshot()
-        rp = median(lambda: model.replay_train_batch(snap, (x, y)), 5)
+        # 21 replays: single replays of a graph stall for 4-10 ms on a
+        # shared host, in plain PyTorch too, and a median of few cannot
+        # outvote two of them
+        rp = median(lambda: model.replay_train_batch(snap, (x, y)), 21)
         ratio = (fp / 25 + rp / 100) / step
         assert ratio < 0.03, (step, fp, rp, ratio)
         assert fp < 0.2, fp

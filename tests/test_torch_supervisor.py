@@ -1,23 +1,30 @@
 """The port's ``TrainingSupervisor`` (``resilience.supervisor``):
 ``tests/test_supervisor.py``'s ``TestSupervisorRelaunch`` (clean exit,
 a relaunch on ``ELASTIC_EXIT_CODE`` with the resume contract, the restart
-budget, a relaunch that itself dies at ``supervisor.spawn``) and
+budget, a relaunch that itself dies at ``supervisor.spawn``),
+``TestSupervisorElastic`` (a store outage during rendezvous retried, a
+lost node terminating the trainer and relaunching once the replacement
+rendezvouses, over the port's ``ElasticManager`` and ``TCPStore``),
 ``TestSupervisorEndToEnd`` (a hapi trainer on the port, killed mid-epoch
 and killed again during its recovery run, relaunched with no operator
 action: the assembled loss curve equals the uninterrupted run's bit for
-bit), on the CPU.  Its ``TestSupervisorElastic`` is left out: fleet
-membership is the JAX package's ``fleet/elastic.py``, which the port has
-not taken over, and ``elastic=`` / ``hang_watchdog=`` raise.
+bit), and ``tests/test_distributed_flight.py``'s hang escalation (a
+wedged child bundled and relaunched, ``on_hang="restart"``, an unknown
+policy refused), on the CPU.
 """
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 
 from paddle_tpu.distributed.fleet.elastic import \
     ELASTIC_EXIT_CODE as JAX_ELASTIC_EXIT_CODE
+from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+from paddle_tpu_torch.distributed.store import TCPStore
 from paddle_tpu_torch.observability import default_registry
 from paddle_tpu_torch.resilience import (FaultSpec, TrainingSupervisor,
                                          injected_faults)
@@ -93,10 +100,122 @@ class TestSupervisorRelaunch:
             ["attempt=0", "attempt=2"]
 
     def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError, match="elastic"):
-            TrainingSupervisor(["true"], elastic=object(), hosts=["a"])
-        with pytest.raises(NotImplementedError, match="flight"):
-            TrainingSupervisor(["true"], hang_watchdog=object())
+        # elastic= and hang_watchdog= are taken now (TestSupervisorElastic,
+        # TestSupervisorHangEscalation); what still raises is an unknown
+        # on_hang policy, as in the JAX package
+        sup = TrainingSupervisor(["true"], elastic=object(), hosts=["a"],
+                                 hang_watchdog=object())
+        assert sup.hosts == ["a"] and sup.on_hang == "bundle+restart"
+        with pytest.raises(ValueError, match="on_hang"):
+            TrainingSupervisor(["true"], on_hang="page-someone")
+
+
+def _mgr(store, host, np_=1, **kw):
+    kw.setdefault("heartbeat_interval", 0.1)
+    kw.setdefault("node_timeout", 0.4)
+    return ElasticManager(store, job_id="sup", np=np_, host=host, **kw)
+
+
+class TestSupervisorElastic:
+    @pytest.mark.faultinject
+    def test_store_outage_during_rendezvous_retried(self, tmp_path):
+        store = TCPStore(is_master=True, world_size=1)
+        sup = TrainingSupervisor(
+            _script(tmp_path, "sys.exit(0)\n"),
+            elastic=_mgr(store, "me"), hosts=["me"], max_restarts=1,
+            backoff_base=0.01, backoff_cap=0.02, rendezvous_timeout=20.0)
+        with injected_faults(FaultSpec("supervisor.rendezvous", "io_error",
+                                       occurrence=1)):
+            assert sup.run() == 0
+
+    def test_lost_node_terminates_and_relaunches(self, tmp_path):
+        store = TCPStore(is_master=True, world_size=2)
+        peer = _mgr(store, "peer", np_=2)
+        peer.register()
+        before = _restarts("lost_node")
+        body = ("import time\n"
+                "time.sleep(60 if attempt == 0 else 0)\n"
+                "sys.exit(0)\n")
+        sup = TrainingSupervisor(
+            _script(tmp_path, body), elastic=_mgr(store, "me", np_=2),
+            hosts=["me", "peer"], max_restarts=1, backoff_base=0.01,
+            backoff_cap=0.02, membership_interval=0.1,
+            rendezvous_timeout=30.0, term_grace_s=5.0)
+        holder = {}
+
+        def chaos():
+            time.sleep(1.8)
+            peer.deregister()
+            time.sleep(1.0)
+            holder["peer2"] = _mgr(store, "peer", np_=2).register()
+
+        t = threading.Thread(target=chaos, daemon=True)
+        t.start()
+        try:
+            assert sup.run() == 0
+        finally:
+            t.join()
+            holder["peer2"].deregister()
+        assert [r for r, _ in sup.restarts] == ["lost_node"]
+        assert _restarts("lost_node") == before + 1
+
+
+class _StubWatchdog:
+    def __init__(self):
+        self.hang_active = False
+        self.bundle_reasons = []
+        self.resets = 0
+
+    def check(self):
+        return self.hang_active
+
+    def write_bundle(self, reason="hang"):
+        self.bundle_reasons.append(reason)
+        return "stub-bundle"
+
+    def reset(self):
+        self.resets += 1
+        self.hang_active = False
+
+
+class TestSupervisorHangEscalation:
+    HUNG = ("import time\n"
+            "time.sleep(60 if attempt == 0 else 0)\n"
+            "sys.exit(0)\n")
+
+    @pytest.mark.parametrize("policy", ["bundle+restart", "restart"])
+    def test_hung_child_relaunched(self, tmp_path, policy):
+        before = _restarts("hang")
+        stub = _StubWatchdog()
+        sup = TrainingSupervisor(
+            _script(tmp_path, self.HUNG), max_restarts=1, backoff_base=0.01,
+            backoff_cap=0.02, membership_interval=0.05, term_grace_s=5.0,
+            hang_watchdog=stub, on_hang=policy)
+
+        def trip():
+            time.sleep(0.5)
+            stub.hang_active = True
+
+        t = threading.Thread(target=trip, daemon=True)
+        t.start()
+        assert sup.run() == 0
+        t.join()
+        assert [r for r, _ in sup.restarts] == ["hang"]
+        assert stub.bundle_reasons == (
+            ["supervisor_hang"] if policy == "bundle+restart" else [])
+        assert stub.resets == 1
+        assert _restarts("hang") == before + 1
+
+    def test_broken_watchdog_does_not_kill_a_healthy_child(self, tmp_path):
+        class Broken(_StubWatchdog):
+            def check(self):
+                raise RuntimeError("store gone")
+
+        sup = TrainingSupervisor(
+            _script(tmp_path, "import time\ntime.sleep(0.5)\n"
+                    "sys.exit(0)\n"), max_restarts=0,
+            membership_interval=0.05, hang_watchdog=Broken())
+        assert sup.run() == 0 and sup.restarts == []
 
 
 # A hapi trainer on the port: 2 epochs x 4 steps of the toy problem, a

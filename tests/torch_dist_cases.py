@@ -581,11 +581,15 @@ def hapi_mesh_case(weights, x, y, mesh_axes, rules, epochs=3, lr=0.1,
 
     cb = IntegrityCallback(fingerprint_shards=True)
     cb.set_model(model)
+    # between steps each parameter holds this rank's window only
+    with model.whole_parameters():
+        params = {k: _np(p) for k, p in net.named_parameters()}
     return {"losses": [h["loss"] for h in hist],
             "fingerprint": shard_fingerprint(cb._fingerprint_tree()),
             "coords": dict(model._mesh.coords),
             "acc": [h["acc"] for h in hist], "eval": ev,
-            "params": {k: _np(p) for k, p in net.named_parameters()},
+            "params": params,
+            "param_bytes": model.param_bytes(),
             "slots": {k: {n: list(t.shape) for n, t in s.items()}
                       for k, s in model._opt_state["slots"].items()},
             "windows": {k: v.key for k, v in
@@ -593,6 +597,82 @@ def hapi_mesh_case(weights, x, y, mesh_axes, rules, epochs=3, lr=0.1,
             "tp": {n: list(model._tp[m]) for n, m in net.named_modules()
                    if m in model._tp},
             "mp_bytes": mp_bytes}
+
+
+def hapi_mesh_io_case(weights, x, y, mesh_axes, rules, path):
+    """The readers of a world's whole parameters while each rank holds
+    windows: ``fit(save_dir=)`` with a ``CheckpointCallback`` (Adam, 2
+    epochs, a checkpoint every 4 steps into this rank's directory), the
+    default ``IntegrityCallback`` digest, ``Model.save``, then one more
+    epoch from three equal states: the fitted model, a fresh model that
+    ``load``s the saved files, and one restored from the fit
+    checkpoint."""
+    import os
+    import pickle
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import get_rank
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import (CheckpointCallback,
+                                                 restore_fit_state)
+    from paddle_tpu_torch.resilience.integrity import (IntegrityCallback,
+                                                       tree_fingerprint)
+
+    paddle.set_device("cpu")
+    nn = paddle.nn
+
+    def build():
+        net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 2))
+        net.set_state_dict({k: np.array(v) for k, v in weights.items()})
+        model = Model(net)
+        model.prepare(paddle.optimizer.Adam(learning_rate=0.1,
+                                            parameters=net.parameters()),
+                      nn.CrossEntropyLoss(),
+                      device_mesh=mesh_mod.build_mesh(**mesh_axes),
+                      sharding_rules=[(pat, mesh_mod.P(*spec))
+                                      for pat, spec in rules])
+        return model
+
+    class Data(paddle.io.Dataset):
+        def __len__(self):
+            return len(x)
+
+        def __getitem__(self, i):
+            return x[i], y[i]
+
+    def fit(model, epochs, **kw):
+        hist = model.fit(Data(), batch_size=16, epochs=epochs,
+                         shuffle=False, verbose=0, **kw)
+        return [h["loss"] for h in hist]
+
+    def whole(model):       # copies: a later step writes in place
+        with model.whole_parameters():
+            return {k: _np(p).copy()
+                    for k, p in model.network.named_parameters()}
+
+    rank = get_rank()
+    a = build()
+    ck_dir = os.path.join(path, f"ck{rank}")
+    losses = fit(a, 2, save_dir=os.path.join(path, "fit"),
+                 callbacks=[CheckpointCallback(ck_dir, every_n_steps=4)])
+    cb = IntegrityCallback()
+    cb.set_model(a)
+    digest = tree_fingerprint(cb._fingerprint_tree())
+    params = whole(a)
+    with open(os.path.join(path, "fit", "final.pdparams"), "rb") as f:
+        saved = {k: np.asarray(v) for k, v in pickle.load(f)["params"].items()}
+    a.save(os.path.join(path, f"model{rank}"))
+    b = build()
+    b.load(os.path.join(path, f"model{rank}"))
+    c = build()
+    info = restore_fit_state(c, ck_dir)
+    more = {n: fit(m, 1) for n, m in (("a", a), ("b", b), ("c", c))}
+    return {"losses": losses, "digest": digest, "params": params,
+            "saved": saved, "param_bytes": a.param_bytes(),
+            "resumed_step": info["global_step"], "more": more,
+            "after": {n: whole(m) for n, m in (("a", a), ("b", b),
+                                                ("c", c))}}
 
 
 def hapi_mp_refusal_case(rules):
@@ -714,3 +794,234 @@ def _items(tree, prefix=""):
             yield from _items(v, f"{prefix}{k}/")
         else:
             yield prefix + k, v
+
+
+# ------------------------------------------------- the flight recorder
+
+
+def flight_hang_case(stalled, tmp, stall_s=4.0):
+    """Every rank records three all-reduces, then a fourth in which rank
+    ``stalled`` stalls at the ``collective.all_reduce`` fault site while
+    the others wait on the wire; each rank's ``HangWatchdog`` beats on
+    its own thread over the world's store.  Returns what each watchdog
+    named, the stalled rank's in-flight records at detection, whether
+    the bundle holds thread stacks, and whether the sums agree."""
+    import os
+    import time
+    import uuid
+
+    from paddle_tpu_torch.distributed import get_world_size
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability import (FlightRecorder, HangWatchdog,
+                                                MetricsRegistry, Tracer,
+                                                use_flight_recorder)
+    from paddle_tpu_torch.resilience import FaultSpec, injected_faults
+
+    rank, world = get_rank(), get_world_size()
+    host, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
+    store = TCPStore(host=host, port=int(port), world_size=world)
+    tag = collective.broadcast(torch.tensor([uuid.uuid4().int % 2**31]))
+    rec = FlightRecorder(capacity=64, registry=MetricsRegistry(),
+                         tracer=Tracer())
+    hw = HangWatchdog(store, rank=rank, world_size=world, recorder=rec,
+                      stall_timeout_s=1.0, interval_s=0.1,
+                      bundle_dir=os.path.join(tmp, f"r{rank}"),
+                      registry=MetricsRegistry(), tracer=Tracer(),
+                      key_prefix=f"flight{int(tag)}")
+    sums = []
+    with use_flight_recorder(rec):
+        for i in range(3):
+            sums.append(collective.all_reduce(torch.full((8,), float(i)))
+                        .sum().item())
+        hw.start(interval_s=0.1)
+        seen = {}
+
+        def note():
+            while not hw.fired and time.monotonic() - t0 < stall_s + 5:
+                time.sleep(0.02)
+            seen["inflight"] = [[r["seq"], r["op"]] for r in rec.inflight()]
+
+        import threading
+
+        t0 = time.monotonic()
+        watcher = threading.Thread(target=note, daemon=True)
+        watcher.start()
+        faults = [FaultSpec("collective.all_reduce", "stall", occurrence=1,
+                            stall_s=stall_s)] if rank == stalled else []
+        with injected_faults(*faults):
+            sums.append(collective.all_reduce(torch.full((8,), 3.0))
+                        .sum().item())
+        watcher.join(timeout=stall_s + 10)
+    hw.stop()
+    d = hw.last_desync or {}
+    bundle = {}
+    if hw.bundles:
+        import json
+
+        with open(hw.bundles[0]) as f:
+            bundle = json.load(f)
+    collective.barrier()
+    return {"fired": hw.fired, "lagging_rank": d.get("lagging_rank"),
+            "divergent_seq": d.get("divergent_seq"), "op": d.get("op"),
+            "inflight": seen.get("inflight"),
+            "threads": bool(bundle.get("threads")),
+            "losses_equal": sums == [8.0 * i * world for i in range(4)]}
+
+
+def flight_busy_rank_case(busy, busy_s=2.0, stall_timeout_s=0.5):
+    """Every rank records three all-reduces; then rank ``busy`` works on
+    the host for ``busy_s`` (no collective in flight, as when it writes
+    a checkpoint) while the others wait on the wire in a barrier, longer
+    than ``stall_timeout_s``.  Returns each watchdog's fire count and
+    the largest lag it saw (progress of the fleet less the busy rank's)."""
+    import os
+    import time
+    import uuid
+
+    from paddle_tpu_torch.distributed import get_world_size
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability import (FlightRecorder, HangWatchdog,
+                                                MetricsRegistry, Tracer,
+                                                use_flight_recorder)
+
+    rank, world = get_rank(), get_world_size()
+    host, port = os.environ["PADDLE_MASTER"].rsplit(":", 1)
+    store = TCPStore(host=host, port=int(port), world_size=world)
+    tag = collective.broadcast(torch.tensor([uuid.uuid4().int % 2**31]))
+    rec = FlightRecorder(capacity=64, registry=MetricsRegistry(),
+                         tracer=Tracer())
+    hw = HangWatchdog(store, rank=rank, world_size=world, recorder=rec,
+                      stall_timeout_s=stall_timeout_s, interval_s=0.1,
+                      registry=MetricsRegistry(), tracer=Tracer(),
+                      key_prefix=f"busy{int(tag)}")
+    lag = [0.0]
+    with use_flight_recorder(rec):
+        for i in range(3):
+            collective.all_reduce(torch.full((8,), float(i)))
+        hw.start(interval_s=0.1)
+        if rank == busy:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < busy_s:
+                hbs = hw.heartbeats()
+                if len(hbs) == world:
+                    prog = {r: hw._progress(hb) for r, hb in hbs.items()}
+                    lag[0] = max(lag[0], max(prog.values()) - prog[busy])
+                time.sleep(0.05)
+        collective.barrier()
+        time.sleep(3 * 0.1)
+    hw.stop()
+    collective.barrier()
+    return {"fired": hw.fired, "lag": lag[0], "desync": hw.last_desync}
+
+
+# ------------------------------------------------------- auto-parallel
+
+
+def _ap_mesh(sizes):
+    from paddle_tpu_torch.distributed.mesh import Mesh
+
+    return Mesh(dict(sizes))
+
+
+def mlp_loss(params, x):
+    """The JAX test's ``mlp_loss`` in torch."""
+    h = torch.tanh(x @ params["w1"] + params["b1"])
+    h = h @ params["w2"] + params["b2"]
+    return (h.float() ** 2).mean()
+
+
+def sgd_step(loss_fn, lr):
+    """``(params, x) -> (params - lr·grad, loss)``, as the JAX test's
+    ``_sgd_step``: the gradient taken inside the traced function."""
+    from torch.utils import _pytree as pytree
+
+    def step(params, x):
+        flat, spec = pytree.tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in flat]
+        with torch.enable_grad():
+            loss = loss_fn(pytree.tree_unflatten(leaves, spec), x)
+            grads = torch.autograd.grad(loss, leaves)
+        new = [p - lr * g for p, g in zip(flat, grads)]
+        return pytree.tree_unflatten(new, spec), loss.detach()
+    return step
+
+
+def gpt_ap_loss(cfg):
+    """The JAX test's GPT ``loss``: log-softmax of fp32 logits, the next
+    token by ``roll``, the mean over every position."""
+    from paddle_tpu_torch.models.gpt import gpt_forward
+
+    def loss(params, tokens):
+        logits = gpt_forward(cfg, params, tokens)
+        logp = torch.log_softmax(logits.float(), -1)
+        tgt = torch.roll(tokens, -1, 1)
+        return -torch.gather(logp, -1, tgt[..., None]).mean()
+    return loss
+
+
+def auto_parallel_case(model, sizes, params, batches, annotations, lr):
+    """``len(batches)`` SGD steps of ``parallelize(sgd_step(loss))`` on a
+    mesh of ``sizes`` over the world: returns the losses, the final
+    params gathered whole, the completed specs (as tuples), this rank's
+    parameter bytes against the whole tree's, and the step's counts."""
+    from torch.utils import _pytree as pytree
+
+    from paddle_tpu_torch.distributed.auto_parallel import parallelize
+    from paddle_tpu_torch.distributed.mesh import P
+
+    mesh = _ap_mesh(sizes)
+    if model == "mlp":
+        loss = mlp_loss
+    else:
+        loss = gpt_ap_loss(model_of(model))
+    tree = pytree.tree_map(torch.from_numpy, params)
+    xs = [torch.from_numpy(b) for b in batches]
+    ann = {k: P(*v) for k, v in annotations.items()}
+    step, specs = parallelize(sgd_step(loss, lr), mesh, (tree, xs[0]), ann,
+                              return_specs=True)
+    from paddle_tpu_torch.distributed.auto_parallel import reshard
+
+    sp = reshard(tree, specs[0], mesh)
+    losses = []
+    for x in xs:
+        sp, l = step(sp, x)
+        losses.append(float(l.data))
+    full = pytree.tree_map(lambda d: d.numpy(), sp,
+                           is_leaf=lambda d: hasattr(d, "full"))
+    local = sum(d.data.numel() * d.data.element_size()
+                for d in pytree.tree_leaves(
+                    sp, is_leaf=lambda d: hasattr(d, "full")))
+    whole = sum(t.numel() * t.element_size()
+                for t in pytree.tree_leaves(tree))
+    flat_specs = pytree.tree_map(
+        lambda s: tuple(s), specs,
+        is_leaf=lambda s: type(s).__name__ == "PartitionSpec")
+    return {"losses": losses, "params": full, "specs": flat_specs,
+            "local_bytes": local, "whole_bytes": whole,
+            "stats": dict(step.stats), "whole_ops": dict(step.whole_ops)}
+
+
+def reshard_case(x):
+    """``shard_tensor`` round trip and ``reshard`` between layouts and
+    onto a differently-factored mesh; returns what each rank holds and
+    the whole tensors gathered back."""
+    from paddle_tpu_torch.distributed.auto_parallel import (reshard,
+                                                            shard_tensor)
+    from paddle_tpu_torch.distributed.mesh import Mesh, P
+
+    mesh_a = Mesh({"dp": 2, "mp": 2})
+    mesh_b = Mesh({"x": 4, "y": 1})
+    t = torch.from_numpy(x)
+    sx = shard_tensor(t, mesh_a, P("dp", "mp"))
+    tree = {"w": t, "b": t[0].clone()}
+    on_a = reshard(tree, {"w": P("dp", "mp"), "b": P("mp")}, mesh_a)
+    on_a2 = reshard(on_a, {"w": P("mp", "dp"), "b": P(None)}, mesh_a)
+    on_b = reshard(on_a, {"w": P(None, "x"), "b": P("x")}, mesh_b)
+    one = reshard([t, t[:4]], P("dp"), mesh_a)
+    return {"window": sx.index, "local": sx.data.numpy(),
+            "full": sx.numpy(), "a_w": on_a["w"].numpy(),
+            "a2_w": on_a2["w"].numpy(), "a2_w_local": on_a2["w"].data.numpy(),
+            "b_w_local": on_b["w"].data.numpy(), "b_w": on_b["w"].numpy(),
+            "b_b": on_b["b"].numpy(), "one_spec": [tuple(d.spec)
+                                                  for d in one],
+            "one_local": [d.data.numpy() for d in one]}

@@ -124,7 +124,8 @@ Phases (any failure exits non-zero):
      dropout, and the eval output held to the same encoder on the plain
      attention;
  16. the captured step against the eager one (run after phase 4 on its
-     params, and after phase 12 on the MoE model's): phase 4's engine
+     params, and after phase 12 on the first ``GRAPH_MOE_LAYERS`` layers
+     of the MoE model's): phase 4's engine
      and requests, one engine calling ``gpt_ragged_step`` eagerly each
      step and one replaying its CUDA graph, each with a ``defrag()``
      mid-run: greedy tokens identical, pages equal, the graph engine
@@ -217,7 +218,7 @@ Phases (any failure exits non-zero):
      engine of its grid over the world; their oracles (the one-process
      engine on the same config and global batch, eager) run in this
      process while the ranks start, the ranks waiting for them: GPT-3
-     1.3B widths, bf16, remat "dots", 3 steps (2 timed) of (a) dp 2 x mp
+     1.3B widths, bf16, remat "dots", 2 steps (1 timed) of (a) dp 2 x mp
      2 and (b) ZeRO-2 sharding 4 on 4 layers at global batch 4 x 2048,
      (c) the ring across 4 sep ranks and (d) Ulysses sep 2 x dp 2 on 4
      layers at 8 x 2048, (e) phase 13's MoE (8 experts, top-2, capacity
@@ -254,7 +255,7 @@ Phases (any failure exits non-zero):
      at mp 2 and mp 4 on phase 4's mix: the ragged launches of every
      rank, step-1 logits within ``WORLD_LOGITS_REL`` of the one-process
      engine's, the ranks' tokens equal, tok/s and TTFT; (f) (a)'s world
-     at 8 layers saved after step 2 (each window written once, by one
+     at 4 layers saved after step 2 (each window written once, by one
      rank), resumed at dp 2 x mp 2 within (a)'s limits and at pp 4
      bitwise, a bit flipped in one rank's shard named by rank and window
      and repaired from its replica; (g) hapi ``prepare(device_mesh=
@@ -265,7 +266,7 @@ Phases (any failure exits non-zero):
      one card over gloo through the launcher): (a) ``auto_parallel.
      parallelize`` of the JAX test's GPT loss from its three
      annotations at dp 2 x mp 2, ``tiny`` fp32 and GPT-3 1.3B widths on
-     4 layers in bf16, 3 SGD steps: the ranks' completed specs equal to
+     2 layers in bf16, 3 SGD steps: the ranks' completed specs equal to
      the one-process propagator's, the losses and step-1 gradient norms
      against one process (``P24_LOSS_REL``, ``P24_GRAD_REL``; fp32
      ``P24_TINY_REL``), parameter bytes a rank below the whole, ms/step,
@@ -289,6 +290,27 @@ Phases (any failure exits non-zero):
      and push p50, row-lock retries) and a hogwild CTR step of 2
      trainers (every touched row within ``PS_TOL`` of init + its
      pushes; one trainer alone equal to numpy exactly).
+ 25. the serving half of the observability plane at GPT-3 1.3B (run
+     after phase 11, on phase 11's engine knobs): (a) ``run_soak`` over
+     an autoscaled fleet (2 replicas, up to 4) replaying a seeded
+     diurnal + burst + shared-prefix trace in wall time
+     (``SOAK_TRAFFIC``) under ``bench_soak``'s chaos timeline and a
+     bitflip (``SOAK_CHAOS``), with a ``fleet_availability`` SLO, the
+     stack sampler, burn feedback and the run's own telemetry server:
+     nothing lost, scale-ups and a scale-down, every chaos event on the
+     scraped ``/flight``, the kills on ``/fleet``, the page fired and
+     cleared in the report and on ``/slo``, ``/healthz`` 200 after the
+     clear, the page's ``/profilez`` capture in a ``slo::`` trace, a
+     windowed ``/timeseries`` answer, the device gauge at the last
+     scrape equal to the live pools and the params, and after the soak
+     the params alone; TTFT p50 / p99, tok/s, the longest drive-loop
+     gap (a respawn), the host's scrape and evaluation time against the
+     wall, the ragged launches (24 an engine step); (b) two
+     ``ReplicaServer``s over one ``TCPStore``: the cohort lands on the
+     replica that gossiped its prefix, a kill's requests read as one
+     trace each on ``/traces?fleet=1``, ``/slo?fleet=1`` folds both
+     replicas, and the device gauge on ``/metrics`` equals
+     ``torch.cuda.memory_allocated()`` at its sample.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -810,6 +832,10 @@ def profile_serving(torch, eng, serving, vocab, tag="phase 4", experts=0):
 # ------------------------------------------- the captured step (16)
 
 GRAPH_DEFRAG_AT = 40               # phase 16's defrag: after this step
+#: phase 16's MoE comparison runs the first 8 of phase 12's 24 layers
+#: (cut from 24 when phase 25 joined the script: the traced eager MoE
+#: steps set the phase's time)
+GRAPH_MOE_LAYERS = 8
 
 
 def eager_engine_class(serving, gpt_ragged_step):
@@ -5650,7 +5676,8 @@ HYBRID = {
               limits=(2e-3, 2e-2)),
 }
 HYBRID_RANKS = 4
-HYBRID_STEPS = 3                   # a case's steps (1 warm, 2 timed)
+HYBRID_STEPS = 2                   # a case's steps: 1 warm, 1 timed (cut
+#                                    from 3 when phase 25 joined)
 HYBRID_TINY_BATCH = (4, 512)       # the fp32 check at tiny widths
 MOE_NO_DROP = 4.0                  # (e): C = n·4·2/8 = n, nothing drops
 MOE_RING = dict(layers=4, check=(1, 2048), train=(2, 2048), sep=4)  # (f)
@@ -6405,15 +6432,16 @@ WORLD_TINY = dict(batch=(4, 512), micro={"a": 4, "b": 4, "d": 2})
 #: (b): the peak of each schedule at 4 microbatches (global batch 4 x
 #: 2048, the microbatch unchanged), one step each, beside 8's
 WORLD_MEM_MICRO = 4
-#: (f): (a)'s world cut to (c)'s depth (the save writes each rank's
-#: windows of the params and the fp32 canonical optimizer state)
-WORLD_CKPT = dict(layers=8, batch=(8, 2048),
+#: (f): (a)'s world cut to 4 layers, one a stage (8 until phase 25
+#: joined the script; the save writes each rank's windows of the params
+#: and the fp32 canonical optimizer state)
+WORLD_CKPT = dict(layers=4, batch=(8, 2048),
                   ec=dict(num_microbatches=8, pipeline_schedule="1f1b"))
 WORLD_SERVE_MP = (2, 4)            # (e)
-#: (e)'s 1.3B depth: 8 of the 24 layers (cut from 24 when phase 24 joined
-#: the script, to keep it inside its time limit: two staged all-reduces
-#: a layer a step set (e)'s time)
-WORLD_SERVE_LAYERS = 8
+#: (e)'s 1.3B depth: 4 of the 24 layers (cut from 24 when phase 24 joined
+#: the script and from 8 when phase 25 did, to keep it inside its time
+#: limit: two staged all-reduces a layer a step set (e)'s time)
+WORLD_SERVE_LAYERS = 4
 #: (e): the logits of an mp world against the one-process engine's on
 #: the rows of the same history (every step), relative to the row's
 #: largest logit: bf16 at 1.3B widths (the row products' partial sums
@@ -7426,7 +7454,8 @@ def phase_worlds(torch, serving, cases=WORLD_CASES):
 #: batches of 4096, 2 servers) and a 2-trainer hogwild CTR step.
 P24 = dict(
     device="cuda",
-    ap=dict(base="gpt3-1.3b", layers=4, batch=(4, 2048), steps=3,
+    # (a) at 2 layers (4 until phase 25 joined the script)
+    ap=dict(base="gpt3-1.3b", layers=2, batch=(4, 2048), steps=3,
             lr=1e-2, axes={"dp": 2, "mp": 2}),
     ap_tiny=dict(base="tiny", layers=2, batch=(8, 128), steps=3, lr=1e-2),
     sup=dict(base="gpt3-1.3b", layers=2, batch=(2, 2048), steps=6,
@@ -8479,6 +8508,378 @@ def p24_ps(torch, cfg, tmp):
             s.stop()
 
 
+# ------------------------------- the observability plane's serving half (25)
+
+SOAK_HORIZON_S = 20.0
+# phase 11's prompts and cohorts on a diurnal + burst trace of
+# ``bench_soak``'s shape, at a rate the 4-replica fleet sustains
+SOAK_TRAFFIC = dict(base_rate_per_s=2.0, diurnal_amplitude=0.5,
+                    day_period_s=SOAK_HORIZON_S / 2.0,
+                    bursts=((2.0, 3.0, 3.0), (12.0, 2.0, 3.0)),
+                    n_cohorts=3, cohort_prefix_len=256, cohort_fraction=0.5,
+                    prompt_len=(64, 1024),
+                    max_new_tokens=(FLEET_NEW, FLEET_NEW), seed=25)
+# ``bench_soak``'s six events at its fractions of the horizon, and a
+# bitflip; poison storms stay on the CPU test (a poison boards and kills
+# every replica it lands on: each kill here costs a 1.3B build)
+SOAK_CHAOS = (("spawn_io_error", 0.08), ("stall_admit", 0.2),
+              ("kill", 0.35), ("bitflip", 0.42), ("stall_poll", 0.5),
+              ("kill", 0.65), ("stall_admit", 0.8))
+SOAK_SCALER = dict(FLEET_SCALER, min_replicas=1, max_replicas=4,
+                   spawn_max_retries=2, spawn_backoff_base_s=0.01,
+                   spawn_backoff_cap_s=0.05)
+# alert windows of at least 2 s short / 4 s long: a respawn's build and
+# capture stall the drive loop and its in-loop scrape
+SOAK_ALERT = dict(burn_rate_threshold=2.0, long_window_seconds=4.0,
+                  short_window_seconds=2.0, clear_after_seconds=0.75)
+# the error budget's window: a kill spends the whole budget of a 0.99
+# objective, and the autoscaler scales down only with a quarter of it
+# left, so the budget must refill within the settle after the last kill
+SOAK_BUDGET_WINDOW_S = 8.0
+SOAK_TTFT_BOUND_S = 15.0
+SOAK_DEVICE = "cuda"
+
+
+def _gauge_of(text, name):
+    """The unlabelled sample of ``name`` in Prometheus text, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def soak_on_card(torch, cfg, params, params_bytes, base, pa, serving,
+                 observability):
+    """Phase 25 (a): ``run_soak`` over an autoscaled fleet of
+    ``FLEET_ENGINE`` engines (2 to 4) with the chaos timeline, one
+    ``fleet_availability`` SLO, the sampler, burn feedback and the
+    run's own telemetry server, every check read from the report and
+    its live scrape.  Returns the ragged kernel's launches."""
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+
+    FleetEngine = fleet_engine_class(serving)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    pool_bytes = (2 * L * FLEET_ENGINE["num_pages"]
+                  * FLEET_ENGINE["page_size"] * H * hd * 2)
+
+    def factory():
+        return FleetEngine(cfg, params, device=SOAK_DEVICE, **FLEET_ENGINE)
+
+    traffic = serving.TrafficGenerator(vocab_size=cfg.vocab_size,
+                                       **SOAK_TRAFFIC)
+    chaos = [serving.ChaosEvent(t=SOAK_HORIZON_S * f, action=a,
+                                stall_s=0.4 if a == "stall_admit" else 0.3)
+             for a, f in SOAK_CHAOS]
+    slos = (observability.SLO(
+        "fleet_availability", target=0.99,
+        bad=("router_replica_failure_events_total",
+             "router_requests_lost_total"),
+        total=("router_dispatches_total",),
+        alerts=(observability.BurnRateAlert("page", **SOAK_ALERT),),
+        budget_window_seconds=SOAK_BUDGET_WINDOW_S),)
+    pa.ragged_paged_attention.launches = 0
+    report = serving.run_soak(
+        factory, traffic, SOAK_HORIZON_S, initial_replicas=2, chaos=chaos,
+        scaler_kw=dict(SOAK_SCALER), registry=MetricsRegistry(), slos=slos,
+        profile=True, burn_feedback=True, telemetry=True,
+        deadline_s=SOAK_HORIZON_S + 90.0, grace_s=20.0, min_down_events=1,
+        ttft_bound_s=SOAK_TTFT_BOUND_S)
+    launches = pa.ragged_paged_attention.launches
+    steps = sum(FleetEngine.steps_by_engine.values())
+    scraped = report["scraped"]
+    fleet, events = scraped["fleet"], report["scale_events"]
+
+    # ---- checks
+    check(not report["timed_out"], "the soak hit its deadline")
+    check(report["lost_requests"] == 0,
+          f"the soak lost {report['lost_requests']} requests")
+    check(report["requests_finished"] == report["requests_submitted"],
+          f"{report['requests_finished']} of "
+          f"{report['requests_submitted']} submitted requests finished")
+    check(events.get("up", 0) >= 1 and events.get("down", 0) >= 1,
+          f"the fleet did not scale both ways: {events}")
+    check(report["ttft_p99_ok"], f"TTFT p99 {report['ttft_p99_s']} s over "
+                                 f"{SOAK_TTFT_BOUND_S} s")
+    flight_ops = {r["op"] for r in scraped["flight"]["records"]} | set(
+        scraped["flight"]["summary"]["by_op"])
+    want_ops = {f"soak::{a}" for a, _ in SOAK_CHAOS}
+    check(want_ops <= flight_ops,
+          f"chaos missing from /flight: {sorted(want_ops - flight_ops)}")
+    fired = {(f["site"], f["kind"]) for f in report["injector_fired"]}
+    check({("serving.admit", "stall"), ("autoscaler.poll", "stall"),
+           ("autoscaler.scale_up", "io_error"),
+           ("serving.step", "bitflip")} <= fired,
+          f"injected faults fired: {sorted(fired)}")
+    kills = sum(1 for a, _ in SOAK_CHAOS if a == "kill")
+    crashes = sum(n for k, n in fleet["counters"]["failovers"].items()
+                  if k.endswith(",crash"))
+    check(crashes >= kills and fleet["counters"]["lost"] == 0,
+          f"/fleet shows {crashes} crash failovers for {kills} kills "
+          f"({fleet['counters']['failovers']})")
+    kinds = [t["transition"] for t in report["slo"]["transitions"]]
+    scraped_kinds = [t["transition"] for t in scraped["slo"]["transitions"]]
+    check(kinds and kinds[0] == "fire" and kinds[-1] == "clear"
+          and "fire" in scraped_kinds and "clear" in scraped_kinds
+          and scraped["slo"]["page_active"] is False,
+          f"the page did not fire and clear: report {kinds}, /slo "
+          f"{scraped_kinds}")
+    check(scraped.get("healthz_ok") is True
+          and scraped["healthz"]["slo_page_active"] is False,
+          f"/healthz after the page cleared: {scraped.get('healthz')} "
+          f"(status {scraped.get('healthz_status')})")
+    slo_ids = {t["trace_id"] for t in scraped["traces"]["traces"]
+               if any(s["name"] == "slo::fleet_availability"
+                      for s in t["spans"])}
+    caps = [c for c in scraped["profilez"]["captures"]
+            if c["trigger"] == "slo_page"]
+    check(caps and all(c["trace_id"] in slo_ids for c in caps),
+          f"/profilez captures {caps} not linked to a slo:: trace")
+    q = scraped["timeseries_query"]
+    check(q["kind"] == "counter" and (q["delta"] or 0) > 0,
+          f"/timeseries windowed answer {q}")
+    tids = [t["trace_id"] for t in scraped["traces"]["traces"]]
+    check(len(tids) == len(set(tids)), "a trace split across entries")
+    check(launches > 0 and launches == L * steps,
+          f"ragged launches {launches} != {L} x {steps} engine steps")
+    check(FleetEngine.finite and all(FleetEngine.finite),
+          "soak logits not finite")
+    # memory at the last scrape: the live engines' pools and the params
+    live = sum(1 for r in fleet["replicas"].values() if r["state"] != "dead")
+    gauge = _gauge_of(scraped["metrics"], "torch_cuda_allocated_bytes")
+    want = base + params_bytes + live * pool_bytes
+    check(gauge is not None and abs(gauge - want) <= FLEET_MEM_SLACK,
+          f"at the last scrape {gauge} bytes allocated, {live} live "
+          f"engines and the params account for {want}")
+
+    # ---- report
+    gen = sum(len(r["output"]) for r in report["requests"])
+    drv = report["loop"]
+    caps_n = [c for c, _ in FleetEngine.graphs.values()]
+    print(f"[phase 25 (a)] run_soak over gpt3-1.3b bf16 engines ("
+          f"{FLEET_ENGINE}), 2 -> up to 4 replicas, trace seed "
+          f"{SOAK_TRAFFIC['seed']} ({SOAK_HORIZON_S:.0f} s, base "
+          f"{SOAK_TRAFFIC['base_rate_per_s']}/s diurnal + 2 bursts, prompts "
+          f"64-1024, 3 cohorts of 256-token prefixes, {FLEET_NEW} new "
+          f"tokens): {report['requests_submitted']} requests, "
+          f"{report['requests_finished']} finished, lost "
+          f"{report['lost_requests']}, burn-feedback drops "
+          f"{report['burn_feedback']['dropped']} "
+          f"({report['burn_feedback']['dropped_while_page']} during the "
+          f"page); wall {report['wall_s']:.2f} s; {gen / report['wall_s']:.1f}"
+          f" generated tok/s ({card_line()})")
+    print(f"[phase 25 (a)] TTFT p50 {report['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{report['ttft_p99_s'] * 1e3:.1f} ms (bound "
+          f"{SOAK_TTFT_BOUND_S:.0f} s); scale events {events}; spawn "
+          f"failures {report['spawn_failures']}; redispatched "
+          f"{report['redispatched']}; crash failovers {crashes}; chaos "
+          + ", ".join(f"{c['action']}@{c['t']:.1f}s" for c in report["chaos"])
+          + f"; injected faults fired {sorted(fired)}")
+    t_fire = report["slo"]["transitions"][0]["time"]
+    print(f"[phase 25 (a)] SLO transitions (s after the first fire) "
+          + ", ".join(f"{t['transition']} {t['time'] - t_fire:+.2f} (burn "
+                      f"short {t['burn_short']}, long {t['burn_long']})"
+                      for t in report["slo"]["transitions"])
+          + f"; /profilez captures {len(caps)} slo_page, linked to "
+          f"slo:: traces; /healthz 200 after the clear")
+    print(f"[phase 25 (a)] host: longest drive-loop gap (a respawn's "
+          f"build and capture) {drv['max_gap_s'] * 1e3:.1f} ms; scrape + "
+          f"SLO evaluation {drv['observe_s']:.3f} s of {report['wall_s']:.2f}"
+          f" s wall ({drv['observe_s'] / report['wall_s']:.4f}) over "
+          f"{drv['beats']} beats; time series "
+          f"{report['timeseries']['scrapes']} scrapes, "
+          f"{report['timeseries']['series']} series")
+    print(f"[phase 25 (a)] ragged kernel launches {launches} = {L} x "
+          f"{steps} engine steps over {len(caps_n)} engines (captures "
+          f"{caps_n}); memory at the last scrape {gauge / 2**30:.3f} GiB, "
+          f"{(gauge - want) / 2**20:+.1f} MiB beyond {live} live pools + "
+          f"params")
+    return launches
+
+
+def store_plane_on_card(torch, cfg, params, pa, serving, observability):
+    """Phase 25 (b): two ``ReplicaServer``s with a 1.3B engine each
+    publishing over one ``TCPStore``; a ``FleetRouter`` scoring from
+    ``collect_prefix_summaries`` sends a shared-prefix cohort to the
+    replica that gossiped the prefix; a kill fails its requests over;
+    one telemetry server serves ``/traces?fleet=1`` (one trace per
+    failed-over request) and ``/slo?fleet=1``; the device gauge agrees
+    with ``torch.cuda.memory_allocated()``.  Returns the ragged
+    kernel's launches."""
+    import urllib.request
+
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability.metrics import (MetricsRegistry,
+                                                        default_registry)
+
+    obs = observability
+    store = TCPStore(is_master=True, world_size=1)
+    reg = MetricsRegistry()
+    cohort = serving.TrafficGenerator(vocab_size=cfg.vocab_size,
+                                      **SOAK_TRAFFIC).cohort_prefixes[0]
+    rng = np.random.RandomState(25)
+    pa.ragged_paged_attention.launches = 0
+    servers = [serving.ReplicaServer(
+        lambda: serving.Engine(cfg, params, device=SOAK_DEVICE,
+                               tracer=obs.Tracer(), **FLEET_ENGINE),
+        rid, store=store, gossip_interval_s=0.2) for rid in range(2)]
+    # replica 1 serves the cohort's prefix once; replica 0 stays cold.
+    # Each serve loop ends with a final publish of its summary and ring
+    warm = servers[1].engine.add_request(
+        list(cohort) + [int(t) for t in rng.randint(0, cfg.vocab_size, 8)],
+        serving.SamplingParams(max_new_tokens=4))
+    servers[1].serve(should_stop=lambda: not servers[1].engine.has_work())
+    servers[0].serve(max_steps=0)
+    check(warm.state == serving.RequestState.FINISHED,
+          f"replica 1's warm-up request ended {warm.state}")
+    router = serving.FleetRouter(
+        [srv.engine for srv in servers], registry=reg, tracer=obs.Tracer(),
+        prefix_summary_source=lambda: serving.collect_prefix_summaries(
+            store, [0, 1]))
+    slo_engines = []
+    for rid in range(2):
+        ts = obs.TimeSeriesStore(registry=default_registry())
+        slo_engines.append(obs.SLOEngine(ts, [obs.SLO(
+            "replica_goodput", target=0.9,
+            good=("serving_requests_finished_total",),
+            total=("serving_requests_submitted_total",))],
+            registry=MetricsRegistry()))
+        ts.scrape_once()
+    server = obs.start_telemetry_server(
+        port=0, registry=reg, router=router,
+        fleet_traces=lambda: obs.collect_fleet_traces(
+            store, [0, 1], extra_rings=[("router",
+                                          router.tracer.traces())]),
+        fleet_slo=lambda: obs.collect_fleet_slo(store, [0, 1]))
+    try:
+        sp = serving.SamplingParams(max_new_tokens=FLEET_NEW)
+        reqs = [router.submit(list(cohort) + [int(t) for t in rng.randint(
+            0, cfg.vocab_size, n)], sp) for n in (16, 40, 24, 8)]
+        router.step()
+        first = reqs[0].replica_id
+        hits = router.metrics.snapshot()["cache_aware_dispatches"]
+        check(first == 1 and hits >= 1,
+              f"the cohort's first request went to replica {first} "
+              f"({hits} cache-aware dispatches); replica 1 gossiped the "
+              f"prefix")
+        for _ in range(400):       # until requests decode on replica 1
+            if any(f.replica_id == 1 and f.tokens_out for f in reqs):
+                break
+            router.step()
+        moving = [f for f in reqs if f.replica_id == 1
+                  and f.state != serving.FleetRequestState.FINISHED]
+        router.kill_replica(1)
+        for _ in range(20000):
+            if not router.has_work():
+                break
+            router.step()
+        for srv in servers:         # each replica's last gossip beat
+            srv.trace_publisher.publish()
+        for rid, eng in enumerate(slo_engines):
+            eng.store.scrape_once()
+            eng.evaluate()
+            obs.SLOStatusPublisher(eng, rid, store).publish()
+        torch.cuda.synchronize()
+        sample = obs.ResourceSampler(registry=reg).sample_once()
+        alloc = torch.cuda.memory_allocated()
+
+        def get(path):
+            with urllib.request.urlopen(server.url + path,
+                                        timeout=10) as resp:
+                return resp.read().decode()
+
+        traces = json.loads(get("/traces?fleet=1"))["traces"]
+        fleet_slo = json.loads(get("/slo?fleet=1"))
+        metrics_text = get("/metrics")
+    finally:
+        server.stop()
+    launches = pa.ragged_paged_attention.launches
+    steps = sum(srv.engine.steps for srv in servers)
+
+    # ---- checks
+    check(all(f.state == serving.FleetRequestState.FINISHED
+              and len(f.output) == FLEET_NEW for f in reqs),
+          f"cohort requests ended {[f.state for f in reqs]}")
+    check(moving, "no request was aboard replica 1 at its kill")
+    ids = [t["trace_id"] for t in traces]
+    check(len(ids) == len(set(ids)), "/traces?fleet=1 split a trace")
+    # a hard-killed replica never ends its segments: a failed-over
+    # request is the router's two dispatches and the failover, and the
+    # survivor's segment; replica 1's ring holds what it finished
+    moved = [t for t in traces if any(s["name"] == "router::failover"
+                                      for s in t["spans"])]
+    sources = [{s["source"] for s in t["spans"]} for t in moved]
+    check(len(moved) >= len(moving) and all(
+        {"router", "replica0"} <= src for src in sources) and all(
+        [s["name"] for s in t["spans"]].count("router::dispatch") >= 2
+        for t in moved) and any(s["source"] == "replica1" for t in traces
+                                for s in t["spans"]),
+          f"{len(moving)} requests failed over; /traces?fleet=1 holds "
+          f"{len(moved)} failover traces with sources {sources}, replica "
+          f"1's ring {'in' if any(s['source'] == 'replica1' for t in traces for s in t['spans']) else 'not in'} the view")
+    obj = fleet_slo.get("slos", {}).get("replica_goodput", {})
+    check(fleet_slo.get("fleet") is True
+          and set(obj.get("replicas", {})) == {"replica0", "replica1"},
+          f"/slo?fleet=1 {fleet_slo}")
+    gauge = _gauge_of(metrics_text, "torch_cuda_allocated_bytes")
+    check(sample["torch_cuda_allocated_bytes"] == alloc and gauge
+          is not None and abs(gauge - alloc) <= 1e-8 * alloc,
+          f"device gauge {gauge} (sample "
+          f"{sample['torch_cuda_allocated_bytes']}) against "
+          f"memory_allocated {alloc}")
+    check(launches == cfg.num_layers * steps,
+          f"ragged launches {launches} != {cfg.num_layers} x {steps}")
+    print(f"[phase 25 (b)] two ReplicaServers (gpt3-1.3b bf16) over one "
+          f"TCPStore: the cohort's first request went to replica {first} "
+          f"(the one that gossiped the 256-token prefix), "
+          f"{hits} cache-aware dispatches; the kill moved "
+          f"{len(moving)} requests, each one trace on /traces?fleet=1 "
+          f"with spans from {sorted(set().union(*sources))} (of "
+          f"{len(traces)} merged traces); /slo?fleet=1 "
+          f"folds {sorted(obj.get('replicas', {}))}; device gauge "
+          f"{gauge:.0f} = memory_allocated {alloc}; ragged launches "
+          f"{launches} = {cfg.num_layers} x {steps}")
+    for srv in servers:
+        srv.engine = None
+    del servers, router
+    store.close()
+    return launches
+
+
+def phase_soak(torch, cfg, pa, serving, observability):
+    """Phase 25: the serving half of the observability plane at
+    GPT-3 1.3B: (a) the chaos soak, (b) the store plane.  Returns the
+    ragged kernel's launches of each."""
+    from paddle_tpu_torch.models import gpt_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = gpt_init(cfg, torch.Generator(device=SOAK_DEVICE).manual_seed(0),
+                      device=SOAK_DEVICE)
+    torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - base
+    t0 = time.perf_counter()
+    soak = soak_on_card(torch, cfg, params, params_bytes, base, pa,
+                        serving, observability)
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base - params_bytes
+    check(abs(left) <= FLEET_MEM_SLACK,
+          f"after the soak {left / 2**20:+.1f} MiB beyond the params: a "
+          f"killed or retired engine's pool was kept")
+    print(f"[phase 25 (a)] {time.perf_counter() - t0:.1f} s; after the "
+          f"soak {left / 2**20:+.1f} MiB beyond the params")
+    t0 = time.perf_counter()
+    plane = store_plane_on_card(torch, cfg, params, pa, serving,
+                                observability)
+    print(f"[phase 25 (b)] {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return soak, plane
+
+
 class _Background:
     """``fn(*args)`` on a thread; ``result()`` joins it and raises what it
     raised (a failed check included)."""
@@ -8497,6 +8898,9 @@ class _Background:
         except BaseException as e:       # re-raised in result()
             self._out["error"] = e
 
+    def join(self):
+        self._t.join()
+
     def result(self):
         self._t.join()
         if "error" in self._out:
@@ -8506,16 +8910,18 @@ class _Background:
 
 def phase_rest(torch, fa, cfg=P24, parts="abcde"):
     """Phase 24: the rest of distributed training (see ``P24``); ``parts``
-    picks (a) with (e), (b) with (c), and (d).  Returns the flash
-    launches of (a) (every rank's timed steps) and of (b)'s resumed
-    world (rank 0)."""
+    picks (a) with (e), (b) with (c), and (d).  (a) runs first, alone:
+    beside (b)-(d) it saved ~11 s of 177 and loaded the host enough for
+    (c)'s watchdog (2 s without progress) to name a rank doing host work
+    between two collectives.  Returns the flash launches of (a) (every
+    rank's timed steps) and of (b)'s resumed world (rank 0)."""
     from paddle_tpu_torch.distributed.store import TCPStore
 
     tmp = tempfile.mkdtemp(prefix="phase24_")
     store = TCPStore(is_master=True, world_size=1, timeout=120.0)
     cfg = dict(cfg, store=f"127.0.0.1:{store.port}")
     out = {}
-    agent = refs = None
+    agent = refs = ps = None
     if "b" in parts:        # started now: they take their time to start
         agent, refs = start_host_agent(cfg, tmp), start_refs(cfg, tmp)
     try:
@@ -8533,6 +8939,8 @@ def phase_rest(torch, fa, cfg=P24, parts="abcde"):
             ps.result()
         print(f"[phase 24 (b), (c), (d)] {time.perf_counter() - t0:.1f} s")
     finally:
+        if ps is not None:              # it stops its own processes
+            ps.join()
         for proc in ([agent[1]] if agent else []) + \
                 [p for p, _ in (refs or {}).values()]:
             _stop(proc)
@@ -8551,7 +8959,8 @@ def main():
     try:
         import importlib
 
-        from paddle_tpu_torch import distributed, models, resilience, serving
+        from paddle_tpu_torch import (distributed, models, observability,
+                                      resilience, serving)
         from paddle_tpu_torch.distributed import moe
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.kernels import flash_attention as fa
@@ -8644,6 +9053,11 @@ def main():
                                  watchdog)
     print(f"[phase 11] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    soak_launches, plane_launches = phase_soak(torch, cfg, pa, serving,
+                                               observability)
+    print(f"[phase 25] {time.perf_counter() - t0:.1f} s")
+
     moe_cfg = moe_config(cfg)
     t0 = time.perf_counter()
     phase_moe_step(torch, moe_cfg, pa, moe, gpt_init, gpt_ragged_step)
@@ -8655,9 +9069,13 @@ def main():
     print(f"[phase 12] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    phase_graph_vs_eager(torch, moe_cfg, moe_params, pa, serving,
-                         gpt_ragged_step, watchdog,
-                         f"gpt3-1.3b x{MOE_EXPERTS} experts")
+    n = GRAPH_MOE_LAYERS
+    phase_graph_vs_eager(
+        torch, dataclasses.replace(moe_cfg, num_layers=n),
+        {**moe_params, "blocks": {k: v[:n] for k, v in
+                                  moe_params["blocks"].items()}},
+        pa, serving, gpt_ragged_step, watchdog,
+        f"gpt3-1.3b x{MOE_EXPERTS} experts, {n} layers")
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -8722,6 +9140,8 @@ def main():
         "source": csrc + "ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/paged_attention.py:117",
         "launches": launches, "fleet_launches": fleet_launches,
+        "soak_launches": soak_launches,
+        "store_plane_launches": plane_launches,
         "moe_launches": moe_launches,
         "generation_launches": generation_launches, **rpa}] + [
         {"name": f"flash_attention_{name}", "route": "cuda",

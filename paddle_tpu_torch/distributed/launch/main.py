@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import signal
 import socket
@@ -14,10 +15,25 @@ from ..fleet.elastic import ELASTIC_EXIT_CODE
 __all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _host_store(host, world, timeout_s=600):
+    """The world's rendezvous store, bound on port 0 in this process
+    before any rank starts; its ``port`` is what the ranks are told."""
+    import torch.distributed as dist
+
+    return dist.TCPStore(host, 0, world, True,
+                         timeout=datetime.timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+
+
+def _held_ports(host, n):
+    """``n`` sockets bound on port 0 and kept open: the endpoint names
+    stay this job's until the launcher exits."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind((host, 0))
+        socks.append(s)
+    return socks
 
 
 def _parse(argv):
@@ -57,10 +73,17 @@ def launch(argv=None):
         raise SystemExit(
             "--master host:port is required when nnodes > 1 (every node "
             "must rendezvous at the same address)")
-    master = args.master or f"127.0.0.1:{_free_port()}"
+    store = None
+    if args.master:
+        master = args.master
+    else:
+        store = _host_store("127.0.0.1", world)
+        master = f"127.0.0.1:{store.port}"
     os.makedirs(args.log_dir, exist_ok=True)
-    endpoints = "" if args.nnodes > 1 else ",".join(
-        f"{master.split(':')[0]}:{_free_port()}" for _ in range(nproc))
+    held = [] if args.nnodes > 1 else _held_ports(master.split(":")[0],
+                                                  nproc)
+    endpoints = ",".join(f"{master.split(':')[0]}:{s.getsockname()[1]}"
+                         for s in held)
 
     def spawn_world(attempt):
         procs, logs = [], []
@@ -73,6 +96,7 @@ def launch(argv=None):
                 "PADDLE_LOCAL_RANK": str(local_rank),
                 "PADDLE_NPROC_PER_NODE": str(nproc),
                 "PADDLE_MASTER": master,
+                "PADDLE_MASTER_HOSTED": "1" if store is not None else "0",
                 "PADDLE_TRAINER_ENDPOINTS": endpoints,
                 "PADDLE_RESTART_ATTEMPT": str(attempt),
             })
@@ -139,6 +163,8 @@ def launch(argv=None):
         signal.signal(signal.SIGTERM, prev_term)
         for f in logs:
             f.close()
+        for s in held:
+            s.close()
     return rc
 
 

@@ -9,9 +9,20 @@ engine sets), and the training health layer: ``goodput``
 (``HealthMonitor``, ``TrainingHealthError``); across ranks, ``aggregate``
 (``RankMetricsPublisher`` / ``ClusterAggregator`` over the world's
 ``TCPStore``) and ``flight``, the distributed flight recorder
-(``FlightRecorder``, ``record_collective``, ``HangWatchdog``)."""
+(``FlightRecorder``, ``record_collective``, ``HangWatchdog``); and the
+serving half of the plane: ``timeseries`` (``TimeSeriesStore``, the
+windowed history over a registry), ``slo`` (``SLO``, ``BurnRateAlert``,
+``SLOEngine``: error budgets and multi-window burn-rate alerts),
+``exporter`` (``start_telemetry_server``: ``/metrics``, ``/varz``,
+``/healthz``, ``/traces``, ``/flight``, ``/fleet``, ``/integrity``,
+``/slo``, ``/profilez``, ``/timeseries``; ``ResourceSampler``), and the
+store-plane gossip of ``trace_gossip`` (``TraceRingPublisher``,
+``collect_fleet_traces``) and ``slo_gossip`` (``SLOStatusPublisher``,
+``collect_fleet_slo``, ``merge_fleet_slo``)."""
 from .aggregate import (ClusterAggregator, RankMetricsPublisher,
                         StorePublisher)
+from .exporter import (ResourceSampler, TelemetryServer,
+                       start_telemetry_server)
 from .compile_watchdog import (CompileWatchdog, WatchedFunction,
                                default_watchdog, disable_compile_watchdog,
                                enable_compile_watchdog, watch,
@@ -27,6 +38,12 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
 from .profiling import PROFILING_SERIES, StackSampler, current_phase, \
     diff_profiles
 from .profiling import phase as profiling_phase
+from .slo import SEVERITIES, SLO, BurnRateAlert, SLOEngine
+from .slo_gossip import (SLOStatusPublisher, collect_fleet_slo,
+                         collect_slo_statuses, merge_fleet_slo)
+from .timeseries import TimeSeriesStore
+from .trace_gossip import (TraceRingPublisher, collect_fleet_traces,
+                           collect_trace_rings)
 from .tracing import (Span, TailRetention, TraceContext, Tracer, activate,
                       active_span, active_span_for_thread, default_tracer,
                       export_traces_chrome, merge_traces,
@@ -46,4 +63,9 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "RankMetricsPublisher", "ClusterAggregator", "CollectiveRecord",
            "FlightRecorder", "HangWatchdog", "default_flight_recorder",
            "use_flight_recorder", "record_collective", "thread_stacks",
-           "traces_to_chrome_events", "export_traces_chrome"]
+           "traces_to_chrome_events", "export_traces_chrome",
+           "ResourceSampler", "TelemetryServer", "start_telemetry_server",
+           "TimeSeriesStore", "SEVERITIES", "SLO", "BurnRateAlert",
+           "SLOEngine", "SLOStatusPublisher", "collect_slo_statuses",
+           "collect_fleet_slo", "merge_fleet_slo", "TraceRingPublisher",
+           "collect_trace_rings", "collect_fleet_traces"]

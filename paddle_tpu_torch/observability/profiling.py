@@ -27,8 +27,8 @@ sampler and answers exactly that:
   queries (JSON or collapsed-stack text); :func:`diff_profiles` /
   :meth:`StackSampler.diff` subtract two windows, normalized to
   per-window fractions, to localize a regression ("what grew since the
-  last quiet minute").  The HTTP endpoint that serves them (``/profilez``
-  in the JAX package's exporter) is not ported yet.
+  last quiet minute").  The telemetry server's ``/profilez`` endpoint
+  (:mod:`.exporter`) serves them over HTTP.
 
 Threading: the sampler thread is strictly opt-in (:meth:`start`);
 :meth:`sample_once` is the inline driver for tests.  All shared state is

@@ -79,9 +79,10 @@ control loop — ``autoscaler.poll`` fires at the top of every
 control loop hiccuping: scaling is delayed, never wrong) and
 ``autoscaler.scale_up`` fires before every spawn attempt (an
 ``io_error`` is a spawn that died mid-flight, retried with bounded
-jittered backoff — the supervisor's spawn discipline).  The port's
-chaos soak harness is a later slice; ``chip_smoke.py`` phase 11 fires
-a step io_error, a hard kill and a drain at a fleet on the card.
+jittered backoff — the supervisor's spawn discipline).  The chaos soak
+harness (:mod:`paddle_tpu_torch.serving.soak`) arms these sites on a
+timeline; ``chip_smoke.py`` phases 11 and 25 fire them at fleets on the
+card.
 
 Collective sites: ``collective.all_reduce`` fires at the top of every
 ``distributed.collective.all_reduce`` and ``collective.barrier`` at the

@@ -12,10 +12,17 @@ autoscaler and traffic model).
   breaker).
 - :class:`Autoscaler` — the elastic control loop over a router.
 - :class:`TrafficGenerator` — seeded diurnal + bursty arrivals with
-  shared-prefix cohorts.
-
-Prefix gossip over a store, the replica server, the soak harness and
-the telemetry endpoints are later slices.
+  shared-prefix cohorts, thinned live by an SLO burn when asked.
+- :class:`PrefixSummaryPublisher` / :func:`collect_prefix_summaries` —
+  prefix-cache gossip over a ``TCPStore``, the source a cross-process
+  ``FleetRouter(prefix_summary_source=)`` reads.
+- :class:`ReplicaServer` — one replica process's serve loop with its
+  prefix and trace publishers.
+- :func:`run_soak` / :class:`ChaosEvent` — the chaos soak: a seeded
+  trace through an autoscaled fleet under a timeline of kills, stalls,
+  spawn errors, bit flips and poison storms, with its own time series,
+  SLO engine, sampler and telemetry server (the endpoints live in
+  ``paddle_tpu_torch.observability.exporter``).
 """
 from .engine import Engine, Request, RequestState, SamplingParams
 from .kv_cache import PagedKVCache, prefix_hashes
@@ -24,9 +31,14 @@ from .router import (FleetRequest, FleetRequestState, FleetRouter, Replica,
                      ReplicaState)
 from .autoscaler import Autoscaler
 from .traffic import Arrival, TrafficGenerator
+from .prefix_gossip import PrefixSummaryPublisher, collect_prefix_summaries
+from .replica import ReplicaServer
+from .soak import ChaosEvent, run_soak
 
 __all__ = ["Engine", "SamplingParams", "Request", "RequestState",
            "PagedKVCache", "ServingMetrics", "prefix_hashes",
            "RouterMetrics", "AutoscalerMetrics", "FleetRouter",
            "FleetRequest", "FleetRequestState", "Replica", "ReplicaState",
-           "Autoscaler", "Arrival", "TrafficGenerator"]
+           "Autoscaler", "Arrival", "TrafficGenerator",
+           "PrefixSummaryPublisher", "collect_prefix_summaries",
+           "ReplicaServer", "ChaosEvent", "run_soak"]

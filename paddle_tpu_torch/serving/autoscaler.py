@@ -11,14 +11,26 @@ elastic:
 - **signals** (polled each :meth:`tick` on an injectable clock): every
   healthy replica's ``estimated_drain_s`` and queue depth (from
   ``engine.health()``), the router's pending depth, the RETRY_AFTER /
-  shed rate, and the fleet goodput ratio (finished ÷ dispatched), the
-  last two as deltas over the between-poll counter base.
+  shed rate, and the fleet goodput ratio (finished ÷ dispatched).
+  With a :class:`~paddle_tpu_torch.observability.timeseries.TimeSeriesStore`
+  attached (``timeseries=``), shed and goodput come from *windowed*
+  store deltas (``signal_window_s`` wide, counter-reset-safe) instead
+  of the ad-hoc between-poll counter base the loop otherwise keeps —
+  the window is the same no matter how irregular the tick cadence.
   They fold into one *pressure* figure — mean drain seconds per
   **ready** replica plus a pending-depth term — so the decision scales
   with fleet size.
-- **SLO input and windowed signals** (``slo=``, ``timeseries=``)
-  come with the observability/SLO slice of the port: passing either
-  raises ``NotImplementedError`` until then.
+- **SLO input** (``slo=``, an
+  :class:`~paddle_tpu_torch.observability.slo.SLOEngine`): a firing
+  fast-burn *page* alert escalates scale-up (reason
+  ``slo_fast_burn``) even when instantaneous pressure sits inside the
+  hysteresis band — the budget emptying at page speed IS demand the
+  pressure figure has not caught up to.  Scale-down is gated the other
+  way: only while no alert is active and every objective keeps at
+  least ``slo_down_min_budget`` of its error budget — a healthy
+  budget *permits* shrinking, a burning one forbids it.
+  ``slo_scale_up_on`` (a name tuple) restricts which objectives' pages
+  escalate; default: any page.
 - **warming replicas don't count** — a replica whose decode-rate EWMA
   has no real sample yet (freshly spawned/revived; ``warmup()`` resets
   the EWMA, see :meth:`~.engine.Engine.warmup`) still advertises its
@@ -76,9 +88,9 @@ is the control loop hiccuping — scaling is delayed, never wrong);
 ``io_error`` is a spawn that died — retried with backoff out of the
 bounded budget, then counted as ``autoscaler_spawn_failures_total``).
 
-Threading: :meth:`tick` may be driven by any loop (``chip_smoke.py``
-drives it inline; :meth:`start` runs it on a daemon thread) while an
-operator thread reads :meth:`status` — all mutable
+Threading: :meth:`tick` may be driven by any loop (the soak harness
+drives it inline; :meth:`start` runs it on a daemon thread) while the
+telemetry server's scrape thread reads :meth:`status` — all mutable
 autoscaler state is guarded by one lock.  The autoscaler lock is
 always taken *before* any router call (which takes the router's own
 lock); :meth:`status` touches only autoscaler state, and the router's
@@ -118,11 +130,15 @@ class Autoscaler:
     the whole loop on a manual clock); ``pending_token_s`` converts one
     pending request into pressure seconds.
 
-    ``slo`` and ``timeseries`` (and the JAX autoscaler's
-    ``signal_window_s``, ``slo_down_min_budget`` and ``slo_scale_up_on``
-    that go with them) wait for the observability/SLO slice of the
-    port: passing ``slo`` or ``timeseries`` raises
-    ``NotImplementedError``."""
+    ``timeseries`` (a :class:`~paddle_tpu_torch.observability.timeseries.
+    TimeSeriesStore` scraping the same registry) switches the
+    shed/goodput signals to ``signal_window_s``-windowed store deltas;
+    ``slo`` (an :class:`~paddle_tpu_torch.observability.slo.SLOEngine`)
+    escalates scale-up under a firing fast-burn page (filtered by
+    ``slo_scale_up_on`` when given) and gates scale-down on a healthy
+    budget (every objective ≥ ``slo_down_min_budget`` remaining, no
+    alert active).  Both default to None — the loop then behaves
+    exactly as before."""
 
     def __init__(self, router, factory=None, *, min_replicas=1,
                  max_replicas=4, poll_interval_s=0.0,
@@ -132,7 +148,8 @@ class Autoscaler:
                  spawn_max_retries=2, spawn_backoff_base_s=0.05,
                  spawn_backoff_cap_s=1.0, clock=None,
                  tracer=None, registry=None, rng=None, slo=None,
-                 timeseries=None):
+                 timeseries=None, signal_window_s=2.0,
+                 slo_down_min_budget=0.25, slo_scale_up_on=None):
         if max_replicas < min_replicas:
             raise ValueError(f"max_replicas {max_replicas} < "
                              f"min_replicas {min_replicas}")
@@ -140,10 +157,6 @@ class Autoscaler:
             raise ValueError(
                 f"hysteresis band is empty: down_pressure_s "
                 f"{down_pressure_s} >= up_pressure_s {up_pressure_s}")
-        if slo is not None or timeseries is not None:
-            raise NotImplementedError(
-                "slo= and timeseries= come with the observability/SLO "
-                "slice of the port")
         self.router = router
         self._factory = factory
         self.min_replicas = int(min_replicas)
@@ -166,6 +179,13 @@ class Autoscaler:
         self.tracer = tracer
         self.metrics = AutoscalerMetrics(registry=registry)
         self._rng = rng
+        # optional SLO coupling — read-only config after construction
+        self.slo = slo
+        self.timeseries = timeseries
+        self.signal_window_s = float(signal_window_s)
+        self.slo_down_min_budget = float(slo_down_min_budget)
+        self.slo_scale_up_on = (None if slo_scale_up_on is None
+                                else tuple(slo_scale_up_on))
         # tick() (driver/daemon thread) mutates, status() (telemetry
         # scrape thread) reads — one lock guards all mutable state.
         # Always taken BEFORE any router call; never held by status().
@@ -227,18 +247,40 @@ class Autoscaler:
         # would spawn fresh victims
         cascade = bool(getattr(self.router, "cascade_open",
                                lambda: False)())
-        counters = self._router_counters()
-        base = self._counter_base or counters
-        self._counter_base = counters
-        shed_delta = counters["backpressure"] - base["backpressure"]
-        dispatch_delta = counters["dispatches"] - base["dispatches"]
-        finished_delta = counters["finished"] - base["finished"]
+        if self.timeseries is not None:
+            # windowed, counter-reset-safe deltas from the store — the
+            # window is signal_window_s wide no matter how irregular
+            # the tick cadence (the between-poll counter base below is
+            # exactly as wide as the gap between two ticks happened to
+            # be, which is the ad-hoc part this replaces)
+            w = self.signal_window_s
+            shed_delta = self.timeseries.delta(
+                "router_backpressure_retries_total", window_s=w) or 0.0
+            dispatch_delta = self.timeseries.delta(
+                "router_dispatches_total", window_s=w) or 0.0
+            finished_delta = self.timeseries.delta(
+                "router_requests_finished_total", window_s=w) or 0.0
+        else:
+            counters = self._router_counters()
+            base = self._counter_base or counters
+            self._counter_base = counters
+            shed_delta = counters["backpressure"] - base["backpressure"]
+            dispatch_delta = counters["dispatches"] - base["dispatches"]
+            finished_delta = counters["finished"] - base["finished"]
         goodput = (min(1.0, finished_delta / dispatch_delta)
                    if dispatch_delta > 0 else None)
         # warming replicas are NOT capacity: their drain floor is a
         # cold-start advertisement, not backlog — pressure is backlog
         # seconds per replica that can actually absorb it
         ready_drain = [drains[r] for r in drains if r not in warming]
+        slo_alerts, slo_page, slo_budget = [], False, None
+        if self.slo is not None:
+            slo_alerts = self.slo.alerts_active()
+            slo_budget = self.slo.min_budget_ratio()
+            watched = self.slo_scale_up_on
+            slo_page = any(
+                sev == "page" and (watched is None or name in watched)
+                for name, sev in slo_alerts)
         denom = max(ready, 1)
         pressure = (sum(ready_drain) / denom
                     + pending * self.pending_token_s / denom)
@@ -252,9 +294,9 @@ class Autoscaler:
             "goodput_ratio": goodput,
             "pressure_s": pressure,
             "cascade_open": cascade,
-            "slo_page": False,
-            "slo_alerts": [],
-            "slo_min_budget": None,
+            "slo_page": slo_page,
+            "slo_alerts": slo_alerts,
+            "slo_min_budget": slo_budget,
             "time": now,
         }
 
@@ -290,6 +332,13 @@ class Autoscaler:
             # arrives meanwhile still scales once the breaker closes.
             return None
         if up_ok:
+            if sig.get("slo_page"):
+                # the error budget is emptying at page speed: that IS
+                # demand, whether or not the pressure figure has caught
+                # up — escalate past the hysteresis band (cooldown and
+                # max_replicas still bound it, the cascade veto above
+                # still wins during a storm)
+                return ("up", "slo_fast_burn")
             if sig["pressure_s"] > self.up_pressure_s:
                 return ("up", "pressure")
             if self.up_pending_depth is not None and \
@@ -297,7 +346,16 @@ class Autoscaler:
                 return ("up", "pending")
             if sig["shed_delta"] > 0:
                 return ("up", "shed")
-        if down_ok and sig["pressure_s"] < self.down_pressure_s and \
+        # with an SLO engine attached, shrinking requires a *healthy*
+        # budget: no alert firing and every objective above the
+        # retained-budget floor — capacity is only returned when the
+        # objectives can afford the risk
+        slo_ok = (not sig.get("slo_alerts")
+                  and (sig.get("slo_min_budget") is None
+                       or sig["slo_min_budget"]
+                       >= self.slo_down_min_budget))
+        if down_ok and slo_ok \
+                and sig["pressure_s"] < self.down_pressure_s and \
                 sig["pending_depth"] == 0 and sig["queue_depth"] == 0 \
                 and sig["shed_delta"] == 0:
             return ("down", "idle")
@@ -471,7 +529,7 @@ class Autoscaler:
     def start(self, interval_s=None):
         """Run the control loop on a daemon thread every ``interval_s``
         (default: ``poll_interval_s`` or 1s).  Strictly opt-in — the
-        fleet smoke and tests drive :meth:`tick` inline instead."""
+        soak harness and tests drive :meth:`tick` inline instead."""
         if self._thread is not None:
             return self
         beat = float(interval_s if interval_s is not None

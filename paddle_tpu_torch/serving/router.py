@@ -78,8 +78,8 @@ backpressure retries / breaker state / restarts per replica, fleet
 TTFT histogram), tracer spans ``router::dispatch`` /
 ``router::failover`` / ``router::drain``, and the ``/fleet`` and
 ``/healthz`` payloads as :meth:`FleetRouter.fleet_status` and
-:meth:`FleetRouter.fleet_health` (the telemetry server that serves
-them is a later slice of the port).
+:meth:`FleetRouter.fleet_health`, served by the telemetry server
+(:mod:`paddle_tpu_torch.observability.exporter`).
 
 On the card, two things differ from the JAX router:
 
@@ -1238,8 +1238,8 @@ class FleetRouter:
         default-tracer case) are read once; a replica whose tracer is
         unreachable (hard-killed engine stub) is skipped — exactly the
         information a SIGKILLed process would lose.  Cross-process
-        fleets (a later slice of the port) gather rings over the store
-        instead."""
+        fleets gather rings over the store instead
+        (:func:`~paddle_tpu_torch.observability.trace_gossip.collect_fleet_traces`)."""
         rings = [("router", self.tracer.traces(limit=limit))]
         seen = {id(self.tracer)}
         for rep in self.replicas:

@@ -27,12 +27,15 @@ identical traces), :meth:`rate_at` is a pure function of time, and no
 method mutates the generator — there is no shared mutable state, so
 the object needs no lock and may be read from any thread.
 
-Closed-loop load: each :class:`Arrival` carries a pre-drawn uniform
-``u`` from a **separate** seeded stream, and :meth:`feedback_factor`
-maps a burn rate to a keep probability, so the trace matches the JAX
-package's draw for draw.  The live ``burn_feedback=`` hook reads the
-SLO engine's burn rate, which is the observability/SLO slice of the
-port: passing one raises ``NotImplementedError`` until then.
+Closed-loop load: the optional ``burn_feedback=`` hook (a zero-arg
+callable returning the live SLO burn rate, e.g.
+``engine.max_burn_rate``) lets a *caller* thin the precomputed trace
+at submission time — each :class:`Arrival` carries a pre-drawn
+uniform ``u`` from a **separate** seeded stream, and the caller keeps
+the arrival iff ``u < feedback_factor(burn)``.  The trace itself stays
+equal to the JAX package's draw for draw (the replay contract is
+untouched); only the live keep/drop decision varies with the burn the
+run actually produced.
 """
 from __future__ import annotations
 
@@ -87,10 +90,6 @@ class TrafficGenerator:
                              "(>1 would drive the rate negative)")
         if prompt_len[0] < 1 or prompt_len[1] < prompt_len[0]:
             raise ValueError(f"bad prompt_len range {prompt_len!r}")
-        if burn_feedback is not None:
-            raise NotImplementedError(
-                "burn_feedback reads the SLO engine's burn rate, which "
-                "comes with the observability/SLO slice of the port")
         self.base_rate_per_s = float(base_rate_per_s)
         self.diurnal_amplitude = float(diurnal_amplitude)
         self.day_period_s = float(day_period_s)
@@ -104,6 +103,7 @@ class TrafficGenerator:
                                int(max_new_tokens[1]))
         self.vocab_size = int(vocab_size)
         self.seed = int(seed)
+        self.burn_feedback = burn_feedback
         self.feedback_floor = float(feedback_floor)
         # cohort prefixes are fixed at construction (and derived from
         # the seed alone) so every trace of this generator — and every
@@ -189,6 +189,17 @@ class TrafficGenerator:
         if burn is None or burn != burn or burn <= 1.0:
             return 1.0
         return max(self.feedback_floor, 1.0 / float(burn))
+
+    def live_factor(self):
+        """:meth:`feedback_factor` of the ``burn_feedback`` hook's
+        current value — 1.0 without a hook, and 1.0 on a hook error
+        (feedback must never stall submission)."""
+        if self.burn_feedback is None:
+            return 1.0
+        try:
+            return self.feedback_factor(float(self.burn_feedback()))
+        except Exception:
+            return 1.0      # silent-ok: a broken hook means open loop
 
     def summary(self, horizon_s, samples=64):
         """Telemetry-shaped description of the configured load: rate

@@ -451,12 +451,32 @@ def test_drain_floor_survives_warmup_on_a_real_engine():
 
 
 def test_slo_hooks_wait_for_their_slice():
-    """slo=, timeseries= and burn_feedback= belong to the observability/
-    SLO slice: the port refuses them instead of ignoring them."""
-    router = port_serving.FleetRouter(
-        [_StubEngine()], registry=port_metrics.MetricsRegistry())
-    for kw in ({"slo": object()}, {"timeseries": object()}):
-        with pytest.raises(NotImplementedError, match="SLO"):
-            port_serving.Autoscaler(router, **kw)
-    with pytest.raises(NotImplementedError, match="SLO"):
-        port_serving.TrafficGenerator(burn_feedback=lambda: 1.0)
+    """slo=, timeseries= and burn_feedback= came with the observability/
+    SLO slice: the port takes them as the JAX package does — the
+    autoscaler reads the engine's alerts and budget into its signals,
+    and the traffic hook's live factor equals the JAX generator's for
+    the same burn (the trace itself is untouched)."""
+    from paddle_tpu_torch.observability.timeseries import TimeSeriesStore
+
+    class _SLO:
+        def alerts_active(self):
+            return [("availability", "ticket")]
+
+        def min_budget_ratio(self):
+            return 0.5
+
+    reg = port_metrics.MetricsRegistry()
+    router = port_serving.FleetRouter([_StubEngine()], registry=reg)
+    scaler = port_serving.Autoscaler(
+        router, slo=_SLO(), timeseries=TimeSeriesStore(registry=reg),
+        registry=reg)
+    scaler.tick()
+    sig = scaler.status()["last_signals"]
+    assert sig["slo_alerts"] == [("availability", "ticket")]
+    assert sig["slo_min_budget"] == 0.5 and sig["slo_page"] is False
+    for burn in (0.5, 4.0, 50.0):
+        port = port_serving.TrafficGenerator(burn_feedback=lambda: burn)
+        ref = jax_serving.TrafficGenerator(burn_feedback=lambda: burn)
+        assert port.live_factor() == ref.live_factor()
+        assert [dataclasses.asdict(a) for a in port.trace(5.0)] == \
+            [dataclasses.asdict(a) for a in ref.trace(5.0)]

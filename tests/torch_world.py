@@ -8,6 +8,10 @@ traceback, and the world is started anew for the next case (the others
 may be waiting in a collective).  Messages are pickles over the ranks'
 stdin/stdout; the ranks' prints go to their stderr.
 
+The world's rendezvous store is bound on port 0 in this process before
+the ranks start (the launcher's ``PADDLE_MASTER_HOSTED`` contract), so
+no port is picked by binding and releasing it.
+
 This module imports neither jax nor the JAX package: the ranks run the
 port alone.  ``python tests/torch_world.py --worker`` is a rank's main
 loop."""
@@ -17,7 +21,6 @@ import os
 import pickle
 import select
 import signal
-import socket
 import struct
 import subprocess
 import sys
@@ -48,20 +51,18 @@ def _recv(f):
     return pickle.loads(_read_exact(f, n))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 class World:
     def __init__(self, n, timeout_s=float(os.environ.get(
             "TORCH_WORLD_TIMEOUT_S", 240))):
         self.n, self.timeout_s = n, timeout_s
         self.procs = None
+        self.store = None
 
     def _start(self):
-        port = _free_port()
+        from paddle_tpu_torch.distributed.launch.main import _host_store
+
+        self.store = _host_store("127.0.0.1", self.n, timeout_s=240)
+        port = self.store.port
         self.procs = []
         for r in range(self.n):
             env = dict(os.environ)
@@ -70,6 +71,7 @@ class World:
                 str(self.n), "PADDLE_LOCAL_RANK": str(r),
                 "PADDLE_NPROC_PER_NODE": str(self.n),
                 "PADDLE_MASTER": f"127.0.0.1:{port}",
+                "PADDLE_MASTER_HOSTED": "1",
                 "PADDLE_DIST_BACKEND": "gloo", "PADDLE_DIST_DEVICE": "cpu",
                 "PYTHONPATH": os.pathsep.join(
                     [_ROOT, _HERE, env.get("PYTHONPATH", "")]),
@@ -126,6 +128,7 @@ class World:
                 p.kill()
                 p.wait()
         self.procs = None
+        self.store = None
 
 
 def _worker():

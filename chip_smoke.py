@@ -261,7 +261,14 @@ Phases (any failure exits non-zero):
      and repaired from its replica; (g) hapi ``prepare(device_mesh=
      "auto")`` on 4 ranks, a 4-stage ``PipelineLayer`` through
      ``fleet.distributed_model`` and ``PipelineStageExecutor`` on 2
-     processes, each within 1e-5 of its one-process run;
+     processes, each within 1e-5 of its one-process run; then a hapi
+     fit of the Paddle-style GPT at GPT-3 1.3B widths on 4 layers at dp
+     2 x mp 2 (``WORLD_HAPI_GPT``: each parameter in the JAX layout
+     through the step, ``eval_batch`` and ``predict_batch``) against the
+     one-process hapi fit: losses and eval within ``HYBRID_LOSS_REL``,
+     the parameter and gradient bytes inside the step equal to the
+     windows' sum from the shapes, the peaks, ms/step, the collectives'
+     share and the fp32 flash launches of every rank;
  24. the rest of distributed training (``P24``; worlds of ranks on the
      one card over gloo through the launcher): (a) ``auto_parallel.
      parallelize`` of the JAX test's GPT loss from its three
@@ -6449,6 +6456,17 @@ WORLD_SERVE_LAYERS = 4
 #: control step with one rank's pages wrong must land above it
 WORLD_LOGITS_REL = {"1.3b": 5e-2, "tiny": 1e-4}
 WORLD_MLP = dict(hidden=1024, batch=128, steps=3, micro=4)    # (g)
+#: (g)'s hapi world at GPT-3 1.3B widths: the Paddle-style GPT of
+#: ``models/paddle_gpt.py`` cut to 4 layers (the phase's time), fp32,
+#: ``rows`` x ``seq`` tokens (one row a dp rank), AdamW, ``steps`` steps
+#: (the first untimed) at dp 2 x mp 2 with ``HAPI_GPT_RULES``, then one
+#: ``eval_batch`` and one ``predict_batch``; against the one-process hapi
+#: fit of the same model on the same rows (``HYBRID_LOSS_REL``)
+WORLD_HAPI_GPT = dict(layers=4, rows=2, seq=512, steps=3, lr=1e-4)
+HAPI_GPT_RULES = ((r"qkv\.weight$", (None, "mp")),
+                  (r"up\.weight$", (None, "mp")),
+                  (r"proj\.weight$", ("mp", None)),
+                  (r"down\.weight$", ("mp", None)))
 #: (a)-(d), (f): every step's loss and each leaf's step-1 gradient norm
 #: against the one-process engine, relative: phase 22's limits (2e-4,
 #: 3e-3) tightened to this phase's first readings (at most 8.8e-6 and
@@ -7079,6 +7097,108 @@ def _mlp_world_case(torch, rank, store_port):
     return res
 
 
+def hapi_gpt_fit(torch, mesh, tmp, tag):
+    """(g)'s hapi fit of the Paddle-style GPT (``WORLD_HAPI_GPT``) on the
+    card, in one process (``mesh`` None: the captured step) or on this
+    rank of a dp 2 x mp 2 world: each step's loss, ms (host clock to a
+    synchronize), peak ``max_memory_allocated`` and flash launches; the
+    parameter and gradient bytes inside the step and the peak at the end
+    of the backward, before the update (hooks on the network's forward
+    and on each parameter's gradient; a captured step's replays run no
+    hook, and their graph's pool is not allocated anew, so a replay's
+    peak is the state it holds between steps); the collectives'
+    seconds; the eval loss and the flash launches of ``eval_batch`` and
+    ``predict_batch``.  Every ``PRED_STRIDE``-th position of the
+    predictions goes to ``tmp/g_<tag>.npz``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.mesh import P
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import GPT_CONFIGS, gpt_init
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    g = WORLD_HAPI_GPT
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt3-1.3b"],
+                              num_layers=g["layers"], dtype="float32")
+    paddle.set_device("gpu")
+    free_cuda(torch)
+    net = prog.build_gpt(paddle, cfg.vocab_size, cfg.hidden, cfg.num_heads,
+                         cfg.ffn_hidden, cfg.num_layers, cfg.max_seq_len)
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(22),
+                      device="cuda")
+    net.set_state_dict(prog.gpt_state_from_params(params, cfg.num_layers))
+    del params
+    tokens = np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (g["rows"], g["seq"])).astype(np.int64)
+    labels = prog.next_token_labels(tokens)
+    whole = sum(p.numel() * p.element_size() for p in net.parameters())
+    seen = {}
+
+    def at_forward(module, args):
+        seen["params"] = sum(p.numel() * p.element_size()
+                             for p in module.parameters())
+
+    def at_grad(grad):
+        seen["grads"] = seen.get("grads", 0) + grad.numel() * \
+            grad.element_size()
+        seen["backward_peak"] = torch.cuda.max_memory_allocated()
+
+    net.register_forward_pre_hook(at_forward)
+    for p in net.parameters():
+        p.register_hook(at_grad)
+
+    def loss(out, y):
+        return paddle.nn.functional.cross_entropy(
+            paddle.reshape(out, [-1, cfg.vocab_size]),
+            paddle.reshape(y, [-1]), ignore_index=-100)
+
+    model = Model(net)
+    model.prepare(paddle.optimizer.AdamW(learning_rate=g["lr"],
+                                         weight_decay=0.01,
+                                         parameters=net.parameters()),
+                  loss, device_mesh=mesh,
+                  sharding_rules=[(pat, P(*spec))
+                                  for pat, spec in HAPI_GPT_RULES])
+    res = {"losses": [], "ms": [], "peak": [], "launches": [],
+           "collective_s": [], "whole": whole, "step_params": [],
+           "step_grads": [], "backward_peak": []}
+    for _ in range(g["steps"]):
+        seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa)
+        collective.reset_collective_stats()
+        t0 = time.perf_counter()
+        res["losses"].append(model.train_batch(tokens, labels)[0])
+        torch.cuda.synchronize()
+        res["ms"].append(1e3 * (time.perf_counter() - t0))
+        res["peak"].append(torch.cuda.max_memory_allocated())
+        res["launches"].append(dict(fa.launches))
+        res["collective_s"].append(sum(collective.collective_stats()[
+            "seconds"].values()))
+        for k in ("step_params", "step_grads", "backward_peak"):
+            res[k].append(seen.get(k.replace("step_", "")))
+    res["held"] = model.param_bytes()
+    zero_counts(fa)
+    res["eval"] = model.eval_batch(tokens, labels)[0]
+    res["eval_launches"] = dict(fa.launches)
+    zero_counts(fa)
+    pred = model.predict_batch(tokens)
+    res["predict_launches"] = dict(fa.launches)
+    res["predict_shape"] = list(pred.shape)
+    if tmp is not None:
+        np.savez(os.path.join(tmp, f"g_{tag}.npz"),
+                 logits=pred[:, ::PRED_STRIDE])
+    del model, net, pred
+    free_cuda(torch)
+    return res
+
+
+#: (g): the predictions compared at every 64th position of each row
+PRED_STRIDE = 64
+
+
 def child_worlds(cases, out):
     """``chip_smoke.py --child worlds CASES OUT``, one rank of phase 23's
     world: once the oracles are done, each case of CASES in turn;
@@ -7107,6 +7227,11 @@ def child_worlds(cases, out):
         elif case == "g":
             res[case] = _mlp_world_case(
                 torch, rank, int(os.environ["PHASE23_STORE_PORT"]))
+            from paddle_tpu_torch.distributed.mesh import build_mesh
+
+            res[case]["gpt"] = hapi_gpt_fit(
+                torch, build_mesh(dp=2, mp=2), tmp if rank == 0 else None,
+                "world")
         seconds[case] = time.time() - t0
     with open(f"{out}.r{rank}.json", "w") as f:
         json.dump({"cases": res, "stamps": stamps, "seconds": seconds}, f,
@@ -7374,6 +7499,85 @@ def world_mlp(ranks):
           f"23 (g): the executor off one process by {eerr}")
 
 
+def hapi_gpt_windows():
+    """(g)'s parameter bytes a rank holds inside a step at dp 2 x mp 2,
+    from the shapes: the whole model's less half of each weight the
+    rules split (``qkv``, ``proj``, ``up``, ``down``: 12·D² a layer)."""
+    from paddle_tpu_torch.models import GPT_CONFIGS
+
+    c = GPT_CONFIGS["gpt3-1.3b"]
+    D, F, L = c.hidden, c.ffn_hidden, WORLD_HAPI_GPT["layers"]
+    split = L * (3 * D * D + D * D + 2 * D * F) * 4
+    return split, split // 2
+
+
+def world_hapi_gpt(ranks, one, tmp):
+    """(g)'s hapi GPT world against its one-process fit: the losses and
+    the eval loss within ``HYBRID_LOSS_REL``, the predictions, the
+    bytes inside the step against the windows' sum from the shapes, the
+    flash launches of every rank.  Returns the flash launches of the
+    world's timed steps, summed over the ranks."""
+    g = WORLD_HAPI_GPT
+    L = g["layers"]
+    split, saved = hapi_gpt_windows()
+    whole = one["whole"]
+    want = whole - saved
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["losses"], one["losses"]))
+    ev = max(abs(r["eval"] - one["eval"]) / abs(one["eval"])
+             for r in ranks)
+    a = np.load(os.path.join(tmp, "g_world.npz"))["logits"]
+    b = np.load(os.path.join(tmp, "g_one.npz"))["logits"]
+    pred = float(np.abs(a - b).max() / np.abs(b).max())
+    steady = lambda r, k: r[k][1:]   # noqa: E731  (the first step untimed)
+    gib = lambda xs: [round(x / 2**30, 3) for x in xs]   # noqa: E731
+    print(f"[phase 23 (g)] hapi over dp 2 x mp 2, the Paddle-style GPT at "
+          f"GPT-3 1.3B widths on {L} layers, fp32, {g['rows']} x "
+          f"{g['seq']} ({g['steps']} AdamW steps, qkv/up by columns, "
+          f"proj/down by rows): losses {[round(x, 6) for x in ranks[0]['losses']]} "
+          f"vs one process {[round(x, 6) for x in one['losses']]} "
+          f"({rel:.2e} relative, limit {HYBRID_LOSS_REL:g}); eval "
+          f"{ranks[0]['eval']:.6f} vs {one['eval']:.6f} ({ev:.2e}); "
+          f"predictions {pred:.2e} of the largest logit; ms/step a rank "
+          f"{[[round(x, 1) for x in steady(r, 'ms')] for r in ranks]} "
+          f"(one process {[round(x, 1) for x in steady(one, 'ms')]}); "
+          f"peak GiB a rank by step {[gib(r['peak']) for r in ranks]}, "
+          f"at the end of the backward {[gib(r['backward_peak']) for r in ranks]} "
+          f"(one process, eager / capture / replay {gib(one['peak'])}, "
+          f"end of the eager backward {gib(one['backward_peak'][:1])}); "
+          f"parameter + gradient bytes inside the step a rank "
+          f"{[r['step_params'][-1] + r['step_grads'][-1] for r in ranks]} "
+          f"(predicted {2 * want}, the whole model's {2 * whole}: "
+          f"{2 * want / (2 * whole):.3f}); held between steps "
+          f"{[r['held'] for r in ranks]}; collective share "
+          f"{[round(sum(steady(r, 'collective_s')) * 1e3 / sum(steady(r, 'ms')), 3) for r in ranks]}; "
+          f"flash launches a rank a step "
+          f"{[r['launches'][-1] for r in ranks]}, eval "
+          f"{ranks[0]['eval_launches']}, predict "
+          f"{ranks[0]['predict_launches']}; {card_line()}")
+    check(rel <= HYBRID_LOSS_REL and ev <= HYBRID_LOSS_REL,
+          f"23 (g) hapi GPT: losses {rel:.3g}, eval {ev:.3g} off one "
+          f"process")
+    check(pred <= 1e-3, f"23 (g) hapi GPT: predictions {pred:.3g} off")
+    for r in ranks:
+        check(all(x == want for x in r["step_params"] + r["step_grads"]),
+              f"23 (g) hapi GPT: bytes inside the steps {r['step_params']} "
+              f"(params), {r['step_grads']} (grads), not the windows' "
+              f"{want}")
+        check(all(x["fwd"] == L and x["bwd"] == 2 * L
+                  for x in r["launches"]),
+              f"23 (g) hapi GPT: flash launches {r['launches']}, expected "
+              f"{L} forward and {2 * L} backward (fp32) a step")
+        check(r["eval_launches"]["fwd"] == L and
+              r["predict_launches"]["fwd"] == L,
+              f"23 (g) hapi GPT: eval / predict launches "
+              f"{r['eval_launches']} {r['predict_launches']}")
+        check(r["losses"][-1] < r["losses"][0],
+              f"23 (g) hapi GPT: losses {r['losses']} do not fall")
+    return {k: sum(r["launches"][i][k] for r in ranks
+                   for i in range(1, g["steps"])) for k in ("fwd", "bwd")}
+
+
 def _free_port():
     import socket
 
@@ -7403,6 +7607,8 @@ def phase_worlds(torch, serving, cases=WORLD_CASES):
             if "c" in cases or "d" in cases:
                 oracles["c"] = oracles["d"] = world_oracle(
                     torch, 8, WORLDS["c"]["batch"])
+            if "g" in cases:
+                oracles["g"] = hapi_gpt_fit(torch, None, tmp, "one")
             if "e" in cases:
                 oracles["e"] = {size: serve_oracle(
                     torch, serving, cfg,
@@ -7434,6 +7640,8 @@ def phase_worlds(torch, serving, cases=WORLD_CASES):
             world_ckpt(res["f"], tmp)
         if "g" in cases:
             world_mlp([r["cases"] for r in ranks])
+            launches["g"] = world_hapi_gpt(
+                [r["cases"]["g"]["gpt"] for r in ranks], oracles["g"], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -9196,12 +9404,14 @@ def main():
         key = "fwd" if key == "fwd" else "bwd"
         entry["hybrid_launches"] = {c: v[key]
                                     for c, v in hybrid_launches.items()}
-    # phase 23: every rank's launches over the timed step of (a)-(d)
-    # and, for the ragged kernel, over (e)'s mp engines
+    # phase 23: every rank's launches over the timed step of (a)-(d) and
+    # the timed steps of (g)'s hapi GPT world and, for the ragged kernel,
+    # over (e)'s mp engines
     for entry in kernels[1:4]:
         key = "fwd" if entry["name"].endswith("fwd") else "bwd"
         entry["world_launches"] = {c: v[key] for c, v in
-                                   world_launches.items() if c in WORLDS}
+                                   world_launches.items()
+                                   if c in WORLDS or c == "g"}
     kernels[0]["world_launches"] = {
         f"e_{tag}": n for tag, n in world_launches.get("e", {}).items()}
     # phase 24: (a)'s every rank over its timed steps, (b)'s rank 0 over

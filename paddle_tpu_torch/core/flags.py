@@ -68,6 +68,8 @@ def define_flag(name: str, default, help_str: str = ""):
 
 def flag(name: str):
     """Read a flag's current value (one dict lookup: the op hot path)."""
+    # lint-ok: lock-discipline the op hot path: one GIL-atomic dict
+    # lookup of an entry define_flag / set_flags replace whole
     return _registry[name]["value"]
 
 

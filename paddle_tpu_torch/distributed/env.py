@@ -29,6 +29,7 @@ from __future__ import annotations
 import atexit
 import os
 import sys
+import time
 from datetime import timedelta
 
 import torch
@@ -39,7 +40,7 @@ from .._device import resolve_device
 __all__ = ["init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "ParallelEnv", "current_device", "transport"]
 
-_state = {"device": None, "transport": None}
+_state = {"device": None, "transport": None, "store": None}
 
 
 def _choose_backend(device, nproc_local):
@@ -91,6 +92,7 @@ def init_parallel_env(backend=None, device=None, init_method=None,
             dist.init_process_group(
                 backend, store=store, world_size=world, rank=me,
                 timeout=timedelta(seconds=timeout_s), **extra)
+            _state["store"] = store
         else:
             init_method = init_method or f"tcp://{master}"
             dist.init_process_group(
@@ -123,9 +125,23 @@ def _end_world():
     none of 750 that destroyed it first), and the launcher then reports
     a failed rank.
     The collective layer's group cache holds the groups: it goes
-    first."""
+    first.
+
+    Destroying the groups ends a peer that is still inside a collective
+    with this rank (it exits 1 of the lost connection), often before
+    this process has ended.  So in a launcher's world this rank first
+    writes when it began to leave (``exit/<rank>`` in the launcher's
+    store): the launcher gives the world the code of the failed rank
+    that began to leave first, such as a 101 asking for a relaunch,
+    not the code of a peer that died of its departure."""
     if not dist.is_initialized():
         return
+    store = _state["store"]
+    if store is not None:
+        try:
+            store.set(f"exit/{dist.get_rank()}", repr(time.time()))
+        except RuntimeError:
+            pass    # silent-ok: a launcher gone first reads nothing
     from . import collective
 
     collective._groups.clear()

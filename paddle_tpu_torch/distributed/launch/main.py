@@ -14,6 +14,11 @@ from ..fleet.elastic import ELASTIC_EXIT_CODE
 
 __all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
 
+#: how long a rank that has begun to leave is let finish on its own
+LEAVING_GRACE_S = 10.0
+#: seconds between two polls of the ranks
+POLL_S = 0.05
+
 
 def _host_store(host, world, timeout_s=600):
     """The world's rendezvous store, bound on port 0 in this process
@@ -34,6 +39,51 @@ def _held_ports(host, n):
         s.bind((host, 0))
         socks.append(s)
     return socks
+
+
+def _left_at(store, attempt, rank):
+    """When ``rank`` of this attempt began to leave, by the time its exit
+    hook wrote into the hosted store (``env._end_world``), or None."""
+    key = f"attempt_{attempt}//exit/{rank}"
+    if store is None or not store.check([key]):
+        return None
+    # rank-ok: read only once check() found the key, so get returns at once
+    # lint-ok: collective-discipline the same: the key is there, no wait
+    return float(store.get(key))
+
+
+def _world_code(procs, ranks, store, attempt, seen):
+    """The exit code of a failed world: that of the failed rank that
+    began to leave first.
+
+    A rank that exits (a 101, an error) destroys its process groups in
+    its exit hook, and a peer inside a collective with it then exits 1 of
+    the lost connection, often before the first rank's process has
+    ended.  So the ranks whose hook has run are let finish (up to
+    ``LEAVING_GRACE_S``), and the failed ranks are ordered by when they
+    began to leave: the time their hook wrote, or, for a rank that died
+    without it (a signal, a hard crash), the poll before it was seen
+    dead (``seen``: rank -> that time).  Ranks still running are left to
+    the caller's teardown."""
+    deadline = time.monotonic() + LEAVING_GRACE_S
+    last = time.time()
+    while time.monotonic() < deadline:
+        running = [i for i, p in enumerate(procs) if p.poll() is None]
+        if not any(_left_at(store, attempt, ranks[i]) is not None
+                   for i in running):
+            break
+        last = time.time()
+        time.sleep(POLL_S)
+    codes = [p.poll() for p in procs]
+    for i, c in enumerate(codes):
+        if c is not None:
+            seen.setdefault(i, last)
+    when = {}
+    for i, c in enumerate(codes):
+        if c not in (None, 0):
+            t = _left_at(store, attempt, ranks[i])
+            when[i] = seen[i] if t is None else t
+    return codes[min(when, key=when.get)]
 
 
 def _parse(argv):
@@ -64,8 +114,9 @@ def _parse(argv):
 
 def launch(argv=None):
     """Start the ranks, watch them, and return the exit code: 0, or the
-    first failing rank's code (after terminating the others and using up
-    ``--max_restarts``)."""
+    code of the failed rank that began to leave first (after terminating
+    the others and using up ``--max_restarts``; see
+    :func:`_world_code`)."""
     args = _parse(argv if argv is not None else sys.argv[1:])
     nproc = args.nproc_per_node
     world = nproc * args.nnodes
@@ -133,14 +184,21 @@ def launch(argv=None):
         raise KeyboardInterrupt
 
     prev_term = signal.signal(signal.SIGTERM, on_term)
+    ranks = [args.node_rank * nproc + i for i in range(nproc)]
     attempt = 0
     procs, logs = spawn_world(attempt)
     rc = 0
     try:
+        seen, polled = {}, time.time()
         while procs:
-            failed = next((c for c in (p.poll() for p in procs)
-                           if c not in (None, 0)), None)
-            if failed is not None:
+            codes = [p.poll() for p in procs]
+            for i, c in enumerate(codes):
+                if c is not None:
+                    seen.setdefault(i, polled)
+            polled = time.time()
+            if any(c not in (None, 0) for c in codes):
+                failed = _world_code(procs, ranks, store, attempt, seen)
+                seen = {}
                 teardown(procs)
                 for f in logs:
                     f.close()
@@ -150,9 +208,9 @@ def launch(argv=None):
                     continue
                 rc = failed
                 break
-            if all(p.poll() == 0 for p in procs):
+            if all(c == 0 for c in codes):
                 break
-            time.sleep(0.1)
+            time.sleep(POLL_S)
     except KeyboardInterrupt:
         for pr in procs:
             if pr.poll() is None:

@@ -55,36 +55,50 @@ hold dp, mp and sharding axes.  Each rank trains on its dp rows of the
 batch (trimmed to a dp multiple, or padded with its last row when
 smaller, as JAX does); the gradients are averaged over dp
 (``parallel.reduce_grads``).  A parameter's spec comes from the rule
-table (``mesh.param_specs``, ``sharding_rules`` first).  The mp axis
-splits the compute of the ``nn.Linear`` layers whose weight the specs
-split, as Megatron's pairs do (``mp_layers``): a column split
-(``P(None, "mp")``) multiplies by this rank's columns and all-gathers
-the output, a row split (``P("mp", None)``) multiplies this rank's slice
-of the input by its rows and all-reduces; any other parameter split over
-mp is refused.  What a rank owns is a window of each parameter: its
-spec plus the ZeRO split of ``mesh.zero_opt_specs``.  Its optimizer
-slots are that window only; the update (clip and decay on the whole
-gradient first) runs on the window and each rank keeps its updated
-window, so the parameters are bitwise equal across ranks and equal to
-one device's on the whole batch (batch norm normalizes over each rank's
-rows).  Between steps each parameter holds its window only (its
-``.data`` is the window, the same storage from one step to the next):
-mp and sharding divide the parameters' memory between steps as they
-divide the optimizer state (``param_bytes()`` is what a rank holds).  A
-step, an ``eval_batch`` and a ``predict_batch`` all-gather the windows
-into whole parameters for their duration and put the windows back
-after, so a rank's peak parameter memory during a step is still the
-whole model's.  ``whole_parameters()`` does the same for a reader (a
+table (``mesh.param_specs``, ``sharding_rules`` first).
+
+A step holds every parameter in that layout, as the JAX step's
+``in_shardings`` do: a weight the specs split over mp stays this rank's
+mp window for the whole step, is multiplied as it is and gets its
+window's gradient; a parameter no spec splits is whole.  Only the
+``nn.Linear`` weights may be split over mp, as Megatron's pairs
+(``mp_layers``): a column split (``P(None, "mp")``) multiplies the input
+copied to the mp group by its columns and all-gathers the output, a row
+split (``P("mp", None)``) multiplies this rank's slice of the input by
+its rows and all-reduces; the bias is replicated and added to the whole
+output; any other parameter split over mp is refused.  Autograd then
+gives each window its complete gradient: nothing is all-reduced over
+mp but the pairs' activations and the norms below, and no gradient is
+whole-sized.
+
+What a rank owns between steps is a window of each parameter: its spec
+plus the ZeRO split of ``mesh.zero_opt_specs`` (the sharding axis on one
+free dim).  Each parameter's ``.data`` is that window, the same storage
+from one step to the next (``param_bytes()`` is what a rank holds), and
+its optimizer slots are the same window.  A step all-gathers the
+sharding split only, up to the spec's layout (as GSPMD, where the
+sharding axis divides the slots alone).  The update runs on the
+windows: the gradients averaged over dp, then the clip
+(``clip_windows``: a norm counts each window's squared sum once over its
+mp group), coupled decay and the rule on this rank's window, written
+into the held storage (Lamb's trust ratio takes the whole parameter's
+and update's norms, ``Optimizer._apply_windows``).  The parameters stay
+bitwise equal across their replicas and equal to one device's on the
+whole batch (batch norm normalizes over each rank's rows).
+
+``eval_batch`` runs each rank's dp rows in the same layout, averages the
+loss over dp and gathers the outputs and labels over dp for the metrics,
+as ``train_batch`` does; ``predict_batch`` runs the whole batch on every
+rank (the JAX ``predict_batch`` does not split its input), in the same
+layout.  Both are collectives: every rank calls them.
+``whole_parameters()`` gathers every parameter whole for a reader (a
 ``state_dict``, a comparison); ``save``, ``load``, the fit checkpoints
 and the integrity sentinel's unsharded fingerprint read and write the
 whole parameters and optimizer slots, gathered (a collective: every
 rank of the world calls them, as ``fit``'s callbacks do, and every rank
-writes the same bytes).  ``eval_batch`` runs the whole batch
-on every rank, unsplit; the metrics of ``train_batch`` read the outputs
-and labels gathered over dp.  The world's steps run eagerly (a
-host-side transport cannot sit inside a CUDA graph).  ``shard_views``
-names each rank's window (``integrity.shard_fingerprint``,
-checkpoints)."""
+writes the same bytes).  The world's steps run eagerly (a host-side
+transport cannot sit inside a CUDA graph).  ``shard_views`` names each
+rank's window (``integrity.shard_fingerprint``, checkpoints)."""
 from __future__ import annotations
 
 import contextlib
@@ -416,9 +430,6 @@ class Model:
             pspecs = mesh_mod.param_specs(params, self._mesh,
                                           extra_rules=self._extra_rules)
             wspecs = mesh_mod.zero_opt_specs(pspecs, params, self._mesh)
-            if type(self._optimizer).__name__ == "Lamb":
-                # a trust ratio a parameter: the rule needs it whole
-                wspecs = {k: mesh_mod.P() for k in params}
             self._tp = self._tp_linears(pspecs)
             self._plan = {k: (pspecs[k], wspecs[k]) for k in params}
         return self._plan
@@ -458,12 +469,14 @@ class Model:
 
     @contextlib.contextmanager
     def _tp_forward(self):
-        """The split ``nn.Linear`` layers run their mp share for the
+        """The split ``nn.Linear`` layers multiply by their weight as it
+        is held in the step's layout, this rank's mp window, for the
         duration: the column split's input copied to the mp group and
         its output gathered, the row split's input scattered and its
         output reduced (each pair's gradients as ``mp_layers`` gives
-        them; the weight's gradient is this rank's columns or rows of
-        the whole one, zero elsewhere)."""
+        them, so the window's gradient is complete on its rank).  The
+        bias is replicated, as the rule table leaves it, and added to
+        the whole output."""
         from ..distributed.mp_layers import (copy_to_group,
                                              gather_from_group,
                                              reduce_from_group,
@@ -474,21 +487,19 @@ class Model:
             return
         group = self._mesh.group("mp")
 
-        def split_forward(layer, kind, lo, hi):
+        def split_forward(layer, kind):
             def forward(x):
                 if kind == "column":
                     y = gather_from_group(
-                        copy_to_group(x, group) @ layer.weight[:, lo:hi],
-                        group)
+                        copy_to_group(x, group) @ layer.weight, group)
                 else:
                     y = reduce_from_group(
-                        scatter_to_group(x, group) @ layer.weight[lo:hi],
-                        group)
+                        scatter_to_group(x, group) @ layer.weight, group)
                 return y if layer.bias is None else y + layer.bias
             return forward
 
-        for layer, (kind, lo, hi) in self._tp.items():
-            layer.forward = split_forward(layer, kind, lo, hi)
+        for layer, (kind, _, _) in self._tp.items():
+            layer.forward = split_forward(layer, kind)
         try:
             yield
         finally:
@@ -602,12 +613,89 @@ class Model:
 
     def _mesh_state(self):
         """The optimizer state of the world's step: each slot the
-        window of this rank (cut from the optimizer's own initial
-        state)."""
+        window of this rank.  Every rule's slots are a function of the
+        parameter's shape and dtype, so made on the held windows they
+        are the windows of the whole ones."""
         if self._opt_state is None:
-            self._opt_state = self._window_state(self._optimizer.init_state(
-                dict(self.network.named_parameters())))
+            self._hold()
+            self._opt_state = self._optimizer.init_state(
+                dict(self.network.named_parameters()))
         return self._opt_state
+
+    def _hold(self):
+        """Cut every parameter to its window (the storage it keeps from
+        one step to the next) unless it is held so already."""
+        if self._held:
+            return
+        plan = self._mesh_plan()
+        with torch.no_grad():
+            params = dict(self.network.named_parameters())
+            self._shapes = {k: tuple(p.shape) for k, p in params.items()}
+            for k, p in params.items():
+                p.data = self._window(p.detach(), plan[k][1]).contiguous(
+                ).clone()
+        self._held = True
+
+    def _zero_split(self, k):
+        """The split that the ZeRO window of parameter ``k`` adds to its
+        ``param_specs`` spec (the sharding axis on one free dim), as a
+        spec of its own, or None where it adds none."""
+        from ..distributed.mesh import P, axis_sizes
+
+        pspec, wspec = self._plan[k]
+        sizes = axis_sizes(self._mesh)
+        n = len(wspec)
+        ps = tuple(pspec) + (None,) * (n - len(pspec))
+        extra = tuple(None if p is not None else w
+                      for p, w in zip(ps, wspec))
+        if all(e is None or sizes.get(e, 1) <= 1 for e in extra):
+            return None
+        return P(*extra)
+
+    @contextlib.contextmanager
+    def _step_layout(self):
+        """Every parameter in the JAX layout, its ``param_specs`` spec,
+        for the block: the held window all-gathered over the sharding
+        group only (an mp window stays the mp window; the sharding axis
+        divides the optimizer state, as in GSPMD), the held storage
+        itself where the ZeRO split adds nothing.  Yields ``{name: held
+        window}``; the windows are put back after."""
+        from ..distributed.mesh import gather_leaf
+
+        self._hold()
+        params = dict(self.network.named_parameters())
+        held = {k: p.data for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                extra = self._zero_split(k)
+                if extra is not None:
+                    p.data = gather_leaf(held[k], extra, self._mesh)
+        try:
+            yield held
+        finally:
+            for k, p in params.items():
+                p.data = held[k]
+
+    def _whole_sums(self, sums, specs):
+        """``sums``: a tensor a parameter, each a sum over this rank's
+        window of it under ``specs`` (the same shape for all); returns
+        each one summed over the window's whole parameter: one
+        all-reduce an axis that splits any of them, of the rows that it
+        splits (a replicated parameter's sum is counted once)."""
+        from ..distributed import collective
+        from ..distributed.mesh import _names, axis_sizes
+
+        if not sums:
+            return []
+        t = torch.stack([s.float() for s in sums])
+        for a, n in axis_sizes(self._mesh).items():
+            rows = [i for i, spec in enumerate(specs)
+                    if any(a in _names(e) for e in spec)]
+            if n > 1 and rows:
+                part = t[rows].contiguous()
+                collective.all_reduce(part, group=self._mesh.group(a))
+                t[rows] = part
+        return list(t.unbind(0))
 
     def _dp_rows(self, x, y):
         """This rank's dp rows of the batch: trimmed to a dp multiple, or
@@ -629,13 +717,26 @@ class Model:
         xs, ys = mesh_mod.shard_batch(self._mesh, x, y)
         return self._tensor(xs), self._tensor(ys)
 
-    def _mesh_train(self, inputs, labels, lr):
-        """The world's train step (eager): the dp rows' forward and
-        backward (the split linears on their mp share), the split
-        weights' gradients summed over mp, the gradients averaged over
-        dp, clip and decay on the whole gradient, the rule on this
-        rank's windows, the windows gathered back."""
+    def _dp_outputs(self, out, y):
+        """The outputs and labels of every dp rank, for the metrics."""
         from ..distributed import collective
+        from ..distributed.mesh import mesh_axis
+
+        if mesh_axis(self._mesh, "dp") > 1:
+            group = self._mesh.group("dp")
+            out = collective.all_gather(out.detach().contiguous(),
+                                        group=group, axis=0)
+            y = collective.all_gather(y.contiguous(), group=group, axis=0)
+        return out.detach(), y
+
+    def _mesh_train(self, inputs, labels, lr):
+        """The world's train step (eager) in the JAX layout: the dp
+        rows' forward and backward with every parameter as its
+        ``param_specs`` spec holds it (the split linears on their mp
+        window, whose gradient autograd gives complete), the gradients
+        averaged over dp, clip on the split-aware norms, then decay and
+        the rule on this rank's windows, written into the storage held
+        between steps."""
         from ..distributed.mesh import mesh_axis
         from ..distributed.parallel import reduce_grads
 
@@ -644,14 +745,10 @@ class Model:
         st = self._mesh_state()
         x, y = self._dp_rows(_to_list(inputs)[0], _to_list(labels)[0])
         params = dict(self.network.named_parameters())
-        windows = {}
-        if self._held:      # the windows, gathered whole for the step
-            with torch.no_grad():
-                for k, p in params.items():
-                    windows[k] = p.data
-                    p.data = self._whole(k, p)
         live = [k for k, p in params.items() if p.requires_grad]
-        with RecordEvent("hapi::train_step"):
+        pspecs = [plan[k][0] for k in live]
+        wspecs = [plan[k][1] for k in live]
+        with RecordEvent("hapi::train_step"), self._step_layout() as held:
             with self._tp_forward():
                 out = self.network(x)
             loss = self._loss(out, y)
@@ -661,63 +758,70 @@ class Model:
                 grads = [torch.zeros_like(params[k]) if g is None else g
                          for k, g in zip(live, got)]
                 loss = loss.detach().reshape(1).clone()
-                if self._tp:
-                    # a split weight's gradient holds only this rank's
-                    # columns or rows: summed over mp it is the whole one
-                    split = {id(l.weight) for l in self._tp}
-                    reduce_grads([g for k, g in zip(live, grads)
-                                  if id(params[k]) in split],
-                                 self._mesh.group("mp"), mean=False)
                 if dp > 1:
                     reduce_grads(grads + [loss], self._mesh.group("dp"))
                 loss = loss[0]
                 gnorm = None
                 if self._watch_grad_norm:
-                    gnorm = torch.sqrt(sum(torch.sum(torch.square(
-                        g.float())) for g in grads))
+                    gnorm = torch.sqrt(sum(self._whole_sums(
+                        [torch.sum(torch.square(g.float())) for g in grads],
+                        pspecs)))
                 if opt._grad_clip is not None:
-                    grads = opt._grad_clip(grads)
-                wins, gwins, slots = [], [], []
+                    grads = self._clip(opt._grad_clip, grads, pspecs)
+                wins, gwins = [], []
                 for k, g in zip(live, grads):
-                    p, spec = params[k], plan[k][1]
-                    g = opt._apply_decay(p.detach(), g.to(p.dtype))
-                    wins.append(self._window(p.detach(), spec))
-                    gwins.append(self._window(g, spec))
-                    slots.append(st["slots"][k])
+                    w = held[k]
+                    extra = self._zero_split(k)
+                    if extra is not None:
+                        g = self._window(g, extra)
+                    wins.append(w)
+                    gwins.append(opt._apply_decay(w, g.to(w.dtype)))
                 step = self._step.fill_(st["step"] + 1)
                 self._lr.fill_(lr)
-                opt._apply_all(wins, gwins, slots, self._lr, step)
-                # each parameter keeps its updated window only, in the
-                # storage it held before the step (a replay's snapshot
-                # and the integrity sentinel read these tensors)
-                held = dict(zip(live, wins))
-                self._shapes = {k: tuple(p.shape) for k, p in params.items()}
-                for k, p in params.items():
-                    w = held.get(k)
-                    if w is None:
-                        w = self._window(p.detach(), plan[k][1])
-                    if k in windows:
-                        p.data = windows[k].copy_(w)
-                    else:
-                        p.data = w.contiguous().clone()
-                self._held = True
-                if dp > 1:
-                    group = self._mesh.group("dp")
-                    out = collective.all_gather(out.detach().contiguous(),
-                                                group=group, axis=0)
-                    y = collective.all_gather(y.contiguous(), group=group,
-                                              axis=0)
+                opt._apply_windows(
+                    wins, gwins, [st["slots"][k] for k in live], self._lr,
+                    step, lambda sums: self._whole_sums(sums, wspecs))
         st["step"] += 1
-        return loss, out.detach(), gnorm, y
+        out, y = self._dp_outputs(out, y)
+        return loss, out, gnorm, y
+
+    def _clip(self, clip, grads, specs):
+        """``clip`` on gradients held as their ``specs`` windows: its
+        norms are those of the whole gradients (``clip_windows``)."""
+        windows = getattr(clip, "clip_windows", None)
+        if windows is not None:
+            return windows(grads, lambda sums: self._whole_sums(sums, specs))
+        if any(any(e is not None for e in s) for s in specs):
+            raise ValueError(f"{type(clip).__name__} cannot clip gradients "
+                             f"split over the mesh (no clip_windows)")
+        return clip(grads)
+
+    def _mesh_forward(self, x):
+        """The network on ``x`` in the world's layout, without grad and
+        keeping no buffer update."""
+        with torch.no_grad(), self._buffers_kept(), self._step_layout(), \
+                self._tp_forward():
+            return self.network(x)
 
     def eval_batch(self, inputs, labels):
         if self._mesh is not None:
-            # every rank evaluates the whole batch (the same result)
-            x, y = (self._tensor(t) for t in (inputs, labels))
-            with torch.no_grad(), self._buffers_kept(), \
-                    self.whole_parameters():
-                out = self.network(x)
-                loss = self._loss(out, y) if self._loss else None
+            # each rank its dp rows, as the train step (JAX's P("dp")
+            # in_shardings); the loss averaged and the outputs gathered
+            from ..distributed import collective
+            from ..distributed.mesh import mesh_axis
+
+            x, y = self._dp_rows(_to_list(inputs)[0], _to_list(labels)[0])
+            with RecordEvent("hapi::eval_step"):
+                out = self._mesh_forward(x)
+                loss = None
+                if self._loss:
+                    with torch.no_grad():
+                        loss = self._loss(out, y).detach().reshape(1)
+                    if mesh_axis(self._mesh, "dp") > 1:
+                        collective.all_reduce(
+                            loss, op=collective.ReduceOp.AVG,
+                            group=self._mesh.group("dp"))
+            out, y = self._dp_outputs(out, y)
             results = self._update_metrics(out, y)
             return (float(loss) if loss is not None else 0.0), results
         x, y = self._eval_in(_to_list(inputs)[0], _to_list(labels)[0])
@@ -742,9 +846,14 @@ class Model:
         return loss, out
 
     def predict_batch(self, inputs):
+        """The network's output on ``inputs``.  In a world every rank
+        runs the whole batch (as the JAX ``predict_batch``, whose input
+        is not split), with the parameters in the step's layout: a
+        collective, every rank calls it."""
         x = self._tensor(inputs)
-        with torch.no_grad(), self._buffers_kept(), \
-                self.whole_parameters():
+        if self._mesh is not None:
+            return _numpy(self._mesh_forward(x))
+        with torch.no_grad(), self._buffers_kept():
             out = self.network(x)
         return _numpy(out)
 

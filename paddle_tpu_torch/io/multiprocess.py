@@ -130,7 +130,7 @@ def _pack_shm(arrays, name):
 
         resource_tracker.unregister(shm._name, "shared_memory")
     except Exception:
-        pass    # the tracker may not know this segment
+        pass    # silent-ok: the tracker may not know this segment
     return metas
 
 
@@ -277,7 +277,8 @@ class MultiprocessIter:
                 try:
                     self.index_q.put_nowait(None)
                 except Exception:
-                    break   # a full or closed queue: the close wakes them
+                    break   # silent-ok: a full or closed queue: the
+                    #         close wakes them
         deadline = time.monotonic() + 10.0
         while (any(p.is_alive() for p in self._procs)
                and time.monotonic() < deadline):
@@ -311,6 +312,8 @@ class MultiprocessIter:
         raise after one grace drain, instead of hanging."""
         waited = 0.0
         poll = 0.5
+        # lint-ok: bounded-retries unbounded by design when the caller
+        # asked for timeout=None; a dead worker raises via _raise_worker
         while True:
             try:
                 return self.result_q.get(

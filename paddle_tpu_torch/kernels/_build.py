@@ -79,7 +79,9 @@ def _start(name):
     return proc, tmp, so
 
 
-def _finish(name, proc, tmp, so):
+def _finish_locked(name, proc, tmp, so):
+    """Reap ``name``'s nvcc and load its library; the caller holds
+    ``_lock``."""
     if proc is not None:
         out, err = proc.communicate()
         _logs[name] = (out or "") + (err or "")
@@ -96,7 +98,7 @@ def load(name):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _finish(name, *_start(name))
+            lib = _finish_locked(name, *_start(name))
         return lib
 
 
@@ -109,7 +111,7 @@ def build_all():
         errors = []
         for n, job in started:        # reap every nvcc, even after a failure
             try:
-                _finish(n, *job)
+                _finish_locked(n, *job)
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:

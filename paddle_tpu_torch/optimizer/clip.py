@@ -17,15 +17,26 @@ class ClipGradByValue:
     def __call__(self, grads):
         return [torch.clamp(g, self.min, self.max) for g in grads]
 
+    def clip_windows(self, grads, whole_sums):
+        """Elementwise: a window clips as its whole gradient does."""
+        return self(grads)
+
 
 class ClipGradByNorm:
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
     def __call__(self, grads):
+        return self.clip_windows(grads, lambda sums: sums)
+
+    def clip_windows(self, grads, whole_sums):
+        """Each gradient given as a window of it (hapi over a mesh):
+        ``whole_sums`` maps each window's squared sum to its whole
+        gradient's."""
         out = []
-        for g in grads:
-            n = torch.sqrt(torch.sum(torch.square(g.float())))
+        sq = whole_sums([torch.sum(torch.square(g.float())) for g in grads])
+        for g, s in zip(grads, sq):
+            n = torch.sqrt(s)
             factor = torch.clamp(self.clip_norm / torch.clamp(n, min=1e-12),
                                  max=1.0)
             out.append((g.float() * factor).to(g.dtype))
@@ -39,8 +50,17 @@ class ClipGradByGlobalNorm:
     def __call__(self, grads):
         return clip_grads_by_global_norm(grads, self.clip_norm)
 
+    def clip_windows(self, grads, whole_sums):
+        """The gradients given as windows of them (hapi over a mesh):
+        ``whole_sums`` maps each window's squared sum to its whole
+        gradient's, so each is counted once in the global norm."""
+        return clip_grads_by_global_norm(grads, self.clip_norm, whole_sums)
 
-def clip_grads_by_global_norm(grads, clip_norm):
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+
+def clip_grads_by_global_norm(grads, clip_norm, whole_sums=None):
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    if whole_sums is not None:
+        sq = whole_sums(sq)
+    gn = torch.sqrt(sum(sq))
     factor = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return [(g.float() * factor).to(g.dtype) for g in grads]

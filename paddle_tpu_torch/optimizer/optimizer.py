@@ -222,6 +222,13 @@ class Optimizer:
                 if t is not s[k]:
                     s[k].copy_(t)
 
+    def _apply_windows(self, ps, gs, slot_list, lr, step, whole_sums):
+        """``_apply_all`` on windows of the parameters (hapi over a mesh):
+        ``whole_sums`` maps a list of sums, one over each window, to the
+        sums over the whole parameters.  An elementwise rule needs none
+        of them; Lamb's trust ratio does."""
+        self._apply_all(ps, gs, slot_list, lr, step)
+
     def _apply_decay(self, param, grad):
         """Coupled L2 (the reference's default); AdamW decouples it."""
         wd = self._weight_decay

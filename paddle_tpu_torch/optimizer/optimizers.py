@@ -183,7 +183,9 @@ class Lamb(Optimizer):
                 "moment2": torch.zeros(param.shape, dtype=torch.float32,
                                        device=param.device)}
 
-    def update(self, param, grad, slots, lr, step):
+    def _direction(self, param, grad, slots, step):
+        """``(param in fp32, r, moment1, moment2)``: the rule before its
+        trust ratio."""
         b1, b2 = self._beta1, self._beta2
         gf, pf = grad.float(), param.float()
         m = b1 * slots["moment1"] + (1 - b1) * gf
@@ -191,12 +193,34 @@ class Lamb(Optimizer):
         m_hat = m / bias_correction(b1, step)
         v_hat = v / bias_correction(b2, step)
         r = m_hat / (torch.sqrt(v_hat) + self._epsilon) + self._wd * pf
-        p_norm = torch.linalg.vector_norm(pf)
-        r_norm = torch.linalg.vector_norm(r)
-        trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
-                            1.0)
+        return pf, r, m, v
+
+    @staticmethod
+    def _trust(p_norm, r_norm):
+        return torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                           1.0)
+
+    def update(self, param, grad, slots, lr, step):
+        pf, r, m, v = self._direction(param, grad, slots, step)
+        trust = self._trust(torch.linalg.vector_norm(pf),
+                            torch.linalg.vector_norm(r))
         return ((pf - lr * trust * r).to(param.dtype),
                 {"moment1": m, "moment2": v})
+
+    def _apply_windows(self, ps, gs, slot_list, lr, step, whole_sums):
+        """The rule on windows: the trust ratio takes the whole
+        parameter's and the whole update's norms (the squared sums of
+        every window, one reduction for all parameters)."""
+        dirs = [self._direction(p, g, s, step)
+                for p, g, s in zip(ps, gs, slot_list)]
+        sq = whole_sums([torch.stack([torch.sum(torch.square(pf)),
+                                      torch.sum(torch.square(r))])
+                         for pf, r, _, _ in dirs])
+        for p, s, (pf, r, m, v), q in zip(ps, slot_list, dirs, sq):
+            trust = self._trust(torch.sqrt(q[0]), torch.sqrt(q[1]))
+            p.copy_((pf - lr * trust * r).to(p.dtype))
+            s["moment1"].copy_(m)
+            s["moment2"].copy_(v)
 
 
 class Adadelta(Optimizer):

@@ -378,8 +378,8 @@ def export_events_chrome(events, path, thread_names=None):
     d = os.path.dirname(os.path.abspath(path))
     if d:
         os.makedirs(d, exist_ok=True)
-    # a chrome-trace export is a re-recordable log artifact, not durable
-    # state: a torn trace is cosmetic
+    # lint-ok: atomic-writes a chrome-trace export is a re-recordable log
+    # artifact, not durable state: a torn trace is cosmetic
     with open(path, "w") as f:
         json.dump(trace, f)
 

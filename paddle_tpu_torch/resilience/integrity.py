@@ -289,9 +289,12 @@ def repair_windows(views, divergent, prefix=""):
         key = f"{d['leaf']}@{d['window']}"
         src, dst = d["majority_ranks"][0], d["rank"]
         view = by_key.get(key)
+        # rank-ok: a matched point-to-point pair: every rank walks the
+        # same divergent list, the source sends and the holder receives,
+        # and the other ranks take no part in this window
         if me == src:
             collective.send(view.data, dst)
-        elif me == dst:
+        elif me == dst:     # rank-ok: the receiving half of the pair above
             buf = torch.empty_like(view.data)
             collective.recv(buf, src)
             with torch.no_grad():

@@ -700,6 +700,150 @@ def hapi_mp_refusal_case(rules):
     return None
 
 
+class LayoutSpy:
+    """The shapes a hapi ``Model``'s parameters have while it runs: at
+    each forward of the network (by ``phase``, which the caller sets:
+    ``"train"``, ``"eval"``, ``"predict"``) and of each gradient autograd
+    gives them (a hook on each parameter)."""
+
+    def __init__(self, net):
+        self.phase = None
+        self.forward = {}       # phase -> {name: [shape, ...]}
+        self.grads = {}         # name -> [shape, ...]
+        self._params = dict(net.named_parameters())
+        net.register_forward_pre_hook(self._at_forward)
+        for k, p in self._params.items():
+            p.register_hook(lambda g, k=k: self._at_grad(k, g))
+
+    def _at_forward(self, module, args):
+        seen = self.forward.setdefault(self.phase, {})
+        for k, p in self._params.items():
+            seen.setdefault(k, []).append(list(p.shape))
+
+    def _at_grad(self, k, g):
+        self.grads.setdefault(k, []).append(list(g.shape))
+
+    def report(self):
+        uniq = lambda shapes: sorted({tuple(s) for s in shapes})  # noqa
+        return {"forward": {ph: {k: uniq(v) for k, v in d.items()}
+                            for ph, d in self.forward.items()},
+                "grads": {k: uniq(v) for k, v in self.grads.items()}}
+
+
+def hapi_optimizer(paddle, kind, params, clip=None, wd=None, lr=0.1):
+    """The optimizer of the layout cases, the same in both packages:
+    ``kind`` ``"adam"`` (coupled decay ``wd``) or ``"lamb"``; ``clip``
+    ``"global"``, ``"norm"`` or ``"value"`` at 0.05 (they bite on the
+    toy data), or None."""
+    o = paddle.optimizer
+    grad_clip = {None: None,
+                 "global": lambda: o.ClipGradByGlobalNorm(0.05),
+                 "norm": lambda: o.ClipGradByNorm(0.05),
+                 "value": lambda: o.ClipGradByValue(0.05)}[clip]
+    grad_clip = grad_clip() if grad_clip else None
+    if kind == "lamb":
+        return o.Lamb(learning_rate=lr, parameters=params,
+                      grad_clip=grad_clip)
+    return o.Adam(learning_rate=lr, parameters=params, weight_decay=wd,
+                  grad_clip=grad_clip)
+
+
+def hapi_layout_case(weights, x, y, mesh_axes, rules, kind="adam",
+                     clip=None, wd=None, epochs=3, bs=16):
+    """The toy 8-16-2 MLP from ``weights`` under ``Model.prepare(
+    device_mesh=)`` on ``mesh_axes`` with ``rules``: ``epochs`` passes of
+    ``train_batch`` over ``(x, y)`` in batches of ``bs`` (the gradient
+    norm logged), then ``eval_batch`` on the first 15 rows (a batch that
+    dp trims) and ``predict_batch`` on the first 16, with a
+    :class:`LayoutSpy` on the network.  Returns the losses, the grad
+    norms, the whole params, the eval loss and accuracy, the
+    predictions, the shapes the spy saw, and each parameter's whole shape
+    and the shape it holds between steps."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.hapi import Model
+
+    paddle.set_device("cpu")
+    nn = paddle.nn
+    net = nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 2))
+    net.set_state_dict({k: np.array(v) for k, v in weights.items()})
+    whole = {k: list(p.shape) for k, p in net.named_parameters()}
+    spy = LayoutSpy(net)
+    model = Model(net)
+    model.prepare(hapi_optimizer(paddle, kind, net.parameters(), clip, wd),
+                  nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  device_mesh=mesh_mod.build_mesh(**mesh_axes),
+                  sharding_rules=[(pat, mesh_mod.P(*spec))
+                                  for pat, spec in rules])
+    model.enable_grad_norm_logging()
+    losses, gnorms = [], []
+    spy.phase = "train"
+    for _ in range(epochs):
+        for i in range(0, len(x), bs):
+            loss, res = model.train_batch(x[i:i + bs], y[i:i + bs])
+            losses.append(loss)
+            gnorms.append(res["grad_norm"])
+    for m in model._metrics:
+        m.reset()
+    spy.phase = "eval"
+    ev_loss, ev = model.eval_batch(x[:15], y[:15])
+    spy.phase = "predict"
+    pred = model.predict_batch(x[:16])
+    spy.phase = None
+    with model.whole_parameters():
+        params = {k: _np(p) for k, p in net.named_parameters()}
+    return {"losses": losses, "gnorms": gnorms, "params": params,
+            "eval": [ev_loss, ev["acc"]], "predict": pred,
+            "layout": spy.report(), "whole": whole,
+            "coords": dict(model._mesh.coords),
+            "step_shapes": {k: list(p.shape)
+                            for k, p in net.named_parameters()}}
+
+
+def hapi_gpt_case(state, tokens, labels, dims, rules, steps=3, lr=1e-3):
+    """The Paddle-style GPT of ``models/paddle_gpt.py`` (``dims``: vocab,
+    hidden, heads, ffn, layers, max_seq) from ``state`` under hapi at dp
+    2 x mp 2 with ``rules``: ``steps`` AdamW ``train_batch`` calls on
+    ``(tokens, labels)``, then ``eval_batch`` and ``predict_batch`` on the
+    same rows, with a :class:`LayoutSpy` on the network."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    paddle.set_device("cpu")
+    V = dims[0]
+    net = prog.build_gpt(paddle, *dims)
+    net.set_state_dict({k: np.array(v) for k, v in state.items()})
+    spy = LayoutSpy(net)
+
+    def loss(out, y):
+        return paddle.nn.functional.cross_entropy(
+            paddle.reshape(out, [-1, V]), paddle.reshape(y, [-1]),
+            ignore_index=-100)
+
+    model = Model(net)
+    model.prepare(paddle.optimizer.AdamW(learning_rate=lr,
+                                         weight_decay=0.01,
+                                         parameters=net.parameters()),
+                  loss, device_mesh=mesh_mod.build_mesh(dp=2, mp=2),
+                  sharding_rules=[(pat, mesh_mod.P(*spec))
+                                  for pat, spec in rules])
+    spy.phase = "train"
+    losses = [model.train_batch(tokens, labels)[0] for _ in range(steps)]
+    spy.phase = "eval"
+    ev_loss, _ = model.eval_batch(tokens, labels)
+    spy.phase = "predict"
+    pred = model.predict_batch(tokens)
+    spy.phase = None
+    with model.whole_parameters():
+        params = {k: _np(p) for k, p in net.named_parameters()}
+    return {"losses": losses, "eval": ev_loss, "predict": pred,
+            "params": params, "layout": spy.report(),
+            "tp": sorted((n, model._tp[m][0]) for n, m in
+                         net.named_modules() if m in model._tp)}
+
+
 # ------------------------------------- checkpoint windows and integrity
 
 

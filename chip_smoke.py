@@ -241,6 +241,7 @@ Phases (any failure exits non-zero):
      through ``fleet.init(dp_degree=2)``, ``DataParallel`` and
      ``fleet.distributed_optimizer`` on 2 ranks: params bitwise equal
      across the ranks and within 1e-5 of one rank on the whole batch;
+     then, in the same world, phase 26 (b)'s tracker case;
  23. the rest of the worlds, in one world of 4 ranks on the one card
      (``--child worlds``), the oracles in this process while the ranks
      start: (a) pp 4 1F1B and (b) pp 4 GPipe on all 24 layers at 8 x
@@ -318,6 +319,20 @@ Phases (any failure exits non-zero):
      trace each on ``/traces?fleet=1``, ``/slo?fleet=1`` folds both
      replicas, and the device gauge on ``/metrics`` equals
      ``torch.cuda.memory_allocated()`` at its sample.
+ 26. eager recompute and the RNG tracker (run after phase 24): (a) the
+     Paddle-style GPT at GPT-3 1.3B widths (4 layers, 2 x 2048,
+     residual dropout 0.1) built twice from one state, once with every
+     block under ``distributed.recompute.recompute``, in fp32 and under
+     bf16 ``auto_cast``: loss and every gradient bitwise equal, flash
+     forward launches doubled and backward launches equal with
+     recompute, its peak memory lower (both peaks, ms and a profiled
+     step's device ms by kind printed), then 3 AdamW steps with
+     recompute, the loss falling; (b) in phase 22 (g)'s 2-rank world
+     over gloo on the card, after its MLP: ColumnParallelLinear ->
+     dropout under the tracker's ``local_seed`` -> RowParallelLinear ->
+     dropout under ``global_seed``: the global masks' CRCs equal across
+     the ranks, the local ones distinct, two runs' losses bitwise equal,
+     the default stream untouched.
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -6357,6 +6372,7 @@ def child_hybrid_mlp(case, out):
         train(alone, aopt, x, y)
         res["err_vs_one"] = max(float((a - b).abs().max()) for a, b in zip(
             params, alone.parameters()))
+    res["tracker"] = tracker_on_rank()
     with open(f"{out}.r{rank}.json", "w") as f:
         json.dump(res, f)
     return 0
@@ -6380,10 +6396,12 @@ def hybrid_mlp(ranks):
 
 
 def phase_hybrid(torch, fa, ra, cases="abcdefg"):
-    """Phase 22: worlds of ranks on the one card (see the docstring)."""
+    """Phase 22: worlds of ranks on the one card (see the docstring).
+    Returns the launches and (g)'s ranks' phase 26 (b) results (None
+    without (g))."""
     free_cuda(torch)
     tmp = tempfile.mkdtemp(prefix="phase22_")
-    launches, summary = {}, {}
+    launches, summary, tracker = {}, {}, None
     try:
         with contextlib.ExitStack() as stack:
             # (g)'s 2 ranks start beside (a)-(e)'s and wait for their turn
@@ -6404,7 +6422,9 @@ def phase_hybrid(torch, fa, ra, cases="abcdefg"):
             if mlp is not None:
                 t0 = time.perf_counter()
                 open(mlp_go, "w").close()
-                hybrid_mlp(mlp())
+                ranks = mlp()
+                hybrid_mlp(ranks)
+                tracker = [r["tracker"] for r in ranks]
                 print(f"[phase 22 (g)] {time.perf_counter() - t0:.1f} s "
                       f"(its start-up beside (a)-(e))")
     finally:
@@ -6412,7 +6432,7 @@ def phase_hybrid(torch, fa, ra, cases="abcdefg"):
     print("[phase 22] peak GiB a rank beside the one-process engine's: " +
           "; ".join(f"({c}) {v['peak_gib']} vs {v['one_process_gib']}"
                     for c, v in summary.items()))
-    return launches
+    return launches, tracker
 
 
 # ------------------------------------ the rest of the worlds (phase 23)
@@ -9157,6 +9177,204 @@ def phase_rest(torch, fa, cfg=P24, parts="abcde"):
     return out
 
 
+# ------------------------------- recompute and the RNG tracker (phase 26)
+
+#: (a): the Paddle-style GPT at GPT-3 1.3B widths, depth cut to 4 of 24
+RECOMPUTE = dict(layers=4, batch=2, dropout=0.1, steps=3, lr=1e-4)
+#: (b): the tracker's mp group (phase 22 (g)'s 2 ranks over gloo)
+TRACKER = dict(ranks=2, hidden=256, ffn=1024, tokens=1024, seed=2600,
+               rate=0.1)
+
+
+def tracker_arrays(c=TRACKER):
+    rng = np.random.RandomState(26)
+    f = lambda *s: (rng.randn(*s) * 0.05).astype(np.float32)  # noqa: E731
+    return {"w1": f(c["hidden"], c["ffn"]), "b1": f(c["ffn"]),
+            "w2": f(c["ffn"], c["hidden"]), "b2": f(c["hidden"]),
+            "x": f(c["tokens"], c["hidden"])}
+
+
+def tracker_on_rank(device="gpu"):
+    """Phase 26 (b) on this rank of a 2-rank world (phase 22 (g)'s, after
+    its MLP: a world of its own would cost its ~30 s start):
+    ``tests/torch_dist_cases.py``'s ``tracker_case``, with its
+    seconds."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_dist_cases as dc
+
+    t0 = time.perf_counter()
+    res = dc.tracker_case(TRACKER["ranks"], tracker_arrays(),
+                          TRACKER["seed"], device=device,
+                          rate=TRACKER["rate"])
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def tracker_world(ranks):
+    r0 = ranks[0]
+    print(f"[phase 26 (b)] RNGStatesTracker over mp {TRACKER['ranks']} "
+          f"(gloo, one card; hidden {TRACKER['hidden']}, ffn "
+          f"{TRACKER['ffn']}, {TRACKER['tokens']} tokens, dropout "
+          f"{TRACKER['rate']}): ColumnParallelLinear -> dropout under "
+          f"local_seed -> RowParallelLinear -> dropout under global_seed; "
+          f"mask CRCs local {r0['local']}, global {r0['global']}; dropped "
+          f"shares {[r['dropped'] for r in ranks]}; losses of two runs "
+          f"{[r['losses'] for r in ranks]}; default stream kept "
+          f"{[r['default_kept'] for r in ranks]}; "
+          f"{[round(r['seconds'], 2) for r in ranks]} s a rank (in phase "
+          f"22 (g)'s world, after its MLP)")
+    check(all(r["global"] == r0["global"] and r["local"] == r0["local"]
+              for r in ranks), "26 (b): the ranks gathered different CRCs")
+    check(len(set(r0["global"])) == 1, "26 (b): global_seed masks differ "
+                                      "across the mp group")
+    check(len(set(r0["local"])) == len(ranks), "26 (b): local_seed masks "
+                                               "are equal across ranks")
+    check(all(r["losses"][0] == r["losses"][1] for r in ranks) and
+          len({r["losses"][0] for r in ranks}) == 1,
+          "26 (b): the losses differ between runs or ranks")
+    check(all(r["default_kept"] for r in ranks),
+          "26 (b): a named stream moved the default stream")
+
+
+def recompute_step(torch, paddle, prog, fa, model, x, y, amp):
+    """One forward and backward from ``paddle.seed(260)``: the loss, the
+    flash launches, ms (synchronised host clock) and the peak bytes
+    above what was allocated before it."""
+    for p in model.parameters():
+        p.clear_grad()
+    paddle.seed(260)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    t0 = time.perf_counter()
+    ctx = (paddle.amp.auto_cast(dtype="bfloat16") if amp
+           else contextlib.nullcontext())
+    with ctx:
+        loss = prog.loss_fn(paddle, model, x, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (loss.detach(), dict(fa.launches), ms,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def recompute_program(torch, paddle, fa, gpt_init, cfg, c=RECOMPUTE):
+    """Phase 26 (a): two Paddle-style GPTs (``models/paddle_gpt.py``)
+    with one state and residual dropout, one of them wrapping every
+    block in ``distributed.recompute.recompute``; fp32, then bf16
+    ``auto_cast``.  Loss and every gradient equal bit for bit, flash
+    forward launches doubled and backward launches equal with
+    recompute, its peak lower; then ``c['steps']`` AdamW steps of the
+    recompute model, the loss falling.  Returns the launches."""
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    g = dataclasses.replace(cfg, num_layers=c["layers"], dtype="float32",
+                            remat="nothing")
+    params = gpt_init(g, torch.Generator(device="cuda").manual_seed(26),
+                      device="cuda")
+    state = prog.gpt_state_from_params(params, g.num_layers)
+    tokens = np.random.default_rng(26).integers(
+        0, g.vocab_size, (c["batch"], g.max_seq_len)).astype(np.int64)
+    labels = prog.next_token_labels(tokens)
+    paddle.set_device("gpu")
+    models = {}
+    for rc in (False, True):
+        paddle.seed(26)
+        models[rc] = prog.build_gpt(
+            paddle, g.vocab_size, g.hidden, g.num_heads, g.ffn_hidden,
+            g.num_layers, g.max_seq_len, dropout=c["dropout"], recompute=rc)
+        missing, unexpected = models[rc].set_state_dict(state)
+        check(not missing and not unexpected, f"26 (a): {missing} "
+                                              f"{unexpected}")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = paddle.to_tensor(tokens), paddle.to_tensor(labels)
+    launches = {}
+    for tag, amp in (("fp32", False), ("bf16", True)):
+        runs = {rc: recompute_step(torch, paddle, prog, fa, models[rc], x, y,
+                                   amp) for rc in (False, True)}
+        grads = [dict(models[rc].named_parameters()) for rc in (False, True)]
+        unequal = sorted(k for k, p in grads[0].items()
+                         if not torch.equal(p.grad, grads[1][k].grad))
+        same_loss = torch.equal(runs[False][0], runs[True][0])
+        del grads
+        ms = {False: [], True: []}
+        for rc in (False, True, True, False, False, True):     # in turns
+            ms[rc].append(recompute_step(torch, paddle, prog, fa, models[rc],
+                                         x, y, amp)[2])
+        (l0, n0, _, pk0), (l1, n1, _, pk1) = runs[False], runs[True]
+        ms0, ms1 = sorted(ms[False]), sorted(ms[True])
+        launches[tag] = {"plain": n0, "recompute": n1}
+        traced = {}
+        for rc in (False, True):        # one more step each, profiled
+            kinds = {}
+            dev, wall = device_window(torch, lambda: recompute_step(
+                torch, paddle, prog, fa, models[rc], x, y, amp), reps=1,
+                kinds=kinds)
+            traced[rc] = (f"device {dev:.1f} ms of {wall:.1f} (busy "
+                          f"{dev / wall:.3f}): " + ", ".join(
+                              f"{k} {v:.1f}" for k, v in sorted(
+                                  kinds.items())))
+        print(f"[phase 26 (a)] {tag}: Paddle-style GPT, {g.num_layers} "
+              f"layers at GPT-3 1.3B widths, batch {c['batch']} x "
+              f"{g.max_seq_len}, residual dropout {c['dropout']}: loss "
+              f"{l0.item():.6f} without recompute, {l1.item():.6f} with "
+              f"(bitwise equal: {same_loss}); gradients not bitwise equal: "
+              f"{unequal or 'none'} of {len(list(models[True].parameters()))}"
+              f"; peak above the step's start {pk0 / 2**30:.3f} GiB without,"
+              f" {pk1 / 2**30:.3f} GiB with recompute (saved "
+              f"{(pk0 - pk1) / 2**30:.3f} GiB); ms a forward + backward "
+              f"{[round(v, 1) for v in ms0]} without, "
+              f"{[round(v, 1) for v in ms1]} with recompute (3 runs each "
+              f"in turns, after the checked one; medians {ms0[1]:.1f} and "
+              f"{ms1[1]:.1f}, x{ms1[1] / ms0[1]:.3f}); flash launches {n0} "
+              f"without, {n1} with; {card_line()}")
+        print(f"[phase 26 (a)] {tag}: a profiled step without recompute: "
+              f"{traced[False]}; with: {traced[True]}")
+        check(same_loss and not unequal, f"26 (a) {tag}: recompute changed "
+                                         f"the loss or gradients {unequal}")
+        check(n1["fwd"] == 2 * n0["fwd"] and n1["bwd"] == n0["bwd"] and
+              n0["fwd"] == g.num_layers,
+              f"26 (a) {tag}: flash launches {n0} without, {n1} with "
+              f"recompute")
+        check(pk1 < pk0, f"26 (a) {tag}: recompute did not lower the peak")
+    del models[False]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts(fa)
+    losses = prog.train(paddle, models[True], tokens, labels,
+                        steps=c["steps"], lr=c["lr"], amp_dtype="bfloat16")
+    steps = dict(fa.launches)
+    print(f"[phase 26 (a)] {c['steps']} AdamW steps with recompute under "
+          f"bf16 auto_cast: losses {[round(v, 5) for v in losses]}; flash "
+          f"launches {steps}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "26 (a): the loss did not fall")
+    check(steps["fwd"] == 2 * c["steps"] * g.num_layers and
+          steps["bwd"] == c["steps"] * g.num_layers,
+          f"26 (a): flash launches {steps} over the steps")
+    launches["steps"] = steps
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recompute(torch, paddle, fa, gpt_init, cfg, tracker):
+    """Phase 26: (a), then (b)'s checks on the ranks' results that phase
+    22 (g)'s world returned (``tracker``); returns (a)'s flash
+    launches."""
+    t0 = time.perf_counter()
+    launches = recompute_program(torch, paddle, fa, gpt_init, cfg)
+    print(f"[phase 26 (a)] {time.perf_counter() - t0:.1f} s")
+    check(tracker is not None, "26 (b): phase 22 (g) did not run")
+    tracker_world(tracker)
+    return launches
+
+
 def main():
     import torch
 
@@ -9329,7 +9547,7 @@ def main():
     print(f"[phase 21] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    hybrid_launches = phase_hybrid(torch, fa, ra)
+    hybrid_launches, tracker = phase_hybrid(torch, fa, ra)
     print(f"[phase 22] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -9339,6 +9557,11 @@ def main():
     t0 = time.perf_counter()
     rest_launches = phase_rest(torch, fa)
     print(f"[phase 24] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    recompute_launches = phase_recompute(torch, paddle, fa, gpt_init, cfg,
+                                         tracker)
+    print(f"[phase 26] {time.perf_counter() - t0:.1f} s")
 
     csrc = "paddle_tpu_torch/kernels/csrc/"
     # rows 2 and 3 of the TPU kernels (dK/dV and dQ) are one kernel now:
@@ -9420,6 +9643,13 @@ def main():
         key = "fwd" if entry["name"].endswith("fwd") else "bwd"
         for k, v in rest_launches.items():
             entry[k] = v.get(key)
+    # phase 26 (a): the checked runs' launches without and with
+    # recompute (fp32, bf16) and the bf16 AdamW steps with recompute
+    for entry in kernels[1:4]:
+        key = "fwd" if entry["name"].endswith("fwd") else "bwd"
+        entry["recompute_launches"] = {
+            tag: ({k: n[key] for k, n in v.items()} if tag != "steps"
+                  else v[key]) for tag, v in recompute_launches.items()}
     kernels[1]["hybrid_ring_launches"] = {
         c: v["fwd"] for c, v in hybrid_launches.items() if c in "cf"}
     kernels[4]["hybrid_launches"] = {

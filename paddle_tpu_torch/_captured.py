@@ -83,10 +83,11 @@ class CapturedStep:
 
     ``empty_cache``: return the eager run's cached blocks to the device
     before capturing, so that they and the graph's private pool are not
-    both held (a training step's activations).  The port's generator of
-    the device (``core.random``, which dropout layers draw from) is
-    registered with each graph, so a replay advances it as an eager call
-    would (by nothing, where the body draws nothing).  It holds no
+    both held (a training step's activations).  The port's generators of
+    the device (every stream's, ``core.random``; dropout layers draw
+    from the active one) are registered with each graph, so a replay
+    advances them as an eager call would (by nothing, where the body
+    draws nothing).  It holds no
     reference to its owner beyond
     ``body``; an owner that passes a bound method should pass it
     through a ``weakref.WeakMethod``; a subclass may define ``body`` as

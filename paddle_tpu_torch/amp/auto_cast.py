@@ -18,7 +18,7 @@ import torch
 from ..core.dtype import convert_dtype
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "white_list", "auto_cast",
-           "amp_guard", "decorate"]
+           "amp_guard", "decorate", "is_enabled", "maybe_cast_inputs"]
 
 WHITE_LIST = {
     "matmul", "mm", "bmm", "mv", "conv1d", "conv2d", "conv3d",
@@ -101,3 +101,20 @@ def _cast_args(name, args):
         return tuple(a.float() if isinstance(a, torch.Tensor)
                      and a.dtype == dt else a for a in args)
     return args
+
+
+def maybe_cast_inputs(op_name, tensors):
+    """The float tensors of ``tensors`` cast to the AMP dtype when
+    autocast is on and ``op_name`` is white-listed (``_cast_args``'s
+    rule); otherwise ``tensors`` as they are."""
+    if not _state.enabled:
+        return tensors
+    if op_name not in (WHITE_LIST | _state.custom_white) - \
+            _state.custom_black:
+        return tensors
+    return list(_cast_args(op_name, tensors))
+
+
+def is_enabled():
+    """Whether this thread is inside an enabled ``auto_cast``."""
+    return _state.enabled

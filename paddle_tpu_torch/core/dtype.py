@@ -9,7 +9,8 @@ import torch
 
 __all__ = ["float16", "bfloat16", "float32", "float64", "int8", "int16",
            "int32", "int64", "uint8", "bool_", "complex64", "complex128",
-           "convert_dtype", "get_default_dtype", "set_default_dtype"]
+           "convert_dtype", "get_default_dtype", "set_default_dtype",
+           "is_floating_dtype", "is_integer_dtype", "numpy_dtype"]
 
 float16 = torch.float16
 bfloat16 = torch.bfloat16
@@ -59,3 +60,23 @@ def get_default_dtype():
 
 def set_default_dtype(dt):
     _default_dtype[0] = convert_dtype(dt)
+
+
+def is_floating_dtype(dt):
+    return convert_dtype(dt).is_floating_point
+
+
+def is_integer_dtype(dt):
+    dt = convert_dtype(dt)
+    return not (dt.is_floating_point or dt.is_complex or dt == bool_)
+
+
+def numpy_dtype(dt):
+    """The numpy dtype of ``dt``; bfloat16 is ``ml_dtypes.bfloat16``
+    (numpy has none), which needs that package."""
+    dt = convert_dtype(dt)
+    if dt == bfloat16:
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return torch.empty((), dtype=dt).numpy().dtype

@@ -21,7 +21,17 @@ from .._device import resolve_device
 
 __all__ = ["set_device", "get_device", "current_device", "Place",
            "CPUPlace", "CUDAPlace", "TPUPlace", "CustomPlace",
-           "device_count", "is_compiled_with_tpu"]
+           "device_count", "is_compiled_with_tpu", "get_all_devices",
+           "AllocationType"]
+
+
+class AllocationType:
+    """Paddle's allocation kinds (the JAX package's numbering)."""
+    UNDEFINED = 0
+    CPU = 1
+    GPU = 2
+    TPU = 9
+    CUSTOM = 10
 
 
 class Place:
@@ -88,6 +98,13 @@ def device_count(device_type: str = "gpu") -> int:
 
 def is_compiled_with_tpu() -> bool:
     return False
+
+
+def get_all_devices():
+    """``"gpu:i"`` for each CUDA device, else ``["cpu:0"]`` (the JAX
+    package lists its default backend's devices the same way)."""
+    n = torch.cuda.device_count()
+    return [f"gpu:{i}" for i in range(n)] if n else ["cpu:0"]
 
 
 

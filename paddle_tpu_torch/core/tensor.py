@@ -38,9 +38,14 @@ Tensor = torch.Tensor
 class Parameter(torch.nn.Parameter):
     """A trainable tensor with Paddle's attributes: ``name`` (the key of
     its optimizer state; ``None`` gives ``param_{i}``), ``optimize_attr``
-    (its learning-rate multiplier) and ``trainable``."""
+    (its learning-rate multiplier), ``trainable``, ``regularizer`` and
+    ``persistable`` (True; a tensor's is False)."""
 
     name = None
+    persistable = True
+    regularizer = None        # a ParamAttr's, from create_parameter
+    trainable = True
+    optimize_attr = None      # each parameter's own dict
 
     def __new__(cls, data, requires_grad=True, trainable=None, name=None):
         if trainable is not None:
@@ -59,6 +64,7 @@ class Parameter(torch.nn.Parameter):
                          self.requires_grad)
         out.optimize_attr = dict(self.optimize_attr)
         out.trainable, out.name = self.trainable, self.name
+        out.regularizer = self.regularizer
         memo[id(self)] = out
         return out
 
@@ -156,6 +162,19 @@ def _gradient(self):
     return None if self.grad is None else self.grad.detach().cpu().numpy()
 
 
+def _retain_grads(self):
+    """Keep this (non-leaf) tensor's ``.grad`` after backward."""
+    self.retain_grad()
+
+
+def _persistable(self):
+    return self.__dict__.get("_persistable", False)
+
+
+def _set_persistable(self, value):
+    self.__dict__["_persistable"] = bool(value)
+
+
 #: attributes Paddle's Tensor has and torch.Tensor lacks: name -> the
 #: attribute itself, or the name of the op in ``paddle_tpu_torch.ops``
 _PADDLE_ONLY = {
@@ -166,6 +185,8 @@ _PADDLE_ONLY = {
     "astype": _astype,
     "set_value": _set_value,
     "gradient": _gradient,
+    "retain_grads": _retain_grads,
+    "persistable": property(_persistable, _set_persistable),
     "cast": "cast",
     "concat": "concat",
     "equal_all": "equal_all",

@@ -3,7 +3,8 @@
 contract, the collectives over process groups, the rank grid, the
 sharding rules, the tensor-parallel layers, ``DataParallel``, Fleet,
 ``HybridEngine`` and its ``EngineConfig``, the model adapters (GPT
-dense or MoE, BERT), the MoE blocks, the remat policies, the pipeline
+dense or MoE, BERT), the MoE blocks, the remat policies and eager
+``recompute`` (``distributed.recompute``), the pipeline
 layers (``pp_layers``), the host-actor pipeline (``fleet_executor``),
 semi-automatic SPMD (``auto_parallel``: ``shard_tensor``, ``reshard``,
 ``parallelize``) and the sparse parameter server (``ps``)."""

@@ -1,8 +1,9 @@
-"""Activation checkpointing policies (the port of
-``paddle_tpu/distributed/recompute.py::checkpoint_policy``).
+"""Activation checkpointing (the port of
+``paddle_tpu/distributed/recompute.py``): the engines' remat policies,
+and the eager ``recompute`` a Paddle program wraps its blocks in.
 
-JAX names a ``jax.checkpoint`` policy; here each name gives a block
-wrapper on non-reentrant ``torch.utils.checkpoint``:
+``checkpoint_policy(name)`` gives a block wrapper on non-reentrant
+``torch.utils.checkpoint`` for each of JAX's ``jax.checkpoint`` policies:
 
 - ``"full"``: save the block's inputs only, recompute everything;
 - ``"dots"``: selective checkpointing that saves the outputs of matrix
@@ -15,16 +16,31 @@ wrapper on non-reentrant ``torch.utils.checkpoint``:
   (``checkpoint_dots_with_no_batch_dims``);
 - ``"nothing"``: no checkpoint; every activation is kept.
 
-Dropout masks stay identical across the recompute because the port
-derives them from integer seeds inside the block (``models/gpt.py``
-``_dropout``: a hash of the seed and the element index), not from RNG
-state.  No op of a block draws from PyTorch's global generator, so the
-checkpoint does not save and restore its state
-(``preserve_rng_state=False``): that would be a host read of the CUDA
-generator's state on every block, for nothing.
+``remat(fn, policy=)`` is that wrapper as a decorator.  The engines'
+blocks derive their dropout masks from integer seeds (``models/gpt.py``
+``_dropout``: a hash of the seed and the element index), so their
+recompute replays them with no RNG state.
+
+``recompute(function, *args, policy=)`` (Paddle's
+``fleet.utils.recompute``) draws one seed from the active stream
+(``core.random.split_key``) and runs ``function`` under
+``key_stream(seed)``, in the forward and again in the backward's
+recompute: dropout inside draws the same masks both times, and the
+outer stream advances by that one draw whatever the segment draws.
+``torch.utils.checkpoint``'s ``preserve_rng_state`` would save torch's
+default generators only, never the port's, so it stays off
+(``preserve_rng_state=False``; saving it would also be a host read of
+the CUDA generator's state on every block, for nothing).  The recompute
+runs on autograd's thread, so the caller's autocast and device (the
+port's own thread-local modes) are taken along.  The parameters of a
+``Layer`` called inside get their gradients as any closed-over tensor
+does in a non-reentrant checkpoint.  ``use_reentrant`` is accepted and
+does nothing, as in the JAX package; recompute is eager only (a
+``key_stream`` generator cannot join a CUDA graph being captured).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -32,7 +48,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-__all__ = ["checkpoint_policy"]
+from ..amp.auto_cast import _state as _amp_state
+from ..amp.auto_cast import auto_cast
+from ..core import place as _place
+from ..core.random import key_stream, split_key
+
+__all__ = ["recompute", "checkpoint_policy", "no_recompute", "remat"]
 
 _aten = torch.ops.aten
 _SAVED_OPS = {
@@ -72,3 +93,55 @@ def checkpoint_policy(name: str):
         return rematted
 
     return wrap
+
+
+def _amp_modes():
+    st = _amp_state
+    return (st.enabled, st.dtype, st.level, set(st.custom_white),
+            set(st.custom_black))
+
+
+@contextlib.contextmanager
+def _caller_modes(amp, device):
+    """Run under the caller's autocast settings (``_amp_modes()``) and
+    device."""
+    enabled, dtype, level, white, black = amp
+    prev = _place._state.device
+    _place._state.device = device
+    try:
+        with auto_cast(enabled, white, black, level, dtype):
+            yield
+    finally:
+        _place._state.device = prev
+
+
+def recompute(function, *args, policy="full", use_reentrant=True,
+              **kwargs):
+    """``function(*args, **kwargs)`` with its activations recomputed in
+    the backward under the named policy; dropout inside replays the same
+    masks (module docstring).  ``use_reentrant`` does nothing."""
+    seg_seed = split_key()
+    modes = (_amp_modes(), _place._state.device)
+
+    def segment(*inputs):
+        with _caller_modes(*modes), key_stream(seg_seed):
+            return function(*inputs, **kwargs)
+
+    return checkpoint_policy(policy)(segment)(*args)
+
+
+def no_recompute(fn):
+    """Mark ``fn`` as one a recompute policy keeps (``fn._no_recompute``,
+    as in the JAX package)."""
+    fn._no_recompute = True
+    return fn
+
+
+def remat(fn=None, policy="full", prevent_cse=True):
+    """``checkpoint_policy(policy)`` as a decorator, with or without
+    arguments.  ``prevent_cse`` is JAX's and does nothing here: eager
+    PyTorch merges no common subexpressions."""
+    if fn is None:
+        return functools.partial(remat, policy=policy,
+                                 prevent_cse=prevent_cse)
+    return checkpoint_policy(policy)(fn)

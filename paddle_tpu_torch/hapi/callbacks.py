@@ -238,8 +238,8 @@ class ProfilerCallback(Callback):
 
 def _pack_fit_state(model):
     """The tree a killed ``fit`` needs to continue: params, buffers, the
-    optimizer state of ``train_batch`` and each device generator's state
-    (``torch_rng``); with the manifest's ``rng_counters`` (the JAX
+    optimizer state of ``train_batch`` and every random stream's state
+    (``torch_rng``: its key and each device generator's); with the manifest's ``rng_counters`` (the JAX
     package's stream counters; none here).  In a world the parameters
     and slots are whole, gathered from the ranks' windows, so every rank
     packs the same tree."""
@@ -280,6 +280,11 @@ def _as_tensor(v):
         torch.from_numpy(np.array(v, copy=True))
 
 
+def _as_tensors(tree):
+    return {k: _as_tensors(v) if isinstance(v, dict) else _as_tensor(v)
+            for k, v in tree.items()}
+
+
 def _copy_tree(dst, src):
     """Copy every leaf of ``src`` present in the tensor tree ``dst`` into
     it, in place (an optimizer without slots saves none)."""
@@ -314,7 +319,7 @@ def _apply_fit_state(model, tree, extra):
         model._opt_state["step"] = int(np.asarray(tree["opt"]["step"]))
     rng = tree.get("torch_rng")
     if rng:
-        set_rng_state({k: _as_tensor(v) for k, v in rng.items()})
+        set_rng_state(_as_tensors(rng))
     sched_state = extra.get("lr_scheduler")
     sched = _lr_scheduler_of(model)
     if sched_state and sched is not None:

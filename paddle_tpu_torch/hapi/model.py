@@ -302,7 +302,7 @@ class Model:
 
     def train_state_snapshot(self, into=None, _state=None):
         """A deep copy of what a train step reads and writes: params,
-        buffers, the optimizer state, the device generators' states and
+        buffers, the optimizer state, every random stream's state and
         the learning rate (the integrity sentinel's pre-step snapshot).
         ``into`` (an earlier snapshot of this model) is overwritten and
         returned instead of allocating a new one.  The copies are a few

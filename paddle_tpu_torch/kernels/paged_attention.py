@@ -59,7 +59,8 @@ import math
 
 import torch
 
-__all__ = ["ragged_paged_attention", "paged_attention"]
+__all__ = ["ragged_paged_attention", "paged_attention",
+           "paged_attention_available"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +71,21 @@ SPLIT_KEYS = 256
 _SCRATCH_BYTES = 64 << 20
 #: splits whose merge weights fit the combine kernel's shared memory
 _MAX_SPLITS = 512
+
+
+def paged_attention_available():
+    """Whether the CUDA kernel can be built and launched here: a card
+    and ``nvcc``.  Without them the wrapper takes its plain version on
+    CPU tensors (and raises on CUDA ones)."""
+    from ._build import _nvcc
+
+    if not torch.cuda.is_available():
+        return False
+    try:
+        _nvcc()
+    except RuntimeError:
+        return False
+    return True
 
 
 # ---------------------------------------------------------------- reference

@@ -10,11 +10,20 @@ on both and on the card.  This file imports neither (and no JAX): the
 CPU test (``tests/test_torch_paddle_program.py``) and ``chip_smoke.py``
 phase 20 (b) pass the package in.
 
-The model is ``models/gpt.py``'s pre-LN decoder, dense, without dropout:
-embeddings tied to the output, the qkv columns head-major (``[H, 3,
-hd]``), causal attention, tanh GELU, cross entropy over the next token
-with the last position ignored (-100), so ``gpt_state_from_params`` carries a
-``gpt_init`` tree in and the loss is ``gpt_loss``'s.
+The model is ``models/gpt.py``'s pre-LN decoder, dense: embeddings tied
+to the output, the qkv columns head-major (``[H, 3, hd]``), causal
+attention, tanh GELU, cross entropy over the next token with the last
+position ignored (-100), so ``gpt_state_from_params`` carries a
+``gpt_init`` tree in and the loss is ``gpt_loss``'s (without dropout).
+
+``dropout > 0`` adds residual dropout after ``proj`` and after ``down``
+in each block.  ``recompute=True`` runs each block as
+``paddle.distributed.recompute.recompute(block, x)``, the way Paddle
+programs write activation checkpointing.  Recompute draws one seed from
+the stream a block and replays the block's masks from it
+(``core.random.key_stream``); with dropout, a block without recompute
+draws its masks the same way, so switching recompute on changes the
+memory the step holds and not the function it computes.
 """
 from __future__ import annotations
 
@@ -22,11 +31,17 @@ __all__ = ["build_gpt", "gpt_state_from_params", "next_token_labels",
            "loss_fn", "train"]
 
 
-def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq):
+def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq,
+              dropout=0.0, recompute=False):
     """The model, a ``paddle.nn.Layer`` of the given package."""
+    import importlib
+
     nn = paddle.nn
     F = nn.functional
     hd = hidden // heads
+    rng = importlib.import_module(paddle.__name__ + ".core.random")
+    recompute_fn = importlib.import_module(
+        paddle.__name__ + ".distributed.recompute").recompute
 
     class Block(nn.Layer):
         def __init__(self):
@@ -37,6 +52,10 @@ def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq):
             self.ln2 = nn.LayerNorm(hidden)
             self.up = nn.Linear(hidden, ffn)
             self.down = nn.Linear(ffn, hidden)
+            self.drop = nn.Dropout(dropout) if dropout else None
+
+        def residual(self, y):
+            return y if self.drop is None else self.drop(y)
 
         def forward(self, x):
             b, s = x.shape[0], x.shape[1]
@@ -47,9 +66,9 @@ def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq):
             a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
             a = paddle.reshape(paddle.transpose(a, [0, 2, 1, 3]),
                                [b, s, hidden])
-            x = x + self.proj(a)
-            return x + self.down(F.gelu(self.up(self.ln2(x)),
-                                        approximate=True))
+            x = x + self.residual(self.proj(a))
+            return x + self.residual(self.down(F.gelu(self.up(self.ln2(x)),
+                                                      approximate=True)))
 
     class GPT(nn.Layer):
         def __init__(self):
@@ -63,7 +82,13 @@ def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq):
             pos = paddle.arange(tokens.shape[1])
             x = self.wte(tokens) + self.wpe(pos)
             for block in self.blocks:
-                x = block(x)
+                if recompute:
+                    x = recompute_fn(block, x)
+                elif dropout:
+                    with rng.key_stream(rng.split_key()):
+                        x = block(x)
+                else:
+                    x = block(x)
             return paddle.matmul(self.lnf(x), self.wte.weight,
                                  transpose_y=True)
 

@@ -42,6 +42,10 @@ class Layer(torch.nn.Module):
         self.add_module(str(name), sublayer)
         return sublayer
 
+    def add_parameter(self, name, parameter):
+        self.register_parameter(name, parameter)
+        return parameter
+
     def create_parameter(self, shape, dtype=None, is_bias=False,
                          default_initializer=None, attr=None):
         """A new ``Parameter`` on the current device (``set_device``).
@@ -64,6 +68,7 @@ class Layer(torch.nn.Module):
                 p.optimize_attr["learning_rate"] = attr.learning_rate
             if getattr(attr, "name", None):
                 p.name = attr.name
+            p.regularizer = getattr(attr, "regularizer", None)
         return p
 
     # ------------------------------------------------------------- traversal

@@ -281,6 +281,11 @@ class MetricsRegistry:
             if fn in self._collectors:
                 self._collectors.remove(fn)
 
+    def reset(self):
+        """Forget every metric (the collectors stay)."""
+        with self._lock:
+            self._metrics.clear()
+
     def _run_collectors(self):
         with self._lock:
             collectors = list(self._collectors)

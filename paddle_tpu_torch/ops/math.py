@@ -1,12 +1,14 @@
 """Elementwise and scalar math ops (the port of ``paddle_tpu/ops/math.py``;
 parity: python/paddle/tensor/math.py).  ``sigmoid``, ``tanh`` and
-``softplus`` are in ``activation.py``.  Operands may be tensors or
-Python scalars, as in the JAX package."""
+``softplus`` are ``activation.py``'s, here under the JAX module's path
+too.  Operands may be tensors or Python scalars, as in the JAX
+package."""
 from __future__ import annotations
 
 import torch
 
 from ..core.dispatch import register_op
+from .activation import sigmoid, softplus, tanh  # noqa: F401
 
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "remainder",
@@ -21,7 +23,8 @@ __all__ = [
     "less_than", "less_equal", "greater_than", "greater_equal",
     "logical_and", "logical_or", "logical_xor", "logical_not",
     "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not", "allclose",
-    "isclose", "equal_all", "where", "heaviside"]
+    "isclose", "equal_all", "where", "heaviside", "sigmoid", "tanh",
+    "softplus"]
 
 
 def _pair(x, y):

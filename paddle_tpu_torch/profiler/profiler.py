@@ -209,6 +209,7 @@ class Profiler:
                                        active=active, repeat=repeat)
         self.scheduler = scheduler
         self._device = None
+        self._device_dir = None
         self._events = []
         self._step_num = 0
         self._state = ProfilerState.CLOSED
@@ -223,7 +224,7 @@ class Profiler:
         _recorder.enabled = self._state != ProfilerState.CLOSED
         if _recorder.enabled:
             self._mark_step()
-        self._device = None
+        self._device = self._device_dir = None
         if self.with_device and torch.cuda.is_available():
             from torch.profiler import ProfilerActivity, profile
 
@@ -322,6 +323,22 @@ class Profiler:
         for name, (tot, cnt) in rows:
             lines.append(f"{name:<40} {cnt:>8} {tot/1e6:>12.3f} {tot/1e3/max(cnt,1):>10.1f}")
         return "\n".join(lines)
+
+    @property
+    def device_trace_dir(self):
+        """A directory holding the last session's device trace as
+        chrome-trace JSON (``device_trace.json``), written on first
+        access; None without a device trace (the JAX package's
+        ``jax.profiler`` trace directory)."""
+        if self._device is None:
+            return None
+        if self._device_dir is None:
+            import tempfile
+
+            self._device_dir = tempfile.mkdtemp(prefix="pt_prof_")
+            self._device.export_chrome_trace(
+                os.path.join(self._device_dir, "device_trace.json"))
+        return self._device_dir
 
     @property
     def device_profile(self):

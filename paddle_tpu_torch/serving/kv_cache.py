@@ -145,6 +145,9 @@ class PagedKVCache:
     def pages_for(self, num_tokens):
         return math.ceil(num_tokens / self.page_size)
 
+    def can_allocate(self, num_tokens):
+        return self.pages_for(num_tokens) <= self.num_free_pages
+
     def seq_ids(self):
         return list(self._tables)
 

@@ -129,6 +129,30 @@ class ServingMetrics:
             "estimated_drain_s": self.estimated_drain_s.value,
         }
 
+    def summary(self):
+        """Human-readable one-screen summary (Profiler.summary style)."""
+        s = self.snapshot()
+        lines = [f"{'requests':<16} " + "  ".join(
+            f"{k}={v}" for k, v in s["requests"].items())]
+        lines.append(f"{'tokens':<16} prefill={s['tokens']['prefill']} "
+                     f"generated={s['tokens']['generated']}")
+
+        def ms(v):
+            # an empty histogram reports None: a dash, not a crash
+            return f"{v * 1e3:8.2f}ms" if v is not None else "       -"
+
+        for key in ("queue_wait_s", "ttft_s", "decode_token_s"):
+            h = s[key]
+            lines.append(
+                f"{key:<16} n={h['count']:<6} mean={ms(h['mean'])} "
+                f"p50={ms(h['p50'])} p95={ms(h['p95'])}")
+        occ = s["page_occupancy"]
+        lines.append(f"{'page_occupancy':<16} current={occ['current']:.2f} "
+                     f"peak={occ['peak']:.2f}")
+        lines.append(f"{'health':<16} "
+                     f"{'healthy' if s['engine_healthy'] else 'degraded'}")
+        return "\n".join(lines)
+
 
 class RouterMetrics:
     """Fleet-router metric facade (``router_*`` series, per-replica

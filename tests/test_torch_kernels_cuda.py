@@ -1653,3 +1653,70 @@ def test_capture_survives_pinned_allocations_in_another_thread(cuda):
         thread.join()
     assert step.captures == 1
     torch.testing.assert_close(replay, eager, atol=1e-6, rtol=1e-6)
+
+
+def _dropout_block(paddle):
+    nn = paddle.nn
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.a = nn.Linear(64, 256)
+            self.b = nn.Linear(256, 64)
+
+        def forward(self, x):
+            h = nn.functional.dropout(nn.functional.gelu(self.a(x)), 0.2)
+            return x + self.b(h)
+
+    return Block()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_recompute_on_card_replays_dropout_bitwise(cuda, amp):
+    """The backward's recompute runs on autograd's device thread: it
+    still draws the forward's masks and keeps the caller's autocast."""
+    import contextlib
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import random as rnd
+    from paddle_tpu_torch.distributed.recompute import recompute
+
+    paddle.set_device("gpu")
+    paddle.seed(3)
+    block = _dropout_block(paddle)
+    x0 = torch.randn(8, 64, device=cuda)
+    snap = rnd.get_rng_state()
+    out = []
+    for rc in (True, False):
+        rnd.set_rng_state(snap)
+        for p in block.parameters():
+            p.clear_grad()
+        x = x0.clone().requires_grad_(True)
+        ctx = (paddle.amp.auto_cast(dtype="bfloat16") if amp
+               else contextlib.nullcontext())
+        with ctx:
+            if rc:
+                y = recompute(block, x)
+            else:
+                with rnd.key_stream(rnd.split_key()):
+                    y = block(x)
+        y.float().square().sum().backward()
+        out.append([y.detach(), x.grad] +
+                   [p.grad for p in block.parameters()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_key_stream_refuses_a_graph_capture(cuda):
+    """A generator ``key_stream`` makes cannot join a graph being
+    captured: the request raises instead of drawing."""
+    from paddle_tpu_torch.core import random as rnd
+
+    rnd.generator(cuda)                  # the stream's own, made eagerly
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="key_stream"):
+        with torch.cuda.graph(graph):
+            with rnd.key_stream(7):
+                rnd.generator(cuda)

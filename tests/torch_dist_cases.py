@@ -283,6 +283,72 @@ def mp_layers_case(n, arrays):
     return out
 
 
+def tracker_case(n, arrays, seed, device="cpu", rate=0.1):
+    """Megatron's dropout discipline over an mp group of ranks 0..n-1:
+    ``ColumnParallelLinear`` -> dropout under ``rng_state("local_seed")``
+    -> ``RowParallelLinear`` -> dropout under ``rng_state("global_seed")``,
+    with ``add("global_seed", seed)`` on every rank and
+    ``add("local_seed", seed + 1 + rank)`` (the tracker refuses a seed
+    twice, so rank 0's local seed cannot be ``seed`` itself).  Run twice
+    from the same seeds.  Returns every rank's CRC-32 of its local and
+    global masks (all-gathered), the losses of both runs, and whether the
+    default stream's generator and key were left as they were."""
+    import zlib
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import random as R
+    from paddle_tpu_torch.distributed import mp_layers as M
+
+    g = _group(n)
+    me = get_rank()
+    if me >= n:
+        return None
+    dev = paddle.set_device(device)
+    a = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in arrays.items()}
+    hidden, ffn = a["w1"].shape
+    col = M.ColumnParallelLinear(hidden, ffn, gather_output=False,
+                                 mp_group=g)
+    row = M.RowParallelLinear(ffn, hidden, input_is_parallel=True,
+                              mp_group=g)
+    with torch.no_grad():
+        col.weight.copy_(a["w1"].chunk(n, dim=1)[me])
+        col.bias.copy_(a["b1"].chunk(n, dim=0)[me])
+        row.weight.copy_(a["w2"].chunk(n, dim=0)[me])
+        row.bias.copy_(a["b2"])
+    F = paddle.nn.functional
+    tracker = R.get_rng_state_tracker()
+    default_gen = R.generator(dev).get_state()
+    default_key = R.current_key()
+
+    def run():
+        tracker.reset()
+        tracker.add("global_seed", seed)
+        tracker.add("local_seed", seed + 1 + me)
+        h = col(a["x"])
+        with tracker.rng_state("local_seed"):
+            h = F.dropout(h, rate)
+        y = row(h)
+        with tracker.rng_state("global_seed"):
+            y = F.dropout(y, rate)
+        loss = (y * y).mean()
+        loss.backward()
+        return loss.item(), (h == 0), (y == 0)
+
+    first, local, glob = run()
+    second = run()[0]
+    digests = torch.tensor(
+        [zlib.crc32(m.cpu().numpy().tobytes()) for m in (local, glob)],
+        dtype=torch.int64, device=dev)
+    every = collective.all_gather(digests, group=g).reshape(n, 2).tolist()
+    return {"local": [d[0] for d in every], "global": [d[1] for d in every],
+            "dropped": [float(local.float().mean()),
+                        float(glob.float().mean())],
+            "losses": [first, second],
+            "default_kept": bool(torch.equal(
+                R.generator(dev).get_state(), default_gen) and torch.equal(
+                R.current_key(), default_key))}
+
+
 # ------------------------------------------------------------------ fleet
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Measurements on the card behind two of the port's records (run from
+"""Measurements on the card behind some of the port's records (run from
 the repository root on a machine with a CUDA card):
 
     python3 chip_probe.py gloo            # which gloo collectives take
@@ -9,6 +9,8 @@ the repository root on a machine with a CUDA card):
                                           # numbers, N fresh processes
     python3 chip_probe.py witness [N]     # the same beside a plain
                                           # PyTorch MLP's graph replay
+    python3 chip_probe.py embedding       # whether an embedding's
+                                          # gradient repeats bit for bit
 
 ``gloo``: two processes on card 0 over gloo try each collective on CUDA
 tensors and print what each does (ok, or the error), then time a
@@ -26,7 +28,15 @@ fingerprint of 9 and replay of 5, and the ratio held to 0.03 there),
 printed, in N fresh processes.  ``witness``: in each of N pairs of fresh
 processes (their order alternating), the port's measurement as
 ``sentinel`` and the same MLP in plain PyTorch with none of the port's
-code (``bare_once``): whether a replay's stall comes with the port."""
+code (``bare_once``): whether a replay's stall comes with the port.
+``embedding``: 20 backward passes of ``index_select`` (what the port's
+embedding once ran) and of ``F.embedding`` (what it runs) on the same ids,
+at 256 ids over a vocabulary of 256 (width 128) and at 4096 over 50257
+(width 2048): the distinct gradients and their largest difference;
+then the card test ``test_captured_hapi_recompute_step_equals_the_eager
+_route``'s fp32 model (the Paddle-style GPT, 2 layers, hidden 128) run
+twice through hapi's graph over 3 steps with each embedding: the
+parameters that differ between the two runs after each step."""
 from __future__ import annotations
 
 import gc
@@ -362,6 +372,94 @@ def bare_once():
           flush=True)
 
 
+# ------------------------------------------------------------- embedding
+
+
+def _index_select_embedding(ids, weight, padding_idx=None, sparse=False):
+    import torch
+
+    return torch.index_select(weight, 0, ids.reshape(-1)).reshape(
+        tuple(ids.shape) + tuple(weight.shape[1:]))
+
+
+def _hapi_twice(paddle, prog):
+    """Two graph runs of 3 hapi steps of the card test's fp32 model from
+    one state and seed: ``{step: {param: largest difference}}`` of the
+    parameters that differ."""
+    V, D, H, FFN, L, S = 256, 128, 2, 512, 2, 128
+    paddle.seed(24)
+    state = {k: v.detach().clone() for k, v in prog.build_gpt(
+        paddle, V, D, H, FFN, L, S).state_dict().items()}
+    tokens = np.random.default_rng(24).integers(0, V, (2, S))
+    labels = prog.next_token_labels(tokens)
+
+    def loss_fn(out, y):
+        return paddle.nn.functional.cross_entropy(
+            paddle.reshape(out, [-1, V]), paddle.reshape(y, [-1]),
+            ignore_index=-100)
+
+    runs = []
+    for _ in range(2):
+        net = prog.build_gpt(paddle, V, D, H, FFN, L, S, dropout=0.1,
+                             recompute=True)
+        net.set_state_dict(state)
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.AdamW(
+            learning_rate=1e-3, parameters=net.parameters()), loss_fn)
+        paddle.seed(24)
+        steps = []
+        for _ in range(3):
+            model.train_batch(tokens, labels)
+            steps.append({k: p.detach().clone()
+                          for k, p in net.named_parameters()})
+        runs.append(steps)
+    return {i: {k: float((a[k] - b[k]).abs().max()) for k in a
+                if not bool((a[k] == b[k]).all())}
+            for i, (a, b) in enumerate(zip(*runs))}
+
+
+def embedding():
+    import torch
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    dev = torch.device("cuda")
+    paddle.set_device("gpu")
+    for V, N, width in ((256, 256, 128), (50257, 4096, 2048)):
+        rng = np.random.default_rng(24)
+        ids = torch.from_numpy(rng.integers(0, V, N)).to(dev)
+        w = torch.randn(V, width, device=dev, requires_grad=True)
+        go = torch.randn(N, width, device=dev)
+        grads = {}
+        for name, fn in (("index_select", _index_select_embedding),
+                         ("F.embedding", lambda i, w: F.embedding(i, w))):
+            gs = [torch.autograd.grad(fn(ids, w), w, go)[0]
+                  for _ in range(20)]
+            grads[name] = gs[0]
+            print(f"ids {N} over {V}, width {width}: {name} backward, "
+                  f"{len({g.cpu().numpy().tobytes() for g in gs})} "
+                  f"distinct gradients of 20, largest difference "
+                  f"{max(float((g - gs[0]).abs().max()) for g in gs)}",
+                  flush=True)
+        print(f"  index_select against F.embedding, largest difference "
+              f"{float((grads['index_select'] - grads['F.embedding']).abs().max())}",
+              flush=True)
+    # the port's embedding calls F.embedding through the module: swapped
+    # for index_select, it is the embedding as it once was
+    port = F.embedding
+    for name, fn in (("index_select", _index_select_embedding),
+                     ("F.embedding", port)):
+        F.embedding = fn
+        try:
+            print(f"hapi graph twice with {name}: parameters that differ "
+                  f"after each step {_hapi_twice(paddle, prog)}",
+                  flush=True)
+        finally:
+            F.embedding = port
+
+
 def main():
     sys.path.insert(0, ROOT)
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
@@ -384,6 +482,8 @@ def main():
         gloo()
     elif mode == "replay":
         replay()
+    elif mode == "embedding":
+        embedding()
     elif mode in ("sentinel", "witness"):
         n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
         for i in range(n):

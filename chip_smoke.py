@@ -319,15 +319,26 @@ Phases (any failure exits non-zero):
      trace each on ``/traces?fleet=1``, ``/slo?fleet=1`` folds both
      replicas, and the device gauge on ``/metrics`` equals
      ``torch.cuda.memory_allocated()`` at its sample.
- 26. eager recompute and the RNG tracker (run after phase 24): (a) the
-     Paddle-style GPT at GPT-3 1.3B widths (4 layers, 2 x 2048,
-     residual dropout 0.1) built twice from one state, once with every
-     block under ``distributed.recompute.recompute``, in fp32 and under
-     bf16 ``auto_cast``: loss and every gradient bitwise equal, flash
-     forward launches doubled and backward launches equal with
-     recompute, its peak memory lower (both peaks, ms and a profiled
-     step's device ms by kind printed), then 3 AdamW steps with
-     recompute, the loss falling; (b) in phase 22 (g)'s 2-rank world
+ 26. recompute in a captured step and the RNG tracker (run after phase
+     24): (a) first one dropout in a step scope's ``recompute`` inside a
+     ``CapturedStep`` against the body called directly (the generator
+     pair's Philox offsets equal step for step, the same masks, the
+     recompute's mask the forward's, fresh masks each step); then the
+     Paddle-style GPT at GPT-3 1.3B widths (4 layers, 2 x 2048, residual
+     dropout 0.1) built twice from one state, once with every block under
+     ``distributed.recompute.recompute``: one forward and backward each
+     outside any step scope (the dygraph loop around ``recompute``), fp32
+     and bf16, loss and gradients bitwise equal, flash forward launches
+     doubled and backward equal, the peak lower; then through hapi
+     ``train_batch`` (AdamW, 3 steps a run) on the graph route and on
+     the eager route (the body called directly in a step scope), fp32
+     and bf16 ``auto_cast``: losses, every gradient and every parameter
+     after each step bitwise equal across the four runs, the loss
+     falling, a graph run at lr 0 with distinct losses (fresh masks),
+     flash forward launches 8 a step with recompute and 4 without,
+     backward 8 (fp32) / 4 (bf16), one capture; the graph pools, the
+     eager peaks and ms a step printed; (b) in phase 22 (g)'s 2-rank
+     world
      over gloo on the card, after its MLP: ColumnParallelLinear ->
      dropout under the tracker's ``local_seed`` -> RowParallelLinear ->
      dropout under ``global_seed``: the global masks' CRCs equal across
@@ -342,6 +353,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -1508,18 +1520,28 @@ def eager_route(torch, obj):
     has an eager route on the card, as the JAX package's jitted steps
     have none).  Its captured graphs are freed first (so an eager step's
     activations and a graph's pool are not both held); a later step
-    captures again."""
+    captures again.  Each body runs in a step scope, as ``CapturedStep``
+    runs it (``core.random``: ``recompute`` and ``key_stream`` draw from
+    the generator pairs there)."""
+    from paddle_tpu_torch.core.random import step_scope
+
+    def scoped(body):
+        def run(*args):
+            with step_scope():
+                return body(*args)
+        return run
+
     for name in ("_step_fn", "_train_fn", "_eval_fn"):
         if hasattr(obj, name):
             getattr(obj, name).release()
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(obj, "_step_body"):
-        obj._run = lambda args: obj._step_body(*args)
+        obj._run = lambda args: scoped(obj._step_body)(*args)
         names = ("_run",)
     else:
-        obj._run_train = lambda args: obj._train_body(*args)
-        obj._run_eval = lambda x, y: obj._eval_body(x, y)
+        obj._run_train = lambda args: scoped(obj._train_body)(*args)
+        obj._run_eval = scoped(obj._eval_body)
         names = ("_run_train", "_run_eval")
     try:
         yield
@@ -9238,8 +9260,9 @@ def tracker_world(ranks):
 
 
 def recompute_step(torch, paddle, prog, fa, model, x, y, amp):
-    """One forward and backward from ``paddle.seed(260)``: the loss, the
-    flash launches, ms (synchronised host clock) and the peak bytes
+    """One forward and backward from ``paddle.seed(260)``, outside any
+    step scope (the plain dygraph loop around ``recompute``): the loss,
+    the flash launches, ms (synchronised host clock) and the peak bytes
     above what was allocated before it."""
     for p in model.parameters():
         p.clear_grad()
@@ -9260,16 +9283,215 @@ def recompute_step(torch, paddle, prog, fa, model, x, y, amp):
             torch.cuda.max_memory_allocated() - base)
 
 
+def eager_recompute(torch, paddle, prog, fa, nets, state, tokens, labels,
+                    layers, dropout):
+    """Phase 26 (a), outside any step scope: one forward and backward of
+    each of ``nets`` (without and with recompute, loaded with
+    ``state``) in fp32 and under bf16 ``auto_cast``: loss and every
+    gradient bitwise equal, flash forward launches ``layers`` without
+    and twice that with, backward launches equal, the peak lower with
+    recompute.  Returns the launches by dtype."""
+    x, y = paddle.to_tensor(tokens), paddle.to_tensor(labels)
+    for net in nets.values():
+        missing, unexpected = net.set_state_dict(state)
+        check(not missing and not unexpected,
+              f"26 (a): {missing} {unexpected}")
+    launches = {}
+    for tag, amp in (("fp32", False), ("bf16", True)):
+        runs = {rc: recompute_step(torch, paddle, prog, fa, nets[rc], x, y,
+                                   amp) for rc in (False, True)}
+        grads = [dict(nets[rc].named_parameters()) for rc in (False, True)]
+        unequal = sorted(k for k, p in grads[0].items()
+                         if not torch.equal(p.grad, grads[1][k].grad))
+        (l0, n0, ms0, pk0), (l1, n1, ms1, pk1) = runs[False], runs[True]
+        same_loss = torch.equal(l0, l1)
+        launches[tag] = {"plain": n0, "recompute": n1}
+        print(f"[phase 26 (a)] {tag}, eager outside any step scope (one "
+              f"forward + backward each, {layers} layers, dropout "
+              f"{dropout}): loss {l0.item():.6f} without recompute, "
+              f"{l1.item():.6f} with (bitwise equal: {same_loss}); "
+              f"gradients not bitwise equal: {unequal or 'none'} of "
+              f"{len(grads[0])}; peak above the step's start "
+              f"{pk0 / 2**30:.3f} GiB without, {pk1 / 2**30:.3f} GiB with; "
+              f"ms {ms0:.1f} without, {ms1:.1f} with (one run each); flash "
+              f"launches {n0} without, {n1} with; {card_line()}")
+        check(same_loss and not unequal, f"26 (a) {tag}: recompute changed "
+                                         f"the loss or gradients {unequal}")
+        check(n1["fwd"] == 2 * n0["fwd"] and n1["bwd"] == n0["bwd"] and
+              n0["fwd"] == layers,
+              f"26 (a) {tag}: flash launches {n0} without, {n1} with "
+              f"recompute")
+        check(pk1 < pk0, f"26 (a) {tag}: recompute did not lower the peak")
+        del grads
+    for net in nets.values():
+        for p in net.parameters():
+            p.clear_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pair_offsets(torch, paddle):
+    """Phase 26 (a) first: one dropout in a step scope's ``recompute``
+    (a segment run twice a step, so both members of its pair draw) in a
+    ``CapturedStep`` (an eager run, the capture, 3 replays) against the
+    body called directly 4 times: each member's Philox offset after
+    each step equal on both routes, the masks and gradients equal step
+    for step, the recompute's mask the forward's, and 4 distinct masks.
+    Returns the graph route's offsets."""
+    from paddle_tpu_torch._captured import CapturedStep
+    from paddle_tpu_torch.core import random as rnd
+    from paddle_tpu_torch.distributed.recompute import recompute
+
+    drop = paddle.nn.Dropout(0.1)
+    x = torch.ones(2, 2048, 2048, device="cuda", requires_grad=True)
+    stream = "pair_offsets"
+
+    def body(x):
+        with rnd.step_scope(), \
+                rnd.get_rng_state_tracker().rng_state(stream):
+            y = recompute(drop, x)
+            g, = torch.autograd.grad(y.sum(), x)
+        return y.detach(), g
+
+    masks, offs = {}, {}
+    for route in ("eager", "graph"):
+        rnd.seed(2600, stream=stream)
+        step = CapturedStep(body, torch.device("cuda"))
+        run = body if route == "eager" else step
+        masks[route], offs[route] = [], []
+        for _ in range(4):
+            y, g = run(x)
+            masks[route].append((y.clone(), g.clone()))
+            pair = rnd._streams[stream].pairs[0]
+            offs[route].append([m.get_offset() for m in
+                                pair.members[_cuda_key(torch)]])
+        step.release()
+    ys = [y for y, _ in masks["graph"]]
+    same = all(torch.equal(a, b) and torch.equal(c, d)
+               for (a, c), (b, d) in zip(masks["eager"], masks["graph"]))
+    fwd_is_bwd = all(torch.equal(y, g) for y, g in masks["graph"])
+    fresh = not any(torch.equal(ys[i], ys[j]) for i in range(4)
+                    for j in range(i))
+    print(f"[phase 26 (a)] one dropout(0.1) on [2, 2048, 2048] in a step "
+          f"scope's recompute, in a CapturedStep (eager run, capture, 3 "
+          f"replays) and called directly 4 times: the pair's members' "
+          f"Philox offsets after each step, graph {offs['graph']}, eager "
+          f"{offs['eager']}; masks and gradients equal step for step: "
+          f"{same}; the recompute's mask is the forward's: {fwd_is_bwd}; "
+          f"4 distinct masks: {fresh}; {card_line()}")
+    check(offs["eager"] == offs["graph"] and same and fwd_is_bwd and fresh,
+          "26 (a): a pair's offsets or masks differ between the graph and "
+          "the eager steps")
+    return offs["graph"]
+
+
+def _cuda_key(torch):
+    return f"cuda:{torch.cuda.current_device()}"
+
+
+def hapi_recompute_run(torch, paddle, prog, fa, net, state, tokens, labels,
+                       route, amp, lr, ref=None, profile=False):
+    """``c['steps']`` hapi ``train_batch`` calls of ``net`` (loaded with
+    ``state``; AdamW at ``lr``; ``paddle.seed(260)`` first) on the
+    ``route`` ("graph", or "eager": the body called directly).  Per
+    step: the loss, the flash launches, ms (the host clock to the loss's
+    read), the peak above the step's start (eager: also up to the
+    update, after the backward); the gradients and parameters after
+    each step are kept (``ref`` None) or held to ``ref``'s (their
+    largest difference).  ``profile``: one more step, traced (device ms
+    by kind, busy share).  Returns a dict."""
+    from paddle_tpu_torch.hapi import Model
+
+    missing, unexpected = net.set_state_dict(state)
+    check(not missing and not unexpected, f"26 (a): {missing} {unexpected}")
+    model = Model(net)
+    opt = paddle.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                                 parameters=net.parameters())
+
+    def loss_fn(out, y):
+        return paddle.nn.functional.cross_entropy(
+            paddle.reshape(out, [-1, out.shape[-1]]),
+            paddle.reshape(y, [-1]), ignore_index=-100)
+
+    model.prepare(opt, loss_fn)
+    params = dict(net.named_parameters())
+    names = list(params)
+    grads = [torch.empty_like(params[k]) for k in names]
+    apply = opt.apply_gradients_
+
+    out = {"loss": [], "launches": [], "ms": [], "peak": [], "diff": 0.0,
+           "kept": [], "bwd_peak": [], "base": 0}
+
+    def recording(ps, gs, *rest):       # into buffers made outside a pool
+        if route == "eager":
+            out["bwd_peak"].append(torch.cuda.max_memory_allocated()
+                                   - out["base"])
+        torch._foreach_copy_(grads, [gs[k] for k in names])
+        return apply(ps, gs, *rest)
+
+    def step():
+        with (paddle.amp.auto_cast(dtype="bfloat16") if amp
+              else contextlib.nullcontext()):
+            return model.train_batch(tokens, labels)
+
+    opt.apply_gradients_ = recording
+    ctx = eager_route(torch, model) if route == "eager" \
+        else contextlib.nullcontext()
+    with ctx:
+        paddle.seed(260)
+        for i in range(RECOMPUTE["steps"]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = out["base"] = torch.cuda.memory_allocated()
+            zero_counts(fa)
+            t0 = time.perf_counter()
+            loss, _ = step()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["peak"].append(torch.cuda.max_memory_allocated() - base)
+            out["loss"].append(loss)
+            out["launches"].append(dict(fa.launches))
+            now = grads + [params[k].detach() for k in names]
+            if ref is None:
+                out["kept"].append([t.clone() for t in now])
+            else:
+                out["diff"] = max([out["diff"], abs(loss - ref["loss"][i])] + [
+                    float((a - b).abs().max())
+                    for a, b in zip(now, ref["kept"][i])])
+    out["pool"] = model._train_fn.pool_bytes
+    out["captures"] = model.captures["train"]
+    if profile:
+        kinds = {}
+        dev, wall = device_window(torch, step, reps=1, kinds=kinds)
+        out["traced"] = (f"device {dev:.1f} ms of {wall:.1f} (busy "
+                         f"{dev / wall:.3f}): " + ", ".join(
+                             f"{k} {v:.1f}" for k, v in sorted(
+                                 kinds.items())))
+    opt.apply_gradients_ = apply
+    del model, opt, grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def recompute_program(torch, paddle, fa, gpt_init, cfg, c=RECOMPUTE):
-    """Phase 26 (a): two Paddle-style GPTs (``models/paddle_gpt.py``)
-    with one state and residual dropout, one of them wrapping every
-    block in ``distributed.recompute.recompute``; fp32, then bf16
-    ``auto_cast``.  Loss and every gradient equal bit for bit, flash
-    forward launches doubled and backward launches equal with
-    recompute, its peak lower; then ``c['steps']`` AdamW steps of the
-    recompute model, the loss falling.  Returns the launches."""
+    """Phase 26 (a): the pair offsets (``pair_offsets``), then two
+    Paddle-style GPTs (``models/paddle_gpt.py``) with one state and
+    residual dropout, one wrapping every block in
+    ``distributed.recompute.recompute``: one forward and backward each
+    outside any step scope (``eager_recompute``), then through hapi
+    ``train_batch`` (AdamW) in fp32 and under bf16 ``auto_cast``, each
+    on the graph
+    route and the eager route: losses, every gradient and every
+    parameter after each step bitwise equal across the four runs, fresh
+    masks each step (a graph run at lr 0: its losses differ), flash
+    forward launches doubled with recompute; the graph's pool and the
+    eager peak with and without recompute, ms a step.  Returns the
+    launches a step, by dtype and run."""
     from paddle_tpu_torch.models import paddle_gpt as prog
 
+    paddle.set_device("gpu")
+    offsets = pair_offsets(torch, paddle)
     g = dataclasses.replace(cfg, num_layers=c["layers"], dtype="float32",
                             remat="nothing")
     params = gpt_init(g, torch.Generator(device="cuda").manual_seed(26),
@@ -9278,86 +9500,73 @@ def recompute_program(torch, paddle, fa, gpt_init, cfg, c=RECOMPUTE):
     tokens = np.random.default_rng(26).integers(
         0, g.vocab_size, (c["batch"], g.max_seq_len)).astype(np.int64)
     labels = prog.next_token_labels(tokens)
-    paddle.set_device("gpu")
-    models = {}
-    for rc in (False, True):
-        paddle.seed(26)
-        models[rc] = prog.build_gpt(
-            paddle, g.vocab_size, g.hidden, g.num_heads, g.ffn_hidden,
-            g.num_layers, g.max_seq_len, dropout=c["dropout"], recompute=rc)
-        missing, unexpected = models[rc].set_state_dict(state)
-        check(not missing and not unexpected, f"26 (a): {missing} "
-                                              f"{unexpected}")
-    del params, state
+    nets = {rc: prog.build_gpt(
+        paddle, g.vocab_size, g.hidden, g.num_heads, g.ffn_hidden,
+        g.num_layers, g.max_seq_len, dropout=c["dropout"], recompute=rc)
+        for rc in (False, True)}
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    x, y = paddle.to_tensor(tokens), paddle.to_tensor(labels)
-    launches = {}
+    launches = {"pair_offsets": offsets, "eager": eager_recompute(
+        torch, paddle, prog, fa, nets, state, tokens, labels,
+        g.num_layers, c["dropout"])}
+    card = card_line()
     for tag, amp in (("fp32", False), ("bf16", True)):
-        runs = {rc: recompute_step(torch, paddle, prog, fa, models[rc], x, y,
-                                   amp) for rc in (False, True)}
-        grads = [dict(models[rc].named_parameters()) for rc in (False, True)]
-        unequal = sorted(k for k, p in grads[0].items()
-                         if not torch.equal(p.grad, grads[1][k].grad))
-        same_loss = torch.equal(runs[False][0], runs[True][0])
-        del grads
-        ms = {False: [], True: []}
-        for rc in (False, True, True, False, False, True):     # in turns
-            ms[rc].append(recompute_step(torch, paddle, prog, fa, models[rc],
-                                         x, y, amp)[2])
-        (l0, n0, _, pk0), (l1, n1, _, pk1) = runs[False], runs[True]
-        ms0, ms1 = sorted(ms[False]), sorted(ms[True])
-        launches[tag] = {"plain": n0, "recompute": n1}
-        traced = {}
-        for rc in (False, True):        # one more step each, profiled
-            kinds = {}
-            dev, wall = device_window(torch, lambda: recompute_step(
-                torch, paddle, prog, fa, models[rc], x, y, amp), reps=1,
-                kinds=kinds)
-            traced[rc] = (f"device {dev:.1f} ms of {wall:.1f} (busy "
-                          f"{dev / wall:.3f}): " + ", ".join(
-                              f"{k} {v:.1f}" for k, v in sorted(
-                                  kinds.items())))
+        run = functools.partial(hapi_recompute_run, torch, paddle, prog, fa,
+                                state=state, tokens=tokens, labels=labels,
+                                amp=amp, lr=c["lr"])
+        runs = {("graph", False): run(nets[False], route="graph",
+                                      profile=True)}
+        ref = runs[("graph", False)]
+        for key in (("graph", True), ("eager", False), ("eager", True)):
+            runs[key] = run(nets[key[1]], route=key[0], ref=ref,
+                            profile=key[0] == "graph")
+        still = run(nets[True], route="graph", lr=0.0)
+        del ref["kept"]
+        diff = max(r["diff"] for r in runs.values())
+        launches[tag] = {f"{route}_{'recompute' if rc else 'plain'}":
+                         r["launches"] for (route, rc), r in runs.items()}
+        for (route, rc), r in runs.items():
+            print(f"[phase 26 (a)] {tag} hapi train_batch, {route} route, "
+                  f"{'recompute' if rc else 'no recompute'}: losses "
+                  f"{r['loss']}; ms a step "
+                  f"{[round(v, 2) for v in r['ms']]}; peak above the "
+                  f"step's start {[round(v / 2**30, 3) for v in r['peak']]}"
+                  f" GiB (up to the update "
+                  f"{[round(v / 2**30, 3) for v in r['bwd_peak']]}); graph "
+                  f"pool {r['pool'] / 2**30:.3f} GiB; flash launches a "
+                  f"step {r['launches']}; captures {r['captures']}; a "
+                  f"traced 4th step: {r.get('traced', 'not traced')}; "
+                  f"{card}")
         print(f"[phase 26 (a)] {tag}: Paddle-style GPT, {g.num_layers} "
               f"layers at GPT-3 1.3B widths, batch {c['batch']} x "
-              f"{g.max_seq_len}, residual dropout {c['dropout']}: loss "
-              f"{l0.item():.6f} without recompute, {l1.item():.6f} with "
-              f"(bitwise equal: {same_loss}); gradients not bitwise equal: "
-              f"{unequal or 'none'} of {len(list(models[True].parameters()))}"
-              f"; peak above the step's start {pk0 / 2**30:.3f} GiB without,"
-              f" {pk1 / 2**30:.3f} GiB with recompute (saved "
-              f"{(pk0 - pk1) / 2**30:.3f} GiB); ms a forward + backward "
-              f"{[round(v, 1) for v in ms0]} without, "
-              f"{[round(v, 1) for v in ms1]} with recompute (3 runs each "
-              f"in turns, after the checked one; medians {ms0[1]:.1f} and "
-              f"{ms1[1]:.1f}, x{ms1[1] / ms0[1]:.3f}); flash launches {n0} "
-              f"without, {n1} with; {card_line()}")
-        print(f"[phase 26 (a)] {tag}: a profiled step without recompute: "
-              f"{traced[False]}; with: {traced[True]}")
-        check(same_loss and not unequal, f"26 (a) {tag}: recompute changed "
-                                         f"the loss or gradients {unequal}")
-        check(n1["fwd"] == 2 * n0["fwd"] and n1["bwd"] == n0["bwd"] and
-              n0["fwd"] == g.num_layers,
-              f"26 (a) {tag}: flash launches {n0} without, {n1} with "
-              f"recompute")
-        check(pk1 < pk0, f"26 (a) {tag}: recompute did not lower the peak")
-    del models[False]
-    gc.collect()
-    torch.cuda.empty_cache()
-    zero_counts(fa)
-    losses = prog.train(paddle, models[True], tokens, labels,
-                        steps=c["steps"], lr=c["lr"], amp_dtype="bfloat16")
-    steps = dict(fa.launches)
-    print(f"[phase 26 (a)] {c['steps']} AdamW steps with recompute under "
-          f"bf16 auto_cast: losses {[round(v, 5) for v in losses]}; flash "
-          f"launches {steps}")
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          "26 (a): the loss did not fall")
-    check(steps["fwd"] == 2 * c["steps"] * g.num_layers and
-          steps["bwd"] == c["steps"] * g.num_layers,
-          f"26 (a): flash launches {steps} over the steps")
-    launches["steps"] = steps
-    del models
+              f"{g.max_seq_len}, residual dropout {c['dropout']}, AdamW "
+              f"{c['lr']}, {c['steps']} steps a run: largest difference "
+              f"of the losses, all {len(state)} gradients and parameters "
+              f"after each step from the graph run without recompute: "
+              f"recompute on the graph {runs[('graph', True)]['diff']}, "
+              f"eager without {runs[('eager', False)]['diff']}, eager with "
+              f"{runs[('eager', True)]['diff']}; lr 0 on the graph with "
+              f"recompute: losses {still['loss']} (fresh masks); {card}")
+        check(diff == 0, f"26 (a) {tag}: the runs differ by {diff}")
+        check(len(set(still["loss"])) == c["steps"],
+              f"26 (a) {tag}: the masks repeat at lr 0: {still['loss']}")
+        check(all(np.isfinite(r["loss"]).all() and
+                  r["loss"][-1] < r["loss"][0] for r in runs.values()),
+              f"26 (a) {tag}: a loss did not fall")
+        bwd = g.num_layers * (2 if tag == "fp32" else 1)
+        for (route, rc), r in runs.items():
+            check(all(n["fwd"] == g.num_layers * (2 if rc else 1) and
+                      n["bwd"] == bwd for n in r["launches"]),
+                  f"26 (a) {tag} {route} recompute={rc}: flash launches "
+                  f"{r['launches']}")
+            check(r["captures"] == (1 if route == "graph" else 0),
+                  f"26 (a) {tag} {route}: {r['captures']} captures")
+        check(runs[("graph", True)]["pool"] < runs[("graph", False)]["pool"]
+              and runs[("eager", True)]["peak"][-1] <
+              runs[("eager", False)]["peak"][-1],
+              f"26 (a) {tag}: recompute did not lower the pool or the peak")
+    del nets, state
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -9643,13 +9852,18 @@ def main():
         key = "fwd" if entry["name"].endswith("fwd") else "bwd"
         for k, v in rest_launches.items():
             entry[k] = v.get(key)
-    # phase 26 (a): the checked runs' launches without and with
-    # recompute (fp32, bf16) and the bf16 AdamW steps with recompute
+    # phase 26 (a): one forward + backward outside any step scope, and
+    # hapi train_batch's launches a step (3 steps a run), graph and
+    # eager routes; each without and with recompute, fp32 and bf16
     for entry in kernels[1:4]:
         key = "fwd" if entry["name"].endswith("fwd") else "bwd"
         entry["recompute_launches"] = {
-            tag: ({k: n[key] for k, n in v.items()} if tag != "steps"
-                  else v[key]) for tag, v in recompute_launches.items()}
+            tag: {k: n[key] for k, n in v.items()}
+            for tag, v in recompute_launches["eager"].items()}
+        entry["hapi_recompute_launches"] = {
+            tag: {run: [n[key] for n in steps] for run, steps in v.items()}
+            for tag, v in recompute_launches.items()
+            if tag not in ("pair_offsets", "eager")}
     kernels[1]["hybrid_ring_launches"] = {
         c: v["fwd"] for c, v in hybrid_launches.items() if c in "cf"}
     kernels[4]["hybrid_launches"] = {

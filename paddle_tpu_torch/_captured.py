@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .core.random import generators
+from .core.random import begin_step, generators, step_scope
 
 __all__ = ["CapturedStep", "StaticInputs", "SignatureGraphs", "storage_tag",
            "capture_stream"]
@@ -83,11 +83,17 @@ class CapturedStep:
 
     ``empty_cache``: return the eager run's cached blocks to the device
     before capturing, so that they and the graph's private pool are not
-    both held (a training step's activations).  The port's generators of
-    the device (every stream's, ``core.random``; dropout layers draw
-    from the active one) are registered with each graph, so a replay
-    advances them as an eager call would (by nothing, where the body
-    draws nothing).  It holds no
+    both held (a training step's activations).  Every run of the body
+    is inside ``core.random.step_scope()``, and every replay starts with
+    its ``begin_step()``: a ``key_stream`` or ``recompute`` in the body
+    draws from generator pairs made in the eager run.  Called inside
+    another step's scope (a hapi body), the body is part of that step:
+    the scope and ``begin_step`` then change nothing.  The port's
+    generators of the device (every stream's and every pair's,
+    ``core.random.generators``; dropout layers draw from the active one)
+    are registered with each graph, so a replay advances them as an
+    eager call would (by nothing, where the body draws nothing).  It
+    holds no
     reference to its owner beyond
     ``body``; an owner that passes a bound method should pass it
     through a ``weakref.WeakMethod``; a subclass may define ``body`` as
@@ -115,8 +121,10 @@ class CapturedStep:
 
     def __call__(self, *args, storage=None):
         if self.device.type != "cuda":
-            return self.body(*args)
+            with step_scope():
+                return self.body(*args)
         if self.graph is not None and storage == self.storage:
+            begin_step()
             self.graph.replay()
             for (lm, lk, _, _), n in zip(_counters(), self.launches):
                 lm[lk] += n
@@ -128,7 +136,7 @@ class CapturedStep:
         dev = self.device
         side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), step_scope():
             out = self.body(*args)
         torch.cuda.current_stream(dev).wait_stream(side)
         if self.empty_cache:
@@ -146,7 +154,8 @@ class CapturedStep:
             # the graph's private pool takes new segments only: the
             # reserved bytes grow by what the pool holds
             reserved = torch.cuda.memory_reserved(dev)
-            static = self.body(*args)
+            with step_scope():
+                static = self.body(*args)
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = [cm[ck] - b
                          for (_, _, cm, ck), b in zip(counters, before)]

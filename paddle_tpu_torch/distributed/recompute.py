@@ -22,21 +22,31 @@ blocks derive their dropout masks from integer seeds (``models/gpt.py``
 recompute replays them with no RNG state.
 
 ``recompute(function, *args, policy=)`` (Paddle's
-``fleet.utils.recompute``) draws one seed from the active stream
-(``core.random.split_key``) and runs ``function`` under
-``key_stream(seed)``, in the forward and again in the backward's
-recompute: dropout inside draws the same masks both times, and the
-outer stream advances by that one draw whatever the segment draws.
+``fleet.utils.recompute``) runs ``function`` in the forward and again in
+the backward's recompute, each run under the random streams
+``core.random.segment_streams`` gives it: dropout inside draws the same
+masks both times.  Outside a step scope both runs draw under
+``key_stream`` of one seed from the active stream (``split_key``), so
+the outer stream advances by that one draw whatever the segment draws.
+Inside one (a captured step: hapi's ``train_batch``, ``CapturedStep``)
+the forward draws from the first member of the next generator pair and
+the recompute from the second (each run of a step from the next member,
+so a segment nested in another one replays too), all from the state the
+step began with, and nothing is drawn on the host after the pair's
+first step: the segment runs inside a CUDA graph with fresh masks at
+every replay.  The recompute repeats the forward's draws in order (it
+may stop after the last tensor the backward needs, leaving later draws
+out; the next step starts every member level again).
 ``torch.utils.checkpoint``'s ``preserve_rng_state`` would save torch's
 default generators only, never the port's, so it stays off
 (``preserve_rng_state=False``; saving it would also be a host read of
 the CUDA generator's state on every block, for nothing).  The recompute
 runs on autograd's thread, so the caller's autocast and device (the
-port's own thread-local modes) are taken along.  The parameters of a
+port's own thread-local modes) are taken along, and its step scope
+(``segment_streams``).  The parameters of a
 ``Layer`` called inside get their gradients as any closed-over tensor
 does in a non-reentrant checkpoint.  ``use_reentrant`` is accepted and
-does nothing, as in the JAX package; recompute is eager only (a
-``key_stream`` generator cannot join a CUDA graph being captured).
+does nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -51,7 +61,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..amp.auto_cast import _state as _amp_state
 from ..amp.auto_cast import auto_cast
 from ..core import place as _place
-from ..core.random import key_stream, split_key
+from ..core.random import segment_streams
 
 __all__ = ["recompute", "checkpoint_policy", "no_recompute", "remat"]
 
@@ -120,11 +130,11 @@ def recompute(function, *args, policy="full", use_reentrant=True,
     """``function(*args, **kwargs)`` with its activations recomputed in
     the backward under the named policy; dropout inside replays the same
     masks (module docstring).  ``use_reentrant`` does nothing."""
-    seg_seed = split_key()
+    streams = segment_streams()
     modes = (_amp_modes(), _place._state.device)
 
     def segment(*inputs):
-        with _caller_modes(*modes), key_stream(seg_seed):
+        with _caller_modes(*modes), streams():
             return function(*inputs, **kwargs)
 
     return checkpoint_policy(policy)(segment)(*args)

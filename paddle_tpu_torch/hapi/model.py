@@ -18,9 +18,15 @@ and replays it on later calls.  The batch goes through static device
 buffers (pinned host copies); the learning rate (``opt.get_lr()``, so a
 scheduler keeps working) and the step are written into 0-d device
 scalars before each call (``self._lr``, ``self._step``); the
-port's dropout generator of the device is registered with each graph;
-the grad norm is computed in the graph and read after it; metrics and
-the loss's host read run after the replay, as in JAX.  A batch of
+port's generators of the device are registered with each graph, the
+pairs that ``recompute`` and ``key_stream`` draw from in the step
+scope ``CapturedStep`` runs the bodies in among them (``core.random``;
+a caller that runs a body directly enters ``step_scope()`` itself, as
+``chip_smoke.py``'s eager route does), so a network that recomputes
+its blocks with dropout trains inside the graph with fresh masks each
+step, as on the eager route; the grad norm is computed in the graph
+and read after it; metrics and the loss's host read run after the
+replay, as in JAX.  A batch of
 another shape (``fit``'s tail batch), replaced parameters, slots or
 buffers, another train/eval mode, autocast setting or TF32 flag capture
 again (the old graph's pool freed first); the watchdog reports a new
@@ -383,7 +389,9 @@ class Model:
         """Forward, grads and the update (``apply_gradients_``, in
         place): the captured train step.  Returns the loss, the output
         and (with ``log_gnorm``) the global gradient norm, all on the
-        device."""
+        device.  ``CapturedStep`` runs it in a step scope:
+        ``recompute`` and ``key_stream`` inside draw from the streams'
+        generator pairs."""
         out = self.network(x)
         loss = self._loss(out, y)
         live = [k for k, p in params.items() if p.requires_grad]

@@ -23,7 +23,9 @@ programs write activation checkpointing.  Recompute draws one seed from
 the stream a block and replays the block's masks from it
 (``core.random.key_stream``); with dropout, a block without recompute
 draws its masks the same way, so switching recompute on changes the
-memory the step holds and not the function it computes.
+memory the step holds and not the function it computes.  Inside a
+captured step (hapi's ``train_batch``) both draw from the block's
+generator pair of the step scope instead, with fresh masks each step.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ __all__ = ["build_gpt", "gpt_state_from_params", "next_token_labels",
 
 
 def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq,
-              dropout=0.0, recompute=False):
-    """The model, a ``paddle.nn.Layer`` of the given package."""
+              dropout=0.0, recompute=False, policy="full"):
+    """The model, a ``paddle.nn.Layer`` of the given package; ``policy``
+    is the recompute's remat policy."""
     import importlib
 
     nn = paddle.nn
@@ -83,7 +86,7 @@ def build_gpt(paddle, vocab, hidden, heads, ffn, layers, max_seq,
             x = self.wte(tokens) + self.wpe(pos)
             for block in self.blocks:
                 if recompute:
-                    x = recompute_fn(block, x)
+                    x = recompute_fn(block, x, policy=policy)
                 elif dropout:
                     with rng.key_stream(rng.split_key()):
                         x = block(x)

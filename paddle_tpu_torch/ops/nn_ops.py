@@ -419,15 +419,13 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0):
 
 @register_op("embedding")
 def embedding(ids, weight, padding_idx=None, sparse=False):
-    out = _take_rows(weight, ids)
+    # F.embedding's CUDA backward sums a repeated id's rows in a fixed
+    # order, as the JAX gather's scatter-add does (index_select's adds
+    # with atomics, and two runs on the card differ in the last bits)
+    out = F.embedding(ids, weight)
     if padding_idx is not None:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return out
-
-
-def _take_rows(weight, ids):
-    return torch.index_select(weight, 0, ids.reshape(-1)).reshape(
-        tuple(ids.shape) + tuple(weight.shape[1:]))
 
 
 # ------------------------------------------------------------- interpolate

@@ -19,6 +19,7 @@ Tolerances: both sides compute in fp32, so fp32 differs by summation
 order only (ragged paged attention 1e-5; flash attention, whose
 backward sums up to S products of unit-variance terms, 1e-4) and bf16 by
 one rounding of the output (atol 1e-2, rtol 1.6e-2)."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1709,14 +1710,159 @@ def test_recompute_on_card_replays_dropout_bitwise(cuda, amp):
 
 
 @pytest.mark.cuda
-def test_key_stream_refuses_a_graph_capture(cuda):
-    """A generator ``key_stream`` makes cannot join a graph being
-    captured: the request raises instead of drawing."""
+@pytest.mark.parametrize("amp", [False, True], ids=["fp32", "bf16"])
+def test_captured_hapi_recompute_step_equals_the_eager_route(cuda, amp):
+    """The Paddle-style GPT (2 layers, hidden 128, 2 heads, 2 x 128,
+    residual dropout 0.1) with every block under ``recompute``: 3
+    ``train_batch`` steps inside hapi's CUDA graph equal the same steps
+    with the body called eagerly, and the same model without recompute
+    in its graph (blocks under ``key_stream``), bit for bit (losses and
+    every parameter after each step); at lr 0 the graph's losses differ
+    from step to step (fresh masks); one capture, flash forward twice a
+    block a step."""
+    import contextlib
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.random import step_scope
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import paddle_gpt as prog
+
+    class EagerModel(Model):
+        def _run_train(self, args):
+            with step_scope():
+                return self._train_body(*args)
+
+    V, D, H, FFN, L, S = 256, 128, 2, 512, 2, 128
+    paddle.set_device("gpu")
+    paddle.seed(24)
+    state = {k: v.detach().clone() for k, v in prog.build_gpt(
+        paddle, V, D, H, FFN, L, S).state_dict().items()}
+    tokens = np.random.default_rng(24).integers(0, V, (2, S))
+    tokens = tokens.astype(np.int64)
+    labels = prog.next_token_labels(tokens)
+
+    def loss_fn(out, y):
+        return paddle.nn.functional.cross_entropy(
+            paddle.reshape(out, [-1, V]), paddle.reshape(y, [-1]),
+            ignore_index=-100)
+
+    def run(cls, recompute, lr=1e-3):
+        net = prog.build_gpt(paddle, V, D, H, FFN, L, S, dropout=0.1,
+                             recompute=recompute)
+        net.set_state_dict(state)
+        model = cls(net)
+        model.prepare(paddle.optimizer.AdamW(
+            learning_rate=lr, parameters=net.parameters()), loss_fn)
+        paddle.seed(24)
+        out = []
+        for _ in range(3):
+            for k in fa.launches:
+                fa.launches[k] = 0
+            with (paddle.amp.auto_cast(dtype="bfloat16") if amp
+                  else contextlib.nullcontext()):
+                loss, _ = model.train_batch(tokens, labels)
+            out.append((loss, dict(fa.launches), [
+                p.detach().clone() for p in net.parameters()]))
+        return model, out
+
+    _, eager = run(EagerModel, True)
+    graph_model, graph = run(Model, True)
+    _, plain = run(Model, False)
+    assert graph_model.captures == {"train": 1, "eval": 0}
+    for other in (eager, plain):
+        for (gl, _, gp), (ol, _, op) in zip(graph, other):
+            assert gl == ol
+            assert all(torch.equal(a, b) for a, b in zip(gp, op))
+    assert all(n["fwd"] == 2 * L for _, n, _ in graph + eager)
+    assert all(n["fwd"] == L for _, n, _ in plain)
+    _, still = run(Model, True, lr=0.0)
+    assert len({loss for loss, _, _ in still}) == 3
+
+
+@pytest.mark.cuda
+def test_a_graph_replayed_in_a_recomputed_segment_keeps_its_masks(cuda):
+    """A ``CapturedStep`` replayed inside a recomputed segment of a step,
+    between two dropouts: its replay's ``begin_step`` does nothing
+    inside the enclosing step's scope, so the recompute draws the
+    forward's masks.  Output and input gradient equal those of the
+    segment without recompute bit for bit over 3 steps, with fresh
+    masks each step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._captured import CapturedStep
+    from paddle_tpu_torch.core import random as rnd
+    from paddle_tpu_torch.distributed.recompute import recompute
+
+    paddle.set_device("gpu")
+    drop = paddle.nn.Dropout(0.3)
+    c = torch.full((256,), 0.5, device=cuda)
+    inner = CapturedStep(lambda t: t * 3, cuda)
+    for _ in range(2):                  # the eager run and the capture
+        inner(c)
+    x = torch.randn(64, 256, device=cuda, requires_grad=True,
+                    generator=torch.Generator(cuda).manual_seed(24))
+    stream = "replay_in_segment"
+    tracker = rnd.get_rng_state_tracker()
+
+    def segment(h):
+        return drop(drop(h) * inner(c))         # inner(c): a replay
+
+    out = {}
+    for remat in (False, True):
+        rnd.seed(2425, stream=stream)
+        out[remat] = []
+        for _ in range(3):
+            with rnd.step_scope(), tracker.rng_state(stream):
+                if remat:
+                    y = recompute(segment, x)
+                else:
+                    with rnd.key_stream(rnd.split_key()):
+                        y = segment(x)
+                g, = torch.autograd.grad(y.square().sum(), x)
+            out[remat].append((y.detach(), g))
+    assert inner.captures == 1
+    for (y0, g0), (y1, g1) in zip(out[False], out[True]):
+        assert torch.equal(y0, y1) and torch.equal(g0, g1)
+    ys = [y for y, _ in out[True]]
+    assert not any(torch.equal(ys[i], ys[j]) for i in range(3)
+                   for j in range(i))
+
+
+@pytest.mark.cuda
+def test_embedding_backward_is_bit_reproducible_on_card(cuda):
+    """The port's ``embedding`` (``F.embedding``) sums a repeated id's
+    gradient rows in a fixed order: 20 backward passes with ids that
+    repeat many times give one result (``index_select``'s backward adds
+    with atomics and gave 20 distinct ones at this shape)."""
+    from paddle_tpu_torch.ops.nn_ops import embedding
+
+    rng = np.random.default_rng(24)
+    ids = torch.from_numpy(rng.integers(0, 256, (2, 128))).to(cuda)
+    w = torch.randn(256, 128, device=cuda, requires_grad=True)
+    go = torch.randn(2, 128, 128, device=cuda)
+    grads = [torch.autograd.grad(embedding(ids, w), w, go)[0]
+             for _ in range(20)]
+    assert all(torch.equal(g, grads[0]) for g in grads)
+    want = torch.zeros_like(w).index_add_(0, ids.reshape(-1),
+                                          go.reshape(-1, 128))
+    torch.testing.assert_close(grads[0], want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_key_stream_refuses_a_generator_first_asked_in_a_capture(cuda):
+    """A generator ``key_stream`` would make cannot join a graph being
+    captured: outside a step scope (a fresh generator) and inside one
+    (a pair's member not made in an eager run before), the request
+    raises instead of drawing."""
     from paddle_tpu_torch.core import random as rnd
 
     rnd.generator(cuda)                  # the stream's own, made eagerly
-    graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="key_stream"):
-        with torch.cuda.graph(graph):
-            with rnd.key_stream(7):
-                rnd.generator(cuda)
+    rnd.seed(2424, stream="capture_probe")
+    tracker = rnd.get_rng_state_tracker()
+    for scope in (contextlib.nullcontext, rnd.step_scope):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="key_stream"):
+            with torch.cuda.graph(graph), scope(), \
+                    tracker.rng_state("capture_probe"):
+                with rnd.key_stream(7):
+                    rnd.generator(cuda)

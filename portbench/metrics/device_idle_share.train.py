@@ -1,0 +1,12 @@
+"""The share of the traced training window in which no operation ran on
+the device."""
+from portbench import readers
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "train_tokens_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx, out):
+    return readers.idle_share(ctx, out)
